@@ -1,0 +1,58 @@
+"""mav_tube_trajectory_generation_tpu_torch: the PyTorch/CUDA port of
+``mav_tube_trajectory_generation_tpu`` for an NVIDIA H100.
+
+The JAX package stays in the repository as the reference; this package sits
+beside it, imports ``torch`` and ``numpy`` only, and shares no module with
+it.  Sub-packages carry the same names (``ops``, ``solver``, ``models``) so
+each counterpart is easy to find.  Ported so far: the headline QP+QCQP path
+(``solve_qcqp_batch`` with the fused ADMM-stage CUDA kernel) and the
+closed-form linear solve beneath it.
+
+Entry points take ``device=None``, which means the CUDA card and raises when
+there is none; pass ``device="cpu"`` to run on the host, where the stage
+kernel's plain PyTorch version stands in for it.
+
+Quick start::
+
+    import mav_tube_trajectory_generation_tpu_torch as mtg
+
+    sc = mtg.make_inputs(10, 1024, seed=0)
+    cfg = mtg.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
+                         rho_tube_factor=0.125, rho_half_factor=0.125)
+    sol = mtg.solve_qcqp_batch(sc.free, sc.d_fixed_free, sc.times,
+                               sc.waypoints, sc.radii, config=cfg,
+                               warmstart_values=sc.values)
+"""
+
+import torch
+
+# Full-precision float32 matrix products everywhere.  The solvers' assembly
+# spans ~17 decades of T-power dynamic range and the reference found that
+# lower matmul precision broke feasibility, so TF32 is switched off for the
+# whole process (it is PyTorch's default for matmul; stated here so that the
+# package does not depend on a default).
+torch.backends.cuda.matmul.allow_tf32 = False
+
+from . import motion_defines                                    # noqa: E402
+from .motion_defines import (POSITION, VELOCITY, ACCELERATION,  # noqa: E402
+                             JERK, SNAP)
+from .solver.structure import (ProblemStructure, make_structure,  # noqa: E402
+                               standard_mask, free_interior_mask)
+from .solver.linear import (LinearSolution, solve_linear,       # noqa: E402
+                            solve_linear_with_free, extract_fixed_values,
+                            assemble_r)
+from .solver.qcqp import (ADMMConfig, QCQPSolution,             # noqa: E402
+                          solve_qcqp_batch)
+from .models.vertex import (Vertex, vertices_to_arrays,         # noqa: E402
+                            structure_from_vertices,
+                            create_random_vertices,
+                            estimate_segment_times,
+                            estimate_segment_times_nfabian,
+                            estimate_segment_times_velocity_ramp,
+                            segment_times_nfabian,
+                            segment_times_velocity_ramp)
+from .scenarios import ScenarioBatch, make_inputs               # noqa: E402
+from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
+                      solution_to_numpy)
+
+__version__ = "0.1.0"

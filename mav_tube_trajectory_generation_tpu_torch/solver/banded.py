@@ -1,0 +1,114 @@
+"""Block-tridiagonal structure of the tube-QCQP KKT and its LDL^T factors.
+
+Counterpart of the parts of the JAX package's ``solver/banded.py`` that the
+QP+QCQP path runs: the structure test (``kkt_tridiag_block``), the block
+LDL^T factorization and the factored solve.  The chain structure of a
+K-segment trajectory makes kron(R_pp, I_D) + rho G^T G block-tridiagonal in
+vertex blocks; the factors feed both the xq solve here and the m1 = W^-1 G^T
+sweeps inside the ADMM-stage kernel.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..ops import linalg
+from .structure import ProblemStructure
+
+Blocks = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def uniform_interior_pattern(structure: ProblemStructure
+                             ) -> Optional[np.ndarray]:
+    """The shared free-derivative index set of interior vertices, or None if
+    the banded path does not apply."""
+    mask = structure.fixed_mask
+    if not mask[0].all() or not mask[-1].all():
+        return None
+    if structure.n_vertices < 3:
+        return None
+    interior = mask[1:-1]
+    if not (interior == interior[0]).all():
+        return None
+    free_idx = np.flatnonzero(~interior[0])
+    if free_idx.size == 0:
+        return None
+    return free_idx
+
+
+def kkt_tridiag_block(structure: ProblemStructure) -> Optional[int]:
+    """Block size of the tube-QCQP KKT/Hessian's block-tridiagonal structure
+    (in vertex-major free-column order), or None if it does not apply.
+
+    kron(R_pp, I_D) + (constraint Gram) is EXACTLY block-tridiagonal:
+    min-snap R_pp couples only vertices sharing a segment, and every
+    tube/sphere/end-cap constraint row's support is one segment's two
+    endpoint vertices.  Requires interior vertices sharing one
+    free-derivative pattern and vertex-major columns.
+    """
+    fi = uniform_interior_pattern(structure)
+    if fi is None or structure.n_vertices < 4:
+        return None
+    expect = [(v, int(d)) for v in range(1, structure.n_vertices - 1)
+              for d in fi]
+    if [tuple(map(int, c)) for c in structure.free_cols] != expect:
+        return None
+    return len(fi) * structure.dimension
+
+
+def _unstack(blocks: Blocks) -> List[torch.Tensor]:
+    if isinstance(blocks, (list, tuple)):
+        return list(blocks)
+    return [blocks[..., i, :, :] for i in range(blocks.shape[-3])]
+
+
+def spd_block_tridiag_factor(dblk: Blocks, ublk: Blocks
+                             ) -> Tuple[List[torch.Tensor],
+                                        List[Optional[torch.Tensor]]]:
+    """Block LDL^T factorization A = (I+L) S (I+L)^T of an SPD
+    block-tridiagonal matrix: returns (s_inv, t) with S_i^{-1} and the
+    subdiagonal factors T_i = U_{i-1}^T S_{i-1}^{-1} (t[0] is None).
+
+    dblk: m diagonal blocks, ublk: m-1 super-diagonal blocks, as lists of
+    (..., b, b) or stacked (..., m, b, b) tensors.  Each Schur complement is
+    symmetrized before it is inverted: the reference found that load-bearing
+    in float32 (asymmetry drift amplifies through the sweep).
+    """
+    dblk = _unstack(dblk)
+    ublk = _unstack(ublk)
+    m = len(dblk)
+    s_inv = [linalg.spd_inverse(dblk[0])]
+    t: List[Optional[torch.Tensor]] = [None]
+    for i in range(1, m):
+        ti = ublk[i - 1].transpose(-1, -2) @ s_inv[i - 1]
+        s = dblk[i] - ti @ ublk[i - 1]
+        s = 0.5 * (s + s.transpose(-1, -2))
+        t.append(ti)
+        s_inv.append(linalg.spd_inverse(s))
+    return s_inv, t
+
+
+def spd_block_tridiag_solve_factored(s_inv: Sequence[torch.Tensor],
+                                     t: Sequence[Optional[torch.Tensor]],
+                                     rhs: torch.Tensor) -> torch.Tensor:
+    """Solve A x = rhs from ``spd_block_tridiag_factor``'s (s_inv, t).
+
+    rhs: (..., n, R) with n = m * b.  Forward (I+L) y = rhs, diagonal
+    z = S^{-1} y, backward (I+L)^T x = z; every step is one batched
+    (b, b) @ (b, R) product.
+    """
+    m = len(s_inv)
+    bsz = s_inv[0].shape[-1]
+    r = [rhs[..., i * bsz:(i + 1) * bsz, :] for i in range(m)]
+    y = [r[0]]
+    for i in range(1, m):
+        y.append(r[i] - t[i] @ y[i - 1])
+    z = [s_inv[i] @ y[i] for i in range(m)]
+    x: List[Optional[torch.Tensor]] = [None] * m
+    x[m - 1] = z[m - 1]
+    for i in range(m - 2, -1, -1):
+        x[i] = z[i] - t[i + 1].transpose(-1, -2) @ x[i + 1]
+    return torch.cat(x, dim=-2)
