@@ -5,12 +5,15 @@ The JAX package stays in the repository as the reference; this package sits
 beside it, imports ``torch`` and ``numpy`` only, and shares no module with
 it.  Sub-packages carry the same names (``ops``, ``solver``, ``models``) so
 each counterpart is easy to find.  Ported so far: the headline QP+QCQP path
-(``solve_qcqp_batch`` with the fused ADMM-stage CUDA kernel) and the
-closed-form linear solve beneath it.
+(``solve_qcqp_batch`` with the fused ADMM-stage CUDA kernel), the closed-form
+linear solve beneath it, and the strict verdict router (``solve_qcqp_strict``
+/ ``solve_qcqp_auto``: ADMM plus snap sweeps, the plane-layout interior-point
+polish with its CUDA step kernels, the float32 restart chain; its last tier,
+a float64 interior-point solve, is still to come, so ``tier2_f64=False``).
 
 Entry points take ``device=None``, which means the CUDA card and raises when
-there is none; pass ``device="cpu"`` to run on the host, where the stage
-kernel's plain PyTorch version stands in for it.
+there is none; pass ``device="cpu"`` to run on the host, where each kernel's
+plain PyTorch version stands in for it.
 
 Quick start::
 
@@ -22,6 +25,10 @@ Quick start::
     sol = mtg.solve_qcqp_batch(sc.free, sc.d_fixed_free, sc.times,
                                sc.waypoints, sc.radii, config=cfg,
                                warmstart_values=sc.values)
+    res = mtg.solve_qcqp_strict(sc.free, sc.d_fixed_free, sc.times,
+                                sc.waypoints, sc.radii,
+                                warmstart_values=sc.values, tier2_f64=False)
+    # res.verdict: +1 feasible (violation < 1e-4), -1 infeasible, 0 open
 """
 
 import torch
@@ -42,7 +49,13 @@ from .solver.linear import (LinearSolution, solve_linear,       # noqa: E402
                             solve_linear_with_free, extract_fixed_values,
                             assemble_r)
 from .solver.qcqp import (ADMMConfig, QCQPSolution,             # noqa: E402
-                          solve_qcqp_batch)
+                          solve_qcqp_batch, build_constraints)
+from .solver.ipm import IPMConfig                               # noqa: E402
+from .solver.ipm_lanes import (solve_qcqp_ipm_lanes,            # noqa: E402
+                               solve_qcqp_polished_batch)
+from .solver.auto import (AutoResult, solve_qcqp_auto,          # noqa: E402
+                          solve_qcqp_strict, FEASIBLE, INFEASIBLE,
+                          UNDETERMINED)
 from .models.vertex import (Vertex, vertices_to_arrays,         # noqa: E402
                             structure_from_vertices,
                             create_random_vertices,
@@ -51,8 +64,10 @@ from .models.vertex import (Vertex, vertices_to_arrays,         # noqa: E402
                             estimate_segment_times_velocity_ramp,
                             segment_times_nfabian,
                             segment_times_velocity_ramp)
-from .scenarios import ScenarioBatch, make_inputs               # noqa: E402
+from .scenarios import (ScenarioBatch, make_inputs,             # noqa: E402
+                        tight_radii)
 from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
-                      solution_to_numpy)
+                      solution_to_numpy, ipm_config_from_fields,
+                      lanes_state_from_numpy, auto_result_to_numpy)
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

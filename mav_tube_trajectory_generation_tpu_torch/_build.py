@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and is
 compiled on first use with ``nvcc`` for sm_90a into ``build/`` beside this
-file, keyed by a hash of every file under ``csrc/`` and the compiler flags,
-then loaded with ``ctypes``.  Nothing is built or looked for at import time:
+file (``prebuild`` compiles several at once, one nvcc each), keyed by a hash
+of every file under ``csrc/`` and the compiler flags, then loaded with
+``ctypes``.  Nothing is built or looked for at import time:
 the host-only tests import every module on machines without a CUDA toolkit.
 
 ``build_log(name)`` returns what the compiler printed (``-Xptxas -v``:
@@ -59,6 +60,53 @@ def _sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
+class _Job:
+    """One library on its way: paths, and the running nvcc if it has to be
+    built."""
+
+    def __init__(self, name: str):
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        if not os.path.isfile(src):
+            raise RuntimeError(f"no such kernel source: {src}")
+        tag = _sources_hash()
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        self.name = name
+        self.src = src
+        self.so_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+        self.log_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.log")
+        self.tmp = f"{self.so_path}.{os.getpid()}.tmp"
+        self.proc = None
+        self.cmd = None
+        self.t0 = 0.0
+        if not os.path.isfile(self.so_path):
+            self.cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", self.tmp, src]
+            self.t0 = time.perf_counter()
+            self.proc = subprocess.Popen(
+                self.cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+
+    def finish(self) -> ctypes.CDLL:
+        info = {"library": self.so_path, "built": False, "seconds": 0.0,
+                "log": self.log_path}
+        if self.proc is not None:
+            out, _ = self.proc.communicate()
+            info["seconds"] = time.perf_counter() - self.t0
+            if self.proc.returncode != 0:
+                if os.path.exists(self.tmp):
+                    os.remove(self.tmp)
+                raise RuntimeError(
+                    f"nvcc failed ({self.proc.returncode}) for {self.src}:\n"
+                    f"{' '.join(self.cmd)}\n{out}")
+            with open(self.log_path, "w") as fh:
+                fh.write(" ".join(self.cmd) + "\n" + out)
+            os.replace(self.tmp, self.so_path)  # atomic: processes agree
+            info["built"] = True
+        lib = ctypes.CDLL(self.so_path)
+        _LIBS[self.name] = lib
+        _INFO[self.name] = info
+        return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built if it is not there.
 
@@ -67,37 +115,24 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    if not os.path.isfile(src):
-        raise RuntimeError(f"no such kernel source: {src}")
-    tag = _sources_hash()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-    log_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.log")
-    info = {"library": so_path, "built": False, "seconds": 0.0}
-    if not os.path.isfile(so_path):
-        nvcc = find_nvcc()
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp, src]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        out = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {src}:\n"
-                f"{' '.join(cmd)}\n{out}")
-        with open(log_path, "w") as fh:
-            fh.write(" ".join(cmd) + "\n" + out)
-        os.replace(tmp, so_path)        # atomic: concurrent processes agree
-        info["built"] = True
-    info["log"] = log_path
-    lib = ctypes.CDLL(so_path)
-    _LIBS[name] = lib
-    _INFO[name] = info
-    return lib
+    return _Job(name).finish()
+
+
+def prebuild(names) -> float:
+    """Builds and loads several libraries, one nvcc each, all started
+    together.  Returns the wall-clock seconds it took.  Raises RuntimeError
+    with the compiler's output if any build fails (after all have ended)."""
+    t0 = time.perf_counter()
+    jobs = [_Job(n) for n in names if n not in _LIBS]
+    errors = []
+    for job in jobs:
+        try:
+            job.finish()
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n\n".join(errors))
+    return time.perf_counter() - t0
 
 
 def build_info(name: str) -> Optional[dict]:

@@ -8,12 +8,14 @@ tensors to the other and compare a single stage apart from the assembly.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ._tensors import DeviceLike, as_tensor, resolve_device
+from .solver.ipm import IPMConfig
 from .solver.qcqp import _Pre
 from .solver.structure import ProblemStructure, make_structure
 
@@ -37,16 +39,63 @@ def structure_from_fields(other: Any) -> ProblemStructure:
     return structure
 
 
-def pre_from_numpy(pre: Mapping[str, Any], device: DeviceLike = None,
+def ipm_config_from_fields(other: Any) -> IPMConfig:
+    """This package's ``IPMConfig`` from any object with the same fields
+    (e.g. the JAX package's)."""
+    return IPMConfig(**{f.name: getattr(other, f.name)
+                        for f in dataclasses.fields(IPMConfig)})
+
+
+def pre_from_numpy(pre: Any, device: DeviceLike = None,
                    dtype: torch.dtype = torch.float32) -> _Pre:
     """The pre-stage bundle of a batch (``gt, b_pad, rb, sb, sh, p_eq,
     q_flat, x_flat0, d_scale``, each with a leading batch axis) from a
-    mapping of NumPy arrays, e.g. the fields of the JAX package's
-    ``_PallasPre`` as ``solve_qcqp_batch(..., _return_pre=True)`` returns
-    them with the scenario blocking flattened."""
+    mapping of NumPy arrays or from an object with those attributes, e.g.
+    the JAX package's ``_PallasPre`` as ``solve_qcqp_batch(...,
+    _return_pre=True)`` returns it (flat batch axis; its other fields are
+    ignored), so that ``solve_qcqp_ipm_lanes(pre=...)`` starts from the same
+    assembled system in both packages."""
     dev = resolve_device(device)
-    return _Pre(**{name: as_tensor(np.asarray(pre[name]), dtype, dev)
+    get = pre.__getitem__ if isinstance(pre, Mapping) else \
+        (lambda name: getattr(pre, name))
+    return _Pre(**{name: as_tensor(np.asarray(get(name)), dtype, dev)
                    for name in _Pre._fields})
+
+
+#: The 20 inputs of one ``ops.ipm_kernel.ipm_pipe_step`` call, in order.
+PIPE_STEP_INPUTS = ("gt", "b", "rb", "pe_d", "pe_u", "q", "x", "s", "lam",
+                    "y", "bx", "by", "bm", "sinv", "t", "tt", "dsc", "rhs",
+                    "act", "cw")
+
+
+def lanes_state_from_numpy(state: Mapping[str, Any],
+                           device: DeviceLike = None,
+                           dtype: torch.dtype = torch.float32
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The 20 input tensors of one pipelined IPM step (``PIPE_STEP_INPUTS``)
+    from a mapping of NumPy arrays.  Arrays grouped as (B / S, S, ...) by the
+    JAX package's scenario blocking are flattened to the port's flat batch;
+    ``act`` and ``cw`` stay (1, 1, m_p)."""
+    dev = resolve_device(device)
+    out = []
+    for name in PIPE_STEP_INPUTS:
+        a = np.asarray(state[name])
+        want = 3 if name not in ("pe_d", "pe_u", "sinv", "t", "tt") else 4
+        if a.ndim == want + 1 and name not in ("act", "cw"):
+            a = a.reshape((-1,) + a.shape[2:])
+        out.append(as_tensor(a, dtype, dev).contiguous())
+    return tuple(out)
+
+
+def auto_result_to_numpy(res: Any) -> Dict[str, Any]:
+    """An ``AutoResult`` as plain NumPy: ``solution`` as
+    ``solution_to_numpy`` gives it, plus ``verdict``, ``escalated``,
+    ``n_escalated`` and ``tier``."""
+    return dict(solution=solution_to_numpy(res.solution),
+                verdict=np.asarray(res.verdict),
+                escalated=np.asarray(res.escalated),
+                n_escalated=int(res.n_escalated),
+                tier=None if res.tier is None else np.asarray(res.tier))
 
 
 def solution_to_numpy(sol: Any) -> Dict[str, np.ndarray]:

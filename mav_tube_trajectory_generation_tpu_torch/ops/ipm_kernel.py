@@ -1,0 +1,600 @@
+"""The interior-point step kernels of the plane-layout IPM: CUDA kernels,
+wrappers and plain PyTorch versions.
+
+Replaces three Pallas TPU kernels of the JAX package's ``ops/ipm_kernel.py``:
+
+  * ``ipm_eval_step`` with ``band_block`` set (``_kernel_band``): at a point
+    (x, s, lam) one evaluation of everything a Newton or snap step needs from
+    the constraint tensor -- y = G x + b, the constraint values c in lane
+    layout, J^T (w r2) (or the clipped multiplier estimate with ``phr``),
+    J^T (1/s) and the block-tridiagonal band of the weighted Gram
+    J^T W J + sum_i lam_i G_i^T G_i;
+  * ``ipm_pipe_step`` (``_pipe_kernel``): finish the previous Newton or snap
+    step from given block-Thomas factors (column solve, G dx, step length,
+    gated update, best-iterate tracking), then evaluate the next point and
+    emit its Hessian band and right-hand side;
+  * ``gt_matvec``: y = G v.
+
+All three work on the padded component-plane lane layout of
+``solver.qcqp._PadLayout``: lanes ``[ball-x | ball-y | ball-z | half]``, ball
+constraint i at lane ``c * nb_p + i`` of plane c, packed half-space rows in
+the ball planes' tails.  Jacobian rows are never materialized: for ball i,
+J_i = sum_c y_ic G_ic.  Tensors carry a flat batch axis: ``gt (B, nfd,
+m_p)``, lane rows ``(B, 1, m_p)``, columns ``(B, nfd, 1)``.
+
+The kernels are ``csrc/gt_matvec.cu``, ``csrc/ipm_eval.cu`` and
+``csrc/ipm_pipe.cu`` (CUDA C++, sm_90a, one thread block per scenario, the
+shared device code in ``csrc/ipm_common.cuh``).  What bounds them on an H100
+is stated at the top of each source.
+
+Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
+version only for CPU tensors; it never falls back from one to the other.
+``launches`` counts kernel launches per kernel name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from .. import _build
+
+# Number of times each wrapper has launched its CUDA kernel in this process.
+launches: Dict[str, int] = {"gt_matvec": 0, "ipm_eval_step": 0,
+                            "ipm_pipe_step": 0}
+
+# Threads per block (one block per scenario).
+THREADS = 512
+
+MODES = ("none", "newton", "snap")
+# Step lengths the snap line search tries, in this order.
+SNAP_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003)
+
+_configured: Dict[str, bool] = {}
+
+
+# ----------------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------------
+
+def _ball_mask(nb_p: int, n_ball: int, device) -> torch.Tensor:
+    return torch.arange(nb_p, device=device) < n_ball              # (nb_p,)
+
+
+def _c_lanes_k(y, rb, nb_p: int, n_ball: int):
+    """Constraint values in lane layout from y (..., m_p): ball values
+    0.5 (|y_i|^2 - rb_i^2) replicated over the 3 planes, every other lane
+    its own y."""
+    m_p = y.shape[-1]
+    yx = y[..., 0:nb_p]
+    yy = y[..., nb_p:2 * nb_p]
+    yz = y[..., 2 * nb_p:3 * nb_p]
+    cb = 0.5 * (yx * yx + yy * yy + yz * yz - rb * rb)
+    ball = _ball_mask(nb_p, n_ball, y.device)
+    parts = [torch.where(ball, cb, yx), torch.where(ball, cb, yy),
+             torch.where(ball, cb, yz)]
+    if m_p > 3 * nb_p:
+        parts.append(y[..., 3 * nb_p:])
+    return torch.cat(parts, dim=-1)
+
+
+def _jdx_lanes_k(gdx, y, nb_p: int, n_ball: int):
+    """J dx in lane layout from gdx = G dx: ball lanes sum_c y_c gdx_c
+    (replicated), every other lane gdx as it is."""
+    m_p = y.shape[-1]
+    jb = (y[..., 0:nb_p] * gdx[..., 0:nb_p]
+          + y[..., nb_p:2 * nb_p] * gdx[..., nb_p:2 * nb_p]
+          + y[..., 2 * nb_p:3 * nb_p] * gdx[..., 2 * nb_p:3 * nb_p])
+    ball = _ball_mask(nb_p, n_ball, y.device)
+    parts = [torch.where(ball, jb, gdx[..., c * nb_p:(c + 1) * nb_p])
+             for c in range(3)]
+    if m_p > 3 * nb_p:
+        parts.append(gdx[..., 3 * nb_p:])
+    return torch.cat(parts, dim=-1)
+
+
+def _max_step_k(v, dv, tau: float):
+    """Fraction-to-boundary step: min(1, tau * min over lanes with dv < 0 of
+    -v / dv).  A NaN dv compares false, so its ratio is +inf."""
+    neg = dv < 0
+    ratio = torch.where(neg, -v / torch.where(neg, dv, -torch.ones_like(dv)),
+                        torch.full_like(v, float("inf")))
+    return torch.clamp(tau * ratio.amin(dim=-1, keepdim=True), max=1.0)
+
+
+def _merit_k(c, s, lam, act, cw, mc: int):
+    ninf = torch.full_like(c, float("-inf"))
+    m1 = torch.where(act > 0, torch.clamp(c, min=0.0), ninf).amax(
+        dim=-1, keepdim=True)
+    m2 = torch.where(act > 0, (c + s).abs(), ninf).amax(dim=-1, keepdim=True)
+    m3 = (cw * s * lam).sum(dim=-1, keepdim=True) / mc
+    return m1 + m2 + m3
+
+
+def _factored_col_solve(sinv, t, tt, dsc, rhs, blk: int):
+    """Block-Thomas solve of one column against equilibrated factors.
+    sinv: (B, m, b, b); t/tt: (B, m-1, b, b) with t[:, i-1] =
+    U_{i-1}^T S_{i-1}^-1 and tt its transpose; dsc: (B, nfd, 1) Jacobi
+    scale.  Returns dx (B, nfd, 1)."""
+    m_blk = sinv.shape[1]
+    r = rhs * dsc
+    u = [None] * m_blk
+    z = [None] * m_blk
+    for i in range(m_blk):
+        u[i] = r[:, i * blk:(i + 1) * blk, :]
+        if i:
+            u[i] = u[i] - t[:, i - 1] @ u[i - 1]
+        z[i] = sinv[:, i] @ u[i]
+    x_p = [None] * m_blk
+    x_p[m_blk - 1] = z[m_blk - 1]
+    for i in range(m_blk - 2, -1, -1):
+        x_p[i] = z[i] - tt[:, i] @ x_p[i + 1]
+    return torch.cat(x_p, dim=1) * dsc
+
+
+def _pe_band_mv(pe_d, pe_u, x, blk: int):
+    """Block-tridiagonal matvec kron-band(P) @ x from the stacked band
+    pe_d (B, m, b, b), pe_u (B, m-1, b, b); x (B, nfd, 1)."""
+    m_blk = pe_d.shape[1]
+    out = []
+    for i in range(m_blk):
+        o = pe_d[:, i] @ x[:, i * blk:(i + 1) * blk, :]
+        if i + 1 < m_blk:
+            o = o + pe_u[:, i] @ x[:, (i + 1) * blk:(i + 2) * blk, :]
+        if i:
+            o = o + pe_u[:, i - 1].transpose(1, 2) \
+                @ x[:, (i - 1) * blk:i * blk, :]
+        out.append(o)
+    return torch.cat(out, dim=1)
+
+
+def _eval_core(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
+               w_cap: float, phr: bool = False):
+    """Shared math of the evaluation.
+
+    gt: (B, nfd, m_p); b/s/lam: (B, 1, m_p); rb: (B, 1, nb_p);
+    x: (B, nfd, 1).  Returns (y, c, jtwr2, jts, lam_ball, aj, w_aj) where the
+    caller finishes gram = (gt * lam_ball) @ gt^T + (aj * w_aj) @ aj^T.
+
+    ``phr`` switches to the clipped-penalty evaluation of the feasibility
+    snap: with s fed as lam / rho, w r2 equals the multiplier estimate
+    lam + rho c, clipped at zero -- jtwr2 becomes J^T max(lam + rho c, 0),
+    the Gram keeps weight rho on every lam > 0 row, and the curvature weight
+    is the clipped estimate instead of lam.
+    """
+    m_p = gt.shape[2]
+    y = (gt * x).sum(dim=1, keepdim=True) + b               # (B, 1, m_p)
+    yx = y[:, :, 0:nb_p]
+    yy = y[:, :, nb_p:2 * nb_p]
+    yz = y[:, :, 2 * nb_p:3 * nb_p]
+    ball = _ball_mask(nb_p, n_ball, gt.device)
+    c = _c_lanes_k(y, rb, nb_p, n_ball)
+
+    s_safe = torch.clamp(s, min=1e-14)
+    r2 = c + s
+    w = torch.clamp(lam / s_safe, max=w_cap)                # (B, 1, m_p)
+
+    # ymul: ball lanes y_ic, every other lane 1 (gt is 0 on pads anyway).
+    ones = torch.ones_like(yx)
+    parts_m = [torch.where(ball, yx, ones), torch.where(ball, yy, ones),
+               torch.where(ball, yz, ones)]
+    if m_p > 3 * nb_p:
+        parts_m.append(torch.ones_like(y[:, :, 3 * nb_p:]))
+    ymul = torch.cat(parts_m, dim=2)
+
+    if phr:
+        m_est = torch.clamp(w * r2, min=0.0)    # max(lam + rho c, 0) per lane
+        jtwr2 = (gt * (m_est * ymul)).sum(dim=2, keepdim=True)
+    else:
+        m_est = None
+        jtwr2 = (gt * (w * r2 * ymul)).sum(dim=2, keepdim=True)
+    jts = (gt * (ymul / s_safe)).sum(dim=2, keepdim=True)
+
+    # Curvature part sum_i lam_i sum_c G_ic G_ic^T: a lane scale of gt on
+    # ball lanes only.  J-row part: aj holds J_i on plane-0 ball lanes, the
+    # half rows as they are, zeros elsewhere; weight w per matching lane.
+    zeros = torch.zeros_like(y)
+    curv = m_est if phr else lam
+    z0 = zeros[:, :, 0:nb_p]
+    lam_parts = [torch.where(ball, curv[:, :, c0 * nb_p:(c0 + 1) * nb_p], z0)
+                 for c0 in range(3)]
+    if m_p > 3 * nb_p:
+        lam_parts.append(zeros[:, :, 3 * nb_p:])
+    lam_ball = torch.cat(lam_parts, dim=2)
+
+    gtx = gt[:, :, 0:nb_p]
+    gty = gt[:, :, nb_p:2 * nb_p]
+    gtz = gt[:, :, 2 * nb_p:3 * nb_p]
+    j_plane0 = gtx * yx + gty * yy + gtz * yz               # (B, nfd, nb_p)
+    aj_parts = [torch.where(ball, j_plane0, gtx),
+                torch.where(ball, torch.zeros_like(gty), gty),
+                torch.where(ball, torch.zeros_like(gtz), gtz)]
+    if m_p > 3 * nb_p:
+        aj_parts.append(gt[:, :, 3 * nb_p:])
+    aj = torch.cat(aj_parts, dim=2)                         # (B, nfd, m_p)
+    w_aj_parts = [w[:, :, 0:nb_p],
+                  torch.where(ball, z0, w[:, :, nb_p:2 * nb_p]),
+                  torch.where(ball, z0, w[:, :, 2 * nb_p:3 * nb_p])]
+    if m_p > 3 * nb_p:
+        w_aj_parts.append(w[:, :, 3 * nb_p:])
+    w_aj = torch.cat(w_aj_parts, dim=2)
+    return y, c, jtwr2, jts, lam_ball, aj, w_aj
+
+
+def _gram_band(gt, lam_ball, aj, w_aj, blk: int):
+    """Band of (gt * lam_ball) @ gt^T + (aj * w_aj) @ aj^T: hd (B, nfd, blk)
+    stacked diagonal blocks, hu (B, nfd - blk, blk) stacked super blocks.
+    Only the band's block products are formed."""
+    nfd = gt.shape[1]
+    m_blk = nfd // blk
+    gl = gt * lam_ball
+    aw = aj * w_aj
+    hd, hu = [], []
+    for i in range(m_blk):
+        r = slice(i * blk, (i + 1) * blk)
+        hd.append(gl[:, r] @ gt[:, r].transpose(1, 2)
+                  + aw[:, r] @ aj[:, r].transpose(1, 2))
+        if i + 1 < m_blk:
+            q = slice((i + 1) * blk, (i + 2) * blk)
+            hu.append(gl[:, r] @ gt[:, q].transpose(1, 2)
+                      + aw[:, r] @ aj[:, q].transpose(1, 2))
+    return torch.cat(hd, dim=1), torch.cat(hu, dim=1)
+
+
+EvalOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                torch.Tensor, torch.Tensor]
+
+
+def ipm_eval_step_plain(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
+                        w_cap: float = 1e10, phr: bool = False,
+                        band_block: int) -> EvalOut:
+    """``ipm_eval_step`` in plain PyTorch; any float dtype, any device."""
+    y, c, jtwr2, jts, lam_ball, aj, w_aj = _eval_core(
+        gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=w_cap, phr=phr)
+    hd, hu = _gram_band(gt, lam_ball, aj, w_aj, band_block)
+    return y, c, jtwr2, jts, hd, hu
+
+
+def gt_matvec_plain(gt, v):
+    """``gt_matvec`` in plain PyTorch: (B, nfd, m_p) x (B, nfd, 1) ->
+    (B, 1, m_p)."""
+    return (gt * v).sum(dim=1, keepdim=True)
+
+
+def ipm_pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
+                        sinv, t, tt, dsc, rhs, act, cw, *,
+                        nb_p: int, n_ball: int, mc: int, sigma_min: float,
+                        tau: float, alpha_max: float, w_cap: float,
+                        reg: float, snap_rho: float, blk: int,
+                        upd_mode: str, eval_mode: str):
+    """``ipm_pipe_step`` in plain PyTorch; any float dtype, any device."""
+    if upd_mode not in MODES or eval_mode not in MODES:
+        raise ValueError(f"modes must be of {MODES}")
+    dt = gt.dtype
+    best_x, best_y, best_merit = bx, by, bm
+    s = torch.clamp(s, min=1e-14) * act + (1.0 - act)
+
+    if upd_mode == "newton":
+        dx = _factored_col_solve(sinv, t, tt, dsc, rhs, blk)
+        gdx = (gt * dx).sum(dim=1, keepdim=True)
+        c = _c_lanes_k(y, rb, nb_p, n_ball)
+        r2 = (c + s) * act
+        w = torch.clamp(lam / s, max=w_cap)
+        mu = (cw * s * lam).sum(dim=2, keepdim=True) / mc
+        sig_mu = sigma_min * mu
+        jdx = _jdx_lanes_k(gdx, y, nb_p, n_ball)
+        ds = (-r2 - jdx) * act
+        dlam = ((sig_mu - lam * s) / s - w * ds) * act
+        alpha = torch.clamp(torch.minimum(_max_step_k(s, ds, tau),
+                                          _max_step_k(lam, dlam, tau)),
+                            max=alpha_max)
+        fin = (torch.isfinite(ds) & torch.isfinite(dlam)).all(
+            dim=2, keepdim=True)
+        upd = (alpha > 0) & fin
+        x = torch.where(upd, x + alpha * dx, x)
+        s = torch.where(upd, s + alpha * ds, s)
+        lam = torch.where(upd & (act > 0),
+                          torch.clamp(lam + alpha * dlam, min=1e-16), lam)
+        y = torch.where(upd, y + alpha * gdx, y)
+        c_new = _c_lanes_k(y, rb, nb_p, n_ball)
+        merit = _merit_k(c_new, s, lam, act, cw, mc)
+        better = merit < best_merit
+        best_x = torch.where(better, x, best_x)
+        best_y = torch.where(better, y, best_y)
+        best_merit = torch.where(better, merit, best_merit)
+    elif upd_mode == "snap":
+        dx = _factored_col_solve(sinv, t, tt, dsc, rhs, blk)
+        gdx = (gt * dx).sum(dim=1, keepdim=True)
+
+        def phi(y_a):
+            v = torch.clamp(_c_lanes_k(y_a, rb, nb_p, n_ball), min=0.0)
+            return (cw * v * v).sum(dim=2, keepdim=True)
+
+        best_a = torch.zeros_like(bm)
+        best_p = phi(best_y)
+        for a_t in SNAP_ALPHAS:
+            p_t = phi(best_y + a_t * gdx)
+            better = p_t < best_p
+            best_a = torch.where(better, torch.full_like(bm, a_t), best_a)
+            best_p = torch.where(better, p_t, best_p)
+        best_x = torch.where(best_a > 0, best_x + best_a * dx, best_x)
+        best_y = torch.where(best_a > 0, best_y + best_a * gdx, best_y)
+
+    nfd = gt.shape[1]
+    bsz = gt.shape[0]
+    if eval_mode == "newton":
+        y_e, _, jtwr2, jts, lam_ball, aj, w_aj = _eval_core(
+            gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=w_cap,
+            phr=False)
+        mu = (cw * s * lam).sum(dim=2, keepdim=True) / mc
+        sig_mu = sigma_min * mu
+        rhs_new = -(_pe_band_mv(pe_d, pe_u, x, blk) + q + jtwr2
+                    + sig_mu * jts)
+        y = y_e                         # fresh matvec point
+        reg_e = reg
+    elif eval_mode == "snap":
+        c_b = _c_lanes_k(best_y, rb, nb_p, n_ball)
+        margin = 3.0 / snap_rho
+        lam_s = torch.where((c_b > -margin) & (act > 0),
+                            torch.full_like(c_b, 1e-6),
+                            torch.zeros_like(c_b))
+        s_s = lam_s / snap_rho
+        _, _, jtwr2, _, lam_ball, aj, w_aj = _eval_core(
+            gt, b, rb, best_x, s_s, lam_s, nb_p=nb_p, n_ball=n_ball,
+            w_cap=snap_rho, phr=True)
+        rhs_new = -jtwr2
+        reg_e = 1e-6
+
+    if eval_mode == "none":
+        hd = torch.zeros((bsz, nfd, blk), dtype=dt, device=gt.device)
+        hu = torch.zeros((bsz, nfd - blk, blk), dtype=dt, device=gt.device)
+        rhs_new = torch.zeros((bsz, nfd, 1), dtype=dt, device=gt.device)
+    else:
+        gd, gu = _gram_band(gt, lam_ball, aj, w_aj, blk)
+        eye_b = torch.eye(blk, dtype=dt, device=gt.device)
+        hd = gd + pe_d.reshape(bsz, nfd, blk) \
+            + reg_e * eye_b.repeat(nfd // blk, 1)
+        hu = gu + pe_u.reshape(bsz, nfd - blk, blk)
+
+    max_lam = torch.where(act > 0, lam, torch.zeros_like(lam)).amax(
+        dim=2, keepdim=True)
+    return (x, s, lam, y, best_x, best_y, best_merit, max_lam, hd, hu,
+            rhs_new)
+
+
+# ----------------------------------------------------------------------------
+# CUDA wrappers
+# ----------------------------------------------------------------------------
+
+def _library(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its C signatures
+    declared."""
+    lib = _build.load(name)
+    if not _configured.get(name):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "gt_matvec":
+            lib.gt_matvec_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+            lib.gt_matvec_launch.restype = i32
+        elif name == "ipm_eval":
+            lib.ipm_eval_step_launch.argtypes = (
+                [ptr] * 12 + [i32] * 6 + [f32, i32, i32, ptr])
+            lib.ipm_eval_step_launch.restype = i32
+            lib.ipm_eval_smem_bytes.argtypes = [i32] * 5
+            lib.ipm_eval_smem_bytes.restype = i32
+        elif name == "ipm_pipe":
+            lib.ipm_pipe_step_launch.argtypes = (
+                [ptr] * 31 + [i32] * 7 + [f32] * 6 + [i32] * 3 + [ptr])
+            lib.ipm_pipe_step_launch.restype = i32
+            lib.ipm_pipe_smem_bytes.argtypes = [i32] * 5
+            lib.ipm_pipe_smem_bytes.restype = i32
+        _configured[name] = True
+    return lib
+
+
+def smem_bytes(name: str, nfd: int, m_p: int, blk: int, nb_p: int) -> int:
+    """Dynamic shared memory one block of ``ipm_eval`` or ``ipm_pipe`` takes
+    at these shapes (builds the library if needed)."""
+    fn = getattr(_library(name), f"{name}_smem_bytes")
+    return int(fn(nfd, m_p, blk, nb_p, THREADS))
+
+
+def _check(name: str, a: torch.Tensor, shape, device) -> None:
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(a.shape)}")
+    if a.device != device:
+        raise ValueError(f"{name}: on {a.device}, expected {device}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
+                        f"{a.dtype}")
+    if not a.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if a.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _check_layout(gt, nb_p: int, n_ball: int, blk: int = 0):
+    if gt.dim() != 3:
+        raise ValueError(f"gt: expected (B, nfd, m_p), got {tuple(gt.shape)}")
+    bsz, nfd, m_p = gt.shape
+    if m_p % 4 or 3 * nb_p > m_p or not 0 <= n_ball <= nb_p:
+        raise ValueError(f"bad lane layout: m_p={m_p}, nb_p={nb_p}, "
+                         f"n_ball={n_ball}")
+    if blk and (nfd % blk or nfd // blk < 2):
+        raise ValueError(f"nfd={nfd} is not at least two blocks of {blk}")
+    return bsz, nfd, m_p
+
+
+def _raise_on(err: int, what: str, **shapes) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed with CUDA error "
+                           f"{err} ({shapes})")
+
+
+def gt_matvec(gt: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """y = G v: gt (B, nfd, m_p), v (B, nfd, 1) -> (B, 1, m_p).
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if gt.device.type == "cpu":
+        return gt_matvec_plain(gt, v)
+    if gt.device.type != "cuda":
+        raise ValueError(f"unsupported device {gt.device}")
+    dev = gt.device
+    if gt.dim() != 3 or gt.shape[2] % 4:
+        raise ValueError(f"gt: expected (B, nfd, m_p) with m_p % 4 == 0, "
+                         f"got {tuple(gt.shape)}")
+    bsz, nfd, m_p = gt.shape
+    _check("gt", gt, (bsz, nfd, m_p), dev)
+    _check("v", v, (bsz, nfd, 1), dev)
+    lib = _library("gt_matvec")
+    out = torch.empty((bsz, 1, m_p), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gt_matvec_launch(
+            gt.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, nfd, m_p,
+            THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gt_matvec", B=bsz, nfd=nfd, m_p=m_p)
+    launches["gt_matvec"] += 1
+    return out
+
+
+def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
+                  w_cap: float = 1e10, phr: bool = False,
+                  band_block: int) -> EvalOut:
+    """One fused IPM evaluation at (x, s, lam), band output.
+
+    Args:
+      gt: (B, nfd, m_p) equilibrated G^T in the padded plane layout.
+      b: (B, 1, m_p).  rb: (B, 1, nb_p) scaled ball radii (pads 1).
+      x: (B, nfd, 1).  s, lam: (B, 1, m_p) slack / multiplier lane vectors
+        (ball entries replicated across the 3 planes, pads s=1, lam=0).
+      band_block: size of the vertex blocks the weighted Gram is
+        block-tridiagonal in (``solver.banded.kkt_tridiag_block``).
+
+    Returns (y, c (B, 1, m_p), jtwr2, jts (B, nfd, 1), hd (B, nfd, blk)
+    stacked diagonal blocks, hu (B, nfd - blk, blk) stacked super blocks).
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if not band_block:
+        raise NotImplementedError(
+            "the full-Gram output of ipm_eval_step (band_block=0, TPU "
+            "kernel 10) is not ported yet; pass band_block")
+    if gt.device.type == "cpu":
+        return ipm_eval_step_plain(gt, b, rb, x, s, lam, nb_p=nb_p,
+                                   n_ball=n_ball, w_cap=w_cap, phr=phr,
+                                   band_block=band_block)
+    if gt.device.type != "cuda":
+        raise ValueError(f"unsupported device {gt.device}")
+    dev = gt.device
+    blk = int(band_block)
+    bsz, nfd, m_p = _check_layout(gt, nb_p, n_ball, blk)
+    _check("gt", gt, (bsz, nfd, m_p), dev)
+    for name, a in (("b", b), ("s", s), ("lam", lam)):
+        _check(name, a, (bsz, 1, m_p), dev)
+    _check("rb", rb, (bsz, 1, nb_p), dev)
+    _check("x", x, (bsz, nfd, 1), dev)
+    lib = _library("ipm_eval")
+    f32 = torch.float32
+    y, c = (torch.empty((bsz, 1, m_p), dtype=f32, device=dev)
+            for _ in range(2))
+    jtwr2, jts = (torch.empty((bsz, nfd, 1), dtype=f32, device=dev)
+                  for _ in range(2))
+    hd = torch.empty((bsz, nfd, blk), dtype=f32, device=dev)
+    hu = torch.empty((bsz, nfd - blk, blk), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ipm_eval_step_launch(
+            gt.data_ptr(), b.data_ptr(), rb.data_ptr(), x.data_ptr(),
+            s.data_ptr(), lam.data_ptr(), y.data_ptr(), c.data_ptr(),
+            jtwr2.data_ptr(), jts.data_ptr(), hd.data_ptr(), hu.data_ptr(),
+            bsz, nfd, m_p, blk, nb_p, n_ball, float(w_cap), int(bool(phr)),
+            THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "ipm_eval_step", B=bsz, nfd=nfd, m_p=m_p, blk=blk)
+    launches["ipm_eval_step"] += 1
+    return y, c, jtwr2, jts, hd, hu
+
+
+def ipm_pipe_step(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
+                  sinv, t, tt, dsc, rhs, act, cw, *,
+                  nb_p: int, n_ball: int, mc: int, sigma_min: float,
+                  tau: float, alpha_max: float, w_cap: float, reg: float,
+                  snap_rho: float, blk: int, upd_mode: str, eval_mode: str):
+    """One pipelined IPM step: finish the previous Newton or snap step (solve
+    its direction from the given block-Thomas factors, apply the update) and
+    evaluate the next point (Hessian band + right-hand side for the caller to
+    factor).
+
+    ``upd_mode`` / ``eval_mode``: "none" | "newton" | "snap".  Snap updates
+    act on the best-iterate state (bx/by); Newton updates on the running
+    x/s/lam/y with the finite-direction gate and best-iterate tracking.
+
+    Args: gt (B, nfd, m_p); b, s, lam, y, by (B, 1, m_p); rb (B, 1, nb_p);
+    pe_d (B, m, blk, blk), pe_u (B, m-1, blk, blk) objective band; q, x, bx,
+    dsc, rhs (B, nfd, 1); bm (B, 1, 1); sinv (B, m, blk, blk), t / tt
+    (B, m-1, blk, blk) factors; act, cw (1, 1, m_p) lane masks.
+
+    Returns (x, s, lam, y, bx, by, bm, max_lam (B, 1, 1), hd (B, nfd, blk),
+    hu (B, nfd - blk, blk), rhs (B, nfd, 1)); hd carries pe_d + reg I and hu
+    carries pe_u; ``eval_mode="none"`` gives zeros for hd, hu and rhs.
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if upd_mode not in MODES or eval_mode not in MODES:
+        raise ValueError(f"modes must be of {MODES}")
+    kw = dict(nb_p=nb_p, n_ball=n_ball, mc=mc, sigma_min=sigma_min, tau=tau,
+              alpha_max=alpha_max, w_cap=w_cap, reg=reg, snap_rho=snap_rho,
+              blk=blk, upd_mode=upd_mode, eval_mode=eval_mode)
+    if gt.device.type == "cpu":
+        return ipm_pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y,
+                                   bx, by, bm, sinv, t, tt, dsc, rhs, act,
+                                   cw, **kw)
+    if gt.device.type != "cuda":
+        raise ValueError(f"unsupported device {gt.device}")
+    dev = gt.device
+    bsz, nfd, m_p = _check_layout(gt, nb_p, n_ball, blk)
+    m_blk = nfd // blk
+    _check("gt", gt, (bsz, nfd, m_p), dev)
+    for name, a in (("b", b), ("s", s), ("lam", lam), ("y", y), ("by", by)):
+        _check(name, a, (bsz, 1, m_p), dev)
+    _check("rb", rb, (bsz, 1, nb_p), dev)
+    for name, a in (("pe_d", pe_d), ("sinv", sinv)):
+        _check(name, a, (bsz, m_blk, blk, blk), dev)
+    for name, a in (("pe_u", pe_u), ("t", t), ("tt", tt)):
+        _check(name, a, (bsz, m_blk - 1, blk, blk), dev)
+    for name, a in (("q", q), ("x", x), ("bx", bx), ("dsc", dsc),
+                    ("rhs", rhs)):
+        _check(name, a, (bsz, nfd, 1), dev)
+    _check("bm", bm, (bsz, 1, 1), dev)
+    _check("act", act, (1, 1, m_p), dev)
+    _check("cw", cw, (1, 1, m_p), dev)
+
+    lib = _library("ipm_pipe")
+    f32 = torch.float32
+    row = lambda: torch.empty((bsz, 1, m_p), dtype=f32, device=dev)
+    col = lambda: torch.empty((bsz, nfd, 1), dtype=f32, device=dev)
+    one = lambda: torch.empty((bsz, 1, 1), dtype=f32, device=dev)
+    x_o, s_o, lam_o, y_o = col(), row(), row(), row()
+    bx_o, by_o, bm_o, ml_o = col(), row(), one(), one()
+    hd = torch.empty((bsz, nfd, blk), dtype=f32, device=dev)
+    hu = torch.empty((bsz, nfd - blk, blk), dtype=f32, device=dev)
+    rhs_o = col()
+    ins = (gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm, sinv, t, tt,
+           dsc, rhs, act, cw)
+    outs = (x_o, s_o, lam_o, y_o, bx_o, by_o, bm_o, ml_o, hd, hu, rhs_o)
+    with torch.cuda.device(dev):
+        err = lib.ipm_pipe_step_launch(
+            *(a.data_ptr() for a in ins), *(a.data_ptr() for a in outs),
+            bsz, nfd, m_p, blk, nb_p, n_ball, int(mc),
+            float(sigma_min), float(tau), float(alpha_max), float(w_cap),
+            float(reg), float(snap_rho),
+            MODES.index(upd_mode), MODES.index(eval_mode), THREADS,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "ipm_pipe_step", B=bsz, nfd=nfd, m_p=m_p, blk=blk,
+              upd_mode=upd_mode, eval_mode=eval_mode)
+    launches["ipm_pipe_step"] += 1
+    return outs

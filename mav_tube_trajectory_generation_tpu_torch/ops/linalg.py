@@ -5,8 +5,18 @@ The JAX package builds its SPD inverses out of matmuls only
 was the most expensive operation on the accelerator it was written for.  On
 CUDA the plain choice is the library's batched Cholesky, and a library call
 is allowed here: none of these inverses sits inside a kernel of the JAX
-package.  What is kept from the reference is the conditioning discipline:
-Jacobi equilibration before the factorization and a symmetric result.
+package.  What is kept from the reference is the conditioning discipline --
+Jacobi equilibration before the factorization and a symmetric result -- and
+its behaviour on a bad block: the matmul-only inverse never fails, it
+returns the inverse of whatever it was given, and the interior-point solvers
+lean on that (their float32 endgame Hessians are not positive definite to
+working precision on a good share of scenarios; a usable direction still
+comes out, and a line search or a step gate judges it).  So the factorization
+status is never checked on the host (``cholesky_ex`` / ``inv_ex`` with
+``check_errors=False``: no raise, no wait for the device), and a block the
+Cholesky factor refuses gets the pivoted-LU inverse of the same equilibrated
+block instead.  Only a block with non-finite entries yields a non-finite
+inverse, and only for its own scenario.
 """
 
 from __future__ import annotations
@@ -22,12 +32,23 @@ def spd_inverse(a: torch.Tensor) -> torch.Tensor:
     solves against the identity, and scaled back.  The result is symmetrized
     (exact math is symmetric; roundoff is not, and callers feed the inverse
     into further Schur complements).
+
+    Never raises and never reads the factorization status on the host.  A
+    matrix the Cholesky factor refuses (not positive definite to working
+    precision) gets its inverse by pivoted LU instead; a matrix with
+    non-finite entries gets a non-finite inverse; every other matrix of the
+    batch is untouched either way.
     """
     n = a.shape[-1]
     s = torch.rsqrt(torch.diagonal(a, dim1=-2, dim2=-1))          # (..., n)
     a_eq = a * s[..., :, None] * s[..., None, :]
-    chol = torch.linalg.cholesky(a_eq)
+    chol, info = torch.linalg.cholesky_ex(a_eq, check_errors=False)
     eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
     inv_eq = torch.cholesky_solve(eye, chol)
     inv = inv_eq * s[..., :, None] * s[..., None, :]
-    return 0.5 * (inv + inv.transpose(-1, -2))
+    inv = 0.5 * (inv + inv.transpose(-1, -2))
+    # fallback for blocks the Cholesky factor refused: LU with pivoting
+    inv_lu, _ = torch.linalg.inv_ex(a_eq, check_errors=False)
+    inv_lu = inv_lu * s[..., :, None] * s[..., None, :]
+    inv_lu = 0.5 * (inv_lu + inv_lu.transpose(-1, -2))
+    return torch.where((info == 0)[..., None, None], inv, inv_lu)

@@ -1,4 +1,5 @@
-"""Seeded scenario batches for the headline QP+QCQP configuration.
+"""Seeded scenario batches for the headline QP+QCQP configuration and the
+tight-corridor strict configuration.
 
 ``make_inputs`` is this package's own copy of the JAX package's benchmark
 input generator: the same NumPy ``RandomState(seed)`` draws, the same float32
@@ -57,3 +58,19 @@ def make_inputs(k: int, batch: int, seed: int = 0,
         linear.extract_fixed_values(std, values_t).to(dev),
         linear.extract_fixed_values(free, values_t).to(dev),
         times.to(dev), wp_t.to(dev), radii.to(dev), values_t.to(dev))
+
+
+def tight_radii(k: int, batch: int, rmin: float = 0.05, rmax: float = 0.3,
+                seed: int = 7, device: DeviceLike = None) -> torch.Tensor:
+    """(batch, k, 2) corridor radii for the tight-corridor strict
+    configuration: one radius per scenario, log-uniform in [rmin, rmax], for
+    its tubes and spheres alike (this package's copy of the recipe of the JAX
+    package's tight-radius strict benchmark: the same NumPy
+    ``RandomState(seed)`` draw).  On such corridors most of a batch fails the
+    tier-0 gate, so the escalation tiers and the certificates do the work."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    scale = np.exp(rng.uniform(np.log(rmin), np.log(rmax),
+                               size=(batch, 1, 1)))
+    radii = np.broadcast_to(scale, (batch, k, 2)).astype(np.float32).copy()
+    return torch.from_numpy(radii).to(dev)

@@ -31,10 +31,14 @@ layout, the block-tridiagonal KKT band and its block-LDL^T factors, then
 kernel for CUDA tensors, its plain version for CPU tensors) with the penalty
 rho rebalanced between stages.
 
-Not here yet (they wait for later work): the generic reference-layout path
-(``build_constraints``, the unfused scan stages, single-scenario
-``solve_qcqp``), non-banded KKT structures, and the alternative kernel back
-ends the JAX ``ADMMConfig`` selects between.
+``build_constraints`` gives the same constraints in the reference layout
+(per-constraint Jacobians); the solver here does not use it, the static
+infeasibility certificate of ``solver.ipm_lanes`` and the tests do.
+
+Not here yet (they wait for later work): the generic reference-layout solve
+(the unfused scan stages, single-scenario ``solve_qcqp``), non-banded KKT
+structures, and the alternative kernel back ends the JAX ``ADMMConfig``
+selects between.
 """
 
 from __future__ import annotations
@@ -174,6 +178,109 @@ def _row_scale_bounds(n_coefficients: int) -> Tuple[float, float]:
     return (1e-2, 1e2) if n_coefficients <= 10 else (1e-4, 1e4)
 
 
+class _ConstraintSystem(NamedTuple):
+    """Affine constraint maps of a batch, reference layout."""
+    g_ball: torch.Tensor      # (B, n_ball, 3, n_free, D) jacobian
+    b_ball: torch.Tensor      # (B, n_ball, 3) offset
+    r_ball: torch.Tensor      # (B, n_ball) radius
+    g_half: torch.Tensor      # (B, n_half, n_free, D) jacobian
+    b_half: torch.Tensor      # (B, n_half) offset (constraint: y <= 0 with
+                              #  the offset folded in)
+
+
+class _ConstraintGeometry(NamedTuple):
+    """The small tensors every constraint row is made of: row m of the
+    Jacobian is the outer product of a control-point map ``ecp[k, j, :]`` and
+    a direction (a row of eye3, of the projector P_k, or +-n_k)."""
+    ecp: torch.Tensor         # (B, K, N, n_free)
+    proj: torch.Tensor        # (B, K, 3, 3)
+    dirs: torch.Tensor        # (B, K, 2, 3)
+    b_ball: torch.Tensor      # (B, n_ball, 3)
+    r_ball: torch.Tensor      # (B, n_ball)
+    b_half: torch.Tensor      # (B, n_half)
+
+
+def _constraint_geometry(structure: ProblemStructure, times, d_fixed,
+                         waypoints, radii) -> _ConstraintGeometry:
+    """Unscaled sphere / tube / end-cap forms of qcqp_impl.h:358-474 for a
+    batch (see ``build_constraints`` for the arguments)."""
+    k = structure.n_segments
+    n = structure.n_coefficients
+    if structure.dimension != 3:
+        raise ValueError("Tube constraints require dimension == 3.")
+    dt, dev = times.dtype, times.device
+    bsz = times.shape[0]
+    cp0, ecp = _control_point_maps(structure, times, d_fixed)
+    p_start = waypoints[:, :-1]
+    p_end = waypoints[:, 1:]
+    seg_vec = p_end - p_start
+    seg_norm = torch.linalg.vector_norm(seg_vec, dim=-1, keepdim=True)
+    nvec = seg_vec / torch.clamp(seg_norm, min=1e-12)      # (B, K, 3)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    proj = eye3 - nvec[..., :, None] * nvec[..., None, :]  # (B, K, 3, 3)
+    mid = slice(1, n - 1)
+    n_mid = n - 2
+
+    # Spheres at interior vertices (segments 0..K-2):
+    # y = cp[k, N-1, :] - waypoint_{k+1} in Ball(r2_k).
+    b_sph = cp0[:, :k - 1, n - 1, :] - waypoints[:, 1:k]
+    r_sph = radii[:, :k - 1, 1]
+    # Tubes on mid control points 1..N-2 of every segment:
+    # y = P_k (cp[k, j, :] - p_k) in Ball(r1_k).
+    b_tube = torch.einsum('bkid,bkjd->bkji', proj,
+                          cp0[:, :, mid] - p_start[:, :, None, :])
+    r_tube = radii[:, :, :1].expand(bsz, k, n_mid)
+    # End caps on the same control points: (-n_k)^T cp <= (-n_k)^T p_cap_start
+    # with p_cap_start = p_k - n_k r_prev (r_prev = radii[k-1].second, or
+    # radii[0].first for the first segment; qcqp_impl.h:451-456), and
+    # n_k^T cp <= n_k^T p_cap_end with p_cap_end = p_{k+1} + n_k radii[k].second.
+    r_prev = torch.cat([radii[:, :1, 0], radii[:, :-1, 1]], dim=1)
+    p_cap_start = p_start - nvec * r_prev[..., None]
+    p_cap_end = p_end + nvec * radii[:, :, 1][..., None]
+    dirs = torch.stack([-nvec, nvec], dim=2)               # (B, K, 2, 3)
+    caps = torch.stack([p_cap_start, p_cap_end], dim=2)    # (B, K, 2, 3)
+    b_half = (torch.einsum('bksd,bkjd->bkjs', dirs, cp0[:, :, mid])
+              - torch.einsum('bksd,bksd->bks', dirs, caps)[:, :, None, :])
+    return _ConstraintGeometry(
+        ecp=ecp, proj=proj, dirs=dirs,
+        b_ball=torch.cat([b_sph, b_tube.reshape(bsz, k * n_mid, 3)], dim=1),
+        r_ball=torch.cat([r_sph, r_tube.reshape(bsz, k * n_mid)], dim=1),
+        b_half=b_half.reshape(bsz, k * n_mid * 2))
+
+
+def build_constraints(structure: ProblemStructure, times, d_fixed, waypoints,
+                      radii) -> _ConstraintSystem:
+    """The ball / half-space constraint system of a batch in the reference
+    layout, with per-constraint Jacobians (about 230 KB a scenario at K=10 in
+    float32: meant for tests and small batches).
+
+    Args (batched): times (B, K), d_fixed (B, n_fixed, 3), waypoints
+    (B, V, 3) vertex positions (interior positions are geometry for the
+    tubes, not equality constraints), radii (B, K, 2) per-segment (tube
+    radius r1, sphere radius r2).
+    """
+    k = structure.n_segments
+    n = structure.n_coefficients
+    geo = _constraint_geometry(structure, times, d_fixed, waypoints, radii)
+    ecp = geo.ecp
+    bsz, n_free = ecp.shape[0], ecp.shape[-1]
+    n_mid = n - 2
+    mid = slice(1, n - 1)
+    eye3 = torch.eye(3, dtype=ecp.dtype, device=ecp.device)
+    g_sph = (ecp[:, :k - 1, n - 1][:, :, None, :, None]
+             * eye3[None, None, :, None, :])
+    # g_tube[k, j, i, p, dd] = proj[k, i, dd] * ecp[k, j, p]
+    g_tube = torch.einsum('bkid,bkjp->bkjipd', geo.proj, ecp[:, :, mid])
+    # g_half[k, j, s, p, d] = dirs[k, s, d] * ecp[k, j, p]
+    g_half = torch.einsum('bksd,bkjp->bkjspd', geo.dirs, ecp[:, :, mid])
+    return _ConstraintSystem(
+        g_ball=torch.cat([g_sph, g_tube.reshape(bsz, k * n_mid, 3, n_free,
+                                                3)], dim=1),
+        b_ball=geo.b_ball, r_ball=geo.r_ball,
+        g_half=g_half.reshape(bsz, k * n_mid * 2, n_free, 3),
+        b_half=geo.b_half)
+
+
 def _padded_gather_maps(k: int, n: int, layout: _PadLayout):
     """Static lane -> source-row index maps for the padded component-plane
     layout (NumPy): every constraint row of G^T is an outer product
@@ -235,6 +342,30 @@ def _unpad_index(layout: _PadLayout) -> np.ndarray:
     idx += [np.arange(c * nb_p + lane, c * nb_p + lane + ln)
             for (c, lane, _, ln) in layout.half_chunks()]
     return np.concatenate(idx).astype(np.int64)
+
+
+def penalty_unscale_maps(structure: ProblemStructure, layout: _PadLayout,
+                         f_sphere: float, f_tube: float, f_half: float):
+    """Static multipliers that turn the ADMM's penalty-scaled padded system
+    (``ADMMConfig.rho_*_factor`` baked into the row scales as sqrt(f)) back
+    into the penalty-free (f = 1) system the plane-layout IPM works on, so
+    that one assembly of G^T serves both solvers.
+
+    Returns (lane_ratio (m_p,), ball_ratio (n_ball,), half_ratio (n_half,))
+    as float32 NumPy arrays (pad lanes get ratio 1).
+    """
+    k = structure.n_segments
+    n = structure.n_coefficients
+    scl_idx = _padded_gather_maps(k, n, layout)[2]
+    n_sph = k - 1
+    n_ball = layout.n_ball
+    n_half = layout.n_half
+    inv = np.concatenate([
+        np.full(n_sph, 1.0 / np.sqrt(f_sphere)),
+        np.full(n_ball - n_sph, 1.0 / np.sqrt(f_tube)),
+        np.full(n_half, 1.0 / np.sqrt(f_half)),
+        np.ones(1)]).astype(np.float32)
+    return inv[scl_idx], inv[:n_ball], inv[n_ball:n_ball + n_half]
 
 
 def _padded_constraint_system(structure: ProblemStructure,
@@ -591,7 +722,7 @@ def _post(structure: ProblemStructure, config: ADMMConfig, d_fixed, times,
 def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
                      radii, config: ADMMConfig = ADMMConfig(),
                      x0=None, warmstart_values=None,
-                     device: DeviceLike = None) -> QCQPSolution:
+                     device: DeviceLike = None, _return_pre: bool = False):
     """Batched tube-constrained QCQP (all array args carry a leading batch
     axis B; tensors or array-likes).
 
@@ -617,7 +748,10 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
     The working dtype is the promotion of ``d_fixed`` and ``times``; on a
     CUDA device it must be float32 (the stage kernel's type).
 
-    Returns QCQPSolution with per-scenario convergence status.
+    Returns QCQPSolution with per-scenario convergence status; with
+    ``_return_pre`` the pair (solution, ``_Pre`` bundle), so that
+    ``ipm_lanes.solve_qcqp_ipm_lanes(pre=...)`` can polish from the system
+    assembled here.
     """
     if x0 is not None and warmstart_values is not None:
         raise ValueError("pass x0 or warmstart_values, not both")
@@ -642,5 +776,6 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
                layout, warmstart_positions=wp)
     x_fin, _, u_fin, y_fin, rho, prim_res, dual_res = _run_stages(
         config, pre, layout, kkt_block)
-    return _post(structure, config, d_fixed, times, pre, x_fin, u_fin, y_fin,
-                 rho, prim_res, dual_res)
+    sol = _post(structure, config, d_fixed, times, pre, x_fin, u_fin, y_fin,
+                rho, prim_res, dual_res)
+    return (sol, pre) if _return_pre else sol

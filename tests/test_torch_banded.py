@@ -132,3 +132,60 @@ def test_factor_and_solve_f32():
     for i in range(9):
         np.testing.assert_allclose(to_np(ts_inv[i]), np.asarray(js_inv[i]),
                                    atol=2e-4 * np.abs(js_inv[i]).max())
+
+
+def test_bad_blocks_touch_their_own_scenario_only():
+    """One scenario of a batch whose pivot block is indefinite (positive
+    diagonal, one negative eigenvalue) and one with a NaN entry.
+    ``torch.linalg.cholesky`` raised ``LinAlgError`` for the whole batch
+    here.  The factor now returns without raising; like the JAX package's
+    matmul-only inverse it gives the indefinite scenario the factors of the
+    matrix it was handed (float64, rtol 1e-8 against the reference on every
+    finite scenario, the indefinite one included), and the NaN scenario is
+    non-finite from its bad pivot on -- alone."""
+    rng = np.random.RandomState(21)
+    _, dblk, ublk = _spd_band(rng, 5, 3, 15)
+    bad, nan = 3, 1
+    v = rng.randn(15)
+    v /= np.linalg.norm(v)
+    dblk[bad, 1] -= np.linalg.eigvalsh(dblk[bad, 1]).max() * np.outer(v, v)
+    assert np.linalg.eigvalsh(dblk[bad, 1]).min() < 0 < \
+        np.diag(dblk[bad, 1]).min()
+    dblk[nan, 1, 4, 4] = np.nan
+    with pytest.raises(torch.linalg.LinAlgError):
+        torch.linalg.cholesky(tt(dblk[[0, bad], 1]))      # the old fault
+    ts_inv, tt_ = tbanded.spd_block_tridiag_factor(tt(dblk), tt(ublk))
+    js_inv, jt = jbanded.spd_block_tridiag_factor(jnp.asarray(dblk),
+                                                  jnp.asarray(ublk))
+    finite = np.arange(5) != nan
+    for i in range(3):
+        ours = to_np(ts_inv[i])
+        assert np.isfinite(ours[finite]).all()
+        np.testing.assert_allclose(ours[finite],
+                                   np.asarray(js_inv[i])[finite],
+                                   rtol=1e-8, atol=1e-12)
+        if i:
+            np.testing.assert_allclose(to_np(tt_[i])[finite],
+                                       np.asarray(jt[i])[finite],
+                                       rtol=1e-8, atol=1e-12)
+    assert np.isfinite(to_np(ts_inv[0])).all()        # before the bad pivot
+    assert not np.isfinite(to_np(ts_inv[1])[nan]).any()
+    assert not np.isfinite(to_np(ts_inv[2])[nan]).any()
+    rhs = rng.randn(5, 45, 1)
+    x = to_np(tbanded.spd_block_tridiag_solve_factored(ts_inv, tt_, tt(rhs)))
+    assert np.isfinite(x[finite]).all() and not np.isfinite(x[nan]).all()
+    # the indefinite scenario's solve is the solve of its (indefinite) system
+    dense = _dense_from_band(dblk[bad], ublk[bad])
+    np.testing.assert_allclose(x[bad], np.linalg.solve(dense, rhs[bad]),
+                               rtol=1e-8, atol=1e-12)
+
+
+def _dense_from_band(dblk, ublk):
+    m, b = dblk.shape[0], dblk.shape[-1]
+    dense = np.zeros((m * b, m * b))
+    for i in range(m):
+        dense[i * b:(i + 1) * b, i * b:(i + 1) * b] = dblk[i]
+    for i in range(m - 1):
+        dense[i * b:(i + 1) * b, (i + 1) * b:(i + 2) * b] = ublk[i]
+        dense[(i + 1) * b:(i + 2) * b, i * b:(i + 1) * b] = ublk[i].T
+    return dense
