@@ -8,9 +8,13 @@ Builds the port's CUDA kernels from ``csrc/`` with nvcc (one nvcc per
 source, all started together), holds each kernel against its plain PyTorch
 version on the card, then drives the port's main paths through their public
 entry points and checks the solution quality: ``solve_qcqp_batch`` on the
-10-segment min-snap QP+QCQP benchmark configuration, batch 6144, and the
-strict verdict router ``solve_qcqp_strict`` on the same batch (and on a
-tight-corridor batch of 512, where its escalation tiers do the work).
+10-segment min-snap QP+QCQP benchmark configuration, batch 6144; the polish
+with the whole interior-point method in one kernel launch
+(``solve_qcqp_polished_batch`` with ``IPMConfig(fused=True)``) on the same
+batch, beside the step-by-step polish at the router's row counts; and the
+strict verdict router ``solve_qcqp_strict`` with its defaults (float64 last
+tier on) on the same batch and on a tight-corridor batch of 512, where its
+escalation tiers do the work.
 Every phase prints one JSON object on a line of its own;
 a failing phase raises, so the script exits non-zero and prints no final
 line.  There is no CPU mode: without a CUDA device it exits with code 2.
@@ -51,7 +55,7 @@ MIN_FEASIBLE = 6080
 MAX_MEDIAN_VIOLATION = 3e-4
 OUT_NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
 ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
-              "multi_stage", "ipm_kernel_check", "strict_path",
+              "multi_stage", "ipm_kernel_check", "fused_path", "strict_path",
               "strict_tight", "kernels")
 
 # The interior-point kernels against their plain versions, per output, on
@@ -75,13 +79,33 @@ IPM_FLIP_ROWS = 0.01
 PIPE_OUT = ("x", "s", "lam", "y", "bx", "by", "bm", "max_lam", "hd", "hu",
             "rhs")
 EVAL_OUT = ("y", "c", "jtwr2", "jts", "hd", "hu")
+GRAM_OUT = ("y", "c", "jtwr2", "jts", "gram")
+FUSED_OUT = ("x_fin", "y_fin", "s_fin", "lam_fin", "y_last", "best_merit",
+             "lam_mid", "lam_fin_max")
 
 # Quality bars of the strict path at seed 0, batch 6144: the JAX reference
-# recorded 6144/6144 under the 1e-4 gate with its float64 last tier; this
-# path runs without that tier, so 99.5 % is asked.
-MIN_STRICT = 6113
+# recorded 6144/6144 determinate with its float64 last tier, and so must this
+# router with its defaults; on the 512 tight corridors the router without
+# that tier left 18 rows undetermined, and with it may leave no more.
 STRICT_GATE = 1e-4
-IPM_SOURCES = ("gt_matvec", "ipm_eval", "ipm_pipe")
+MAX_TIGHT_UNDETERMINED = 18
+# The kernels the strict path launches (the other two wrappers of
+# ops.ipm_kernel have paths of their own: fused_path, and the public
+# full-Gram evaluation driven in strict_path at tier 1's shape).
+STRICT_KERNELS = ("admm_stage_fused_factored", "gt_matvec", "ipm_eval_step",
+                  "ipm_pipe_step")
+# The fused polish against the step-by-step polish of the same configuration:
+# relative cost gap.  tests/test_ipm_lanes.py asks median < 1e-3 and worst <
+# 1e-2 of eight K=4 rows.  At 6144 K=10 rows any two float32 schedules of the
+# same polish (scan against pipelined, the fused kernel against its own plain
+# version: the phase reports both beside the gap it gates) leave 5 to 8 rows
+# more than 1e-2 apart (worst 0.1 to 0.17: rows where one of the two stops
+# short of the gate), so the worst bound is asked of the 99th percentile and
+# the rows beyond it are counted: at most 0.25 %.
+FUSED_COST_MEDIAN = 1e-3
+FUSED_COST_P99 = 1e-2
+FUSED_COST_OUTLIER_SHARE = 0.0025
+IPM_SOURCES = ("gt_matvec", "ipm_eval", "ipm_pipe", "ipm_solve")
 PKG = "mav_tube_trajectory_generation_tpu_torch"
 
 
@@ -221,14 +245,16 @@ def phase_build(state):
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
                                                               ipm_kernel)
     t0 = time.perf_counter()
-    wall = _build.prebuild(("admm_stage",) + IPM_SOURCES)
+    if set(_build.SOURCES) != {"admm_stage", *IPM_SOURCES}:
+        raise RuntimeError(f"unexpected kernel sources: {_build.SOURCES}")
+    wall = _build.prebuild()
     smem = admm_kernel.smem_bytes(135, 512, 9, 15, 128)
     seconds = time.perf_counter() - t0
     emit("build_ipm", parallel_wall_seconds=round(wall, 3),
          libraries=[build_report(_build, n) for n in IPM_SOURCES],
          dynamic_smem_bytes_flagship={
              n: ipm_kernel.smem_bytes(n, 135, 512, 15, 128)
-             for n in ("ipm_eval", "ipm_pipe")},
+             for n in ("ipm_eval", "ipm_pipe", "ipm_solve")},
          threads_per_block=ipm_kernel.THREADS)
     info = _build.build_info("admm_stage")
     log = _build.build_log("admm_stage")
@@ -501,7 +527,8 @@ def plain_kernels():
     """Route every kernel wrapper of the port to its plain PyTorch version
     (used only to compare; the port itself never does this)."""
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
-    names = ("gt_matvec", "ipm_eval_step", "ipm_pipe_step")
+    names = ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
+             "ipm_solve_fused")
     kept = {n: getattr(ipm_kernel, n) for n in names}
     for n in names:
         setattr(ipm_kernel, n, getattr(ipm_kernel, n + "_plain"))
@@ -601,13 +628,61 @@ def check_call(fn, fn_plain, names, args, kwargs, ours=None):
     return res, ok and identical
 
 
+def gram_band_mismatch(gram, hd, hu, blk):
+    """Worst difference between the diagonal and super-diagonal blocks of a
+    full (B, nfd, nfd) Gram and a band (hd (B, nfd, blk), hu (B, nfd - blk,
+    blk)), as a share of the band's largest entry."""
+    import torch
+    bsz, nfd, _ = gram.shape
+    m_blk = nfd // blk
+    g5 = gram.reshape(bsz, m_blk, blk, m_blk, blk)
+    gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], dim=1)
+    gu = torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)], dim=1)
+    scale = max(float(hd.abs().max()), 1e-30)
+    return max(float((gd.reshape(hd.shape) - hd).abs().max()),
+               float((gu.reshape(hu.shape) - hu).abs().max())) / scale
+
+
+def fused_class(ipm_kernel, args, kw, ours):
+    """Where a whole polish ends.  After ten Newton steps two float32 runs
+    of the same arithmetic differ by whole steps in most rows (plain float32
+    against plain float64 leaves nearly every row outside IPM_ROW_TOL), so
+    beside the row criterion the kernel is held to the solution class: the
+    scaled primal residual max(c, 0) of its final point, per scenario, has a
+    median and a 99th percentile at most 3x the plain float32 version's plus
+    5e-5 and 5e-4 (c = 0.5 (|y|^2 - r^2) with |y|^2 of 1e2 to 1e3 in scaled
+    space resolves 8e-6 to 6e-5 in float32, so a median of exactly 0 in one
+    run and of one such step in the other are the same result), and is
+    finite in every row."""
+    import torch
+    rb, act = args[2], args[10]
+
+    def residual(outs):
+        c = ipm_kernel._c_lanes_k(outs[1].float(), rb, kw["nb_p"],
+                                  kw["n_ball"])
+        return torch.where(act > 0, torch.clamp(c, min=0.0),
+                           torch.zeros_like(c)).amax(dim=2)[:, 0]
+
+    r_k = residual(ours)
+    r_p = residual(ipm_kernel.ipm_solve_fused_plain(*args, **kw))
+    q = lambda r, p: float(torch.quantile(r.double(), p))
+    out = dict(kernel_median=q(r_k, 0.5), plain_median=q(r_p, 0.5),
+               kernel_p99=q(r_k, 0.99), plain_p99=q(r_p, 0.99),
+               kernel_max=float(r_k.max()), plain_max=float(r_p.max()))
+    ok = (bool(torch.isfinite(r_k).all())
+          and out["kernel_median"] <= 3.0 * out["plain_median"] + 5e-5
+          and out["kernel_p99"] <= 3.0 * out["plain_p99"] + 5e-4)
+    return out, ok
+
+
 def record_lanes(mtt, k, batch, seed):
-    """Calls of the three interior-point kernels recorded from real solves:
-    an ADMM tier-0 solve, then pipelined polishes that reach all seven mode
-    pairs and a scan polish (eval with phr off and on, matvec)."""
+    """Calls of the interior-point kernels recorded from real solves: an
+    ADMM tier-0 solve, then pipelined polishes that reach all seven mode
+    pairs, a scan polish (eval with phr off and on, matvec) and four fused
+    polishes (the default schedule, snap-only, and two short ones)."""
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     sc = mtt.make_inputs(k, batch, seed=seed)
-    pipe_calls, eval_calls, mv_calls = [], [], []
+    pipe_calls, eval_calls, mv_calls, fused_calls = [], [], [], []
 
     def polish(**cfg):
         return mtt.solve_qcqp_polished_batch(
@@ -623,12 +698,17 @@ def record_lanes(mtt, k, batch, seed):
     with recorded(ipm_kernel, "ipm_eval_step", eval_calls), \
             recorded(ipm_kernel, "gt_matvec", mv_calls):
         polish(n_iters=2, snap_iters=1)
+    with recorded(ipm_kernel, "ipm_solve_fused", fused_calls):
+        polish(n_iters=10, snap_iters=2, fused=True)
+        polish(n_iters=0, snap_iters=2, fused=True)
+        polish(n_iters=1, snap_iters=0, fused=True)
+        polish(n_iters=2, snap_iters=1, fused=True)
     pairs = {}
     for call in pipe_calls:
         key = (call[1]["upd_mode"], call[1]["eval_mode"])
         # keep the LAST call of a pair: the state is furthest from the start
         pairs[key] = call
-    return pairs, eval_calls, mv_calls
+    return pairs, eval_calls, mv_calls, fused_calls
 
 
 def phase_ipm_kernel_check(state, mtt):
@@ -636,7 +716,8 @@ def phase_ipm_kernel_check(state, mtt):
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     cases, bad = [], []
     for label, k, batch in (("flagship K=10", 10, 256), ("K=4", 4, 64)):
-        pairs, eval_calls, mv_calls = record_lanes(mtt, k, batch, seed=1)
+        pairs, eval_calls, mv_calls, fused_calls = record_lanes(
+            mtt, k, batch, seed=1)
         if len(pairs) != 7:
             raise RuntimeError(f"ipm_kernel_check: reached mode pairs "
                                f"{sorted(pairs)}, expected all seven")
@@ -662,6 +743,31 @@ def phase_ipm_kernel_check(state, mtt):
                               gt_shape=gt_shape, phr=kw["phr"], **res))
             if not ok:
                 bad.append(f"eval {label} phr={kw['phr']}")
+            # the same point with the whole Gram out; its band blocks
+            # must be what the band kernel gave
+            gkw = dict(kw, band_block=0)
+            gout = ipm_kernel.ipm_eval_step(*args, **gkw)
+            res, ok = check_call(ipm_kernel.ipm_eval_step,
+                                 ipm_kernel.ipm_eval_step_plain, GRAM_OUT,
+                                 args, gkw, ours=gout)
+            band_err = gram_band_mismatch(gout[4], out[4], out[5],
+                                          kw["band_block"])
+            cases.append(dict(kernel="ipm_eval_step band_block=0",
+                              shapes=label, gt_shape=gt_shape, phr=kw["phr"],
+                              band_vs_band_kernel_scaled_err=band_err, **res))
+            if not ok or not band_err <= IPM_ROW_TOL:
+                bad.append(f"eval gram {label} phr={kw['phr']}")
+        for args, kw, out in fused_calls:
+            res, ok = check_call(ipm_kernel.ipm_solve_fused,
+                                 ipm_kernel.ipm_solve_fused_plain, FUSED_OUT,
+                                 args, kw, ours=out)
+            cls, cls_ok = fused_class(ipm_kernel, args, kw, out)
+            cases.append(dict(kernel="ipm_solve_fused", shapes=label,
+                              gt_shape=gt_shape, n_iters=kw["n_iters"],
+                              snap_iters=kw["snap_iters"], **res,
+                              residual_class=cls))
+            if not (ok and cls_ok):
+                bad.append(f"fused {label} n_iters={kw['n_iters']}")
         args, kw, out = mv_calls[-1]
         res, ok = check_call(ipm_kernel.gt_matvec,
                              ipm_kernel.gt_matvec_plain, ("y",), args, kw,
@@ -703,7 +809,35 @@ def phase_ipm_kernel_check(state, mtt):
             cases.append(res)
             if not (frozen and finite and same_pattern and untouched):
                 bad.append(f"nan row {label} {key}")
-        del pairs, eval_calls, mv_calls
+        # The whole-polish kernel with a NaN linear term in one scenario:
+        # every Newton direction of that scenario is NaN, so its running
+        # point must stay where it started (the snap sweeps, which do not
+        # read q, may still move the best iterate), all its outputs stay
+        # finite, and no other scenario changes a bit.
+        args, kw, out = fused_calls[0]
+        q = args[5].clone()
+        q[row] = float("nan")
+        nan_args = args[:5] + (q,) + args[6:]
+        ours = ipm_kernel.ipm_solve_fused(*nan_args, **kw)
+        plain = ipm_kernel.ipm_solve_fused_plain(*nan_args, **kw)
+        torch.cuda.synchronize()
+        frozen = bool(torch.equal(ours[4][row], args[9][row])
+                      and torch.equal(ours[3][row], args[8][row]))
+        finite = all(bool(torch.isfinite(o[row]).all()) for o in ours)
+        same_pattern = all(bool(
+            (torch.isfinite(o) == torch.isfinite(p)).all())
+            for o, p in zip(ours, plain))
+        others = [i for i in range(ours[0].shape[0]) if i != row]
+        untouched = all(torch.equal(o[others], q_[others])
+                        for o, q_ in zip(ours, as_tuple(out)))
+        cases.append(dict(kernel="ipm_solve_fused", shapes=label,
+                          nan_q_row=row, row_frozen=frozen,
+                          row_outputs_finite=finite,
+                          same_finite_pattern_as_plain=same_pattern,
+                          other_rows_bit_identical=untouched))
+        if not (frozen and finite and same_pattern and untouched):
+            bad.append(f"fused nan row {label}")
+        del pairs, eval_calls, mv_calls, fused_calls
     emit("ipm_kernel_check", row_tolerance=IPM_ROW_TOL,
          flip_rows=IPM_FLIP_ROWS, tolerance_is="per output and scenario: "
          "kernel vs plain f32 <= row_tolerance * max|plain f64 output| in "
@@ -756,12 +890,152 @@ def device_time_of(fn):
                 most_launched=named(sorted(rows, key=lambda r: -r[2])[:8]))
 
 
+def phase_fused_path(state, mtt):
+    """The polish with the whole interior-point method in one launch, at
+    full width, and the fused polish beside the step-by-step one at the row
+    counts the strict router gives its tiers."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
+    k, batch, n_pass = 10, MAIN_BATCH, 3
+    sc = mtt.make_inputs(k, batch, seed=0)
+    cfg = dict(n_iters=10, sigma_min=0.3, corrector=False)
+    fused_cfg = mtt.IPMConfig(fused=True, **cfg)
+    scan_cfg = mtt.IPMConfig(**cfg)
+
+    def polished(ipm_cfg):
+        return mtt.solve_qcqp_polished_batch(
+            sc.free, sc.d_fixed_free, sc.times, sc.waypoints, sc.radii,
+            admm_config=bench_config(mtt), ipm_config=ipm_cfg,
+            warmstart_values=sc.values)
+
+    calls = []
+    with recorded(ipm_kernel, "ipm_solve_fused", calls):
+        polished(fused_cfg)                               # warm-up
+    torch.cuda.synchronize()
+    state.setdefault("recorded", {})["ipm_solve_fused"] = calls[0][:2]
+    del calls
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_pass + 1)]
+    marks[0].record()
+    for i in range(n_pass):
+        sol = polished(fused_cfg)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    launches = ipm_launches()
+    state["fused_launches"] = launches["ipm_solve_fused"]
+    pass_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(n_pass)]
+    ms = sum(pass_ms) / n_pass
+    peak = torch.cuda.max_memory_allocated()
+    scan_ms = cuda_ms(lambda: polished(scan_cfg), reps=2)
+    scan = polished(scan_cfg)
+
+    viol = sol.max_violation
+    finite = bool(torch.isfinite(sol.cost).all()
+                  and torch.isfinite(viol).all())
+    gap = ((sol.cost - scan.cost).abs() / scan.cost.abs()).double()
+
+    def cost_gap(a, b):
+        g = ((a.cost - b.cost).abs() / b.cost.abs()).double()
+        return dict(median=float(g.median()),
+                    p99=float(torch.quantile(g, 0.99)), worst=float(g.max()),
+                    rows_over_1e_2=int((g > FUSED_COST_P99).sum()),
+                    converged=[int(a.converged.sum()),
+                               int(b.converged.sum())])
+
+    # For scale: how far two other float32 schedules of the same polish are
+    # apart (the pipelined one against the scan one, and the fused kernel
+    # against its own plain version run through the same entry point).
+    pipelined = polished(mtt.IPMConfig(pipelined=True, **cfg))
+    with plain_kernels():
+        fused_plain = polished(fused_cfg)
+    spread = dict(pipelined_vs_scan=cost_gap(pipelined, scan),
+                  fused_kernel_vs_fused_plain=cost_gap(sol, fused_plain))
+    del pipelined, fused_plain
+    quality = dict(
+        under_gate=int((viol < STRICT_GATE).sum()),
+        scan_under_gate=int((scan.max_violation < STRICT_GATE).sum()),
+        median_violation=float(viol.median()),
+        p99_violation=float(torch.quantile(viol.double(), 0.99)),
+        scan_median_violation=float(scan.max_violation.median()),
+        scan_p99_violation=float(torch.quantile(
+            scan.max_violation.double(), 0.99)),
+        converged=int(sol.converged.sum()),
+        scan_converged=int(scan.converged.sum()),
+        infeasible=int(sol.infeasible.sum()),
+        cost_gap_median=float(gap.median()), cost_gap_worst=float(gap.max()),
+        cost_gap_p99=float(torch.quantile(gap, 0.99)),
+        cost_gap_rows_over_1e_2=int((gap > FUSED_COST_P99).sum()),
+        cost_gap_between_other_float32_schedules=spread)
+    shapes_ok = (sol.coefficients.shape == (batch, k, 10, 3)
+                 and sol.infeasible.shape == (batch,))
+
+    # The two polishes on the worst rows of the ADMM solve, as the router
+    # gathers them: time and kernel launches of one polish each.
+    admm = mtt.solve_qcqp_batch(
+        sc.free, sc.d_fixed_free, sc.times, sc.waypoints, sc.radii,
+        config=bench_config(mtt), warmstart_values=sc.values)
+    by_rows = []
+    for rows in (645, 128, 1):
+        rows = min(rows, batch)
+        ip = torch.topk(admm.max_violation, rows).indices
+
+        def lanes(ipm_cfg):
+            return mtt.solve_qcqp_ipm_lanes(
+                sc.free, sc.d_fixed_free[ip], sc.times[ip], sc.waypoints[ip],
+                sc.radii[ip], config=ipm_cfg, x0=admm.d_free[ip],
+                lam0_ball=admm.dual_ball[ip], lam0_half=admm.dual_half[ip])
+
+        entry = dict(rows=rows)
+        for label, ipm_cfg in (("scan", scan_cfg), ("fused", fused_cfg)):
+            reset_launches()
+            out = lanes(ipm_cfg)
+            torch.cuda.synchronize()
+            entry[label + "_kernel_launches"] = {
+                n: v for n, v in ipm_launches().items() if v}
+            entry[label + "_under_gate"] = int(
+                (out.max_violation < STRICT_GATE).sum())
+        # scan, fused, fused, scan: one card, in turns
+        t = [cuda_ms(lambda c=c: lanes(c), reps=3, warmup=0)
+             for c in (scan_cfg, fused_cfg, fused_cfg, scan_cfg)]
+        entry.update(scan_ms=[t[0], t[3]], fused_ms=[t[1], t[2]],
+                     scan_over_fused=(t[0] + t[3]) / (t[1] + t[2]))
+        by_rows.append(entry)
+
+    emit("fused_path", config="K=10 N=10 D=3, radii 0.8, seed 0: ADMM 48 it, "
+         "then the lanes polish it10 sigma 0.3 corrector off + 2 snap sweeps "
+         "as one kernel launch (IPMConfig.fused)", batch=batch,
+         passes=n_pass, ms_per_batch=ms, pass_ms=pass_ms,
+         solves_per_s=batch / (ms * 1e-3), scan_path_ms_per_batch=scan_ms,
+         launches_in_timed_passes=launches,
+         peak_device_memory_bytes=peak, **quality,
+         cost_gap_limits=dict(median=FUSED_COST_MEDIAN, p99=FUSED_COST_P99,
+                              rows_over_p99_limit=int(
+                                  FUSED_COST_OUTLIER_SHARE * batch)),
+         polish_alone_by_rows=by_rows, nvidia_smi=state.get("nvidia_smi"))
+    if not shapes_ok or not finite:
+        raise RuntimeError("fused_path: bad shapes or non-finite outputs")
+    if launches["ipm_solve_fused"] != n_pass:
+        raise RuntimeError(f"fused_path: {launches['ipm_solve_fused']} "
+                           f"launches of the fused kernel in {n_pass} passes")
+    if not (quality["cost_gap_median"] <= FUSED_COST_MEDIAN
+            and quality["cost_gap_p99"] <= FUSED_COST_P99
+            and quality["cost_gap_rows_over_1e_2"]
+            <= FUSED_COST_OUTLIER_SHARE * batch):
+        raise RuntimeError(f"fused_path: cost off the scan path's: {quality}")
+    if quality["under_gate"] < 0.98 * quality["scan_under_gate"] or \
+            quality["p99_violation"] > 3.0 * quality["scan_p99_violation"] \
+            + 1e-6:
+        raise RuntimeError(f"fused_path: violations off the scan path's "
+                           f"class: {quality}")
+
+
 def strict_call(mtt, sc, radii=None, n=None, **kw):
     sl = slice(None) if n is None else slice(0, n)
     radii = sc.radii if radii is None else radii
     return mtt.solve_qcqp_strict(
         sc.free, sc.d_fixed_free[sl], sc.times[sl], sc.waypoints[sl],
-        radii[sl], warmstart_values=sc.values[sl], tier2_f64=False, **kw)
+        radii[sl], warmstart_values=sc.values[sl], **kw)
 
 
 def strict_summary(mtt, res, batch):
@@ -801,12 +1075,58 @@ def reset_launches():
         ipm_kernel.launches[name] = 0
 
 
+def tier2_state_copy(args, kwargs):
+    """The arguments of one ``_run_tier2_f64`` call with everything the call
+    mutates copied: the per-row violation, certificate and tier arrays
+    (NumPy) and the list of merged fields (its tensors are replaced, never
+    written in place)."""
+    args = list(args)
+    args[6], args[7], args[8] = args[6].copy(), args[7].copy(), list(args[8])
+    kwargs = dict(kwargs)
+    if kwargs.get("tier_mark") is not None:
+        kwargs["tier_mark"] = kwargs["tier_mark"].copy()
+    return args, kwargs
+
+
+@contextlib.contextmanager
+def tier2_observed(log, keep_args=None):
+    """While the block runs, the router's float64 last tier appends to
+    ``log`` one entry per call: the rows entering each stage that ran, and
+    its time with a device synchronisation around it.  With ``keep_args`` (a
+    list) the call's arguments are copied into it first, so that the same
+    tier can be run again from the same state."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.solver import auto
+    fn = auto._run_tier2_f64
+
+    def wrapper(*args, **kwargs):
+        if keep_args is not None:
+            keep_args.append(tier2_state_copy(args, kwargs))
+        stage_rows = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, stage_rows=stage_rows, **kwargs)
+        torch.cuda.synchronize()
+        n_stages = len(auto.TIER2_STAGE_ITERS)
+        stage_rows += [0] * (n_stages - len(stage_rows))   # stages not run
+        log.append(dict(rows_entering_stage=stage_rows,
+                        stage_iters=list(auto.TIER2_STAGE_ITERS),
+                        ms=(time.perf_counter() - t) * 1e3))
+        return out
+
+    auto._run_tier2_f64 = wrapper
+    try:
+        yield
+    finally:
+        auto._run_tier2_f64 = fn
+
+
 def phase_strict_path(state, mtt):
     import numpy as np
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     from mav_tube_trajectory_generation_tpu_torch.solver import ipm_lanes
-    k, batch, n_pass = 10, MAIN_BATCH, 5
+    k, batch, n_pass = 10, MAIN_BATCH, 3
     sc = mtt.make_inputs(k, batch, seed=0)
 
     # Warm-up; it also records one call of each interior-point kernel at the
@@ -817,12 +1137,26 @@ def phase_strict_path(state, mtt):
             recorded(ipm_kernel, "gt_matvec", mv_calls):
         strict_call(mtt, sc)
     torch.cuda.synchronize()
-    state["recorded"] = dict(
+    state.setdefault("recorded", {}).update(
         ipm_pipe_step=next(c for c in pipe_calls
                            if c[1]["upd_mode"] == "snap"
                            and c[1]["eval_mode"] == "snap")[:2],
         ipm_eval_step=eval_calls[0][:2], gt_matvec=mv_calls[0][:2])
     del pipe_calls, eval_calls, mv_calls
+
+    # The full-Gram evaluation has no caller inside the package (in the JAX
+    # package only a test calls it): its path is the public wrapper, driven
+    # here once at the shape tier 1 gives the band form, counts set to 0
+    # just before and read just after.
+    g_args, g_kw = state["recorded"]["ipm_eval_step"]
+    reset_launches()
+    gram_out = ipm_kernel.ipm_eval_step(*g_args, **dict(g_kw, band_block=0))
+    torch.cuda.synchronize()
+    state["gram_launches"] = ipm_kernel.launches["ipm_eval_step_gram"]
+    if state["gram_launches"] != 1 or not torch.isfinite(gram_out[4]).all():
+        raise RuntimeError("strict_path: the full-Gram evaluation did not "
+                           "launch once or gave non-finite values")
+    del gram_out
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
@@ -869,11 +1203,13 @@ def phase_strict_path(state, mtt):
     ipm_lanes.solve_qcqp_polished_batch = timed(
         keep[0], "tier 0 whole: ADMM + snap sweeps")
     ipm_lanes.solve_qcqp_ipm_lanes = timed(keep[1], "lanes IPM")
+    tier2_log = []
     try:
-        t_all = time.perf_counter()
-        strict_call(mtt, sc)
-        torch.cuda.synchronize()
-        split_total_ms = (time.perf_counter() - t_all) * 1e3
+        with tier2_observed(tier2_log):
+            t_all = time.perf_counter()
+            strict_call(mtt, sc)
+            torch.cuda.synchronize()
+            split_total_ms = (time.perf_counter() - t_all) * 1e3
     finally:
         (ipm_lanes.solve_qcqp_polished_batch,
          ipm_lanes.solve_qcqp_ipm_lanes) = keep
@@ -885,24 +1221,24 @@ def phase_strict_path(state, mtt):
         busy["busy_share_of_mean_pass"] = busy["device_ms"] / ms
 
     # The same call on a 512-row prefix through the plain versions.
-    n_pre = 512
+    n_pre = min(512, batch)
     kern = strict_call(mtt, sc, n=n_pre)
     with plain_kernels():
         plain = strict_call(mtt, sc, n=n_pre)
     agree = int((kern.verdict == plain.verdict).sum())
     plain_summary = strict_summary(mtt, plain, n_pre)
 
-    emit("strict_path", config="K=10 N=10 D=3 strict router, radii 0.8, "
-         "tier 0 ADMM 48 it + 2 snap sweeps, tier 1 it6 + 2 snaps with a "
-         "128-row speculative restart, tier 1.5 restart chain, "
-         "tier2_f64=False", passes=n_pass, ms_per_batch=ms, pass_ms=pass_ms,
+    emit("strict_path", config="K=10 N=10 D=3 strict router with its "
+         "defaults, radii 0.8: tier 0 ADMM 48 it + 2 snap sweeps, tier 1 it6 "
+         "+ 2 snaps with a 128-row speculative restart, tier 1.5 restart "
+         "chain, tier 2 float64 rows IPM on the card", passes=n_pass,
+         ms_per_batch=ms, pass_ms=pass_ms,
          best_ms=min(pass_ms), worst_ms=max(pass_ms),
          wall_ms_per_batch=wall_ms, solves_per_s=batch / (ms * 1e-3),
-         min_under_gate=MIN_STRICT, **summary,
-         launches_in_timed_passes=launches,
+         **summary, launches_in_timed_passes=launches,
          launches_per_pass={n: v / n_pass for n, v in launches.items()},
          peak_device_memory_bytes=peak, tier_split_ms=tiers,
-         tier_split_total_ms=split_total_ms,
+         tier2=tier2_log, tier_split_total_ms=split_total_ms,
          profiler=busy if busy is not None else "not measured",
          plain_prefix=dict(n=n_pre, verdicts_agree=agree,
                            kernel=strict_summary(mtt, kern, n_pre),
@@ -913,12 +1249,12 @@ def phase_strict_path(state, mtt):
     if summary["false_feasible"] or plain_summary["false_feasible"]:
         raise RuntimeError("strict_path: a FEASIBLE verdict at a violation "
                            f">= {STRICT_GATE}")
-    if summary["under_gate"] < MIN_STRICT:
-        raise RuntimeError(f"strict_path: {summary['under_gate']}/{batch} "
-                           f"under {STRICT_GATE}, need {MIN_STRICT}")
+    if summary["undetermined"]:
+        raise RuntimeError(f"strict_path: {summary['undetermined']} of "
+                           f"{batch} rows UNDETERMINED with tier 2 on")
     if not summary["finite_cost"]:
         raise RuntimeError("strict_path: non-finite cost on a feasible row")
-    idle = [n for n, v in launches.items() if v == 0]
+    idle = [n for n in STRICT_KERNELS if launches[n] == 0]
     if idle:
         raise RuntimeError(f"strict_path: kernels never launched: {idle}")
     if agree < 0.97 * n_pre:
@@ -926,40 +1262,96 @@ def phase_strict_path(state, mtt):
                            f"{agree}/{n_pre} verdicts")
 
 
+def verdicts_of(mtt, viol, inf):
+    import numpy as np
+    return np.where(viol < STRICT_GATE, mtt.FEASIBLE,
+                    np.where(inf, mtt.INFEASIBLE, mtt.UNDETERMINED))
+
+
 def phase_strict_tight(state, mtt):
+    import numpy as np
     import torch
+    from mav_tube_trajectory_generation_tpu_torch.solver import auto
     k, batch = 10, 512
     sc = mtt.make_inputs(k, batch, seed=0)
     radii = mtt.tight_radii(k, batch)
     reset_launches()
+    tier2_log, tier2_args = [], []
     t0 = time.perf_counter()
-    res = strict_call(mtt, sc, radii=radii)
+    with tier2_observed(tier2_log, keep_args=tier2_args):
+        res = strict_call(mtt, sc, radii=radii)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     summary = strict_summary(mtt, res, batch)
-    emit("strict_tight", config="K=10 strict router, one radius per scenario "
-         "log-uniform in [0.05, 0.3], tier2_f64=False; correctness only",
-         seconds_first_call=seconds, launches=ipm_launches(), **summary)
+
+    # The float64 tier again from the state the router handed it: once more
+    # on the card (it must repeat itself) and once on the CPU.
+    def rerun(device):
+        args, kwargs = tier2_state_copy(*tier2_args[0])
+        args[8] = [f.to(device) for f in args[8]]         # merged fields
+        kwargs["device"] = device
+        t = time.perf_counter()
+        merged = auto._run_tier2_f64(*args, **kwargs)
+        torch.cuda.synchronize()
+        pos = auto._sel_positions(args[9])["max_violation"]
+        idx = args[5]
+        return dict(viol=args[6], inf=args[7],
+                    merged_viol=merged[pos].cpu().numpy()[idx],
+                    seconds=time.perf_counter() - t)
+
+    compare = None
+    if tier2_args:
+        card = rerun(res.solution.cost.device)
+        host = rerun("cpu")
+        v_card = verdicts_of(mtt, card["viol"], card["inf"])
+        v_host = verdicts_of(mtt, host["viol"], host["inf"])
+        both = (v_card == mtt.FEASIBLE) & (v_host == mtt.FEASIBLE)
+        compare = dict(
+            rows=int(v_card.size), verdicts_agree=int((v_card == v_host).sum()),
+            card_verdicts=np.bincount(v_card.astype(int) + 1,
+                                      minlength=3).tolist(),
+            host_verdicts=np.bincount(v_host.astype(int) + 1,
+                                      minlength=3).tolist(),
+            verdict_order="[infeasible, undetermined, feasible]",
+            max_violation_diff_where_both_feasible=float(np.abs(
+                card["merged_viol"][both] - host["merged_viol"][both]).max())
+            if both.any() else None,
+            card_seconds=card["seconds"], host_seconds=host["seconds"])
+    emit("strict_tight", config="K=10 strict router with its defaults, one "
+         "radius per scenario log-uniform in [0.05, 0.3]; correctness only",
+         seconds_first_call=seconds, launches=ipm_launches(), tier2=tier2_log,
+         tier2_card_vs_host=compare,
+         max_undetermined=MAX_TIGHT_UNDETERMINED, **summary)
     if summary["false_feasible"]:
         raise RuntimeError("strict_tight: a FEASIBLE verdict at a violation "
                            f">= {STRICT_GATE}")
+    if summary["undetermined"] > MAX_TIGHT_UNDETERMINED:
+        raise RuntimeError(f"strict_tight: {summary['undetermined']} rows "
+                           f"UNDETERMINED, more than without tier 2")
     if not summary["finite_cost"]:
         raise RuntimeError("strict_tight: non-finite cost on a feasible row")
-    if summary["n_escalated"] == 0:
-        raise RuntimeError("strict_tight: nothing escalated")
+    if summary["n_escalated"] == 0 or not tier2_log:
+        raise RuntimeError("strict_tight: nothing escalated, or tier 2 did "
+                           "not run")
+    if compare["verdicts_agree"] < 0.97 * compare["rows"]:
+        raise RuntimeError(f"strict_tight: tier 2 on the card and on the "
+                           f"host disagree: {compare}")
 
 
 def ipm_kernel_rows(state, mtt):
-    """Rows of the `kernels` line for the three interior-point kernels, each
-    timed on a call the strict path itself made (recorded in its warm-up)."""
+    """Rows of the `kernels` line for the five interior-point kernels, each
+    timed on a call its path itself made (recorded in the path's warm-up;
+    the full-Gram evaluation on tier 1's recorded inputs)."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
-    if "recorded" not in state:
+    rec = state.get("recorded", {})
+    if not {"ipm_eval_step", "ipm_solve_fused"} <= set(rec):
         raise RuntimeError("the kernels phase times the interior-point "
-                           "kernels on calls recorded by strict_path: run "
-                           "both in one call")
-    rec = state["recorded"]
-    launches = state["strict_launches"]
+                           "kernels on calls recorded by fused_path and "
+                           "strict_path: run all three in one call")
+    launches = dict(state["strict_launches"],
+                    ipm_solve_fused=state["fused_launches"],
+                    ipm_eval_step_gram=state["gram_launches"])
     rows = []
 
     def nbytes(tensors):
@@ -967,21 +1359,25 @@ def ipm_kernel_rows(state, mtt):
                    if isinstance(t, torch.Tensor))
 
     def finish(name, source, replaces, fn, fn_plain, names, args, kw, flops,
-               library=None, note=None):
+               library=None, note=None, count=None, extra_check=None):
         ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
         plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
         lib_ms = cuda_ms(library, reps=5) if library else None
         res, ok = check_call(fn, fn_plain, names, args, kw)
+        outs = as_tuple(fn(*args, **kw))
+        if extra_check is not None:
+            more, more_ok = extra_check(outs)
+            res.update(more)
+            ok = ok and more_ok
         if not ok:
             raise RuntimeError(f"kernels: {name} disagrees with its plain "
-                               f"version at the strict path's shapes: {res}")
-        outs = as_tuple(fn(*args, **kw))
+                               f"version at its path's shapes: {res}")
         total = nbytes(args) + nbytes(outs)
         bytes_ms = total / PEAK_BYTES_PER_S * 1e3
         flops_ms = flops / PEAK_F32_FLOPS * 1e3
         rows.append(dict(
             name=name, route="cuda", source=f"{PKG}/csrc/{source}",
-            replaces=replaces, launches=launches[name],
+            replaces=replaces, launches=launches[count or name],
             max_abs_err=res["worst_scaled_err"],
             max_abs_err_is="worst output, kernel vs plain float32, as a "
             "share of max|plain float64 output| over the rows inside the "
@@ -991,7 +1387,10 @@ def ipm_kernel_rows(state, mtt):
             bound_by="operations" if flops_ms >= bytes_ms else "bytes",
             library_ms=lib_ms, shapes=dict(gt=list(args[0].shape), note=note),
             flops=flops, bytes=total, bound_flops_ms=flops_ms,
-            bound_bytes_ms=bytes_ms))
+            bound_bytes_ms=bytes_ms,
+            **{k_: v for k_, v in res.items()
+               if k_ in ("residual_class",
+                         "band_vs_band_kernel_scaled_err")}))
 
     def eval_flops(bsz, nfd, m_p, blk, n_ball):
         # band blocks over the m_p lanes and the n_ball Jacobian rows (one
@@ -1024,6 +1423,62 @@ def ipm_kernel_rows(state, mtt):
            EVAL_OUT, args, kw,
            eval_flops(bsz, nfd, m_p, kw["band_block"], kw["n_ball"]),
            note="tier 1 (the escalated rows), band output, phr=False")
+
+    # the same inputs with the whole Gram out: all nfd^2 entries over the
+    # m_p lanes and the n_ball Jacobian rows
+    gkw = dict(kw, band_block=0)
+    band = ipm_kernel.ipm_eval_step(*args, **kw)
+    y_, c_, _, _, lam_ball, aj, w_aj = ipm_kernel._eval_core(
+        *args, nb_p=kw["nb_p"], n_ball=kw["n_ball"], w_cap=kw["w_cap"],
+        phr=kw["phr"])
+    gl, aw = (args[0] * lam_ball).contiguous(), (aj * w_aj).contiguous()
+    gt_t = args[0].transpose(1, 2).contiguous()
+    aj_t = aj.transpose(1, 2).contiguous()
+    del y_, c_, lam_ball, w_aj
+
+    def band_blocks_agree(outs):
+        err = gram_band_mismatch(outs[4], band[4], band[5], kw["band_block"])
+        return (dict(band_vs_band_kernel_scaled_err=err), err <= IPM_ROW_TOL)
+
+    finish("ipm_eval_step(band_block=0)", "ipm_eval.cu",
+           "mav_tube_trajectory_generation_tpu/ops/ipm_kernel.py:426 "
+           "(pallas_call at :480)",
+           ipm_kernel.ipm_eval_step, ipm_kernel.ipm_eval_step_plain,
+           GRAM_OUT, args, gkw,
+           bsz * (2 * nfd * nfd * (m_p + kw["n_ball"])
+                  + 5 * nfd * kw["n_ball"] + 3 * 2 * nfd * m_p),
+           library=lambda: torch.baddbmm(torch.bmm(gl, gt_t), aw, aj_t),
+           note="tier 1's rows through the public wrapper, phr=False; "
+           "library call: two torch.bmm products on the weighted operands, "
+           "which are prepared outside the timed call",
+           count="ipm_eval_step_gram", extra_check=band_blocks_agree)
+    del gl, aw, gt_t, aj_t, aj, band
+
+    args, kw = rec["ipm_solve_fused"]
+    bsz, nfd, m_p = args[0].shape
+    blk = kw["blk"]
+    m_blk = nfd // blk
+    steps = kw["n_iters"] + kw["snap_iters"]
+    # per step: one evaluation, the band factor (m Gauss-Jordan inverses on
+    # a block and its running inverse, 2 (m - 1) block products), the column
+    # solve, G dx, and the update's lane sums
+    flops = steps * (eval_flops(bsz, nfd, m_p, blk, kw["n_ball"])
+                     + bsz * (m_blk * 4 * blk ** 3
+                              + (m_blk - 1) * 4 * blk ** 3
+                              + (3 * m_blk - 2) * 2 * blk * blk
+                              + 2 * nfd * m_p + 8 * 8 * m_p))
+
+    def in_solution_class(outs):
+        cls, cls_ok = fused_class(ipm_kernel, args, kw, outs)
+        return dict(residual_class=cls), cls_ok
+
+    finish("ipm_solve_fused", "ipm_solve.cu",
+           "mav_tube_trajectory_generation_tpu/ops/ipm_kernel.py:841",
+           ipm_kernel.ipm_solve_fused, ipm_kernel.ipm_solve_fused_plain,
+           FUSED_OUT, args, kw, flops,
+           note=f"fused_path, {kw['n_iters']} Newton steps + "
+           f"{kw['snap_iters']} snap sweeps in one launch",
+           extra_check=in_solution_class)
 
     args, kw = rec["gt_matvec"]
     bsz, nfd, m_p = args[0].shape
@@ -1126,6 +1581,7 @@ def main():
         "main_path": lambda: phase_main_path(state, mtt),
         "multi_stage": lambda: phase_multi_stage(state, mtt),
         "ipm_kernel_check": lambda: phase_ipm_kernel_check(state, mtt),
+        "fused_path": lambda: phase_fused_path(state, mtt),
         "strict_path": lambda: phase_strict_path(state, mtt),
         "strict_tight": lambda: phase_strict_tight(state, mtt),
         "kernels": lambda: phase_kernels(state, mtt),

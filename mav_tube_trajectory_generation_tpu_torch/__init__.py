@@ -6,10 +6,12 @@ beside it, imports ``torch`` and ``numpy`` only, and shares no module with
 it.  Sub-packages carry the same names (``ops``, ``solver``, ``models``) so
 each counterpart is easy to find.  Ported so far: the headline QP+QCQP path
 (``solve_qcqp_batch`` with the fused ADMM-stage CUDA kernel), the closed-form
-linear solve beneath it, and the strict verdict router (``solve_qcqp_strict``
-/ ``solve_qcqp_auto``: ADMM plus snap sweeps, the plane-layout interior-point
-polish with its CUDA step kernels, the float32 restart chain; its last tier,
-a float64 interior-point solve, is still to come, so ``tier2_f64=False``).
+linear solve beneath it, the strict verdict router (``solve_qcqp_strict`` /
+``solve_qcqp_auto``: ADMM plus snap sweeps, the plane-layout interior-point
+polish with its CUDA step kernels or as one whole-polish launch
+(``IPMConfig(fused=True)``), the float32 restart chain, and the float64 last
+tier), and the reference-layout solvers that tier runs (``solve_qcqp``,
+``solve_qcqp_ipm``, ``solve_qcqp_polished``; any float dtype).
 
 Entry points take ``device=None``, which means the CUDA card and raises when
 there is none; pass ``device="cpu"`` to run on the host, where each kernel's
@@ -27,7 +29,7 @@ Quick start::
                                warmstart_values=sc.values)
     res = mtg.solve_qcqp_strict(sc.free, sc.d_fixed_free, sc.times,
                                 sc.waypoints, sc.radii,
-                                warmstart_values=sc.values, tier2_f64=False)
+                                warmstart_values=sc.values)
     # res.verdict: +1 feasible (violation < 1e-4), -1 infeasible, 0 open
 """
 
@@ -49,8 +51,10 @@ from .solver.linear import (LinearSolution, solve_linear,       # noqa: E402
                             solve_linear_with_free, extract_fixed_values,
                             assemble_r)
 from .solver.qcqp import (ADMMConfig, QCQPSolution,             # noqa: E402
-                          solve_qcqp_batch, build_constraints)
-from .solver.ipm import IPMConfig                               # noqa: E402
+                          solve_qcqp, solve_qcqp_batch, build_constraints)
+from .solver.ipm import (IPMConfig, solve_qcqp_ipm,             # noqa: E402
+                         solve_qcqp_polished)
+from .ops.ipm_kernel import ipm_solve_fused                     # noqa: E402
 from .solver.ipm_lanes import (solve_qcqp_ipm_lanes,            # noqa: E402
                                solve_qcqp_polished_batch)
 from .solver.auto import (AutoResult, solve_qcqp_auto,          # noqa: E402
@@ -67,7 +71,8 @@ from .models.vertex import (Vertex, vertices_to_arrays,         # noqa: E402
 from .scenarios import (ScenarioBatch, make_inputs,             # noqa: E402
                         tight_radii)
 from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
-                      solution_to_numpy, ipm_config_from_fields,
-                      lanes_state_from_numpy, auto_result_to_numpy)
+                      solution_to_numpy, solution_from_numpy,
+                      ipm_config_from_fields, lanes_state_from_numpy,
+                      fused_state_from_numpy, auto_result_to_numpy)
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -25,6 +25,10 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
+#: Every kernel source of the package (``csrc/<name>.cu``); ``prebuild()``
+#: builds them all.
+SOURCES = ("admm_stage", "gt_matvec", "ipm_eval", "ipm_pipe", "ipm_solve")
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -118,10 +122,11 @@ def load(name: str) -> ctypes.CDLL:
     return _Job(name).finish()
 
 
-def prebuild(names) -> float:
-    """Builds and loads several libraries, one nvcc each, all started
-    together.  Returns the wall-clock seconds it took.  Raises RuntimeError
-    with the compiler's output if any build fails (after all have ended)."""
+def prebuild(names=SOURCES) -> float:
+    """Builds and loads several libraries (by default every one of
+    ``SOURCES``), one nvcc each, all started together.  Returns the
+    wall-clock seconds it took.  Raises RuntimeError with the compiler's
+    output if any build fails (after all have ended)."""
     t0 = time.perf_counter()
     jobs = [_Job(n) for n in names if n not in _LIBS]
     errors = []

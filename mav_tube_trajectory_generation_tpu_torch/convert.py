@@ -16,7 +16,7 @@ import torch
 
 from ._tensors import DeviceLike, as_tensor, resolve_device
 from .solver.ipm import IPMConfig
-from .solver.qcqp import _Pre
+from .solver.qcqp import QCQPSolution, _Pre
 from .solver.structure import ProblemStructure, make_structure
 
 _STRUCTURE_ARRAYS = ("fixed_mask", "gather_idx", "fixed_cols", "free_cols")
@@ -68,6 +68,23 @@ PIPE_STEP_INPUTS = ("gt", "b", "rb", "pe_d", "pe_u", "q", "x", "s", "lam",
                     "act", "cw")
 
 
+#: The 12 inputs of one ``ops.ipm_kernel.ipm_solve_fused`` call, in order.
+FUSED_SOLVE_INPUTS = ("gt", "b", "rb", "pe_d", "pe_u", "q", "x0", "s0",
+                      "lam0", "y0", "act", "cw")
+
+
+def _kernel_inputs(names, state, device, dtype) -> Tuple[torch.Tensor, ...]:
+    dev = resolve_device(device)
+    out = []
+    for name in names:
+        a = np.asarray(state[name])
+        want = 3 if name not in ("pe_d", "pe_u", "sinv", "t", "tt") else 4
+        if a.ndim == want + 1 and name not in ("act", "cw"):
+            a = a.reshape((-1,) + a.shape[2:])
+        out.append(as_tensor(a, dtype, dev).contiguous())
+    return tuple(out)
+
+
 def lanes_state_from_numpy(state: Mapping[str, Any],
                            device: DeviceLike = None,
                            dtype: torch.dtype = torch.float32
@@ -76,15 +93,39 @@ def lanes_state_from_numpy(state: Mapping[str, Any],
     from a mapping of NumPy arrays.  Arrays grouped as (B / S, S, ...) by the
     JAX package's scenario blocking are flattened to the port's flat batch;
     ``act`` and ``cw`` stay (1, 1, m_p)."""
+    return _kernel_inputs(PIPE_STEP_INPUTS, state, device, dtype)
+
+
+def fused_state_from_numpy(state: Mapping[str, Any],
+                           device: DeviceLike = None,
+                           dtype: torch.dtype = torch.float32
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The 12 input tensors of one whole-polish call
+    (``FUSED_SOLVE_INPUTS``) from a mapping of NumPy arrays, blocked arrays
+    flattened as in ``lanes_state_from_numpy``."""
+    return _kernel_inputs(FUSED_SOLVE_INPUTS, state, device, dtype)
+
+
+def solution_from_numpy(fields: Any, device: DeviceLike = None,
+                        dtype: torch.dtype = None) -> QCQPSolution:
+    """This package's ``QCQPSolution`` from a mapping of NumPy arrays or
+    from an object with those attributes (e.g. the JAX package's solution, or
+    what ``solution_to_numpy`` gave): float fields in ``dtype`` (kept if
+    None), ``converged`` and ``infeasible`` as bool, missing or None fields
+    None.  For handing one package's tier result to the other's router."""
     dev = resolve_device(device)
-    out = []
-    for name in PIPE_STEP_INPUTS:
-        a = np.asarray(state[name])
-        want = 3 if name not in ("pe_d", "pe_u", "sinv", "t", "tt") else 4
-        if a.ndim == want + 1 and name not in ("act", "cw"):
-            a = a.reshape((-1,) + a.shape[2:])
-        out.append(as_tensor(a, dtype, dev).contiguous())
-    return tuple(out)
+    get = fields.get if isinstance(fields, Mapping) else \
+        (lambda name: getattr(fields, name, None))
+    out = {}
+    for name in QCQPSolution._fields:
+        value = get(name)
+        if value is None:
+            out[name] = None
+            continue
+        a = np.asarray(value)
+        out[name] = as_tensor(a, torch.bool if a.dtype == bool else (
+            dtype if a.dtype.kind == "f" else None), dev)
+    return QCQPSolution(**out)
 
 
 def auto_result_to_numpy(res: Any) -> Dict[str, Any]:

@@ -1,8 +1,10 @@
 // Device code shared by the interior-point kernels (ipm_eval.cu,
-// ipm_pipe.cu, gt_matvec.cu): lane-layout helpers, block reductions with a
-// fixed order, the two matvec patterns against one scenario's G^T, and the
-// evaluation of a point (y, c, J^T weights, weighted-Gram band), which the
-// eval kernel and the pipelined step kernel both run.
+// ipm_pipe.cu, ipm_solve.cu, gt_matvec.cu): lane-layout helpers, block
+// reductions with a fixed order, the two matvec patterns against one
+// scenario's G^T, the evaluation of a point (y, c, J^T weights, weighted-Gram
+// band or full Gram), which the eval kernel, the pipelined step kernel and
+// the whole-polish kernel all run, and the Newton and snap updates of a
+// step, which the last two share.
 //
 // Lane layout (solver.qcqp._PadLayout): m_p lanes [ball-x | ball-y | ball-z |
 // half]; each ball plane is nb_p lanes whose first n_ball carry the coupled
@@ -229,8 +231,10 @@ struct EvalDims {
 // Evaluation at (x, s, lam) of one scenario.  gt is that scenario's
 // (nfd, m_p) matrix in global memory; b, rb, x, s, lam are in shared memory.
 // Fills (shared) y = G x + b, c, jtwr2, jts and writes the band of the
-// weighted Gram to hd (nfd, blk) and hu (nfd - blk, blk) in global memory,
-// plus ped + reg I and peu where ped is not null.
+// weighted Gram to hd (nfd, blk) and hu (nfd - blk, blk), in global or shared
+// memory, plus ped + reg I and peu where ped is not null.  Where `gram` is not
+// null the whole (nfd, nfd) weighted Gram goes there instead, both triangles
+// computed, and hd, hu, ped, peu are not touched.
 //
 // The Gram.  With w = min(lam / s, w_cap) and curv = lam (or the clipped
 // estimate under phr), the reference forms
@@ -241,9 +245,10 @@ struct EvalDims {
 //   sum_l wa[l] gt[:, l] gt[:, l]^T  +  sum_{j < n_ball} w[j] J_j J_j^T
 // with wa = curv on ball lanes and w elsewhere: one pass over the m_p lanes
 // and one over the n_ball Jacobian rows, both through the same tile code.
-// Only the blocks of the band are formed: a work item owns a row r of the
-// band and KN of its 2 blk columns, and keeps their sums in registers while
-// the block walks G^T in tiles of TILE lanes through shared memory.
+// For the band only its blocks are formed: a work item owns a row r of the
+// band and KN of its 2 blk columns (of all nfd columns for the full Gram),
+// and keeps their sums in registers while the block walks G^T in tiles of
+// TILE lanes through shared memory.
 __device__ inline void eval_point(const float* __restrict__ gt,
                                   const float* b_s, const float* rb_s,
                                   const float* x_s, const float* s_s,
@@ -251,7 +256,7 @@ __device__ inline void eval_point(const float* __restrict__ gt,
                                   const EvalDims d, float* smem,
                                   const EvalLayout L, float* hd, float* hu,
                                   const float* ped, const float* peu,
-                                  float reg) {
+                                  float reg, float* gram = nullptr) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nfd = d.nfd, m_p = d.m_p, blk = d.blk, nb_p = d.nb_p;
   const int n_ball = d.n_ball;
@@ -296,8 +301,9 @@ __device__ inline void eval_point(const float* __restrict__ gt,
 
   rows_dot2(gt, wj_s, wjs_s, smem + L.jtwr2, smem + L.jts, nfd, m_p);
 
-  // band of the weighted Gram
-  const int n_kg = (2 * blk + KN - 1) / KN;
+  // band of the weighted Gram, or all of it
+  const bool full = gram != nullptr;
+  const int n_kg = ((full ? nfd : 2 * blk) + KN - 1) / KN;
   const int n_items = nfd * n_kg;
   const int n_lt = (m_p + TILE - 1) / TILE;
   const int n_jt = (n_ball + TILE - 1) / TILE;
@@ -307,7 +313,8 @@ __device__ inline void eval_point(const float* __restrict__ gt,
     const int kg = active ? item / nfd : 0;
     const int r = active ? item - kg * nfd : 0;
     const int ib = r / blk;
-    const int c0 = ib * blk + kg * KN;        // first column (row of G^T)
+    // first column (row of G^T)
+    const int c0 = full ? kg * KN : ib * blk + kg * KN;
     float acc[KN];
 #pragma unroll
     for (int k = 0; k < KN; ++k) acc[k] = 0.0f;
@@ -352,7 +359,11 @@ __device__ inline void eval_point(const float* __restrict__ gt,
       }
     }
 
-    if (active) {
+    if (active && full) {
+#pragma unroll
+      for (int k = 0; k < KN; ++k)
+        if (c0 + k < nfd) gram[(size_t)r * nfd + c0 + k] = acc[k];
+    } else if (active) {
       const int rr = r - ib * blk;
 #pragma unroll
       for (int k = 0; k < KN; ++k) {
@@ -371,6 +382,153 @@ __device__ inline void eval_point(const float* __restrict__ gt,
         }
       }
     }
+  }
+  __syncthreads();
+}
+
+// out[r] = sum_c M[r, c] v[c] for one blk x blk block.
+__device__ __forceinline__ float block_row_dot(const float* M, const float* v,
+                                               int r, int blk) {
+  float acc = 0.0f;
+  for (int c = 0; c < blk; ++c) acc = fmaf(M[r * blk + c], v[c], acc);
+  return acc;
+}
+
+// (kron-band(P) x)[r] = D_i x_i + U_i x_{i+1} + U_{i-1}^T x_{i-1} from the
+// stacked objective band ped (m, blk, blk), peu (m - 1, blk, blk).
+__device__ __forceinline__ float pe_band_mv_row(const float* ped,
+                                                const float* peu,
+                                                const float* x, int r, int blk,
+                                                int m_blk) {
+  const int i = r / blk, rr = r - i * blk, bb = blk * blk;
+  float o = block_row_dot(ped + i * bb, x + i * blk, rr, blk);
+  if (i + 1 < m_blk)
+    o += block_row_dot(peu + i * bb, x + (i + 1) * blk, rr, blk);
+  if (i) {
+    const float* ut = peu + (i - 1) * bb;
+    float acc = 0.0f;
+    for (int c = 0; c < blk; ++c)
+      acc = fmaf(ut[c * blk + rr], x[(i - 1) * blk + c], acc);
+    o += acc;
+  }
+  return o;
+}
+
+// One scenario's running point and best iterate, in shared memory, with the
+// lane constants and the scratch the updates need.
+struct StepState {
+  float *x, *s, *lam, *y, *bx, *by;        // x, bx: nfd; the others: m_p
+  const float *act, *cw, *rb;
+  const float *dx, *gdx;                   // direction and G dx
+  float *ds, *dlam;                        // m_p scratch
+  float* red;                              // 32 floats
+  int nfd, m_p, nb_p, n_ball;
+  float mc;
+};
+
+// Newton update along (dx, gdx) from the point whose matvec is y_ev (the
+// running y itself, or a fresh evaluation of it): fraction-to-boundary step
+// on (s, lam) capped at alpha_max, applied only where the direction is finite
+// (select, never scale), then the merit and the best iterate.  Must be
+// reached by every thread; ends with the block in step.
+__device__ inline void newton_update(const StepState S, const float* y_ev,
+                                     float sigma_min, float tau,
+                                     float alpha_max, float w_cap,
+                                     float& best_merit) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = S.nfd, m_p = S.m_p, nb_p = S.nb_p, n_ball = S.n_ball;
+  const float inf = CUDART_INF_F;
+  float p_mu = 0.0f;
+  for (int l = tid; l < m_p; l += nt) p_mu += S.cw[l] * S.s[l] * S.lam[l];
+  const float mu = block_reduce<OpSum>(p_mu, S.red) / S.mc;
+  const float sig_mu = sigma_min * mu;
+  float min_s = inf, min_l = inf, fin = 1.0f;
+  for (int l = tid; l < m_p; l += nt) {
+    const float act = S.act[l], sl = S.s[l], ll = S.lam[l];
+    const float c = c_at(y_ev, S.rb, l, nb_p, n_ball);
+    const float r2 = (c + sl) * act;
+    const float w = pmin(ll / sl, w_cap);
+    const float jdx = jdx_at(S.gdx, y_ev, l, nb_p, n_ball);
+    const float ds = (-r2 - jdx) * act;
+    const float dlam = ((sig_mu - ll * sl) / sl - w * ds) * act;
+    S.ds[l] = ds;
+    S.dlam[l] = dlam;
+    min_s = pmin(min_s, ds < 0.0f ? -sl / ds : inf);
+    min_l = pmin(min_l, dlam < 0.0f ? -ll / dlam : inf);
+    if (!(fabsf(ds) < inf) || !(fabsf(dlam) < inf)) fin = 0.0f;
+  }
+  min_s = block_reduce<OpMin>(min_s, S.red);
+  min_l = block_reduce<OpMin>(min_l, S.red);
+  fin = block_reduce<OpMin>(fin, S.red);
+  const float alpha =
+      pmin(pmin(pmin(1.0f, tau * min_s), pmin(1.0f, tau * min_l)), alpha_max);
+  const bool upd = alpha > 0.0f && fin > 0.0f;
+  if (upd) {
+    for (int r = tid; r < nfd; r += nt) S.x[r] = S.x[r] + alpha * S.dx[r];
+    for (int l = tid; l < m_p; l += nt) {
+      S.s[l] = S.s[l] + alpha * S.ds[l];
+      if (S.act[l] > 0.0f)
+        S.lam[l] = pmax(S.lam[l] + alpha * S.dlam[l], 1e-16f);
+      S.y[l] = S.y[l] + alpha * S.gdx[l];
+    }
+  }
+  __syncthreads();
+  float m1 = -inf, m2 = -inf, m3 = 0.0f;
+  for (int l = tid; l < m_p; l += nt) {
+    const float c = c_at(S.y, S.rb, l, nb_p, n_ball);
+    if (S.act[l] > 0.0f) {
+      m1 = pmax(m1, pmax(c, 0.0f));
+      m2 = pmax(m2, fabsf(c + S.s[l]));
+    }
+    m3 += S.cw[l] * S.s[l] * S.lam[l];
+  }
+  m1 = block_reduce<OpMax>(m1, S.red);
+  m2 = block_reduce<OpMax>(m2, S.red);
+  m3 = block_reduce<OpSum>(m3, S.red) / S.mc;
+  const float merit = m1 + m2 + m3;
+  if (merit < best_merit) {
+    best_merit = merit;
+    for (int r = tid; r < nfd; r += nt) S.bx[r] = S.x[r];
+    for (int l = tid; l < m_p; l += nt) S.by[l] = S.y[l];
+  }
+  __syncthreads();
+}
+
+// Snap update of the best iterate along (dx, gdx): seven-point line search
+// on phi = sum cw max(c, 0)^2, the point moved only where a trial beats the
+// start.  Must be reached by every thread; ends with the block in step.
+__device__ inline void snap_update(const StepState S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nb_p = S.nb_p, n_ball = S.n_ball;
+  const float alphas[7] = {1.0f, 0.5f, 0.25f, 0.1f, 0.03f, 0.01f, 0.003f};
+  float p[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) p[i] = 0.0f;
+  for (int l = tid; l < S.m_p; l += nt) {
+    const float cw = S.cw[l];
+    float v = pmax(c_at(S.by, S.rb, l, nb_p, n_ball), 0.0f);
+    p[0] += cw * v * v;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      v = pmax(c_at_moved(S.by, S.gdx, alphas[i], S.rb, l, nb_p, n_ball),
+               0.0f);
+      p[i + 1] += cw * v * v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) p[i] = block_reduce<OpSum>(p[i], S.red);
+  float best_a = 0.0f, best_p = p[0];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    if (p[i + 1] < best_p) {
+      best_a = alphas[i];
+      best_p = p[i + 1];
+    }
+  }
+  if (best_a > 0.0f) {
+    for (int r = tid; r < S.nfd; r += nt) S.bx[r] = S.bx[r] + best_a * S.dx[r];
+    for (int l = tid; l < S.m_p; l += nt)
+      S.by[l] = S.by[l] + best_a * S.gdx[l];
   }
   __syncthreads();
 }

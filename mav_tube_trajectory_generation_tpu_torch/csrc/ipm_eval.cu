@@ -1,7 +1,8 @@
-// One fused interior-point evaluation at (x, s, lam) per scenario, band
-// output, for Hopper (sm_90a).  Replaces the Pallas TPU kernel _kernel_band
-// (ipm_eval_step with band_block set) of the JAX package's
-// ops/ipm_kernel.py.
+// One fused interior-point evaluation at (x, s, lam) per scenario, for Hopper
+// (sm_90a), with the weighted Gram leaving as its block-tridiagonal band or
+// whole.  Replaces the Pallas TPU kernels _kernel_band and _kernel
+// (ipm_eval_step with band_block set, and with band_block = 0) of the JAX
+// package's ops/ipm_kernel.py.
 //
 // Per scenario (one thread block each): y = G x + b, the constraint values
 // c in lane layout, jtwr2 = J^T (w r2) (or J^T max(lam + rho c, 0) under
@@ -18,6 +19,12 @@
 // ahead.  One scenario's G^T does not fit a block's shared memory, so the
 // block walks it three times (y; the two J^T reductions; the Gram in 64-lane
 // tiles) and the second and third walk come from L2 or device memory.
+//
+// The full Gram (ipm_eval_gram_launch) runs the same walk with every work
+// item owning a row and ten of all nfd columns: nfd^2 (m_p + n_ball) multiply-
+// adds a scenario (22 MFLOP at the flagship shape, five times the band) and
+// an (nfd, nfd) output, so arithmetic bounds it; the tile walk repeats once
+// for every 512 work items (four times at nfd = 135).
 
 #include "ipm_common.cuh"
 
@@ -26,6 +33,7 @@ namespace {
 struct EvalArgs {
   const float *gt, *b, *rb, *x, *s, *lam;
   float *y, *c, *jtwr2, *jts, *hd, *hu;
+  float* gram;      // not null: the whole Gram goes here, hd and hu unused
   int nfd, m_p, blk, nb_p, n_ball, groups, phr;
   float w_cap;
 };
@@ -76,9 +84,10 @@ ipm_eval_kernel(EvalArgs a) {
   d.groups = a.groups;
   ipm::eval_point(a.gt + (size_t)sc * nfd * m_p, b_s, rb_s, x_s, s_s, lam_s,
                   a.w_cap, a.phr != 0, d, smem, L.ev,
-                  a.hd + (size_t)sc * nfd * blk,
-                  a.hu + (size_t)sc * (nfd - blk) * blk, nullptr, nullptr,
-                  0.0f);
+                  a.gram ? nullptr : a.hd + (size_t)sc * nfd * blk,
+                  a.gram ? nullptr : a.hu + (size_t)sc * (nfd - blk) * blk,
+                  nullptr, nullptr, 0.0f,
+                  a.gram ? a.gram + (size_t)sc * nfd * nfd : nullptr);
 
   for (int l = tid; l < m_p; l += nt) {
     a.y[(size_t)sc * m_p + l] = smem[L.ev.y + l];
@@ -99,28 +108,55 @@ extern "C" int ipm_eval_smem_bytes(int nfd, int m_p, int blk, int nb_p,
              .total * (int)sizeof(float);
 }
 
-// Launches the evaluation for `batch` scenarios on `stream`.  Returns the
-// CUDA error code of the launch (0 on success); does not synchronise.
-extern "C" int ipm_eval_step_launch(
-    const float* gt, const float* b, const float* rb, const float* x,
-    const float* s, const float* lam, float* y, float* c, float* jtwr2,
-    float* jts, float* hd, float* hu, int batch, int nfd, int m_p, int blk,
-    int nb_p, int n_ball, float w_cap, int phr, int threads, void* stream) {
-  if (threads < 64 || threads > 512 || threads % 32 != 0 || m_p % 4 != 0 ||
-      blk < 1 || nfd % blk != 0 || nfd < 2 * blk || 3 * nb_p > m_p ||
-      n_ball < 0 || n_ball > nb_p || batch < 1)
+namespace {
+
+int launch(EvalArgs a, int batch, int threads, void* stream) {
+  if (threads < 64 || threads > 512 || threads % 32 != 0 || a.m_p % 4 != 0 ||
+      a.blk < 1 || a.nfd % a.blk != 0 || a.nfd < 2 * a.blk ||
+      3 * a.nb_p > a.m_p || a.n_ball < 0 || a.n_ball > a.nb_p || batch < 1)
     return (int)cudaErrorInvalidValue;
-  EvalArgs a;
-  a.gt = gt; a.b = b; a.rb = rb; a.x = x; a.s = s; a.lam = lam;
-  a.y = y; a.c = c; a.jtwr2 = jtwr2; a.jts = jts; a.hd = hd; a.hu = hu;
-  a.nfd = nfd; a.m_p = m_p; a.blk = blk; a.nb_p = nb_p; a.n_ball = n_ball;
-  a.groups = ipm::row_groups(threads, m_p);
-  a.phr = phr; a.w_cap = w_cap;
-  const size_t smem =
-      (size_t)make_layout(nfd, m_p, blk, nb_p, a.groups).total * sizeof(float);
+  a.groups = ipm::row_groups(threads, a.m_p);
+  const size_t smem = (size_t)make_layout(a.nfd, a.m_p, a.blk, a.nb_p,
+                                          a.groups).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       ipm_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   ipm_eval_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the evaluation with band output for `batch` scenarios on `stream`.
+// Returns the CUDA error code of the launch (0 on success); does not
+// synchronise.
+extern "C" int ipm_eval_step_launch(
+    const float* gt, const float* b, const float* rb, const float* x,
+    const float* s, const float* lam, float* y, float* c, float* jtwr2,
+    float* jts, float* hd, float* hu, int batch, int nfd, int m_p, int blk,
+    int nb_p, int n_ball, float w_cap, int phr, int threads, void* stream) {
+  EvalArgs a;
+  a.gt = gt; a.b = b; a.rb = rb; a.x = x; a.s = s; a.lam = lam;
+  a.y = y; a.c = c; a.jtwr2 = jtwr2; a.jts = jts; a.hd = hd; a.hu = hu;
+  a.gram = nullptr;
+  a.nfd = nfd; a.m_p = m_p; a.blk = blk; a.nb_p = nb_p; a.n_ball = n_ball;
+  a.phr = phr; a.w_cap = w_cap;
+  return launch(a, batch, threads, stream);
+}
+
+// The same with the whole (nfd, nfd) weighted Gram as output.  `blk` only
+// sizes the tile buffer here: any divisor of nfd with nfd >= 2 blk, 1 will do.
+extern "C" int ipm_eval_gram_launch(
+    const float* gt, const float* b, const float* rb, const float* x,
+    const float* s, const float* lam, float* y, float* c, float* jtwr2,
+    float* jts, float* gram, int batch, int nfd, int m_p, int blk, int nb_p,
+    int n_ball, float w_cap, int phr, int threads, void* stream) {
+  if (gram == nullptr) return (int)cudaErrorInvalidValue;
+  EvalArgs a;
+  a.gt = gt; a.b = b; a.rb = rb; a.x = x; a.s = s; a.lam = lam;
+  a.y = y; a.c = c; a.jtwr2 = jtwr2; a.jts = jts; a.hd = nullptr;
+  a.hu = nullptr; a.gram = gram;
+  a.nfd = nfd; a.m_p = m_p; a.blk = blk; a.nb_p = nb_p; a.n_ball = n_ball;
+  a.phr = phr; a.w_cap = w_cap;
+  return launch(a, batch, threads, stream);
 }

@@ -78,13 +78,7 @@ __host__ __device__ inline Layout make_layout(int nfd, int m_p, int blk,
   return L;
 }
 
-// out[r] = sum_c M[r, c] v[c] for one blk x blk block, r = threadIdx.x < blk.
-__device__ __forceinline__ float block_row_dot(const float* M, const float* v,
-                                               int r, int blk) {
-  float acc = 0.0f;
-  for (int c = 0; c < blk; ++c) acc = fmaf(M[r * blk + c], v[c], acc);
-  return acc;
-}
+using ipm::block_row_dot;
 
 __global__ void __launch_bounds__(512, 2)
 ipm_pipe_kernel(PipeArgs a) {
@@ -95,7 +89,6 @@ ipm_pipe_kernel(PipeArgs a) {
   const int n_ball = a.n_ball;
   const int m_blk = nfd / blk, bb = blk * blk;
   const Layout L = make_layout(nfd, m_p, blk, nb_p, a.groups);
-  const float inf = CUDART_INF_F;
   const float mc = (float)a.mc;
 
   const float* gt = a.gt + (size_t)sc * nfd * m_p;
@@ -194,96 +187,16 @@ ipm_pipe_kernel(PipeArgs a) {
     __syncthreads();
   }
 
+  ipm::StepState st;
+  st.x = x_s; st.s = s_s; st.lam = lam_s; st.y = y_s; st.bx = bx_s;
+  st.by = by_s; st.act = act_s; st.cw = cw_s; st.rb = rb_s; st.dx = dx_s;
+  st.gdx = gdx_s; st.ds = ds_s; st.dlam = dlam_s; st.red = red_s;
+  st.nfd = nfd; st.m_p = m_p; st.nb_p = nb_p; st.n_ball = n_ball; st.mc = mc;
   if (a.upd_mode == kNewton) {
-    float p_mu = 0.0f;
-    for (int l = tid; l < m_p; l += nt) p_mu += cw_s[l] * s_s[l] * lam_s[l];
-    const float mu = ipm::block_reduce<ipm::OpSum>(p_mu, red_s) / mc;
-    const float sig_mu = a.sigma_min * mu;
-    float min_s = inf, min_l = inf, fin = 1.0f;
-    for (int l = tid; l < m_p; l += nt) {
-      const float act = act_s[l], sl = s_s[l], ll = lam_s[l];
-      const float c = ipm::c_at(y_s, rb_s, l, nb_p, n_ball);
-      const float r2 = (c + sl) * act;
-      const float w = ipm::pmin(ll / sl, a.w_cap);
-      const float jdx = ipm::jdx_at(gdx_s, y_s, l, nb_p, n_ball);
-      const float ds = (-r2 - jdx) * act;
-      const float dlam = ((sig_mu - ll * sl) / sl - w * ds) * act;
-      ds_s[l] = ds;
-      dlam_s[l] = dlam;
-      min_s = ipm::pmin(min_s, ds < 0.0f ? -sl / ds : inf);
-      min_l = ipm::pmin(min_l, dlam < 0.0f ? -ll / dlam : inf);
-      if (!(fabsf(ds) < inf) || !(fabsf(dlam) < inf)) fin = 0.0f;
-    }
-    min_s = ipm::block_reduce<ipm::OpMin>(min_s, red_s);
-    min_l = ipm::block_reduce<ipm::OpMin>(min_l, red_s);
-    fin = ipm::block_reduce<ipm::OpMin>(fin, red_s);
-    const float alpha =
-        ipm::pmin(ipm::pmin(ipm::pmin(1.0f, a.tau * min_s),
-                            ipm::pmin(1.0f, a.tau * min_l)),
-                  a.alpha_max);
-    const bool upd = alpha > 0.0f && fin > 0.0f;
-    if (upd) {
-      for (int r = tid; r < nfd; r += nt) x_s[r] = x_s[r] + alpha * dx_s[r];
-      for (int l = tid; l < m_p; l += nt) {
-        s_s[l] = s_s[l] + alpha * ds_s[l];
-        if (act_s[l] > 0.0f)
-          lam_s[l] = ipm::pmax(lam_s[l] + alpha * dlam_s[l], 1e-16f);
-        y_s[l] = y_s[l] + alpha * gdx_s[l];
-      }
-    }
-    __syncthreads();
-    float m1 = -inf, m2 = -inf, m3 = 0.0f;
-    for (int l = tid; l < m_p; l += nt) {
-      const float c = ipm::c_at(y_s, rb_s, l, nb_p, n_ball);
-      if (act_s[l] > 0.0f) {
-        m1 = ipm::pmax(m1, ipm::pmax(c, 0.0f));
-        m2 = ipm::pmax(m2, fabsf(c + s_s[l]));
-      }
-      m3 += cw_s[l] * s_s[l] * lam_s[l];
-    }
-    m1 = ipm::block_reduce<ipm::OpMax>(m1, red_s);
-    m2 = ipm::block_reduce<ipm::OpMax>(m2, red_s);
-    m3 = ipm::block_reduce<ipm::OpSum>(m3, red_s) / mc;
-    const float merit = m1 + m2 + m3;
-    if (merit < best_merit) {
-      best_merit = merit;
-      for (int r = tid; r < nfd; r += nt) bx_s[r] = x_s[r];
-      for (int l = tid; l < m_p; l += nt) by_s[l] = y_s[l];
-    }
-    __syncthreads();
+    ipm::newton_update(st, y_s, a.sigma_min, a.tau, a.alpha_max, a.w_cap,
+                       best_merit);
   } else if (a.upd_mode == kSnap) {
-    const float alphas[7] = {1.0f, 0.5f, 0.25f, 0.1f, 0.03f, 0.01f, 0.003f};
-    float p[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) p[i] = 0.0f;
-    for (int l = tid; l < m_p; l += nt) {
-      const float cw = cw_s[l];
-      float v = ipm::pmax(ipm::c_at(by_s, rb_s, l, nb_p, n_ball), 0.0f);
-      p[0] += cw * v * v;
-#pragma unroll
-      for (int i = 0; i < 7; ++i) {
-        v = ipm::pmax(ipm::c_at_moved(by_s, gdx_s, alphas[i], rb_s, l, nb_p,
-                                      n_ball), 0.0f);
-        p[i + 1] += cw * v * v;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      p[i] = ipm::block_reduce<ipm::OpSum>(p[i], red_s);
-    float best_a = 0.0f, best_p = p[0];
-#pragma unroll
-    for (int i = 0; i < 7; ++i) {
-      if (p[i + 1] < best_p) {
-        best_a = alphas[i];
-        best_p = p[i + 1];
-      }
-    }
-    if (best_a > 0.0f) {
-      for (int r = tid; r < nfd; r += nt) bx_s[r] = bx_s[r] + best_a * dx_s[r];
-      for (int l = tid; l < m_p; l += nt)
-        by_s[l] = by_s[l] + best_a * gdx_s[l];
-    }
-    __syncthreads();
+    ipm::snap_update(st);
   }
 
   // ---- evaluation at the (possibly moved) point ----------------------------
@@ -304,18 +217,7 @@ ipm_pipe_kernel(PipeArgs a) {
     const float sig_mu = a.sigma_min * mu;
     const float* q = a.q + (size_t)sc * nfd;
     for (int r = tid; r < nfd; r += nt) {
-      // (kron-band(P) x)[r] = D_i x_i + U_i x_{i+1} + U_{i-1}^T x_{i-1}
-      const int i = r / blk, rr = r - i * blk;
-      float o = block_row_dot(ped + i * bb, x_s + i * blk, rr, blk);
-      if (i + 1 < m_blk)
-        o += block_row_dot(peu + i * bb, x_s + (i + 1) * blk, rr, blk);
-      if (i) {
-        const float* ut = peu + (i - 1) * bb;
-        float acc = 0.0f;
-        for (int c = 0; c < blk; ++c)
-          acc = fmaf(ut[c * blk + rr], x_s[(i - 1) * blk + c], acc);
-        o += acc;
-      }
+      const float o = ipm::pe_band_mv_row(ped, peu, x_s, r, blk, m_blk);
       rhs_o[r] = -(o + q[r] + smem[L.ev.jtwr2 + r] +
                    sig_mu * smem[L.ev.jts + r]);
     }

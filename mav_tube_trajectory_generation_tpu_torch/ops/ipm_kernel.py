@@ -1,30 +1,35 @@
 """The interior-point step kernels of the plane-layout IPM: CUDA kernels,
 wrappers and plain PyTorch versions.
 
-Replaces three Pallas TPU kernels of the JAX package's ``ops/ipm_kernel.py``:
+Replaces the Pallas TPU kernels of the JAX package's ``ops/ipm_kernel.py``:
 
-  * ``ipm_eval_step`` with ``band_block`` set (``_kernel_band``): at a point
-    (x, s, lam) one evaluation of everything a Newton or snap step needs from
-    the constraint tensor -- y = G x + b, the constraint values c in lane
-    layout, J^T (w r2) (or the clipped multiplier estimate with ``phr``),
-    J^T (1/s) and the block-tridiagonal band of the weighted Gram
-    J^T W J + sum_i lam_i G_i^T G_i;
+  * ``ipm_eval_step`` (``_kernel_band`` with ``band_block`` set, ``_kernel``
+    with ``band_block=0``): at a point (x, s, lam) one evaluation of
+    everything a Newton or snap step needs from the constraint tensor --
+    y = G x + b, the constraint values c in lane layout, J^T (w r2) (or the
+    clipped multiplier estimate with ``phr``), J^T (1/s) and the weighted
+    Gram J^T W J + sum_i lam_i G_i^T G_i, as its block-tridiagonal band or
+    whole;
   * ``ipm_pipe_step`` (``_pipe_kernel``): finish the previous Newton or snap
     step from given block-Thomas factors (column solve, G dx, step length,
     gated update, best-iterate tracking), then evaluate the next point and
     emit its Hessian band and right-hand side;
+  * ``ipm_solve_fused`` (``_solve_kernel``): the whole polish in one launch
+    -- the Newton steps with the band factored and solved inside the kernel
+    (Jacobi equilibration, block-Thomas elimination, Gauss-Jordan inverses of
+    the pivot blocks), then the snap sweeps;
   * ``gt_matvec``: y = G v.
 
-All three work on the padded component-plane lane layout of
+All of them work on the padded component-plane lane layout of
 ``solver.qcqp._PadLayout``: lanes ``[ball-x | ball-y | ball-z | half]``, ball
 constraint i at lane ``c * nb_p + i`` of plane c, packed half-space rows in
 the ball planes' tails.  Jacobian rows are never materialized: for ball i,
 J_i = sum_c y_ic G_ic.  Tensors carry a flat batch axis: ``gt (B, nfd,
 m_p)``, lane rows ``(B, 1, m_p)``, columns ``(B, nfd, 1)``.
 
-The kernels are ``csrc/gt_matvec.cu``, ``csrc/ipm_eval.cu`` and
-``csrc/ipm_pipe.cu`` (CUDA C++, sm_90a, one thread block per scenario, the
-shared device code in ``csrc/ipm_common.cuh``).  What bounds them on an H100
+The kernels are ``csrc/gt_matvec.cu``, ``csrc/ipm_eval.cu``,
+``csrc/ipm_pipe.cu`` and ``csrc/ipm_solve.cu`` (CUDA C++, sm_90a, one thread
+block per scenario, the shared device code in ``csrc/ipm_common.cuh``).  What bounds them on an H100
 is stated at the top of each source.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
@@ -35,7 +40,7 @@ version only for CPU tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -43,7 +48,8 @@ from .. import _build
 
 # Number of times each wrapper has launched its CUDA kernel in this process.
 launches: Dict[str, int] = {"gt_matvec": 0, "ipm_eval_step": 0,
-                            "ipm_pipe_step": 0}
+                            "ipm_eval_step_gram": 0, "ipm_pipe_step": 0,
+                            "ipm_solve_fused": 0}
 
 # Threads per block (one block per scenario).
 THREADS = 512
@@ -243,16 +249,16 @@ def _gram_band(gt, lam_ball, aj, w_aj, blk: int):
     return torch.cat(hd, dim=1), torch.cat(hu, dim=1)
 
 
-EvalOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                torch.Tensor, torch.Tensor]
-
-
 def ipm_eval_step_plain(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
                         w_cap: float = 1e10, phr: bool = False,
-                        band_block: int) -> EvalOut:
+                        band_block: int = 0):
     """``ipm_eval_step`` in plain PyTorch; any float dtype, any device."""
     y, c, jtwr2, jts, lam_ball, aj, w_aj = _eval_core(
         gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=w_cap, phr=phr)
+    if not band_block:
+        gram = (torch.einsum('bnl,bml->bnm', gt * lam_ball, gt)
+                + torch.einsum('bnl,bml->bnm', aj * w_aj, aj))
+        return y, c, jtwr2, jts, gram
     hd, hu = _gram_band(gt, lam_ball, aj, w_aj, band_block)
     return y, c, jtwr2, jts, hd, hu
 
@@ -364,6 +370,152 @@ def ipm_pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
             rhs_new)
 
 
+def _gj_inverse(m):
+    """(B, b, b) inverse by Gauss-Jordan elimination with diagonal pivots and
+    no row swaps (the callers feed equilibrated SPD pivot blocks): the row
+    operations applied to the block and to a running identity, pivot by
+    pivot, as the whole-polish kernel does it."""
+    bb = m.shape[-1]
+    row = torch.arange(bb, device=m.device)[None, :, None]
+    inv = torch.eye(bb, dtype=m.dtype, device=m.device).expand(m.shape)
+    a = m
+    for p in range(bb):
+        d = a[:, p:p + 1, p:p + 1]                          # (B, 1, 1)
+        prow_a = a[:, p:p + 1, :] / d
+        prow_i = inv[:, p:p + 1, :] / d
+        elim = torch.where(row == p, torch.zeros_like(d), a[:, :, p:p + 1])
+        a = torch.where(row == p, prow_a, a - elim * prow_a)
+        inv = torch.where(row == p, prow_i, inv - elim * prow_i)
+    return inv
+
+
+def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
+    """Equilibrated block-Thomas factor and single-column solve of
+    H = blocktridiag(pe_d + gd + reg I, pe_u + gu), all blocks stacked
+    (B, m, blk, blk) / (B, m-1, blk, blk); rhs (B, nfd, 1).  Returns dx.
+
+    H is Jacobi-equilibrated (D H D, D = rsqrt(max(diag H, 1e-30))), factored
+    level by level with Gauss-Jordan pivot-block inverses, and applied to
+    ``rhs``: the scheme of the whole-polish kernel, operation for operation.
+    """
+    m_blk = gd.shape[1]
+    eye_b = torch.eye(blk, dtype=gd.dtype, device=gd.device)
+    h_d = gd + pe_d + reg * eye_b
+    dsc = torch.rsqrt(torch.clamp(
+        torch.diagonal(h_d, dim1=-2, dim2=-1), min=1e-30))   # (B, m, blk)
+    hd = h_d * dsc[:, :, :, None] * dsc[:, :, None, :]
+    hu = (gu + pe_u) * dsc[:, :-1, :, None] * dsc[:, 1:, None, :]
+
+    sinv = [None] * m_blk
+    w_f = [None] * (m_blk - 1)
+    s_cur = hd[:, 0]
+    for i in range(m_blk):
+        sinv[i] = _gj_inverse(s_cur)
+        if i + 1 < m_blk:
+            w_f[i] = sinv[i] @ hu[:, i]                     # S_i^-1 U_i
+            s_cur = hd[:, i + 1] - hu[:, i].transpose(1, 2) @ w_f[i]
+
+    z = [None] * m_blk
+    for i in range(m_blk):
+        r_i = rhs[:, i * blk:(i + 1) * blk, :] * dsc[:, i, :, None]
+        if i:
+            r_i = r_i - hu[:, i - 1].transpose(1, 2) @ z[i - 1]
+        z[i] = sinv[i] @ r_i
+    x_p = [None] * m_blk
+    x_p[m_blk - 1] = z[m_blk - 1]
+    for i in range(m_blk - 2, -1, -1):
+        x_p[i] = z[i] - w_f[i] @ x_p[i + 1]
+    return torch.cat([x_p[i] * dsc[:, i, :, None] for i in range(m_blk)],
+                     dim=1)
+
+
+def ipm_solve_fused_plain(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw,
+                          *, nb_p: int, n_ball: int, mc: int, n_iters: int,
+                          snap_iters: int, sigma_min: float, tau: float,
+                          alpha_max: float, w_cap: float, reg: float,
+                          snap_rho: float, blk: int):
+    """``ipm_solve_fused`` in plain PyTorch; any float dtype, any device."""
+    bsz = gt.shape[0]
+    m_blk = gt.shape[1] // blk
+
+    def band(lam_ball, aj, w_aj):
+        gd, gu = _gram_band(gt, lam_ball, aj, w_aj, blk)
+        return (gd.reshape(bsz, m_blk, blk, blk),
+                gu.reshape(bsz, m_blk - 1, blk, blk))
+
+    x, s, lam, y = x0, s0, lam0, y0
+    best_x, best_y = x0, y0
+    best_merit = torch.full((bsz, 1, 1), float("inf"), dtype=gt.dtype,
+                            device=gt.device)
+    lam_mid = torch.zeros_like(best_merit)
+    for it in range(n_iters):
+        s = torch.clamp(s, min=1e-14) * act + (1.0 - act)
+        y_e, c, jtwr2, jts, lam_ball, aj, w_aj = _eval_core(
+            gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=w_cap,
+            phr=False)
+        r2 = (c + s) * act
+        w = torch.clamp(lam / s, max=w_cap)
+        mu = (cw * s * lam).sum(dim=2, keepdim=True) / mc
+        sig_mu = sigma_min * mu                              # (B, 1, 1)
+        rhs = -(_pe_band_mv(pe_d, pe_u, x, blk) + q + jtwr2 + sig_mu * jts)
+        dx = _band_factor_solve(*band(lam_ball, aj, w_aj), pe_d, pe_u, reg,
+                                rhs, blk)
+        gdx = (gt * dx).sum(dim=1, keepdim=True)             # (B, 1, m_p)
+        jdx = _jdx_lanes_k(gdx, y_e, nb_p, n_ball)
+        ds = (-r2 - jdx) * act
+        dlam = ((sig_mu - lam * s) / s - w * ds) * act
+        alpha = torch.clamp(torch.minimum(_max_step_k(s, ds, tau),
+                                          _max_step_k(lam, dlam, tau)),
+                            max=alpha_max)
+        # A NaN direction yields a finite alpha: gate on the direction.
+        fin = (torch.isfinite(ds) & torch.isfinite(dlam)).all(
+            dim=2, keepdim=True)
+        upd = (alpha > 0) & fin
+        x = torch.where(upd, x + alpha * dx, x)
+        s = torch.where(upd, s + alpha * ds, s)
+        lam = torch.where(upd & (act > 0),
+                          torch.clamp(lam + alpha * dlam, min=1e-16), lam)
+        y = torch.where(upd, y + alpha * gdx, y)
+        merit = _merit_k(_c_lanes_k(y, rb, nb_p, n_ball), s, lam, act, cw, mc)
+        better = merit < best_merit
+        best_x = torch.where(better, x, best_x)
+        best_y = torch.where(better, y, best_y)
+        best_merit = torch.where(better, merit, best_merit)
+        if it == n_iters // 2:
+            lam_mid = torch.where(act > 0, lam, torch.zeros_like(lam)).amax(
+                dim=2, keepdim=True)
+
+    def phi(y_a):
+        v = torch.clamp(_c_lanes_k(y_a, rb, nb_p, n_ball), min=0.0)
+        return (cw * v * v).sum(dim=2, keepdim=True)
+
+    for _ in range(snap_iters):
+        c = _c_lanes_k(best_y, rb, nb_p, n_ball)
+        margin = 3.0 / snap_rho
+        lam_s = torch.where((c > -margin) & (act > 0),
+                            torch.full_like(c, 1e-6), torch.zeros_like(c))
+        s_s = lam_s / snap_rho
+        _, _, jtwr2, _, lam_ball, aj, w_aj = _eval_core(
+            gt, b, rb, best_x, s_s, lam_s, nb_p=nb_p, n_ball=n_ball,
+            w_cap=snap_rho, phr=True)
+        dx = _band_factor_solve(*band(lam_ball, aj, w_aj), pe_d, pe_u, 1e-6,
+                                -jtwr2, blk)
+        gdx = (gt * dx).sum(dim=1, keepdim=True)
+        best_a = torch.zeros_like(best_merit)
+        best_p = phi(best_y)
+        for a_t in SNAP_ALPHAS:
+            p_t = phi(best_y + a_t * gdx)
+            better = p_t < best_p
+            best_a = torch.where(better, torch.full_like(best_a, a_t), best_a)
+            best_p = torch.where(better, p_t, best_p)
+        best_x = torch.where(best_a > 0, best_x + best_a * dx, best_x)
+        best_y = torch.where(best_a > 0, best_y + best_a * gdx, best_y)
+
+    lam_fin_max = torch.where(act > 0, lam, torch.zeros_like(lam)).amax(
+        dim=2, keepdim=True)
+    return (best_x, best_y, s, lam, y, best_merit, lam_mid, lam_fin_max)
+
+
 # ----------------------------------------------------------------------------
 # CUDA wrappers
 # ----------------------------------------------------------------------------
@@ -381,6 +533,9 @@ def _library(name: str) -> ctypes.CDLL:
             lib.ipm_eval_step_launch.argtypes = (
                 [ptr] * 12 + [i32] * 6 + [f32, i32, i32, ptr])
             lib.ipm_eval_step_launch.restype = i32
+            lib.ipm_eval_gram_launch.argtypes = (
+                [ptr] * 11 + [i32] * 6 + [f32, i32, i32, ptr])
+            lib.ipm_eval_gram_launch.restype = i32
             lib.ipm_eval_smem_bytes.argtypes = [i32] * 5
             lib.ipm_eval_smem_bytes.restype = i32
         elif name == "ipm_pipe":
@@ -389,13 +544,19 @@ def _library(name: str) -> ctypes.CDLL:
             lib.ipm_pipe_step_launch.restype = i32
             lib.ipm_pipe_smem_bytes.argtypes = [i32] * 5
             lib.ipm_pipe_smem_bytes.restype = i32
+        elif name == "ipm_solve":
+            lib.ipm_solve_fused_launch.argtypes = (
+                [ptr] * 20 + [i32] * 9 + [f32] * 6 + [i32, ptr])
+            lib.ipm_solve_fused_launch.restype = i32
+            lib.ipm_solve_smem_bytes.argtypes = [i32] * 5
+            lib.ipm_solve_smem_bytes.restype = i32
         _configured[name] = True
     return lib
 
 
 def smem_bytes(name: str, nfd: int, m_p: int, blk: int, nb_p: int) -> int:
-    """Dynamic shared memory one block of ``ipm_eval`` or ``ipm_pipe`` takes
-    at these shapes (builds the library if needed)."""
+    """Dynamic shared memory one block of ``ipm_eval``, ``ipm_pipe`` or
+    ``ipm_solve`` takes at these shapes (builds the library if needed)."""
     fn = getattr(_library(name), f"{name}_smem_bytes")
     return int(fn(nfd, m_p, blk, nb_p, THREADS))
 
@@ -463,8 +624,8 @@ def gt_matvec(gt: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
                   w_cap: float = 1e10, phr: bool = False,
-                  band_block: int) -> EvalOut:
-    """One fused IPM evaluation at (x, s, lam), band output.
+                  band_block: int = 0):
+    """One fused IPM evaluation at (x, s, lam).
 
     Args:
       gt: (B, nfd, m_p) equilibrated G^T in the padded plane layout.
@@ -472,18 +633,16 @@ def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
       x: (B, nfd, 1).  s, lam: (B, 1, m_p) slack / multiplier lane vectors
         (ball entries replicated across the 3 planes, pads s=1, lam=0).
       band_block: size of the vertex blocks the weighted Gram is
-        block-tridiagonal in (``solver.banded.kkt_tridiag_block``).
+        block-tridiagonal in (``solver.banded.kkt_tridiag_block``); 0 for
+        the whole Gram.
 
     Returns (y, c (B, 1, m_p), jtwr2, jts (B, nfd, 1), hd (B, nfd, blk)
-    stacked diagonal blocks, hu (B, nfd - blk, blk) stacked super blocks).
+    stacked diagonal blocks, hu (B, nfd - blk, blk) stacked super blocks),
+    or with ``band_block=0`` (y, c, jtwr2, jts, gram (B, nfd, nfd)).
 
     CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
     through the plain version.  Anything the kernel does not take raises.
     """
-    if not band_block:
-        raise NotImplementedError(
-            "the full-Gram output of ipm_eval_step (band_block=0, TPU "
-            "kernel 10) is not ported yet; pass band_block")
     if gt.device.type == "cpu":
         return ipm_eval_step_plain(gt, b, rb, x, s, lam, nb_p=nb_p,
                                    n_ball=n_ball, w_cap=w_cap, phr=phr,
@@ -504,18 +663,25 @@ def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
             for _ in range(2))
     jtwr2, jts = (torch.empty((bsz, nfd, 1), dtype=f32, device=dev)
                   for _ in range(2))
-    hd = torch.empty((bsz, nfd, blk), dtype=f32, device=dev)
-    hu = torch.empty((bsz, nfd - blk, blk), dtype=f32, device=dev)
+    if blk:
+        name, launch = "ipm_eval_step", lib.ipm_eval_step_launch
+        grams = (torch.empty((bsz, nfd, blk), dtype=f32, device=dev),
+                 torch.empty((bsz, nfd - blk, blk), dtype=f32, device=dev))
+    else:
+        if nfd < 2:
+            raise ValueError(f"nfd={nfd}: the full-Gram kernel needs >= 2")
+        name, launch = "ipm_eval_step_gram", lib.ipm_eval_gram_launch
+        grams = (torch.empty((bsz, nfd, nfd), dtype=f32, device=dev),)
     with torch.cuda.device(dev):
-        err = lib.ipm_eval_step_launch(
+        err = launch(
             gt.data_ptr(), b.data_ptr(), rb.data_ptr(), x.data_ptr(),
             s.data_ptr(), lam.data_ptr(), y.data_ptr(), c.data_ptr(),
-            jtwr2.data_ptr(), jts.data_ptr(), hd.data_ptr(), hu.data_ptr(),
-            bsz, nfd, m_p, blk, nb_p, n_ball, float(w_cap), int(bool(phr)),
-            THREADS, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "ipm_eval_step", B=bsz, nfd=nfd, m_p=m_p, blk=blk)
-    launches["ipm_eval_step"] += 1
-    return y, c, jtwr2, jts, hd, hu
+            jtwr2.data_ptr(), jts.data_ptr(), *(g.data_ptr() for g in grams),
+            bsz, nfd, m_p, blk or 1, nb_p, n_ball, float(w_cap),
+            int(bool(phr)), THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, name, B=bsz, nfd=nfd, m_p=m_p, blk=blk)
+    launches[name] += 1
+    return (y, c, jtwr2, jts) + grams
 
 
 def ipm_pipe_step(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
@@ -597,4 +763,71 @@ def ipm_pipe_step(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
     _raise_on(err, "ipm_pipe_step", B=bsz, nfd=nfd, m_p=m_p, blk=blk,
               upd_mode=upd_mode, eval_mode=eval_mode)
     launches["ipm_pipe_step"] += 1
+    return outs
+
+
+def ipm_solve_fused(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw, *,
+                    nb_p: int, n_ball: int, mc: int, n_iters: int,
+                    snap_iters: int, sigma_min: float, tau: float,
+                    alpha_max: float, w_cap: float, reg: float,
+                    snap_rho: float, blk: int):
+    """The whole plane-layout polish in one launch: ``n_iters``
+    single-direction Newton steps at fixed centring ``sigma_min`` (band factor
+    and solve inside the kernel), then ``snap_iters`` Gauss-Newton feasibility
+    sweeps from the best iterate.
+
+    Args: gt (B, nfd, m_p); b, s0, lam0, y0 (B, 1, m_p); rb (B, 1, nb_p);
+    pe_d (B, m, blk, blk), pe_u (B, m-1, blk, blk) objective band; q, x0
+    (B, nfd, 1); act, cw (1, 1, m_p) lane masks.
+
+    Returns (x_fin (B, nfd, 1), y_fin, s_fin, lam_fin, y_last (B, 1, m_p),
+    best_merit, lam_mid, lam_fin_max (B, 1, 1)): the best iterate after the
+    snap, the last Newton state, and the largest multiplier after step
+    ``n_iters // 2`` and at the end (zero and max(lam0) when ``n_iters=0``).
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if n_iters < 0 or snap_iters < 0:
+        raise ValueError("n_iters and snap_iters must not be negative")
+    kw = dict(nb_p=nb_p, n_ball=n_ball, mc=mc, n_iters=n_iters,
+              snap_iters=snap_iters, sigma_min=sigma_min, tau=tau,
+              alpha_max=alpha_max, w_cap=w_cap, reg=reg, snap_rho=snap_rho,
+              blk=blk)
+    if gt.device.type == "cpu":
+        return ipm_solve_fused_plain(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0,
+                                     y0, act, cw, **kw)
+    if gt.device.type != "cuda":
+        raise ValueError(f"unsupported device {gt.device}")
+    dev = gt.device
+    bsz, nfd, m_p = _check_layout(gt, nb_p, n_ball, blk)
+    m_blk = nfd // blk
+    _check("gt", gt, (bsz, nfd, m_p), dev)
+    for name, a in (("b", b), ("s0", s0), ("lam0", lam0), ("y0", y0)):
+        _check(name, a, (bsz, 1, m_p), dev)
+    _check("rb", rb, (bsz, 1, nb_p), dev)
+    _check("pe_d", pe_d, (bsz, m_blk, blk, blk), dev)
+    _check("pe_u", pe_u, (bsz, m_blk - 1, blk, blk), dev)
+    _check("q", q, (bsz, nfd, 1), dev)
+    _check("x0", x0, (bsz, nfd, 1), dev)
+    _check("act", act, (1, 1, m_p), dev)
+    _check("cw", cw, (1, 1, m_p), dev)
+
+    lib = _library("ipm_solve")
+    f32 = torch.float32
+    row = lambda: torch.empty((bsz, 1, m_p), dtype=f32, device=dev)
+    one = lambda: torch.empty((bsz, 1, 1), dtype=f32, device=dev)
+    outs = (torch.empty((bsz, nfd, 1), dtype=f32, device=dev), row(), row(),
+            row(), row(), one(), one(), one())
+    ins = (gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw)
+    with torch.cuda.device(dev):
+        err = lib.ipm_solve_fused_launch(
+            *(a.data_ptr() for a in ins), *(a.data_ptr() for a in outs),
+            bsz, nfd, m_p, blk, nb_p, n_ball, int(mc), int(n_iters),
+            int(snap_iters), float(sigma_min), float(tau), float(alpha_max),
+            float(w_cap), float(reg), float(snap_rho), THREADS,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "ipm_solve_fused", B=bsz, nfd=nfd, m_p=m_p, blk=blk,
+              n_iters=n_iters, snap_iters=snap_iters)
+    launches["ipm_solve_fused"] += 1
     return outs

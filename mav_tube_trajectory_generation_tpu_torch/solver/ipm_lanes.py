@@ -16,7 +16,9 @@ infeasibility evidence) for the tube-constrained QCQP:
     block-tridiagonal band factor, the factored solves, the step logic), and
     the G dx products go through ``ops.ipm_kernel.gt_matvec``.  The pipelined
     schedule (``IPMConfig.pipelined``) moves the solve, the update and the
-    evaluation into one kernel per step (``ops.ipm_kernel.ipm_pipe_step``).
+    evaluation into one kernel per step (``ops.ipm_kernel.ipm_pipe_step``),
+    and ``IPMConfig.fused`` the whole polish, band factor included, into one
+    launch (``ops.ipm_kernel.ipm_solve_fused``).
   * Slacks and multipliers are lane vectors (ball values replicated over the
     3 planes, pads pinned inert), so every per-constraint update is
     elementwise and the step-length and complementarity reductions are single
@@ -41,9 +43,9 @@ import torch
 from .._tensors import DeviceLike, as_tensor, const, resolve_device
 from ..ops import ipm_kernel
 from . import banded, linear
-from .ipm import IPMConfig
+from .ipm import IPMConfig, _static_certificate
 from .qcqp import (ADMMConfig, QCQPSolution, _PadLayout, _Pre,
-                   _constraint_geometry, _flagship_layout, _objective_blocks,
+                   _flagship_layout, _objective_blocks,
                    _padded_constraint_system, penalty_unscale_maps,
                    solve_qcqp_batch)
 from .structure import ProblemStructure
@@ -198,13 +200,11 @@ def solve_qcqp_ipm_lanes(structure: ProblemStructure, d_fixed, times,
     if blk is None or structure.dimension != 3:
         raise ValueError("lanes IPM requires the flagship free-interior "
                          "3-D family (block-tridiagonal KKT).")
-    if config.fused:
-        raise NotImplementedError(
-            "IPMConfig.fused needs the whole-polish kernel (TPU kernel 11, "
-            "ipm_solve_fused), which is not ported yet")
-    if config.pipelined and config.corrector:
-        raise ValueError("pipelined lanes IPM implements the "
-                         "corrector=False schedule only")
+    if config.fused and config.pipelined:
+        raise ValueError("fused and pipelined are mutually exclusive")
+    if (config.fused or config.pipelined) and config.corrector:
+        raise ValueError("the fused and the pipelined lanes IPM implement "
+                         "the corrector=False schedule only")
     if (lam0_ball is None) != (lam0_half is None):
         raise ValueError("pass lam0_ball and lam0_half together")
     dev = resolve_device(device)
@@ -391,14 +391,32 @@ def solve_qcqp_ipm_lanes(structure: ProblemStructure, d_fixed, times,
     inf_b = torch.full((bsz,), float("inf"), dtype=f32, device=dev)
     snap_iters = config.snap_iters
     snap_rho = config.snap_rho
-    if config.pipelined:
-        act3 = act.reshape(1, 1, m_p).contiguous()
-        cw3 = cw.reshape(1, 1, m_p).contiguous()
-        pipe_kw = dict(nb_p=nb_p, n_ball=n_ball, mc=mc,
-                       sigma_min=float(sigma_min), tau=float(config.tau),
-                       alpha_max=float(alpha_max), w_cap=float(w_cap),
-                       reg=float(config.reg), snap_rho=float(snap_rho),
-                       blk=blk)
+    act3 = act.reshape(1, 1, m_p).contiguous()
+    cw3 = cw.reshape(1, 1, m_p).contiguous()
+    pipe_kw = dict(nb_p=nb_p, n_ball=n_ball, mc=mc,
+                   sigma_min=float(sigma_min), tau=float(config.tau),
+                   alpha_max=float(alpha_max), w_cap=float(w_cap),
+                   reg=float(config.reg), snap_rho=float(snap_rho), blk=blk)
+    if config.fused:
+        # The whole polish, snap sweeps included, in one kernel launch.
+        (x_fin, y_fin, s_fin, lam_fin, y_last, best_merit, lam_mid,
+         lam_last) = ipm_kernel.ipm_solve_fused(
+            gt, b_pad, rb3, pe_d, pe_u, q_flat, x_flat0,
+            s_lane[:, None, :].contiguous(),
+            lam_lane[:, None, :].contiguous(), y0.contiguous(), act3, cw3,
+            n_iters=config.n_iters, snap_iters=snap_iters, **pipe_kw)
+        y_fin, s_fin, lam_fin, y_last = (a[:, 0, :] for a in (
+            y_fin, s_fin, lam_fin, y_last))
+        best_merit = best_merit[:, 0, 0]
+        if config.n_iters == 0:
+            # Snap-only: the kernel's lam_mid stays 0, the ratio would be
+            # huge and the dynamic certificate could fire on rows that are
+            # merely unconverged.  Certificate off, as in the pipelined path.
+            lam_growth = torch.ones((bsz,), dtype=f32, device=dev)
+        else:
+            lam_growth = lam_last[:, 0, 0] / torch.clamp(lam_mid[:, 0, 0],
+                                                         min=1e-30)
+    elif config.pipelined:
 
         def pipe(state, factors, upd_mode, eval_mode):
             outs = ipm_kernel.ipm_pipe_step(
@@ -557,37 +575,6 @@ def solve_qcqp_ipm_lanes(structure: ProblemStructure, d_fixed, times,
         primal_residual=prim_res, dual_residual=mu_fin,
         max_violation=viol, dual_ball=dual_ball, dual_half=dual_half,
         infeasible=infeasible)
-
-
-def _static_certificate(structure, times, d_fixed, waypoints, radii,
-                        config: IPMConfig):
-    """Closed-form infeasibility certificate for violated constant rows
-    (constraints whose Jacobian is zero): (B,) bool.
-
-    Same test as on the reference-layout system of ``qcqp.build_constraints``
-    -- a row with |Jacobian| < 1e-9 (1 + |offset|) whose offset alone
-    violates it -- but the Jacobian norms come from the rows' factored form
-    (each row is an outer product of a control-point map and a direction, so
-    its norm is the product of the two norms) and no per-row Jacobian is
-    materialized.
-    """
-    k = structure.n_segments
-    n = structure.n_coefficients
-    geo = _constraint_geometry(structure, times, d_fixed, waypoints, radii)
-    bsz = times.shape[0]
-    e_norm = torch.linalg.vector_norm(geo.ecp, dim=-1)     # (B, K, N)
-    e_mid = e_norm[:, :, 1:n - 1]                          # (B, K, M)
-    proj_f = torch.linalg.matrix_norm(geo.proj)            # (B, K)
-    dir_n = torch.linalg.vector_norm(geo.dirs, dim=-1)     # (B, K, 2)
-    ball_jac = torch.cat([
-        e_norm[:, :k - 1, n - 1] * float(np.sqrt(3.0)),
-        (proj_f[:, :, None] * e_mid).reshape(bsz, -1)], dim=1)
-    half_jac = (e_mid[:, :, :, None] * dir_n[:, :, None, :]).reshape(bsz, -1)
-    ball_const = torch.linalg.vector_norm(geo.b_ball, dim=-1)
-    return (((ball_jac < 1e-9 * (1.0 + ball_const))
-             & (ball_const - geo.r_ball > config.eps_feas)).any(dim=1)
-            | ((half_jac < 1e-9 * (1.0 + geo.b_half.abs()))
-               & (geo.b_half > config.eps_feas)).any(dim=1))
 
 
 def solve_qcqp_polished_batch(structure: ProblemStructure, d_fixed, times,

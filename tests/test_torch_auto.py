@@ -1,5 +1,5 @@
-"""The port's verdict router (``solver/auto.py``, tiers 0, 1 and 1.5) against
-the JAX package's with ``tier2_f64=False``, on the fixture of
+"""The port's verdict router (``solver/auto.py``, tiers 0, 1, 1.5 and the
+float64 tier 2) against the JAX package's, on the fixture of
 ``tests/test_auto_fast.py`` (K=4, batch 8: generous corridors, two tight
 ones, one structurally infeasible row) with its light configurations, and
 the router's merge semantics on hand-made tier results.
@@ -7,7 +7,9 @@ the router's merge semantics on hand-made tier results.
 Verdicts are discrete, and both routers branch on float32 violations against
 a gate, so a verdict is compared only on rows whose violation (in either
 package) is not within a factor 2 of the gate it is tested against; on this
-fixture that leaves every row.
+fixture that leaves every row.  With tier 2 on, every row must end
+determinate in both packages, and the float64 rows are held to the gate by a
+wide margin (violations of 1e-9 to 1e-14 against 1e-4).
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from mav_tube_trajectory_generation_tpu.solver import structure as jsm
 from mav_tube_trajectory_generation_tpu.solver.ipm import IPMConfig as JIPM
 import mav_tube_trajectory_generation_tpu_torch as mtt
 from mav_tube_trajectory_generation_tpu_torch.solver import auto as tauto
+from mav_tube_trajectory_generation_tpu_torch.solver import ipm as tipm
 from mav_tube_trajectory_generation_tpu_torch.solver import ipm_lanes as tlanes
 
 from torch_port_util import N, to_np, tt
@@ -318,17 +321,344 @@ def test_chain_on_seeded_state_touches_only_open_rows(small_batch,
 
 
 def test_tier2_raises_before_any_work(small_batch):
+    """The float64 tier is there: the entry points run with their defaults
+    (``tier2_f64=True``) and no longer raise NotImplementedError.  What still
+    raises before any work is a missing card with ``device=None``."""
     ts, df, times, waypoints, radii, values = small_batch
-    for fn in (mtt.solve_qcqp_auto, mtt.solve_qcqp_strict):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(ts, df, times, waypoints, radii, warmstart_values=values)
-        with pytest.raises(NotImplementedError, match="tier2_f64=False"):
-            fn(ts, df, times, waypoints, radii, device="cpu",
-               tier2_f64=True)
+    assert not hasattr(tauto, "_TIER2_MESSAGE")
+    res = mtt.solve_qcqp_auto(
+        ts, df, times, waypoints, radii,
+        admm_config=mtt.ADMMConfig(**ADMM_KW),
+        ipm_config=mtt.IPMConfig(**IPM_KW), warmstart_values=values,
+        device="cpu")
+    assert (res.verdict != mtt.UNDETERMINED).all()
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            mtt.solve_qcqp_strict(ts, df, times, waypoints, radii,
-                                  tier2_f64=False)
+        for fn in (mtt.solve_qcqp_auto, mtt.solve_qcqp_strict):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                fn(ts, df, times, waypoints, radii, warmstart_values=values)
+
+
+def _tier0(batch):
+    ts, df, times, waypoints, radii, values = batch
+    return mtt.solve_qcqp_batch(ts, df, times, waypoints, radii,
+                                config=mtt.ADMMConfig(**ADMM_KW),
+                                warmstart_values=values, device="cpu")
+
+
+def _jax_tier0(batch):
+    ts, df, times, waypoints, radii, values = batch
+    js = jsm.make_structure(jsm.free_interior_mask(K + 1, N), 3, N)
+    a = jqcqp.solve_qcqp_batch(
+        js, jnp.asarray(df), jnp.asarray(times), jnp.asarray(waypoints),
+        jnp.asarray(radii),
+        config=jqcqp.ADMMConfig(use_pallas=False, **ADMM_KW),
+        warmstart_values=jnp.asarray(values), scenario_block=4)
+    return js, a
+
+
+def test_tier2_f64_tiny_fast(small_batch):
+    """Tier-2 semantics on a two-row residue, as
+    tests/test_auto_fast.py::test_tier2_f64_tiny_fast asks them of the
+    reference, and against the reference on the same fabricated state:
+    exhibition outranks a certificate, and the float64 certificate replaces
+    the float32 one."""
+    ts, df, times, waypoints, radii, values = small_batch
+    # both packages start tier 2 from the reference's tier-0 solution
+    js, ja = _jax_tier0(small_batch)
+    a = mtt.solution_from_numpy(ja, device="cpu")
+    assert a.infeasible is None and a.cost.dtype == torch.float32
+    np.testing.assert_array_equal(to_np(a.d_free), np.asarray(ja.d_free))
+    a_mask = tuple(af is not None for af in a)
+    a_fields = [af for m, af in zip(a_mask, a) if m]
+    # Row 2: tight (r = 0.1) but feasible; row 7: structurally infeasible.
+    # Both forced into tier 2; row 2 carries a false float32 certificate.
+    idx = np.array([2, 7])
+    t1_viol = np.array([1.0, 1.0], np.float32)
+    t1_inf = np.array([True, False])
+    stage_rows = []
+    merged = tauto._run_tier2_f64(
+        ts, df, times, waypoints, radii, idx, t1_viol, t1_inf, a_fields,
+        a_mask, 1e-4, device="cpu", stage_rows=stage_rows)
+    assert t1_viol[0] < 1e-4, t1_viol
+    assert not t1_inf[0], "a false float32 certificate must not survive"
+    assert t1_inf[1], (t1_viol, t1_inf)
+    pos = tauto._sel_positions(a_mask)
+    assert float(merged[pos["max_violation"]][2]) < 1e-4
+    assert all(m.dtype == f.dtype for m, f in zip(merged, a_fields))
+    # stage 0 takes both rows; the feasible one lands there, the certified
+    # one goes through stage 1 as well (a certificate can false-fire where a
+    # longer run exhibits a point) and then rests: restarts are for
+    # undetermined rows only
+    assert stage_rows == [2, 1]
+    # rows of the batch that were not handed over are not touched
+    others = [0, 1, 3, 4, 5, 6]
+    for m, f in zip(merged, a_fields):
+        np.testing.assert_array_equal(to_np(m)[others], to_np(f)[others])
+
+    j_mask = tuple(af is not None for af in ja)
+    j_fields = [jnp.asarray(af) for m, af in zip(j_mask, ja) if m]
+    j_viol = np.array([1.0, 1.0], np.float32)
+    j_inf = np.array([True, False])
+    j_merged = jauto._run_tier2_f64(
+        js, jnp.asarray(df), jnp.asarray(times), jnp.asarray(waypoints),
+        jnp.asarray(radii), idx, j_viol, j_inf, j_fields, j_mask,
+        tuple(af.dtype.name for af in j_fields), 1e-4)
+    np.testing.assert_array_equal(t1_inf, j_inf)
+    assert j_viol[0] < 1e-6 and t1_viol[0] < 1e-6       # float64 points
+    np.testing.assert_allclose(t1_viol[1], j_viol[1], rtol=1e-5)
+    j_pos = jauto._sel_positions(j_mask)
+    # the float64 optimum of the feasible row: the same point in both
+    np.testing.assert_allclose(
+        to_np(merged[pos["d_free"]])[2],
+        np.asarray(j_merged[j_pos["d_free"]])[2], rtol=0,
+        atol=1e-4 * np.abs(np.asarray(j_merged[j_pos["d_free"]])[2]).max())
+
+
+def test_tier2_optimality_repair_chain_landed(small_batch):
+    """A row the float32 restart chain landed (feasible by exhibition but
+    possibly far from optimal, tier_mark 2 or 3) joins the float64 stages
+    anyway, and the float64 interior-point iterate replaces the repaired
+    point once it is strictly feasible.  Without the chain mark the same
+    feasible row is left untouched.  The per-row state is seeded with
+    sentinels (a violation just under the gate, a certificate that is not
+    true), so that the write-back itself is what the asserts see."""
+    ts, df, times, waypoints, radii, values = small_batch
+    a = _tier0(small_batch)
+    a_mask = tuple(af is not None for af in a)
+    pos = tauto._sel_positions(a_mask)
+    sel = [i for i, m in enumerate(a_mask) if m]
+    pos["cost"] = sel.index(mtt.QCQPSolution._fields.index("cost"))
+    row = 2                     # tight (r = 0.1) but feasible corridor
+
+    def fabricate():
+        """Merged fields with row 2 feasible by exhibition but carrying a
+        cost inflated ten times (a snap-repaired exhibit)."""
+        fields = [af.clone() for m, af in zip(a_mask, a) if m]
+        fields[pos["cost"]][row] *= 10.0
+        fields[pos["max_violation"]][row] = 9.0e-5
+        return fields
+
+    args = (ts, df, times, waypoints, radii, np.array([row]))
+    inflated = float(fabricate()[pos["cost"]][row])
+
+    # No chain mark: the feasible row never enters tier 2.
+    t1_viol = np.array([9.0e-5], np.float32)
+    t1_inf = np.array([True])                           # sentinel
+    stage_rows = []
+    kept = tauto._run_tier2_f64(*args, t1_viol, t1_inf, fabricate(), a_mask,
+                                1e-4, device="cpu", stage_rows=stage_rows)
+    assert float(kept[pos["cost"]][row]) == inflated
+    assert stage_rows == [] and t1_inf[0] and t1_viol[0] == np.float32(9e-5)
+    mark = np.array([1], np.int8)
+    tauto._run_tier2_f64(*args, t1_viol, t1_inf, fabricate(), a_mask, 1e-4,
+                         tier_mark=mark, device="cpu", stage_rows=stage_rows)
+    assert stage_rows == [] and mark[0] == 1
+
+    # Chain mark (tier_mark 2 = restart #1): the row joins stage 0 and the
+    # near-optimal float64 point replaces the repaired one.
+    mark = np.array([2], np.int8)
+    merged = tauto._run_tier2_f64(*args, t1_viol, t1_inf, fabricate(),
+                                  a_mask, 1e-4, tier_mark=mark, device="cpu",
+                                  stage_rows=stage_rows)
+    assert stage_rows == [1]                 # landed at once: no later stage
+    assert float(merged[pos["cost"]][row]) < 0.5 * inflated
+    assert float(merged[pos["max_violation"]][row]) < 1e-6
+    # the running minimum took the float64 violation, the certificate was
+    # replaced by the float64 solve's, the row is float64-landed
+    assert t1_viol[0] < 1e-6 and not t1_inf[0] and mark[0] == 4
+
+
+class _FakeRows:
+    """Stands in for the float64 row solvers of ``solver.ipm``: returns,
+    stage after stage, the hand-made (max_violation, infeasible) lists it was
+    given, with every other field filled with the stage's iteration count --
+    so that a merged row says which stage it came from."""
+
+    def __init__(self, template, results):
+        self.template, self.results, self.calls = template, results, []
+
+    def _answer(self, d_fixed, cfg, x0):
+        viol, inf = self.results[len(self.calls)]
+        rows = d_fixed.shape[0]
+        assert rows == len(viol), (len(self.calls), rows, viol)
+        assert d_fixed.dtype == torch.float64
+        self.calls.append(dict(rows=rows, n_iters=cfg.n_iters,
+                               x0=None if x0 is None else x0.clone()))
+        fields = {}
+        for name in mtt.QCQPSolution._fields:
+            if name == "infeasible":
+                fields[name] = torch.tensor(inf)
+            elif name == "max_violation":
+                fields[name] = torch.tensor(viol, dtype=torch.float64)
+            else:
+                t = getattr(self.template, name)
+                fields[name] = torch.full((rows,) + t.shape[1:],
+                                          float(cfg.n_iters),
+                                          dtype=torch.float64)
+        return mtt.QCQPSolution(**fields)
+
+    def polished(self, structure, d_fixed, *args, ipm_config=None, **kw):
+        return self._answer(d_fixed, ipm_config, None)
+
+    def restart(self, structure, d_fixed, *args, config=None, x0=None,
+                lam0_ball=None, lam0_half=None):
+        assert lam0_ball.shape[0] == lam0_half.shape[0] == d_fixed.shape[0]
+        return self._answer(d_fixed, config, x0)
+
+
+def test_tier2_stage_semantics_on_hand_made_results(small_batch,
+                                                    monkeypatch):
+    """Which rows enter which stage, and what is merged, on fabricated
+    float64 results (escalated rows 2, 3, 5, 7 -> positions 0..3):
+
+      position 0: undetermined (0.5); 1: certified by float32 (0.3, True);
+      2: landed by the restart chain (5e-5, tier_mark 2): pending;
+      3: landed by tier 1 (2e-5): never touched.
+
+    stage 0 (30 it) takes 0, 1, 2:  viol [0.4, 0.2, 3e-4]  cert [F, T, F]
+    stage 1 (120)   takes 0, 1, 2 (certified rows included, pending rides):
+                                    viol [0.45, 1e-5, 2e-4] cert [T, F, F]
+      0: worse than 0.4 -> keeps stage 0's row, minimum stays 0.4, the
+         certificate is replaced by True: it rests from here on;
+      1: under the gate -> takes stage 1's row, FEASIBLE;
+      2: still not under the gate in float64 -> the float32 exhibit stays.
+    stage 2 (60, restart) takes 2 alone, warm-started from its best float64
+      iterate (stage 1's, 2e-4 < 3e-4):  viol [5e-6]  cert [F]
+      -> the float64 row replaces the repaired one, pending is cleared.
+    stage 3 has nothing left.
+    """
+    ts, df, times, waypoints, radii, values = small_batch
+    a = _tier0(small_batch)
+    a = a._replace(infeasible=torch.zeros(8, dtype=torch.bool))
+    a_mask = tuple(f is not None for f in a)
+    pos = tauto._sel_positions(a_mask)
+    idx = np.array([2, 3, 5, 7])
+    t1_viol = np.array([0.5, 0.3, 5e-5, 2e-5], np.float32)
+    t1_inf = np.array([False, True, False, False])
+    mark = np.array([1, 1, 2, 1], np.int8)
+    fields = [f.clone() for f in a]
+    fields[pos["max_violation"]][idx] = torch.tensor(t1_viol)
+    fake = _FakeRows(a, [([0.4, 0.2, 3e-4], [False, True, False]),
+                         ([0.45, 1e-5, 2e-4], [True, False, False]),
+                         ([5e-6], [False])])
+    monkeypatch.setattr(tipm, "_solve_qcqp_polished_rows", fake.polished)
+    monkeypatch.setattr(tipm, "_solve_qcqp_ipm_rows", fake.restart)
+    stage_rows = []
+    merged = tauto._run_tier2_f64(
+        ts, df, times, waypoints, radii, idx, t1_viol, t1_inf, fields,
+        a_mask, 1e-4, tier_mark=mark, device="cpu", stage_rows=stage_rows)
+    assert stage_rows == [3, 3, 1]
+    assert [c["n_iters"] for c in fake.calls] == [30, 120, 60]
+    assert fake.calls[0]["x0"] is None and fake.calls[1]["x0"] is None
+    assert (fake.calls[2]["x0"] == 120.0).all()        # best float64 iterate
+    np.testing.assert_allclose(t1_viol, [0.4, 1e-5, 5e-6, 2e-5], rtol=1e-6)
+    np.testing.assert_array_equal(t1_inf, [True, False, False, False])
+    np.testing.assert_array_equal(mark, [4, 4, 4, 1])
+    d_free = to_np(merged[pos["d_free"]])
+    assert (d_free[2] == 30.0).all()         # stage 0's row survived a worse
+    assert (d_free[3] == 120.0).all()
+    assert (d_free[5] == 60.0).all()
+    np.testing.assert_array_equal(d_free[7], to_np(a.d_free)[7])
+    np.testing.assert_allclose(to_np(merged[pos["max_violation"]])[idx],
+                               [0.4, 1e-5, 5e-6, 2e-5], rtol=1e-6)
+    assert merged[pos["d_free"]].dtype == a.d_free.dtype    # float32 kept
+    verdict = np.where(t1_viol < 1e-4, 1, np.where(t1_inf, -1, 0))
+    np.testing.assert_array_equal(verdict, [-1, 1, 1, 1])
+
+
+def test_tier2_chunks_give_what_one_batch_gives(small_batch, monkeypatch):
+    """Rows are independent: solving the residue one row at a time
+    (``TIER2_CHUNK_ROWS = 1``) gives the verdict data and the merged rows of
+    one batch: 1e-3 of each field's scale on the feasible rows (measured
+    8e-5 in the coefficients: once the merit is at rounding level, which of
+    the last iterates is "best" is decided by noise)."""
+    ts, df, times, waypoints, radii, values = small_batch
+    a = _tier0(small_batch)
+    a_mask = tuple(af is not None for af in a)
+    idx = np.array([2, 3, 7])
+    outs = []
+    for chunk in (512, 1):
+        monkeypatch.setattr(tauto, "TIER2_CHUNK_ROWS", chunk)
+        viol = np.array([1.0, 1.0, 1.0], np.float32)
+        inf = np.array([False, False, False])
+        rows = []
+        merged = tauto._run_tier2_f64(
+            ts, df, times, waypoints, radii, idx, viol, inf,
+            [af for m, af in zip(a_mask, a) if m], a_mask, 1e-4,
+            device="cpu", stage_rows=rows)
+        outs.append((viol, inf, rows, merged))
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    np.testing.assert_array_equal(outs[0][1], [False, False, True])
+    assert outs[0][2] == outs[1][2]
+    assert (outs[0][0][:2] < 1e-6).all() and (outs[1][0][:2] < 1e-6).all()
+    # the feasible rows end at the same optimum (the infeasible row's
+    # iterate diverges, and 150 steps amplify the rounding of a batched
+    # against a single factorization: its certificate is what is compared)
+    feas = [0, 1, 2, 3, 4, 5, 6]
+    for m0, m1 in zip(outs[0][3], outs[1][3]):
+        if m0.dtype.is_floating_point:
+            np.testing.assert_allclose(
+                to_np(m0)[feas], to_np(m1)[feas], rtol=0,
+                atol=1e-3 * max(1e-30, float(m0[feas].abs().max())))
+
+
+@pytest.fixture(scope="module")
+def strict_both(small_batch):
+    """Both routers with tier 2 on, both gates at 1e-4, the light
+    configurations (the call of
+    tests/test_auto_fast.py::test_strict_determinacy_contract)."""
+    ts, df, times, waypoints, radii, values = small_batch
+    js = jsm.make_structure(jsm.free_interior_mask(K + 1, N), 3, N)
+    ref = jauto.solve_qcqp_auto(
+        js, jnp.asarray(df), jnp.asarray(times), jnp.asarray(waypoints),
+        jnp.asarray(radii),
+        admm_config=jqcqp.ADMMConfig(use_pallas=False, **ADMM_KW),
+        ipm_config=JIPM(**IPM_KW), warmstart_values=jnp.asarray(values),
+        gate=1e-4, strict_gate=1e-4, tier2_f64=True, interpret=True)
+    res = mtt.solve_qcqp_auto(
+        ts, df, times, waypoints, radii,
+        admm_config=mtt.ADMMConfig(**ADMM_KW),
+        ipm_config=mtt.IPMConfig(**IPM_KW), warmstart_values=values,
+        gate=1e-4, strict_gate=1e-4, device="cpu")
+    return res, ref
+
+
+def test_strict_determinacy_contract(strict_both):
+    """With tier 2 on (the default) every verdict is determinate (+1 / -1,
+    never 0): the contract the strict entry point ships."""
+    res, _ = strict_both
+    assert (res.verdict != mtt.UNDETERMINED).all(), res.verdict
+    v = to_np(res.solution.max_violation)
+    assert (v[res.verdict == mtt.FEASIBLE] < 1e-4).all()
+    assert res.verdict[7] == mtt.INFEASIBLE
+    assert (res.verdict[:7] == mtt.FEASIBLE).all()
+    assert res.tier[7] == 4                 # certified rows go through tier 2
+    assert res.solution.cost.dtype == torch.float32
+
+
+def test_router_with_tier2_against_reference(strict_both):
+    """Verdict and last tier row by row, and what FEASIBLE exhibits."""
+    res, ref = strict_both
+    v_o = to_np(res.solution.max_violation)
+    v_r = np.asarray(ref.solution.max_violation)
+    print("port", res.verdict, res.tier, v_o, "reference", ref.verdict,
+          ref.tier, v_r)
+    assert (ref.verdict != jauto.UNDETERMINED).all()
+    np.testing.assert_array_equal(res.verdict, ref.verdict)
+    np.testing.assert_array_equal(res.escalated, ref.escalated)
+    # the last tier that re-ran a row: equal, except that a row within a
+    # factor 2 of the gate after a float32 tier (in either package) may be
+    # landed one tier earlier or later
+    differs = res.tier != ref.tier
+    assert differs.sum() <= 1, (res.tier, ref.tier)
+    assert (v_o[res.verdict == mtt.FEASIBLE] < 1e-4).all()
+    assert (v_r[ref.verdict == jauto.FEASIBLE] < 1e-4).all()
+    # rows the float64 tier landed in both are the same optimum
+    both = (res.tier == 4) & (ref.tier == 4) & (res.verdict == mtt.FEASIBLE)
+    if both.any():
+        np.testing.assert_allclose(to_np(res.solution.cost)[both],
+                                   np.asarray(ref.solution.cost)[both],
+                                   rtol=1e-4)
 
 
 def test_strict_entry_point_defaults(small_batch):
@@ -336,9 +666,9 @@ def test_strict_entry_point_defaults(small_batch):
     tier 0, it6 + speculative restart; every FEASIBLE row exhibits < 1e-4."""
     ts, df, times, waypoints, radii, values = small_batch
     res = mtt.solve_qcqp_strict(ts, df, times, waypoints, radii,
-                                warmstart_values=values, tier2_f64=False,
-                                device="cpu")
+                                warmstart_values=values, device="cpu")
     v = to_np(res.solution.max_violation)
+    assert (res.verdict != mtt.UNDETERMINED).all()
     assert (v[res.verdict == mtt.FEASIBLE] < 1e-4).all()
     assert (res.verdict[:7] == mtt.FEASIBLE).all()
     assert res.verdict[7] == mtt.INFEASIBLE and res.escalated[7]
@@ -370,12 +700,14 @@ def test_strict_on_the_card_matches_host(small_batch):
         pytest.skip("needs a CUDA device: the kernels have no host mode")
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     ts, df, times, waypoints, radii, values = small_batch
-    kw = dict(warmstart_values=values, tier2_f64=False)
+    kw = dict(warmstart_values=values)        # the defaults: tier 2 on
     host = mtt.solve_qcqp_strict(ts, df, times, waypoints, radii,
                                  device="cpu", **kw)
     before = dict(ipm_kernel.launches)
     card = mtt.solve_qcqp_strict(ts, df, times, waypoints, radii, **kw)
-    assert all(ipm_kernel.launches[n] > before[n] for n in before)
+    assert all(ipm_kernel.launches[n] > before[n]
+               for n in ("gt_matvec", "ipm_eval_step", "ipm_pipe_step"))
+    assert (card.verdict != mtt.UNDETERMINED).all()
     v_h = to_np(host.solution.max_violation)
     v_c = to_np(card.solution.max_violation)
     sure = ~(((v_h > 5e-5) & (v_h < 2e-4)) | ((v_c > 5e-5) & (v_c < 2e-4)))

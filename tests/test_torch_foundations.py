@@ -391,3 +391,54 @@ def test_port_imports_without_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_solution_round_trip_through_numpy():
+    """``solution_to_numpy`` and ``solution_from_numpy`` carry a solution
+    between the packages: float fields in the asked dtype, flags as bool,
+    missing fields None."""
+    sc = mtt.make_inputs(4, 3, device="cpu")
+    sol = mtt.solve_qcqp_batch(sc.free, sc.d_fixed_free, sc.times,
+                               sc.waypoints, sc.radii,
+                               mtt.ADMMConfig(n_stages=1, n_iters=5),
+                               warmstart_values=sc.values, device="cpu")
+    as_np = mtt.solution_to_numpy(sol)
+    assert "infeasible" not in as_np
+    back = mtt.solution_from_numpy(as_np, device="cpu")
+    assert back.infeasible is None and back.converged.dtype == torch.bool
+    for name in mtt.QCQPSolution._fields[:-1]:
+        np.testing.assert_array_equal(to_np(getattr(back, name)),
+                                      to_np(getattr(sol, name)), err_msg=name)
+    as_np["infeasible"] = np.array([True, False, True])
+    wide = mtt.solution_from_numpy(as_np, device="cpu", dtype=torch.float64)
+    assert wide.cost.dtype == torch.float64
+    assert wide.infeasible.dtype == torch.bool and bool(wide.infeasible[0])
+
+
+def test_port_solves_the_strict_path_without_jax():
+    """The strict router with its defaults (float64 last tier on) and the
+    fused polish run on the host in a process where neither jax nor the JAX
+    package can be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mav_tube_trajectory_generation_tpu'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "import mav_tube_trajectory_generation_tpu_torch as m\n"
+        "sc = m.make_inputs(4, 4, device='cpu')\n"
+        "radii = sc.radii.clone()\n"
+        "radii[1] = 0.1\n"
+        "r = m.solve_qcqp_strict(sc.free, sc.d_fixed_free, sc.times,\n"
+        "    sc.waypoints, radii, warmstart_values=sc.values, device='cpu')\n"
+        "assert (r.verdict != m.UNDETERMINED).all()\n"
+        "p = m.solve_qcqp_polished_batch(sc.free, sc.d_fixed_free, sc.times,\n"
+        "    sc.waypoints, radii, ipm_config=m.IPMConfig(n_iters=4,\n"
+        "    sigma_min=0.3, corrector=False, fused=True),\n"
+        "    warmstart_values=sc.values, device='cpu')\n"
+        "assert torch.isfinite(p.cost).all()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

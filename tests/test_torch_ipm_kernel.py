@@ -1,7 +1,8 @@
-"""The plain PyTorch versions of the three interior-point kernels
-(``ipm_eval_step`` with band output, ``ipm_pipe_step``, ``gt_matvec``) against
-the JAX package's Pallas kernels run in interpret mode, one call each, on the
-same float32 arrays: random arrays at the shapes of
+"""The plain PyTorch versions of the interior-point kernels (``ipm_eval_step``
+with band output and with the whole Gram, ``ipm_pipe_step``,
+``ipm_solve_fused``, ``gt_matvec``) against the JAX package's Pallas kernels
+run in interpret mode, one call each, on the same float32 arrays: random
+arrays at the shapes of
 ``tests/test_ipm_lanes.py::test_ipm_kernel_eval_matches_xla_core`` (m_p >
 3 nb_p: the final half-space plane is present) and the recorded calls of a
 real K=4 solve (m_p == 3 nb_p: all half rows packed in the tails).
@@ -31,6 +32,16 @@ times its own scale (max |reference|):
   ulp of max(rb^2) (6400 here, ulp 5e-4), so two float32 evaluations differ
   by rho * ulp * max|gt| per near-active lane (measured: up to 7 on a
   right-hand side of scale 9).  The floor is four lanes' worth.
+* the whole polish (``ipm_solve_fused``) is many such steps in a row.  Short
+  runs (one or two Newton steps, one or two snap sweeps) hold ``TOL_REAL`` in
+  every output and scenario (measured 1e-4; the merit 1e-3).  After ten
+  Newton steps the best iterate still does (x_fin, y_fin: measured 1.2e-4),
+  but the running iterate (s_fin, lam_fin, y_last, the merit, and already
+  lam_mid at step 5) is the endgame's: mu has fallen to float32's floor and
+  two float32 orders of the same sums leave it 1e-2 (lam_mid, slacks) to 0.8
+  (multipliers) of scale apart.  Those outputs
+  are held to the solution class only: finite, and a scaled primal residual
+  of the final point within 3x of the reference's plus 5e-5.
 """
 
 import numpy as np
@@ -52,6 +63,13 @@ MODE_PAIRS = [("none", "snap"), ("snap", "snap"), ("snap", "none"),
 PIPE_OUT = ("x", "s", "lam", "y", "bx", "by", "bm", "max_lam", "hd", "hu",
             "rhs")
 EVAL_OUT = ("y", "c", "jtwr2", "jts", "hd", "hu")
+GRAM_OUT = ("y", "c", "jtwr2", "jts", "gram")
+FUSED_OUT = ("x_fin", "y_fin", "s_fin", "lam_fin", "y_last", "best_merit",
+             "lam_mid", "lam_fin_max")
+FUSED_CONFIGS = {"it10_snap2": dict(n_iters=10, snap_iters=2),
+                 "snap_only": dict(n_iters=0, snap_iters=2),
+                 "it1": dict(n_iters=1, snap_iters=0),
+                 "it2_snap1": dict(n_iters=2, snap_iters=1)}
 
 
 def _close(ours, ref, names, tol=TOL, flip_rows=0, floors=None):
@@ -200,9 +218,9 @@ def real_calls():
     p = problem(k=4, batch=8, seed=0)
     ts = mtt.make_structure(mtt.free_interior_mask(5, N), 3, N)
     d_fixed = mtt.extract_fixed_values(ts, tt(p["values"]))
-    calls = {"pipe": [], "eval": [], "mv": []}
+    calls = {"pipe": [], "eval": [], "mv": [], "fused": []}
     kept = {n: getattr(tk, n) for n in ("ipm_pipe_step", "ipm_eval_step",
-                                        "gt_matvec")}
+                                        "gt_matvec", "ipm_solve_fused")}
 
     def rec(name, key):
         def wrapper(*a, **k):
@@ -213,11 +231,14 @@ def real_calls():
     tk.ipm_pipe_step = rec("ipm_pipe_step", "pipe")
     tk.ipm_eval_step = rec("ipm_eval_step", "eval")
     tk.gt_matvec = rec("gt_matvec", "mv")
+    tk.ipm_solve_fused = rec("ipm_solve_fused", "fused")
     try:
-        for cfg in (dict(n_iters=0, snap_iters=2, pipelined=True),
+        for cfg in [dict(n_iters=0, snap_iters=2, pipelined=True),
                     dict(n_iters=3, snap_iters=1, pipelined=True),
                     dict(n_iters=2, snap_iters=0, pipelined=True),
-                    dict(n_iters=2, snap_iters=1)):
+                    dict(n_iters=2, snap_iters=1)] + [
+                        dict(fused=True, **c)
+                        for c in FUSED_CONFIGS.values()]:
             mtt.solve_qcqp_polished_batch(
                 ts, d_fixed, p["times"], p["waypoints"], p["radii"],
                 admm_config=mtt.ADMMConfig(n_stages=1, **BENCH_KW),
@@ -257,6 +278,220 @@ def test_eval_step_real_system_against_pallas_interpret(real_calls, phr):
     _close((tk.gt_matvec_plain(*a_mv),),
            (jk.gt_matvec(*(jnp.asarray(to_np(x)) for x in a_mv),
                          interpret=True),), ("y",))
+
+
+@pytest.mark.parametrize("phr", [False, True])
+def test_full_gram_random_against_pallas_interpret(phr):
+    """``band_block=0``: the whole weighted Gram, against the Pallas kernel
+    and against the band form of the same point."""
+    d, kw = _random_inputs(seed=4)
+    if phr:
+        rng = np.random.RandomState(5)
+        d["lam"] = np.where(rng.rand(*d["lam"].shape) < 0.3, 1e-6,
+                            0.0).astype(np.float32)
+        d["s"] = (d["lam"] / 1e4).astype(np.float32)
+    args = [d[n] for n in ("gt", "b", "rb", "x", "s", "lam")]
+    w_cap = 1e4 if phr else 1e6
+    ekw = dict(nb_p=kw["nb_p"], n_ball=kw["n_ball"], w_cap=w_cap, phr=phr)
+    ref = jk.ipm_eval_step(*(jnp.asarray(a) for a in args), band_block=0,
+                           interpret=True, **ekw)
+    ours = tk.ipm_eval_step(*(tt(a) for a in args), band_block=0, **ekw)
+    assert len(ours) == 5 and ours[4].shape == (2, 24, 24)
+    _close(ours, ref, GRAM_OUT)
+    gram = to_np(ours[4])
+    np.testing.assert_allclose(gram, gram.transpose(0, 2, 1), rtol=0,
+                               atol=TOL * np.abs(gram).max())
+    band = tk.ipm_eval_step_plain(*(tt(a) for a in args),
+                                  band_block=kw["blk"], **ekw)
+    blk, nfd = kw["blk"], 24
+    hd, hu = to_np(band[4]), to_np(band[5])
+    scale = np.abs(gram).max()
+    for i in range(nfd // blk):
+        r = slice(i * blk, (i + 1) * blk)
+        assert np.abs(hd[:, r] - gram[:, r, r]).max() <= TOL * scale
+        if (i + 1) * blk < nfd:
+            q = slice((i + 1) * blk, (i + 2) * blk)
+            assert np.abs(hu[:, r] - gram[:, r, q]).max() <= TOL * scale
+    for o, b in zip(ours[:4], band[:4]):        # the same point otherwise
+        np.testing.assert_array_equal(to_np(o), to_np(b))
+
+
+@pytest.mark.parametrize("phr", [False, True])
+def test_full_gram_real_system_against_pallas_interpret(real_calls, phr):
+    a, k = [c for c in real_calls["eval"] if c[1]["phr"] == phr][-1]
+    k = dict(k, band_block=0)
+    ours = tk.ipm_eval_step_plain(*a, **k)
+    ref = jk.ipm_eval_step(*(jnp.asarray(to_np(x)) for x in a),
+                           interpret=True, **k)
+    assert ours[4].shape == (8, 45, 45)
+    _close(ours, ref, GRAM_OUT, tol=TOL_REAL)
+    # outside the block-tridiagonal band the weighted Gram is exactly zero:
+    # every constraint row touches one segment's two endpoint vertices
+    gram = to_np(ours[4]).reshape(8, 3, 15, 3, 15)
+    assert not gram[:, 0, :, 2].any() and not gram[:, 2, :, 0].any()
+
+
+@pytest.mark.parametrize("n_iters,snap_iters", [(2, 0), (0, 1), (2, 1)])
+def test_solve_fused_random_against_pallas_interpret(n_iters, snap_iters):
+    """Random arrays with the final half-space plane present, four scenarios
+    handed to the Pallas kernel as two blocks of two (its scenario blocking)
+    and to the port as a flat batch of four."""
+    d, kw = _random_inputs(seed=10, s_blk=4)
+    state = {n: d[n] for n in ("gt", "b", "rb", "pe_d", "pe_u", "q", "act",
+                               "cw")}
+    state.update(x0=d["x"], s0=d["s"], lam0=d["lam"])
+    state["y0"] = (np.einsum('snm,sno->som', d["gt"], d["x"])
+                   + d["b"]).astype(np.float32)
+    kw = dict(kw, n_iters=n_iters, snap_iters=snap_iters)
+    names = mtt.convert.FUSED_SOLVE_INPUTS
+    blocked = {n: (state[n] if n in ("act", "cw") else
+                   state[n].reshape((2, 2) + state[n].shape[1:]))
+               for n in names}
+    import jax
+    ref = jax.vmap(lambda *a: jk.ipm_solve_fused(
+        *a, jnp.asarray(state["act"]), jnp.asarray(state["cw"]),
+        interpret=True, **kw))(*(jnp.asarray(blocked[n]) for n in names[:10]))
+    ref = [np.asarray(r).reshape((4,) + r.shape[2:]) for r in ref]
+    args = mtt.fused_state_from_numpy(blocked, device="cpu")
+    assert args[0].shape == (4, 24, 512) and args[10].shape == (1, 1, 512)
+    ours = tk.ipm_solve_fused(*args, **kw)
+    # random systems are well conditioned: a margin of ten on the eval's
+    # tolerance for the chain of steps
+    _close(ours, ref, FUSED_OUT, tol=10 * TOL)
+    assert (np.abs(to_np(ours[0]) - d["x"]).max() > 0)
+
+
+def _scaled_residual(y_fin, a, k):
+    """(B,) max over real lanes of max(c, 0) at y_fin (scaled space)."""
+    c = tk._c_lanes_k(tt(to_np(y_fin)), a[2], k["nb_p"], k["n_ball"])
+    return to_np(torch.where(a[10] > 0, torch.clamp(c, min=0.0),
+                             torch.zeros_like(c)).amax(dim=2)[:, 0])
+
+
+@pytest.mark.parametrize("name", list(FUSED_CONFIGS))
+def test_solve_fused_real_system_against_pallas_interpret(real_calls, name):
+    cfg = FUSED_CONFIGS[name]
+    a, k = [c for c in real_calls["fused"]
+            if (c[1]["n_iters"], c[1]["snap_iters"])
+            == (cfg["n_iters"], cfg["snap_iters"])][-1]
+    assert a[0].shape == (8, 45, 384) and len(a) == 12
+    ours = tk.ipm_solve_fused_plain(*a, **k)
+    ref = jk.ipm_solve_fused(*(jnp.asarray(to_np(x)) for x in a),
+                             interpret=True, **k)
+    if cfg["n_iters"] <= 2:
+        # the merit's |c + s| term cancels numbers of the slacks' size: four
+        # float32 steps at that size as an absolute floor
+        floors = {"best_merit": 4 * 2.0 ** -23 * float(ref[2].max())}
+        _close(ours, ref, FUSED_OUT, tol=TOL_REAL, floors=floors)
+    else:
+        _close(ours[:2], ref[:2], FUSED_OUT[:2], tol=TOL_REAL)
+        for o, r in zip(ours, ref):
+            assert o.shape == r.shape and bool(torch.isfinite(o).all())
+        r_o = _scaled_residual(ours[1], a, k)
+        r_r = _scaled_residual(np.asarray(ref[1]), a, k)
+        assert (r_o <= 3.0 * r_r + 5e-5).all(), (r_o, r_r)
+    if cfg["n_iters"] == 0:
+        # snap-only: the Newton state leaves as it came, no merit, no lam_mid
+        np.testing.assert_array_equal(to_np(ours[2]), to_np(a[7]))
+        np.testing.assert_array_equal(to_np(ours[3]), to_np(a[8]))
+        np.testing.assert_array_equal(to_np(ours[4]), to_np(a[9]))
+        assert np.isinf(to_np(ours[5])).all() and not to_np(ours[6]).any()
+        np.testing.assert_array_equal(
+            to_np(ours[7])[:, 0, 0], to_np(a[8] * (a[10] > 0)).max(axis=(1, 2)))
+        assert (to_np(ours[0]) != to_np(a[6])).any()      # the snap moved it
+
+
+def test_solve_fused_float32_against_float64(real_calls):
+    """The plain polish in float32 lands in the float64 one's solution class:
+    the best iterate within 2e-3 of scale, the residual of the final point
+    within 3x plus 5e-5."""
+    a, k = [c for c in real_calls["fused"] if c[1]["n_iters"] == 10][-1]
+    o32 = tk.ipm_solve_fused_plain(*a, **k)
+    o64 = tk.ipm_solve_fused_plain(*(x.double() for x in a), **k)
+    assert all(o.dtype == torch.float64 for o in o64)
+    _close(o32[:2], [to_np(o).astype(np.float32) for o in o64[:2]],
+           FUSED_OUT[:2], tol=TOL_REAL)
+    r32 = _scaled_residual(o32[1], a, k)
+    r64 = _scaled_residual(o64[1].float(), a, k)
+    assert (r32 <= 3.0 * r64 + 5e-5).all(), (r32, r64)
+    # the wrapper is the plain version on host tensors, and counts nothing
+    before = dict(tk.launches)
+    via = tk.ipm_solve_fused(*a, **k)
+    assert tk.launches == before
+    for o, v in zip(o32, via):
+        np.testing.assert_array_equal(to_np(o), to_np(v))
+
+
+def test_solve_fused_nan_row_stays_frozen(real_calls):
+    """A NaN linear term makes every Newton direction of that scenario NaN:
+    its running point must stay at the start, every output finite, and no
+    other scenario may change a bit -- in the plain version as in the Pallas
+    kernel."""
+    a, k = [c for c in real_calls["fused"]
+            if (c[1]["n_iters"], c[1]["snap_iters"]) == (2, 1)][-1]
+    clean = tk.ipm_solve_fused_plain(*a, **k)
+    q = a[5].clone()
+    q[3] = float("nan")
+    bad_args = a[:5] + (q,) + a[6:]
+    ours = tk.ipm_solve_fused_plain(*bad_args, **k)
+    ref = jk.ipm_solve_fused(*(jnp.asarray(to_np(x)) for x in bad_args),
+                             interpret=True, **k)
+    _close(ours, ref, FUSED_OUT, tol=TOL_REAL)
+    np.testing.assert_array_equal(to_np(ours[4])[3], to_np(a[9])[3])  # y_last
+    np.testing.assert_array_equal(to_np(ours[3])[3], to_np(a[8])[3])  # lam
+    assert all(np.isfinite(to_np(o)[3]).all() for o in ours)
+    others = [i for i in range(8) if i != 3]
+    for o, c in zip(ours, clean):
+        np.testing.assert_array_equal(to_np(o)[others], to_np(c)[others])
+
+
+def test_gauss_jordan_band_factor_against_reference():
+    """The plain in-kernel factor, piece by piece, against the JAX kernel's
+    own helpers on the same blocks (float32, order of sums differs)."""
+    rng = np.random.RandomState(12)
+    f = np.float32
+    bsz, m_blk, blk = 3, 4, 5
+    nfd = m_blk * blk
+    r = rng.randn(bsz, blk, blk)
+    spd = (r @ r.transpose(0, 2, 1) / blk + np.eye(blk)).astype(f)
+    inv_o = to_np(tk._gj_inverse(tt(spd)))
+    inv_r = np.asarray(jk._gj_inverse(jnp.asarray(spd)))
+    np.testing.assert_allclose(inv_o, inv_r, rtol=0,
+                               atol=TOL * np.abs(inv_r).max())
+    np.testing.assert_allclose(inv_o @ spd, np.broadcast_to(
+        np.eye(blk, dtype=f), spd.shape), rtol=0, atol=1e-5)
+    # a block-tridiagonal SPD system with a wide diagonal spread (the
+    # equilibration's case)
+    l = rng.randn(bsz, nfd, nfd) * (np.abs(np.subtract.outer(
+        np.arange(nfd) // blk, np.arange(nfd) // blk)) <= 0)[None]
+    dense = l @ l.transpose(0, 2, 1) + 0.5 * np.eye(nfd)
+    sup = rng.randn(bsz, m_blk - 1, blk, blk) * 0.1
+    scale = np.logspace(-2, 2, nfd)
+    gram = np.zeros((bsz, nfd, nfd))
+    for i in range(m_blk):
+        sl = slice(i * blk, (i + 1) * blk)
+        gram[:, sl, sl] = dense[:, sl, sl]
+        if i + 1 < m_blk:
+            sq = slice((i + 1) * blk, (i + 2) * blk)
+            gram[:, sl, sq] = sup[:, i]
+            gram[:, sq, sl] = sup[:, i].transpose(0, 2, 1)
+    gram = (gram * scale[:, None] * scale[None, :]).astype(f)
+    pe_d = np.zeros((bsz, m_blk, blk, blk), f)
+    pe_u = np.zeros((bsz, m_blk - 1, blk, blk), f)
+    rhs = rng.randn(bsz, nfd, 1).astype(f)
+    ref = np.asarray(jk._band_factor_solve(
+        jnp.asarray(gram), jnp.asarray(pe_d), jnp.asarray(pe_u), 1e-9,
+        jnp.asarray(rhs), blk))
+    g5 = gram.reshape(bsz, m_blk, blk, m_blk, blk)
+    gd = np.stack([g5[:, i, :, i, :] for i in range(m_blk)], axis=1)
+    gu = np.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)], axis=1)
+    ours = to_np(tk._band_factor_solve(tt(gd), tt(gu), tt(pe_d), tt(pe_u),
+                                       1e-9, tt(rhs), blk))
+    np.testing.assert_allclose(ours, ref, rtol=0,
+                               atol=2e-4 * np.abs(ref).max())
+    # and it solves the system: residual against float64
+    res = gram.astype(np.float64) @ ours.astype(np.float64) - rhs
+    assert np.abs(res).max() <= 1e-3 * np.abs(rhs).max()
 
 
 def test_nan_direction_freezes_its_own_row_only():
@@ -300,8 +535,17 @@ def test_plain_versions_accept_float64():
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     d, kw = _random_inputs(seed=1)
     args = [tt(d[n]) for n in ("gt", "b", "rb", "x", "s", "lam")]
-    with pytest.raises(NotImplementedError, match="kernel 10"):
-        tk.ipm_eval_step(*args, nb_p=128, n_ball=17, band_block=0)
+    # band_block=0 is the full-Gram form (it used to be refused)
+    full = tk.ipm_eval_step(*args, nb_p=128, n_ball=17, band_block=0)
+    assert len(full) == 5 and full[4].shape == (2, 24, 24)
+    with pytest.raises(ValueError, match="negative"):
+        tk.ipm_solve_fused(*([args[0]] * 12), nb_p=128, n_ball=17, mc=1,
+                           n_iters=-1, snap_iters=0, sigma_min=0.3,
+                           tau=0.995, alpha_max=1.0, w_cap=1e6, reg=1e-9,
+                           snap_rho=1e4, blk=6)
+    assert set(tk.launches) == {"gt_matvec", "ipm_eval_step",
+                                "ipm_eval_step_gram", "ipm_pipe_step",
+                                "ipm_solve_fused"}
     with pytest.raises(ValueError, match="modes"):
         tk.ipm_pipe_step(*mtt.lanes_state_from_numpy(d, device="cpu"),
                          upd_mode="newton", eval_mode="polish", **kw)
@@ -333,3 +577,29 @@ def test_kernels_on_the_card_match_plain():
         _close(ours, [to_np(o) for o in plain], EVAL_OUT)
     _close((tk.gt_matvec(dev[0], dev[6]),),
            (to_np(tk.gt_matvec_plain(dev[0], dev[6])),), ("y",))
+
+
+@pytest.mark.gpu
+def test_new_kernels_on_the_card_match_plain(real_calls):
+    """The full-Gram evaluation and the whole-polish kernel against their
+    plain versions on the card.  Needs an NVIDIA card and nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no host mode")
+    d, kw = _random_inputs(seed=3)
+    dev = mtt.lanes_state_from_numpy(d)
+    ev_args = [dev[i] for i in (0, 1, 2, 6, 7, 8)]
+    before = tk.launches["ipm_eval_step_gram"]
+    ours = tk.ipm_eval_step(*ev_args, nb_p=128, n_ball=17, w_cap=1e6,
+                            band_block=0)
+    assert tk.launches["ipm_eval_step_gram"] == before + 1
+    plain = tk.ipm_eval_step_plain(*ev_args, nb_p=128, n_ball=17, w_cap=1e6,
+                                   band_block=0)
+    _close(ours, [to_np(o) for o in plain], GRAM_OUT)
+    a, k = [c for c in real_calls["fused"]
+            if (c[1]["n_iters"], c[1]["snap_iters"]) == (1, 0)][-1]
+    a_dev = [x.cuda() for x in a]
+    before = tk.launches["ipm_solve_fused"]
+    ours = tk.ipm_solve_fused(*a_dev, **k)
+    assert tk.launches["ipm_solve_fused"] == before + 1
+    _close(ours, [to_np(o) for o in tk.ipm_solve_fused_plain(*a, **k)],
+           FUSED_OUT, tol=TOL_REAL, flip_rows=1)

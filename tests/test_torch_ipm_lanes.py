@@ -10,6 +10,8 @@ of sums, so:
 * after ONE and TWO Newton steps from the same warm start the iterates are
   compared tightly: d_free to 2e-4 of its scale, cost to 5e-4 relative
   (measured 2e-5..5e-5 and 3e-5..1e-4: ten and five times the floor);
+* (the same holds for the pipelined schedule and for ``fused=True``, where
+  the whole polish is one call of ``ipm_solve_fused``)
 * a full polish (6 Newton steps + 2 snap sweeps) is a float32 endgame whose
   iterates are chaotic while its answers are not (the reference's own tests
   say the same, tests/test_ipm_lanes.py): it is held by CLASS -- every
@@ -313,6 +315,84 @@ def test_lanes_full_polish_pipelined_against_reference_and_own_scan(warm):
             **ws)
 
 
+@pytest.mark.parametrize("n_iters", [1, 2])
+def test_lanes_fused_first_steps_against_reference(warm, n_iters):
+    """``IPMConfig(fused=True)``: the whole polish through
+    ``ipm_solve_fused`` (the plain version here, the Pallas kernel in
+    interpret mode there), after one and two Newton steps: the tolerances of
+    the scan path's first steps."""
+    ours, ref = _both(warm, n_iters=n_iters, snap_iters=0, corrector=False,
+                      sigma_min=0.3, fused=True)
+    assert ours.cost.dtype == torch.float32
+    assert _rel(ours.d_free, ref.d_free) < 2e-4
+    assert _rel(ours.cost, ref.cost) < 5e-4
+    np.testing.assert_allclose(to_np(ours.max_violation),
+                               np.asarray(ref.max_violation), atol=2e-6)
+    np.testing.assert_allclose(to_np(ours.dual_residual),
+                               np.asarray(ref.dual_residual), rtol=2e-2)
+    assert _rel(ours.dual_ball, ref.dual_ball) < 5e-3
+    np.testing.assert_array_equal(to_np(ours.infeasible),
+                                  np.asarray(ref.infeasible))
+
+
+def test_lanes_full_polish_fused_against_reference_and_own_scan(warm):
+    cfg = dict(n_iters=6, snap_iters=2, corrector=False, sigma_min=0.3)
+    ours, ref = _both(warm, fused=True, **cfg)
+    _same_class(ours, ref)
+    # the fused schedule lands in the scan schedule's solution class (as
+    # tests/test_ipm_lanes.py:151-157 asks of the reference): costs within
+    # 0.1 % median / 1 % worst, violations in the same class
+    js, ts, p, ws = warm
+    args = (ts, p["d_fixed"], p["times"], p["waypoints"], p["radii"])
+    scan = mtt.solve_qcqp_ipm_lanes(*args, config=mtt.IPMConfig(**cfg),
+                                    device="cpu", **ws)
+    rel = np.abs(to_np(ours.cost) - to_np(scan.cost)) / to_np(scan.cost)
+    assert np.median(rel) < 1e-3 and rel.max() < 1e-2, rel
+    assert to_np(ours.max_violation).max() < 1e-4
+    np.testing.assert_array_equal(to_np(ours.converged),
+                                  to_np(scan.converged))
+    # the two schedules the kernel does not implement
+    with pytest.raises(ValueError, match="corrector=False"):
+        mtt.solve_qcqp_ipm_lanes(
+            *args, config=mtt.IPMConfig(n_iters=2, fused=True), device="cpu",
+            **ws)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        mtt.solve_qcqp_ipm_lanes(
+            *args, config=mtt.IPMConfig(n_iters=2, corrector=False,
+                                        fused=True, pipelined=True),
+            device="cpu", **ws)
+
+
+def test_fused_snap_only_and_polished_batch(warm):
+    """n_iters=0 through the fused kernel: lam_growth is 1 (the kernel's
+    lam_mid stays 0), so only the static certificate can fire; and
+    ``solve_qcqp_polished_batch`` hands a fused configuration through, on the
+    ADMM's assembled system."""
+    js, ts, p, ws = warm
+    ours, ref = _both(warm, n_iters=0, snap_iters=2, corrector=False,
+                      sigma_min=0.3, fused=True)
+    assert not to_np(ours.infeasible).any()
+    assert not np.asarray(ref.infeasible).any()
+    assert _rel(ours.cost, ref.cost) < 2e-3
+    assert to_np(ours.max_violation).max() < 1e-5
+    big = {**ws, "lam0_ball": ws["lam0_ball"] * 1e6}
+    args = (ts, p["d_fixed"], p["times"], p["waypoints"], p["radii"])
+    res = mtt.solve_qcqp_ipm_lanes(
+        *args, config=mtt.IPMConfig(n_iters=0, snap_iters=1, corrector=False,
+                                    fused=True), device="cpu", **big)
+    assert not to_np(res.infeasible).any()
+    cfg = dict(n_iters=6, snap_iters=2, corrector=False, sigma_min=0.3)
+    kw = dict(admm_config=mtt.ADMMConfig(n_stages=1, **BENCH_KW),
+              warmstart_values=p["values"], device="cpu")
+    fused = mtt.solve_qcqp_polished_batch(
+        *args, ipm_config=mtt.IPMConfig(fused=True, **cfg), **kw)
+    scan = mtt.solve_qcqp_polished_batch(
+        *args, ipm_config=mtt.IPMConfig(**cfg), **kw)
+    rel = np.abs(to_np(fused.cost) - to_np(scan.cost)) / to_np(scan.cost)
+    assert np.median(rel) < 1e-3 and rel.max() < 1e-2, rel
+    assert to_np(fused.max_violation).max() < 1e-4
+
+
 def test_snap_only_run_has_the_dynamic_certificate_off(warm):
     """n_iters=0 (tier 0 of the strict router): no Newton step ran, so
     lam_growth is 1 and only the static certificate can fire; the snap pulls
@@ -380,9 +460,15 @@ def test_lanes_argument_errors():
     p = problem(k=K, batch=2, seed=0)
     d_fixed = mtt.extract_fixed_values(ts, tt(p["values"]))
     args = (ts, d_fixed, p["times"], p["waypoints"], p["radii"])
-    with pytest.raises(NotImplementedError, match="kernel 11"):
+    # fused=True needs corrector=False (it used to be refused altogether)
+    with pytest.raises(ValueError, match="corrector=False"):
         mtt.solve_qcqp_ipm_lanes(*args, config=mtt.IPMConfig(fused=True),
                                  device="cpu")
+    sol = mtt.solve_qcqp_ipm_lanes(
+        *args, config=mtt.IPMConfig(n_iters=2, corrector=False, fused=True),
+        device="cpu")
+    assert sol.d_free.shape == (2, 15, 3) and np.isfinite(
+        to_np(sol.cost)).all()
     with pytest.raises(ValueError, match="together"):
         mtt.solve_qcqp_ipm_lanes(*args, lam0_half=np.zeros((2, 64)),
                                  device="cpu")
