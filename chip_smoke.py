@@ -59,23 +59,46 @@ ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
               "strict_tight", "kernels")
 
 # The interior-point kernels against their plain versions, per output, on
-# inputs recorded from real solves.  Rows are judged one scenario at a time
-# because the step kernel takes discrete decisions on float comparisons (the
-# seven-point line search, "merit < best", the update gate): where two
-# float32 evaluations of the same sums fall on different sides of a
-# comparison the whole row differs by a step, which no tolerance on values
-# covers.  For each output, with scale = max |plain float64 output|:
-#  1. kernel vs plain float32: at most IPM_ROW_TOL * scale in every row
-#     but a few: the rows outside may number at most IPM_FLIP_ROWS of the
-#     batch plus twice the rows where plain float32 vs plain float64 is
-#     itself outside (those are the rows that sit on a comparison);
-#  2. over the rows inside, kernel vs plain float64 is at most 3x plain
-#     float32 vs plain float64 plus 1e-6 * scale.
-# The weighted-Gram weights span 12 decades (w up to w_cap = 1e6 beside
-# 1e-6), so sums lose up to ~1e-4 of the output's scale to cancellation in
-# any float32 order.
+# inputs recorded from real solves.  Every row is compared (one scenario at a
+# time) as a share of the output's scale, max |plain float64 output|.
+# A fixed tolerance per row does not separate a right kernel from a wrong one
+# here: the weighted-Gram weights span 12 decades (w up to w_cap = 1e6 beside
+# 1e-6), the K=10 Newton systems are ill-conditioned, and the step takes
+# discrete decisions on float comparisons (the seven-point line search,
+# "merit < best", the update gate), so after ONE Newton step at K=10 plain
+# float32 is itself 2e-4 of scale from plain float64 in the median row of
+# x_fin, and the kernel 6e-2 from plain float32 in the worst row of 6144
+# (the `kernels` line prints both), and nothing but a statistical statement
+# holds for a whole polish.  So the kernel is held to
+# float32's own error, measured on the same inputs: with e_k = |kernel - plain
+# float64| and e_p = |plain float32 - plain float64| per row, for each output
+#  1. the distribution: at the median, the 90th and the 99th percentile over
+#     the rows (a percentile is used where at least IPM_TAIL_ROWS rows lie
+#     beyond it), e_k <= IPM_DIST_FACTOR * e_p + IPM_FLOOR;
+#  2. the gross rows, e > IPM_GROSS of scale: the kernel has at most twice
+#     as many as plain float32 plus IPM_GROSS_SLACK of the batch (at least
+#     2 rows);
+#  3. whatever plain float32 does, the kernel's gross rows number at most
+#     IPM_GROSS_CAP of the batch (plus the same slack).  Exempt are only the
+#     outputs named at the call: the merit (a quadratic function of y, it
+#     doubles y's error and is judged by 1 and 2), and for a polish of more
+#     than IPM_SHORT_RUN Newton steps the endgame's running state (lam_fin,
+#     lam_fin_max, the merit), which is rounding noise in any float32 order
+#     once mu has reached float32's floor (plain float32 is then 0.3 of
+#     scale from plain float64 in the median row).
+# The check reports, besides, the worst row of kernel vs plain float32 over
+# ALL rows, and the rows beyond IPM_ROW_TOL of scale (reported only).
 IPM_ROW_TOL = 2e-4
-IPM_FLIP_ROWS = 0.01
+IPM_QUANTILES = (0.5, 0.9, 0.99)
+IPM_TAIL_ROWS = 4
+IPM_DIST_FACTOR = 2.0
+IPM_FLOOR = 1e-6
+IPM_GROSS = 2e-2
+IPM_GROSS_SLACK = 0.001
+IPM_GROSS_CAP = 0.05
+IPM_SHORT_RUN = 3
+# IPMConfig.infeas_growth's default, which every path here uses.
+FUSED_INFEAS_GROWTH = 10.0
 PIPE_OUT = ("x", "s", "lam", "y", "bx", "by", "bm", "max_lam", "hd", "hu",
             "rhs")
 EVAL_OUT = ("y", "c", "jtwr2", "jts", "hd", "hu")
@@ -94,17 +117,27 @@ MAX_TIGHT_UNDETERMINED = 18
 # full-Gram evaluation driven in strict_path at tier 1's shape).
 STRICT_KERNELS = ("admm_stage_fused_factored", "gt_matvec", "ipm_eval_step",
                   "ipm_pipe_step")
-# The fused polish against the step-by-step polish of the same configuration:
-# relative cost gap.  tests/test_ipm_lanes.py asks median < 1e-3 and worst <
-# 1e-2 of eight K=4 rows.  At 6144 K=10 rows any two float32 schedules of the
-# same polish (scan against pipelined, the fused kernel against its own plain
-# version: the phase reports both beside the gap it gates) leave 5 to 8 rows
-# more than 1e-2 apart (worst 0.1 to 0.17: rows where one of the two stops
-# short of the gate), so the worst bound is asked of the 99th percentile and
-# the rows beyond it are counted: at most 0.25 %.
+# The fused polish at full width.  Gated against the same polish with the
+# fused kernel's plain version in its place (same entry point, same
+# schedule, the other kernels unchanged; seeds 0 and 1): relative cost gap
+# with a median of at most FUSED_COST_MEDIAN and a 99th percentile of at most
+# FUSED_COST_P99 (the bounds tests/test_ipm_lanes.py asks of the median and
+# the worst of eight K=4 rows), at most FUSED_COST_OUTLIER_SHARE of the rows
+# further apart than FUSED_COST_P99 (two float32 runs of one polish part by
+# whole steps in a few rows, where one of the two stops short of the gate),
+# rows under the strict gate at most FUSED_UNDER_GATE_SHARE of the batch fewer
+# than the plain run's, a 99th-percentile violation of at most 3x the plain
+# run's, and rows certified infeasible at most twice the plain run's plus
+# IPM_GROSS_SLACK of the batch.  Against the step-by-step (scan) polish, which
+# is another schedule, the median and the 99th percentile of the cost gap
+# are held to the same two bounds and the violations to the scan run's class;
+# its worst rows are reported beside the spread of two other float32
+# schedules (pipelined against scan) and gate nothing.
 FUSED_COST_MEDIAN = 1e-3
 FUSED_COST_P99 = 1e-2
 FUSED_COST_OUTLIER_SHARE = 0.0025
+FUSED_UNDER_GATE_SHARE = 0.005
+FUSED_SEEDS = (0, 1)
 IPM_SOURCES = ("gt_matvec", "ipm_eval", "ipm_pipe", "ipm_solve")
 PKG = "mav_tube_trajectory_generation_tpu_torch"
 
@@ -523,21 +556,32 @@ def recorded(module, name, sink):
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Route every kernel wrapper of the port to its plain PyTorch version
-    (used only to compare; the port itself never does this)."""
+def plain_kernels(only=None):
+    """Route every kernel wrapper of the port to its plain PyTorch version,
+    or with ``only`` just those interior-point wrappers (used only to
+    compare; the port itself never does this)."""
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
-    names = ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
-             "ipm_solve_fused")
+    names = only or ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
+                     "ipm_solve_fused")
     kept = {n: getattr(ipm_kernel, n) for n in names}
     for n in names:
         setattr(ipm_kernel, n, getattr(ipm_kernel, n + "_plain"))
     try:
-        with plain_stage():
+        with (contextlib.nullcontext() if only else plain_stage()):
             yield
     finally:
         for n in names:
             setattr(ipm_kernel, n, kept[n])
+
+
+def to_device(call, device):
+    """The (args, kwargs) of a recorded call with its tensors on ``device``.
+    Recorded calls wait on the host for the `kernels` phase, so that each
+    path's peak device memory is its own."""
+    import torch
+    args, kw = call
+    return tuple(a.to(device) if isinstance(a, torch.Tensor) else a
+                 for a in args), kw
 
 
 def as_tuple(out):
@@ -557,36 +601,44 @@ def row_errors(a, b):
     return d.amax(dim=1)
 
 
-def compare_ipm(names, ours, plain, plain64):
-    """The two criteria stated at IPM_ROW_TOL for every output; returns the
-    summary and whether they hold."""
+def compare_ipm(names, ours, plain, plain64, uncapped=()):
+    """The three criteria stated above IPM_ROW_TOL for every output
+    (criterion 3 not for the outputs in ``uncapped``); returns the summary
+    and whether they hold."""
     import torch
     bsz = ours[0].shape[0]
+    slack = max(2, int(IPM_GROSS_SLACK * bsz))
+    used = [q for q in IPM_QUANTILES if (1.0 - q) * bsz >= IPM_TAIL_ROWS]
     summary, ok = {}, True
+
+    def quantiles(e):
+        e = torch.clamp(e, max=1e30)                       # inf: a NaN row
+        return [float(torch.quantile(e, q)) for q in used]
+
     for name, a, b, c in zip(names, ours, plain, plain64):
         fin = torch.isfinite(c)
         scale = max(1e-30, float(c[fin].abs().max()) if fin.any() else 0.0)
-        e_kp = row_errors(a, b)
-        e_k64 = row_errors(a, c)
-        e_p64 = row_errors(b, c)
-        tol = IPM_ROW_TOL * scale
-        out_k = e_kp > tol
-        out_p = e_p64 > tol
-        allowed = int(IPM_FLIP_ROWS * bsz) + 2 * int(out_p.sum()) + \
-            (1 if bsz >= 64 else 0)
-        inside = ~out_k & ~out_p
-        worst_k = float(e_k64[inside].max()) if inside.any() else 0.0
-        worst_p = float(e_p64[inside].max()) if inside.any() else 0.0
-        good = (int(out_k.sum()) <= allowed
-                and worst_k <= 3.0 * worst_p + 1e-6 * scale
-                and a.shape == b.shape)
+        e_kp = row_errors(a, b) / scale
+        e_k = row_errors(a, c) / scale
+        e_p = row_errors(b, c) / scale
+        q_k, q_p = quantiles(e_k), quantiles(e_p)
+        gross_k = int((e_k > IPM_GROSS).sum())
+        gross_p = int((e_p > IPM_GROSS).sum())
+        capped = name not in uncapped
+        good = (a.shape == b.shape
+                and all(k <= IPM_DIST_FACTOR * p_ + IPM_FLOOR
+                        for k, p_ in zip(q_k, q_p))
+                and gross_k <= 2 * gross_p + slack
+                and (not capped or gross_k <= IPM_GROSS_CAP * bsz + slack))
         ok = ok and good
         summary[name] = dict(
-            scale=scale, rows_outside=int(out_k.sum()),
-            rows_outside_plain_f32_vs_f64=int(out_p.sum()),
-            kernel_vs_plain=float(e_kp[~out_k].max()) if (~out_k).any()
-            else None,
-            kernel_vs_plain_f64=worst_k, plain_vs_plain_f64=worst_p, ok=good)
+            scale=scale, quantiles=used, kernel_vs_plain_f64=q_k,
+            plain_vs_plain_f64=q_p, gross_rows=gross_k,
+            gross_rows_plain_f32=gross_p, gross_rows_capped=capped,
+            kernel_vs_plain_max=float(e_kp.max()),
+            kernel_vs_plain_f64_max=float(e_k.max()),
+            plain_vs_plain_f64_max=float(e_p.max()),
+            rows_outside=int((e_kp > IPM_ROW_TOL).sum()), ok=good)
     return summary, ok
 
 
@@ -595,9 +647,9 @@ def to64(x):
     return x.double() if isinstance(x, torch.Tensor) else x
 
 
-def check_call(fn, fn_plain, names, args, kwargs, ours=None):
+def check_call(fn, fn_plain, names, args, kwargs, ours=None, uncapped=()):
     """Kernel, plain float32 and plain float64 on the same inputs; the kernel
-    twice for bit identity."""
+    twice for bit identity.  All errors are shares of the output's scale."""
     import torch
     first = as_tuple(fn(*args, **kwargs)) if ours is None else as_tuple(ours)
     again = as_tuple(fn(*args, **kwargs))
@@ -607,25 +659,29 @@ def check_call(fn, fn_plain, names, args, kwargs, ours=None):
         for a, b in zip(first, again))
     plain = as_tuple(fn_plain(*args, **kwargs))
     plain64 = as_tuple(fn_plain(*(to64(a) for a in args), **kwargs))
-    summary, ok = compare_ipm(names, first, plain, plain64)
-    scaled = {n: (v["kernel_vs_plain"] or 0.0) / v["scale"]
-              for n, v in summary.items()}
-    worst = max(scaled, key=scaled.get)
+    summary, ok = compare_ipm(names, first, plain, plain64, uncapped)
+    worst = max(summary, key=lambda n: summary[n]["kernel_vs_plain_max"])
     res = dict(bit_identical=identical, within_tolerance=ok,
-               worst_output=worst, worst_scaled_err=scaled[worst],
-               worst_scaled_err_vs_plain_f64=max(
-                   v["kernel_vs_plain_f64"] / v["scale"]
-                   for v in summary.values()),
-               plain_f32_scaled_err_vs_plain_f64=max(
-                   v["plain_vs_plain_f64"] / v["scale"]
-                   for v in summary.values()),
-               rows_outside=max(v["rows_outside"] for v in summary.values()),
-               rows_outside_plain_f32_vs_f64=max(
-                   v["rows_outside_plain_f32_vs_f64"]
-                   for v in summary.values()))
+               worst_output=worst,
+               worst_scaled_err=summary[worst]["kernel_vs_plain_max"],
+               median_scaled_err_vs_plain_f64=max(
+                   v["kernel_vs_plain_f64"][0] for v in summary.values()),
+               plain_f32_median_scaled_err_vs_plain_f64=max(
+                   v["plain_vs_plain_f64"][0] for v in summary.values()),
+               gross_rows=max(v["gross_rows"] for v in summary.values()),
+               gross_rows_plain_f32=max(v["gross_rows_plain_f32"]
+                                        for v in summary.values()),
+               rows_outside=max(v["rows_outside"] for v in summary.values()))
     if not ok:
         res["outputs"] = summary
-    return res, ok and identical
+    return res, ok and identical, summary
+
+
+def fused_uncapped(kw):
+    """The outputs of one whole-polish call that criterion 3 does not cap."""
+    if kw["n_iters"] > IPM_SHORT_RUN:
+        return ("best_merit", "lam_fin", "lam_fin_max")
+    return ("best_merit",)
 
 
 def gram_band_mismatch(gram, hd, hu, blk):
@@ -644,18 +700,21 @@ def gram_band_mismatch(gram, hd, hu, blk):
 
 
 def fused_class(ipm_kernel, args, kw, ours):
-    """Where a whole polish ends.  After ten Newton steps two float32 runs
-    of the same arithmetic differ by whole steps in most rows (plain float32
-    against plain float64 leaves nearly every row outside IPM_ROW_TOL), so
-    beside the row criterion the kernel is held to the solution class: the
-    scaled primal residual max(c, 0) of its final point, per scenario, has a
+    """Where a whole polish ends, beside the row criteria: the scaled primal
+    residual max(c, 0) of the kernel's final point, per scenario, has a
     median and a 99th percentile at most 3x the plain float32 version's plus
     5e-5 and 5e-4 (c = 0.5 (|y|^2 - r^2) with |y|^2 of 1e2 to 1e3 in scaled
     space resolves 8e-6 to 6e-5 in float32, so a median of exactly 0 in one
     run and of one such step in the other are the same result), and is
-    finite in every row."""
+    finite in every row.  And what the dynamic infeasibility certificate
+    reads, the growth lam_fin_max / lam_mid of the largest multiplier over
+    the second half of the Newton steps: the scenarios where it exceeds the
+    certificate's threshold (IPMConfig.infeas_growth) number at most twice
+    the plain float32 version's plus IPM_GROSS_SLACK of the batch (at least
+    2)."""
     import torch
     rb, act = args[2], args[10]
+    plain = ipm_kernel.ipm_solve_fused_plain(*args, **kw)
 
     def residual(outs):
         c = ipm_kernel._c_lanes_k(outs[1].float(), rb, kw["nb_p"],
@@ -663,15 +722,55 @@ def fused_class(ipm_kernel, args, kw, ours):
         return torch.where(act > 0, torch.clamp(c, min=0.0),
                            torch.zeros_like(c)).amax(dim=2)[:, 0]
 
-    r_k = residual(ours)
-    r_p = residual(ipm_kernel.ipm_solve_fused_plain(*args, **kw))
+    def growing(outs):
+        g = outs[7][:, 0, 0] / torch.clamp(outs[6][:, 0, 0], min=1e-30)
+        return int((g > FUSED_INFEAS_GROWTH).sum()) if kw["n_iters"] else 0
+
+    r_k, r_p = residual(ours), residual(plain)
     q = lambda r, p: float(torch.quantile(r.double(), p))
     out = dict(kernel_median=q(r_k, 0.5), plain_median=q(r_p, 0.5),
                kernel_p99=q(r_k, 0.99), plain_p99=q(r_p, 0.99),
-               kernel_max=float(r_k.max()), plain_max=float(r_p.max()))
+               kernel_max=float(r_k.max()), plain_max=float(r_p.max()),
+               kernel_rows_multiplier_growing=growing(ours),
+               plain_rows_multiplier_growing=growing(plain))
+    slack = max(2, int(IPM_GROSS_SLACK * r_k.shape[0]))
     ok = (bool(torch.isfinite(r_k).all())
           and out["kernel_median"] <= 3.0 * out["plain_median"] + 5e-5
-          and out["kernel_p99"] <= 3.0 * out["plain_p99"] + 5e-4)
+          and out["kernel_p99"] <= 3.0 * out["plain_p99"] + 5e-4
+          and out["kernel_rows_multiplier_growing"]
+          <= 2 * out["plain_rows_multiplier_growing"] + slack)
+    return out, ok
+
+
+# A kernel that is wrong by a little must fail the row criteria.  The
+# whole-polish kernel is run for one Newton step with one scalar off (the
+# plain versions get the right one): the fraction-to-boundary factor 0.995 ->
+# 0.9 shortens every boundary-limited step by a tenth; the centring 0.3 ->
+# 0.33 moves the right-hand side by a tenth of its centring term, which is
+# above float32's own error only where the system is well conditioned, so
+# that control is asked for where plain float32's median error of x_fin is
+# under 1e-4 of scale (K=4; at K=10 it is 2e-4 to 3e-4 and the run is
+# reported only).  A whole polish has no such control: ten steps and two
+# sweeps land at the same optimum whatever the path, which is what the long
+# runs are held to.
+FUSED_CONTROLS = (("tau", 0.9), ("sigma_min", 0.33))
+
+
+def fused_controls_rejected(ipm_kernel, args, kw, summary):
+    """({scalar: rejected?}, whether every control that must be rejected
+    was) for the perturbed one-step kernel runs above; ``summary`` is the
+    right kernel's comparison on the same call."""
+    out, ok = {}, True
+    well_conditioned = summary["x_fin"]["plain_vs_plain_f64"][0] < 1e-4
+    for name, value in FUSED_CONTROLS:
+        wrong = ipm_kernel.ipm_solve_fused(*args, **dict(kw, **{name: value}))
+        res, _, _ = check_call(ipm_kernel.ipm_solve_fused,
+                               ipm_kernel.ipm_solve_fused_plain, FUSED_OUT,
+                               args, kw, ours=wrong,
+                               uncapped=fused_uncapped(kw))
+        out[name] = not res["within_tolerance"]
+        if name == "tau" or well_conditioned:
+            ok = ok and out[name]
     return out, ok
 
 
@@ -702,7 +801,9 @@ def record_lanes(mtt, k, batch, seed):
         polish(n_iters=10, snap_iters=2, fused=True)
         polish(n_iters=0, snap_iters=2, fused=True)
         polish(n_iters=1, snap_iters=0, fused=True)
+        polish(n_iters=1, snap_iters=1, fused=True)
         polish(n_iters=2, snap_iters=1, fused=True)
+        polish(n_iters=3, snap_iters=0, fused=True)
     pairs = {}
     for call in pipe_calls:
         key = (call[1]["upd_mode"], call[1]["eval_mode"])
@@ -723,9 +824,9 @@ def phase_ipm_kernel_check(state, mtt):
                                f"{sorted(pairs)}, expected all seven")
         gt_shape = list(eval_calls[0][0][0].shape)
         for (upd, ev), (args, kw, out) in sorted(pairs.items()):
-            res, ok = check_call(ipm_kernel.ipm_pipe_step,
-                                 ipm_kernel.ipm_pipe_step_plain, PIPE_OUT,
-                                 args, kw, ours=out)
+            res, ok, _ = check_call(ipm_kernel.ipm_pipe_step,
+                                    ipm_kernel.ipm_pipe_step_plain, PIPE_OUT,
+                                    args, kw, ours=out, uncapped=("bm",))
             cases.append(dict(kernel="ipm_pipe_step", shapes=label,
                               gt_shape=gt_shape, upd_mode=upd, eval_mode=ev,
                               **res))
@@ -736,9 +837,9 @@ def phase_ipm_kernel_check(state, mtt):
             if kw["phr"] in seen:
                 continue
             seen.add(kw["phr"])
-            res, ok = check_call(ipm_kernel.ipm_eval_step,
-                                 ipm_kernel.ipm_eval_step_plain, EVAL_OUT,
-                                 args, kw, ours=out)
+            res, ok, _ = check_call(ipm_kernel.ipm_eval_step,
+                                    ipm_kernel.ipm_eval_step_plain, EVAL_OUT,
+                                    args, kw, ours=out)
             cases.append(dict(kernel="ipm_eval_step", shapes=label,
                               gt_shape=gt_shape, phr=kw["phr"], **res))
             if not ok:
@@ -747,9 +848,9 @@ def phase_ipm_kernel_check(state, mtt):
             # must be what the band kernel gave
             gkw = dict(kw, band_block=0)
             gout = ipm_kernel.ipm_eval_step(*args, **gkw)
-            res, ok = check_call(ipm_kernel.ipm_eval_step,
-                                 ipm_kernel.ipm_eval_step_plain, GRAM_OUT,
-                                 args, gkw, ours=gout)
+            res, ok, _ = check_call(ipm_kernel.ipm_eval_step,
+                                    ipm_kernel.ipm_eval_step_plain, GRAM_OUT,
+                                    args, gkw, ours=gout)
             band_err = gram_band_mismatch(gout[4], out[4], out[5],
                                           kw["band_block"])
             cases.append(dict(kernel="ipm_eval_step band_block=0",
@@ -758,9 +859,9 @@ def phase_ipm_kernel_check(state, mtt):
             if not ok or not band_err <= IPM_ROW_TOL:
                 bad.append(f"eval gram {label} phr={kw['phr']}")
         for args, kw, out in fused_calls:
-            res, ok = check_call(ipm_kernel.ipm_solve_fused,
-                                 ipm_kernel.ipm_solve_fused_plain, FUSED_OUT,
-                                 args, kw, ours=out)
+            res, ok, summary = check_call(
+                ipm_kernel.ipm_solve_fused, ipm_kernel.ipm_solve_fused_plain,
+                FUSED_OUT, args, kw, ours=out, uncapped=fused_uncapped(kw))
             cls, cls_ok = fused_class(ipm_kernel, args, kw, out)
             cases.append(dict(kernel="ipm_solve_fused", shapes=label,
                               gt_shape=gt_shape, n_iters=kw["n_iters"],
@@ -768,10 +869,18 @@ def phase_ipm_kernel_check(state, mtt):
                               residual_class=cls))
             if not (ok and cls_ok):
                 bad.append(f"fused {label} n_iters={kw['n_iters']}")
+            if (kw["n_iters"], kw["snap_iters"]) == (1, 0):
+                rejected, rej_ok = fused_controls_rejected(
+                    ipm_kernel, args, kw, summary)
+                cases.append(dict(
+                    kernel="ipm_solve_fused", shapes=label, n_iters=1,
+                    snap_iters=0, kernel_with_one_scalar_off_rejected=rejected))
+                if not rej_ok:
+                    bad.append(f"fused {label}: a wrong kernel passes")
         args, kw, out = mv_calls[-1]
-        res, ok = check_call(ipm_kernel.gt_matvec,
-                             ipm_kernel.gt_matvec_plain, ("y",), args, kw,
-                             ours=out)
+        res, ok, _ = check_call(ipm_kernel.gt_matvec,
+                                ipm_kernel.gt_matvec_plain, ("y",), args, kw,
+                                ours=out)
         cases.append(dict(kernel="gt_matvec", shapes=label,
                           gt_shape=gt_shape, **res))
         if not ok:
@@ -838,13 +947,20 @@ def phase_ipm_kernel_check(state, mtt):
         if not (frozen and finite and same_pattern and untouched):
             bad.append(f"fused nan row {label}")
         del pairs, eval_calls, mv_calls, fused_calls
-    emit("ipm_kernel_check", row_tolerance=IPM_ROW_TOL,
-         flip_rows=IPM_FLIP_ROWS, tolerance_is="per output and scenario: "
-         "kernel vs plain f32 <= row_tolerance * max|plain f64 output| in "
-         "all rows but flip_rows of the batch + 2x the rows where plain f32 "
-         "vs plain f64 is outside (+1 from 64 rows on); over the rows "
-         "inside, kernel vs plain f64 <= 3 * (plain f32 vs plain f64) + "
-         "1e-6 * scale; two kernel runs bit-identical", cases=cases)
+    emit("ipm_kernel_check", tolerance_is="per output, errors per scenario "
+         "as a share of max|plain f64 output|, e_k = kernel vs plain f64, "
+         "e_p = plain f32 vs plain f64: (1) at each listed quantile over the "
+         "scenarios e_k <= dist_factor * e_p + floor; (2) scenarios with e_k "
+         "> gross number at most 2x those with e_p > gross + gross_slack of "
+         "the batch (at least 2); (3) and at most gross_cap of the batch + "
+         "the same slack whatever plain f32 does (not the merit; not the "
+         "endgame's lam_fin, lam_fin_max after more than short_run Newton "
+         "steps); two kernel runs bit-identical",
+         quantiles=IPM_QUANTILES, quantile_needs_rows_beyond=IPM_TAIL_ROWS,
+         dist_factor=IPM_DIST_FACTOR, floor=IPM_FLOOR, gross=IPM_GROSS,
+         gross_slack=IPM_GROSS_SLACK, gross_cap=IPM_GROSS_CAP,
+         short_run=IPM_SHORT_RUN, reported_row_tolerance=IPM_ROW_TOL,
+         cases=cases)
     if bad:
         raise RuntimeError(f"ipm_kernel_check failed for {bad}")
 
@@ -902,17 +1018,18 @@ def phase_fused_path(state, mtt):
     fused_cfg = mtt.IPMConfig(fused=True, **cfg)
     scan_cfg = mtt.IPMConfig(**cfg)
 
-    def polished(ipm_cfg):
+    def polished(ipm_cfg, inputs=sc):
         return mtt.solve_qcqp_polished_batch(
-            sc.free, sc.d_fixed_free, sc.times, sc.waypoints, sc.radii,
-            admm_config=bench_config(mtt), ipm_config=ipm_cfg,
-            warmstart_values=sc.values)
+            inputs.free, inputs.d_fixed_free, inputs.times, inputs.waypoints,
+            inputs.radii, admm_config=bench_config(mtt), ipm_config=ipm_cfg,
+            warmstart_values=inputs.values)
 
     calls = []
     with recorded(ipm_kernel, "ipm_solve_fused", calls):
         polished(fused_cfg)                               # warm-up
     torch.cuda.synchronize()
-    state.setdefault("recorded", {})["ipm_solve_fused"] = calls[0][:2]
+    state.setdefault("recorded", {})["ipm_solve_fused"] = to_device(
+        calls[0][:2], "cpu")
     del calls
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -933,7 +1050,12 @@ def phase_fused_path(state, mtt):
     viol = sol.max_violation
     finite = bool(torch.isfinite(sol.cost).all()
                   and torch.isfinite(viol).all())
-    gap = ((sol.cost - scan.cost).abs() / scan.cost.abs()).double()
+
+    def under(r):
+        return int((r.max_violation < STRICT_GATE).sum())
+
+    def p99_violation(r):
+        return float(torch.quantile(r.max_violation.double(), 0.99))
 
     def cost_gap(a, b):
         g = ((a.cost - b.cost).abs() / b.cost.abs()).double()
@@ -943,30 +1065,54 @@ def phase_fused_path(state, mtt):
                     converged=[int(a.converged.sum()),
                                int(b.converged.sum())])
 
-    # For scale: how far two other float32 schedules of the same polish are
-    # apart (the pipelined one against the scan one, and the fused kernel
-    # against its own plain version run through the same entry point).
+    # The gate: the kernel against its own plain version, nothing else
+    # changed, on two seeds.
+    against_plain, plain_ok = [], True
+    slack = max(2, int(IPM_GROSS_SLACK * batch))
+    for seed in FUSED_SEEDS:
+        inputs = sc if seed == 0 else mtt.make_inputs(k, batch, seed=seed)
+        kern = sol if seed == 0 else polished(fused_cfg, inputs)
+        with plain_kernels(only=("ipm_solve_fused",)):
+            plain = polished(fused_cfg, inputs)
+        gap = cost_gap(kern, plain)
+        entry = dict(seed=seed, cost_gap=gap,
+                     under_gate=[under(kern), under(plain)],
+                     infeasible=[int(kern.infeasible.sum()),
+                                 int(plain.infeasible.sum())],
+                     p99_violation=[p99_violation(kern),
+                                    p99_violation(plain)],
+                     order="[kernel, plain]")
+        entry["ok"] = bool(
+            gap["median"] <= FUSED_COST_MEDIAN
+            and gap["p99"] <= FUSED_COST_P99
+            and gap["rows_over_1e_2"] <= FUSED_COST_OUTLIER_SHARE * batch
+            and entry["under_gate"][0] >= entry["under_gate"][1]
+            - FUSED_UNDER_GATE_SHARE * batch
+            and entry["p99_violation"][0] <= 3.0 * entry["p99_violation"][1]
+            + 1e-6
+            and entry["infeasible"][0] <= 2 * entry["infeasible"][1] + slack)
+        plain_ok = plain_ok and entry["ok"]
+        against_plain.append(entry)
+        del kern, plain, inputs
+
+    # Reported only: the scan polish's worst rows, beside how far two other
+    # float32 schedules of the same polish (pipelined against scan) part.
     pipelined = polished(mtt.IPMConfig(pipelined=True, **cfg))
-    with plain_kernels():
-        fused_plain = polished(fused_cfg)
-    spread = dict(pipelined_vs_scan=cost_gap(pipelined, scan),
-                  fused_kernel_vs_fused_plain=cost_gap(sol, fused_plain))
-    del pipelined, fused_plain
+    vs_scan = cost_gap(sol, scan)
+    spread = cost_gap(pipelined, scan)
+    del pipelined
     quality = dict(
-        under_gate=int((viol < STRICT_GATE).sum()),
-        scan_under_gate=int((scan.max_violation < STRICT_GATE).sum()),
+        under_gate=under(sol), scan_under_gate=under(scan),
         median_violation=float(viol.median()),
-        p99_violation=float(torch.quantile(viol.double(), 0.99)),
+        p99_violation=p99_violation(sol),
         scan_median_violation=float(scan.max_violation.median()),
-        scan_p99_violation=float(torch.quantile(
-            scan.max_violation.double(), 0.99)),
+        scan_p99_violation=p99_violation(scan),
         converged=int(sol.converged.sum()),
         scan_converged=int(scan.converged.sum()),
         infeasible=int(sol.infeasible.sum()),
-        cost_gap_median=float(gap.median()), cost_gap_worst=float(gap.max()),
-        cost_gap_p99=float(torch.quantile(gap, 0.99)),
-        cost_gap_rows_over_1e_2=int((gap > FUSED_COST_P99).sum()),
-        cost_gap_between_other_float32_schedules=spread)
+        scan_infeasible=int(scan.infeasible.sum()),
+        kernel_vs_own_plain=against_plain,
+        cost_gap_vs_scan=vs_scan, cost_gap_pipelined_vs_scan=spread)
     shapes_ok = (sol.coefficients.shape == (batch, k, 10, 3)
                  and sol.infeasible.shape == (batch,))
 
@@ -1009,20 +1155,25 @@ def phase_fused_path(state, mtt):
          solves_per_s=batch / (ms * 1e-3), scan_path_ms_per_batch=scan_ms,
          launches_in_timed_passes=launches,
          peak_device_memory_bytes=peak, **quality,
-         cost_gap_limits=dict(median=FUSED_COST_MEDIAN, p99=FUSED_COST_P99,
-                              rows_over_p99_limit=int(
-                                  FUSED_COST_OUTLIER_SHARE * batch)),
+         limits=dict(cost_gap_median=FUSED_COST_MEDIAN,
+                     cost_gap_p99=FUSED_COST_P99,
+                     rows_over_p99_limit_vs_plain=int(
+                         FUSED_COST_OUTLIER_SHARE * batch),
+                     under_gate_below_plain=int(
+                         FUSED_UNDER_GATE_SHARE * batch),
+                     infeasible="2x plain + %d" % slack),
          polish_alone_by_rows=by_rows, nvidia_smi=state.get("nvidia_smi"))
     if not shapes_ok or not finite:
         raise RuntimeError("fused_path: bad shapes or non-finite outputs")
     if launches["ipm_solve_fused"] != n_pass:
         raise RuntimeError(f"fused_path: {launches['ipm_solve_fused']} "
                            f"launches of the fused kernel in {n_pass} passes")
-    if not (quality["cost_gap_median"] <= FUSED_COST_MEDIAN
-            and quality["cost_gap_p99"] <= FUSED_COST_P99
-            and quality["cost_gap_rows_over_1e_2"]
-            <= FUSED_COST_OUTLIER_SHARE * batch):
-        raise RuntimeError(f"fused_path: cost off the scan path's: {quality}")
+    if not plain_ok:
+        raise RuntimeError(f"fused_path: the kernel's polish is off its "
+                           f"plain version's: {against_plain}")
+    if not (vs_scan["median"] <= FUSED_COST_MEDIAN
+            and vs_scan["p99"] <= FUSED_COST_P99):
+        raise RuntimeError(f"fused_path: cost off the scan path's: {vs_scan}")
     if quality["under_gate"] < 0.98 * quality["scan_under_gate"] or \
             quality["p99_violation"] > 3.0 * quality["scan_p99_violation"] \
             + 1e-6:
@@ -1102,13 +1253,12 @@ def tier2_observed(log, keep_args=None):
     def wrapper(*args, **kwargs):
         if keep_args is not None:
             keep_args.append(tier2_state_copy(args, kwargs))
-        stage_rows = []
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = fn(*args, stage_rows=stage_rows, **kwargs)
+        out = fn(*args, **kwargs)
         torch.cuda.synchronize()
         n_stages = len(auto.TIER2_STAGE_ITERS)
-        stage_rows += [0] * (n_stages - len(stage_rows))   # stages not run
+        stage_rows = out[1] + [0] * (n_stages - len(out[1]))  # stages not run
         log.append(dict(rows_entering_stage=stage_rows,
                         stage_iters=list(auto.TIER2_STAGE_ITERS),
                         ms=(time.perf_counter() - t) * 1e3))
@@ -1137,18 +1287,19 @@ def phase_strict_path(state, mtt):
             recorded(ipm_kernel, "gt_matvec", mv_calls):
         strict_call(mtt, sc)
     torch.cuda.synchronize()
+    g_args, g_kw = eval_calls[0][:2]
     state.setdefault("recorded", {}).update(
-        ipm_pipe_step=next(c for c in pipe_calls
-                           if c[1]["upd_mode"] == "snap"
-                           and c[1]["eval_mode"] == "snap")[:2],
-        ipm_eval_step=eval_calls[0][:2], gt_matvec=mv_calls[0][:2])
+        ipm_pipe_step=to_device(next(
+            c for c in pipe_calls if c[1]["upd_mode"] == "snap"
+            and c[1]["eval_mode"] == "snap")[:2], "cpu"),
+        ipm_eval_step=to_device((g_args, g_kw), "cpu"),
+        gt_matvec=to_device(mv_calls[0][:2], "cpu"))
     del pipe_calls, eval_calls, mv_calls
 
     # The full-Gram evaluation has no caller inside the package (in the JAX
     # package only a test calls it): its path is the public wrapper, driven
     # here once at the shape tier 1 gives the band form, counts set to 0
     # just before and read just after.
-    g_args, g_kw = state["recorded"]["ipm_eval_step"]
     reset_launches()
     gram_out = ipm_kernel.ipm_eval_step(*g_args, **dict(g_kw, band_block=0))
     torch.cuda.synchronize()
@@ -1156,7 +1307,7 @@ def phase_strict_path(state, mtt):
     if state["gram_launches"] != 1 or not torch.isfinite(gram_out[4]).all():
         raise RuntimeError("strict_path: the full-Gram evaluation did not "
                            "launch once or gave non-finite values")
-    del gram_out
+    del gram_out, g_args
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
@@ -1291,7 +1442,7 @@ def phase_strict_tight(state, mtt):
         args[8] = [f.to(device) for f in args[8]]         # merged fields
         kwargs["device"] = device
         t = time.perf_counter()
-        merged = auto._run_tier2_f64(*args, **kwargs)
+        merged, _ = auto._run_tier2_f64(*args, **kwargs)
         torch.cuda.synchronize()
         pos = auto._sel_positions(args[9])["max_violation"]
         idx = args[5]
@@ -1359,11 +1510,13 @@ def ipm_kernel_rows(state, mtt):
                    if isinstance(t, torch.Tensor))
 
     def finish(name, source, replaces, fn, fn_plain, names, args, kw, flops,
-               library=None, note=None, count=None, extra_check=None):
+               library=None, note=None, count=None, extra_check=None,
+               uncapped=()):
         ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
         plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
         lib_ms = cuda_ms(library, reps=5) if library else None
-        res, ok = check_call(fn, fn_plain, names, args, kw)
+        res, ok, summary = check_call(fn, fn_plain, names, args, kw,
+                                      uncapped=uncapped)
         outs = as_tuple(fn(*args, **kw))
         if extra_check is not None:
             more, more_ok = extra_check(outs)
@@ -1379,17 +1532,26 @@ def ipm_kernel_rows(state, mtt):
             name=name, route="cuda", source=f"{PKG}/csrc/{source}",
             replaces=replaces, launches=launches[count or name],
             max_abs_err=res["worst_scaled_err"],
-            max_abs_err_is="worst output, kernel vs plain float32, as a "
-            "share of max|plain float64 output| over the rows inside the "
-            "tolerance", rows_outside=res["rows_outside"],
-            tolerance=IPM_ROW_TOL, ms=ms, plain_ms=plain_ms,
+            max_abs_err_is="worst output and worst row of ALL rows, kernel "
+            "vs plain float32, as a share of max|plain float64 output|",
+            max_abs_err_by_output={n: v["kernel_vs_plain_max"]
+                                   for n, v in summary.items()},
+            median_err_vs_plain_f64_by_output={
+                n: [v["kernel_vs_plain_f64"][0], v["plain_vs_plain_f64"][0]]
+                for n, v in summary.items()},
+            median_err_order="[kernel, plain float32]",
+            gross_rows=res["gross_rows"],
+            gross_rows_plain_f32=res["gross_rows_plain_f32"],
+            rows_beyond_2e_4=res["rows_outside"],
+            tolerance="the three criteria of the ipm_kernel_check line",
+            ms=ms, plain_ms=plain_ms,
             bound_ms=max(bytes_ms, flops_ms),
             bound_by="operations" if flops_ms >= bytes_ms else "bytes",
             library_ms=lib_ms, shapes=dict(gt=list(args[0].shape), note=note),
             flops=flops, bytes=total, bound_flops_ms=flops_ms,
             bound_bytes_ms=bytes_ms,
             **{k_: v for k_, v in res.items()
-               if k_ in ("residual_class",
+               if k_ in ("residual_class", "short_runs",
                          "band_vs_band_kernel_scaled_err")}))
 
     def eval_flops(bsz, nfd, m_p, blk, n_ball):
@@ -1400,7 +1562,8 @@ def ipm_kernel_rows(state, mtt):
         return bsz * ((2 * m_blk - 1) * 2 * blk * blk * (m_p + n_ball)
                       + 5 * nfd * n_ball + 3 * 2 * nfd * m_p)
 
-    args, kw = rec["ipm_pipe_step"]
+    dev = torch.device("cuda")
+    args, kw = to_device(rec["ipm_pipe_step"], dev)
     bsz, nfd, m_p = args[0].shape
     blk = kw["blk"]
     m_blk = nfd // blk
@@ -1413,9 +1576,9 @@ def ipm_kernel_rows(state, mtt):
            "mav_tube_trajectory_generation_tpu/ops/ipm_kernel.py:365",
            ipm_kernel.ipm_pipe_step, ipm_kernel.ipm_pipe_step_plain,
            PIPE_OUT, args, kw, flops,
-           note="tier 0, upd_mode=snap, eval_mode=snap")
+           note="tier 0, upd_mode=snap, eval_mode=snap", uncapped=("bm",))
 
-    args, kw = rec["ipm_eval_step"]
+    args, kw = to_device(rec["ipm_eval_step"], dev)
     bsz, nfd, m_p = args[0].shape
     finish("ipm_eval_step", "ipm_eval.cu",
            "mav_tube_trajectory_generation_tpu/ops/ipm_kernel.py:426",
@@ -1424,8 +1587,10 @@ def ipm_kernel_rows(state, mtt):
            eval_flops(bsz, nfd, m_p, kw["band_block"], kw["n_ball"]),
            note="tier 1 (the escalated rows), band output, phr=False")
 
-    # the same inputs with the whole Gram out: all nfd^2 entries over the
-    # m_p lanes and the n_ball Jacobian rows
+    # the same inputs with the whole Gram out.  The Gram is symmetric: the
+    # work the function needs is its upper triangle, nfd (nfd + 1) / 2
+    # entries over the m_p lanes and the n_ball Jacobian rows (the kernel
+    # computes every block pair, twice that).
     gkw = dict(kw, band_block=0)
     band = ipm_kernel.ipm_eval_step(*args, **kw)
     y_, c_, _, _, lam_ball, aj, w_aj = ipm_kernel._eval_core(
@@ -1445,7 +1610,7 @@ def ipm_kernel_rows(state, mtt):
            "(pallas_call at :480)",
            ipm_kernel.ipm_eval_step, ipm_kernel.ipm_eval_step_plain,
            GRAM_OUT, args, gkw,
-           bsz * (2 * nfd * nfd * (m_p + kw["n_ball"])
+           bsz * (nfd * (nfd + 1) * (m_p + kw["n_ball"])
                   + 5 * nfd * kw["n_ball"] + 3 * 2 * nfd * m_p),
            library=lambda: torch.baddbmm(torch.bmm(gl, gt_t), aw, aj_t),
            note="tier 1's rows through the public wrapper, phr=False; "
@@ -1454,7 +1619,7 @@ def ipm_kernel_rows(state, mtt):
            count="ipm_eval_step_gram", extra_check=band_blocks_agree)
     del gl, aw, gt_t, aj_t, aj, band
 
-    args, kw = rec["ipm_solve_fused"]
+    args, kw = to_device(rec["ipm_solve_fused"], dev)
     bsz, nfd, m_p = args[0].shape
     blk = kw["blk"]
     m_blk = nfd // blk
@@ -1469,8 +1634,37 @@ def ipm_kernel_rows(state, mtt):
                               + 2 * nfd * m_p + 8 * 8 * m_p))
 
     def in_solution_class(outs):
+        """The whole polish in its solution class, and short runs from the
+        same start state (one Newton step, one step and a sweep, three
+        steps: lam_mid is then taken one step before lam_fin_max) held to
+        the row criteria in every output."""
         cls, cls_ok = fused_class(ipm_kernel, args, kw, outs)
-        return dict(residual_class=cls), cls_ok
+        short = []
+        for n_it, n_snap in ((1, 0), (1, 1), (3, 0)):
+            skw = dict(kw, n_iters=n_it, snap_iters=n_snap)
+            res, ok, summary = check_call(
+                ipm_kernel.ipm_solve_fused, ipm_kernel.ipm_solve_fused_plain,
+                FUSED_OUT, args, skw, uncapped=fused_uncapped(skw))
+            entry = dict(n_iters=n_it, snap_iters=n_snap, ok=ok,
+                         max_abs_err_by_output={
+                             n: v["kernel_vs_plain_max"]
+                             for n, v in summary.items()},
+                         median_err_vs_plain_f64_by_output={
+                             n: [v["kernel_vs_plain_f64"][0],
+                                 v["plain_vs_plain_f64"][0]]
+                             for n, v in summary.items()},
+                         gross_rows_by_output={
+                             n: [v["gross_rows"], v["gross_rows_plain_f32"]]
+                             for n, v in summary.items()})
+            if (n_it, n_snap) == (1, 0):
+                entry["kernel_with_one_scalar_off_rejected"], rej_ok = \
+                    fused_controls_rejected(ipm_kernel, args, skw, summary)
+                ok = ok and rej_ok
+            if not ok:
+                entry["outputs"] = summary
+            short.append(entry)
+            cls_ok = cls_ok and ok
+        return dict(residual_class=cls, short_runs=short), cls_ok
 
     finish("ipm_solve_fused", "ipm_solve.cu",
            "mav_tube_trajectory_generation_tpu/ops/ipm_kernel.py:841",
@@ -1478,9 +1672,11 @@ def ipm_kernel_rows(state, mtt):
            FUSED_OUT, args, kw, flops,
            note=f"fused_path, {kw['n_iters']} Newton steps + "
            f"{kw['snap_iters']} snap sweeps in one launch",
-           extra_check=in_solution_class)
+           extra_check=in_solution_class, uncapped=fused_uncapped(kw))
+    del args
+    torch.cuda.empty_cache()
 
-    args, kw = rec["gt_matvec"]
+    args, kw = to_device(rec["gt_matvec"], dev)
     bsz, nfd, m_p = args[0].shape
     gt, v = args
     finish("gt_matvec", "gt_matvec.cu",

@@ -40,8 +40,10 @@ def structure_from_fields(other: Any) -> ProblemStructure:
 
 
 def ipm_config_from_fields(other: Any) -> IPMConfig:
-    """This package's ``IPMConfig`` from any object with the same fields
-    (e.g. the JAX package's)."""
+    """This package's ``IPMConfig`` from any object with its fields (e.g.
+    the JAX package's; fields of ``other`` that this package has no use
+    for, such as that package's choice of accelerator back end, are
+    ignored)."""
     return IPMConfig(**{f.name: getattr(other, f.name)
                         for f in dataclasses.fields(IPMConfig)})
 

@@ -160,8 +160,7 @@ def _run_tier15_chain(structure, d32, t32, w32, r32, idx, t1_viol, t1_inf,
 
 def _run_tier2_f64(structure, d_fixed, times, waypoints, radii, idx,
                    t1_viol, t1_inf, merged_fields: List[torch.Tensor], a_mask,
-                   strict_gate, tier_mark=None, device: DeviceLike = None,
-                   stage_rows: Optional[List[int]] = None):
+                   strict_gate, tier_mark=None, device: DeviceLike = None):
     """Tier 2: the float64 row-layout interior-point method for anything the
     float32 tiers cannot settle.  It runs on ``device`` like the other tiers
     (float64 is native there), on exactly the rows that need it, in chunks
@@ -190,10 +189,9 @@ def _run_tier2_f64(structure, d_fixed, times, waypoints, radii, idx,
 
     idx: (n_esc,) int64 NumPy, batch rows of the escalated set.  Mutates
     ``t1_viol`` / ``t1_inf`` (NumPy, per escalated row) and ``tier_mark`` in
-    place; appends the number of rows entering each stage that ran to
-    ``stage_rows`` where given; returns the updated merged fields.  One host
-    read per stage (the gate data); the best float64 iterate per row stays on
-    the device.
+    place; returns the updated merged fields and the number of rows that
+    entered each stage that ran.  One host read per stage (the gate data);
+    the best float64 iterate per row stays on the device.
     """
     pos = _sel_positions(a_mask)
     pos_mv = pos["max_violation"]
@@ -211,6 +209,7 @@ def _run_tier2_f64(structure, d_fixed, times, waypoints, radii, idx,
     warm = None                     # [d_free, dual_ball, dual_half]
     pending = (np.isin(tier_mark, (2, 3)) if tier_mark is not None
                else np.zeros_like(t1_inf, dtype=bool))
+    stage_rows: List[int] = []
 
     for stage, t2_iters in enumerate(TIER2_STAGE_ITERS):
         restart = stage >= 2
@@ -224,8 +223,7 @@ def _run_tier2_f64(structure, d_fixed, times, waypoints, radii, idx,
         if not need2.any():
             break
         sub = np.nonzero(need2)[0]
-        if stage_rows is not None:
-            stage_rows.append(int(sub.size))
+        stage_rows.append(int(sub.size))
         cfg = IPMConfig(n_iters=t2_iters)
         v_parts, i_parts = [], []
         for c0 in range(0, sub.size, TIER2_CHUNK_ROWS):
@@ -272,7 +270,7 @@ def _run_tier2_f64(structure, d_fixed, times, waypoints, radii, idx,
         # INFEASIBLE on these rows -- an OR would let a float32 Farkas
         # false-fire survive into a determinate false-INFEASIBLE verdict.
         t1_inf[sub] = i_np
-    return merged_fields
+    return merged_fields, stage_rows
 
 
 def solve_qcqp_auto(structure: ProblemStructure, d_fixed, times, waypoints,
@@ -408,7 +406,7 @@ def solve_qcqp_auto(structure: ProblemStructure, d_fixed, times, waypoints,
         structure, d32, t32, w32, r32, idx, t1_viol, t1_inf, merged_fields,
         a_mask, strict_gate, tier_mark=tier_esc)
     if tier2_f64:
-        merged_fields = _run_tier2_f64(
+        merged_fields, _ = _run_tier2_f64(
             structure, d_fixed, times, waypoints, radii, idx, t1_viol, t1_inf,
             merged_fields, a_mask, strict_gate, tier_mark=tier_esc,
             device=dev)

@@ -108,17 +108,6 @@ class IPMConfig:
     # (modified Newton).  1 = factor every step.  Snap sweeps always get a
     # fresh factor.
     refactor_every: int = 1
-    # Scenario block of the fused kernel in the JAX package (there a knob of
-    # the kernel's fast memory; this package's kernel takes a flat batch of
-    # any size); kept so that configurations convert one to one, read by
-    # nothing here.
-    fused_block: int = 2
-    # Hessian inverse back end of the JAX package's row-layout solver (a
-    # choice between two of its accelerator's back ends); kept so that
-    # configurations convert one to one, read by nothing here: the row-layout
-    # solver below factors the Newton system's band wherever the structure
-    # has one, with ``ops.linalg.spd_inverse`` on the pivot blocks.
-    hess_inverse: str = "schur"
 
     def __post_init__(self):
         if self.gram_precision != "highest":

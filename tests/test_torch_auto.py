@@ -375,10 +375,9 @@ def test_tier2_f64_tiny_fast(small_batch):
     idx = np.array([2, 7])
     t1_viol = np.array([1.0, 1.0], np.float32)
     t1_inf = np.array([True, False])
-    stage_rows = []
-    merged = tauto._run_tier2_f64(
+    merged, stage_rows = tauto._run_tier2_f64(
         ts, df, times, waypoints, radii, idx, t1_viol, t1_inf, a_fields,
-        a_mask, 1e-4, device="cpu", stage_rows=stage_rows)
+        a_mask, 1e-4, device="cpu")
     assert t1_viol[0] < 1e-4, t1_viol
     assert not t1_inf[0], "a false float32 certificate must not survive"
     assert t1_inf[1], (t1_viol, t1_inf)
@@ -444,22 +443,22 @@ def test_tier2_optimality_repair_chain_landed(small_batch):
     # No chain mark: the feasible row never enters tier 2.
     t1_viol = np.array([9.0e-5], np.float32)
     t1_inf = np.array([True])                           # sentinel
-    stage_rows = []
-    kept = tauto._run_tier2_f64(*args, t1_viol, t1_inf, fabricate(), a_mask,
-                                1e-4, device="cpu", stage_rows=stage_rows)
+    kept, stage_rows = tauto._run_tier2_f64(
+        *args, t1_viol, t1_inf, fabricate(), a_mask, 1e-4, device="cpu")
     assert float(kept[pos["cost"]][row]) == inflated
     assert stage_rows == [] and t1_inf[0] and t1_viol[0] == np.float32(9e-5)
     mark = np.array([1], np.int8)
-    tauto._run_tier2_f64(*args, t1_viol, t1_inf, fabricate(), a_mask, 1e-4,
-                         tier_mark=mark, device="cpu", stage_rows=stage_rows)
+    _, stage_rows = tauto._run_tier2_f64(
+        *args, t1_viol, t1_inf, fabricate(), a_mask, 1e-4, tier_mark=mark,
+        device="cpu")
     assert stage_rows == [] and mark[0] == 1
 
     # Chain mark (tier_mark 2 = restart #1): the row joins stage 0 and the
     # near-optimal float64 point replaces the repaired one.
     mark = np.array([2], np.int8)
-    merged = tauto._run_tier2_f64(*args, t1_viol, t1_inf, fabricate(),
-                                  a_mask, 1e-4, tier_mark=mark, device="cpu",
-                                  stage_rows=stage_rows)
+    merged, stage_rows = tauto._run_tier2_f64(
+        *args, t1_viol, t1_inf, fabricate(), a_mask, 1e-4, tier_mark=mark,
+        device="cpu")
     assert stage_rows == [1]                 # landed at once: no later stage
     assert float(merged[pos["cost"]][row]) < 0.5 * inflated
     assert float(merged[pos["max_violation"]][row]) < 1e-6
@@ -543,10 +542,9 @@ def test_tier2_stage_semantics_on_hand_made_results(small_batch,
                          ([5e-6], [False])])
     monkeypatch.setattr(tipm, "_solve_qcqp_polished_rows", fake.polished)
     monkeypatch.setattr(tipm, "_solve_qcqp_ipm_rows", fake.restart)
-    stage_rows = []
-    merged = tauto._run_tier2_f64(
+    merged, stage_rows = tauto._run_tier2_f64(
         ts, df, times, waypoints, radii, idx, t1_viol, t1_inf, fields,
-        a_mask, 1e-4, tier_mark=mark, device="cpu", stage_rows=stage_rows)
+        a_mask, 1e-4, tier_mark=mark, device="cpu")
     assert stage_rows == [3, 3, 1]
     assert [c["n_iters"] for c in fake.calls] == [30, 120, 60]
     assert fake.calls[0]["x0"] is None and fake.calls[1]["x0"] is None
@@ -581,11 +579,10 @@ def test_tier2_chunks_give_what_one_batch_gives(small_batch, monkeypatch):
         monkeypatch.setattr(tauto, "TIER2_CHUNK_ROWS", chunk)
         viol = np.array([1.0, 1.0, 1.0], np.float32)
         inf = np.array([False, False, False])
-        rows = []
-        merged = tauto._run_tier2_f64(
+        merged, rows = tauto._run_tier2_f64(
             ts, df, times, waypoints, radii, idx, viol, inf,
             [af for m, af in zip(a_mask, a) if m], a_mask, 1e-4,
-            device="cpu", stage_rows=rows)
+            device="cpu")
         outs.append((viol, inf, rows, merged))
     np.testing.assert_array_equal(outs[0][1], outs[1][1])
     np.testing.assert_array_equal(outs[0][1], [False, False, True])
