@@ -55,7 +55,8 @@ MIN_FEASIBLE = 6080
 MAX_MEDIAN_VIOLATION = 3e-4
 OUT_NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
 ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
-              "multi_stage", "ipm_kernel_check", "fused_path", "strict_path",
+              "multi_stage", "dense_path", "band_gram", "ipm_kernel_check",
+              "fused_path", "strict_path",
               "strict_tight", "kernels")
 
 # The interior-point kernels against their plain versions, per output, on
@@ -273,12 +274,40 @@ def build_report(_build, name):
                            re.findall(r"(\d+) bytes spill stores", log)])
 
 
+# The entry functions of the two ADMM sources, by the name in the source.
+ADMM_ENTRIES = {"admm_stage": ("admm_stage_fused_factored_kernel",
+                               "admm_stage_fused_kernel",
+                               "admm_stage_iter_kernel"),
+                "gram_band": ("gram_band_kernel",)}
+# A block's dynamic shared memory may not exceed this on an H100.
+MAX_DYNAMIC_SMEM = 232448
+
+
+def entry_report(log, names):
+    """Registers, spill-store bytes and static shared memory per entry
+    function, read from ``nvcc -Xptxas -v``'s output (mangled names are
+    matched by their length-prefixed identifier)."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        for name in names:
+            if f"{len(name)}{name}" in mangled:
+                regs = re.search(r"Used (\d+) registers", chunk)
+                spill = re.search(r"(\d+) bytes spill stores", chunk)
+                smem = re.search(r"(\d+) bytes smem", chunk)
+                out[name] = dict(
+                    registers=int(regs.group(1)) if regs else None,
+                    spill_store_bytes=int(spill.group(1)) if spill else None,
+                    static_smem_bytes=int(smem.group(1)) if smem else None)
+    return out
+
+
 def phase_build(state):
     from mav_tube_trajectory_generation_tpu_torch import _build
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
                                                               ipm_kernel)
     t0 = time.perf_counter()
-    if set(_build.SOURCES) != {"admm_stage", *IPM_SOURCES}:
+    if set(_build.SOURCES) != {"admm_stage", "gram_band", *IPM_SOURCES}:
         raise RuntimeError(f"unexpected kernel sources: {_build.SOURCES}")
     wall = _build.prebuild()
     smem = admm_kernel.smem_bytes(135, 512, 9, 15, 128)
@@ -302,6 +331,26 @@ def phase_build(state):
          threads_per_block=admm_kernel.THREADS)
     if spills and max(spills) > 0:
         print("note: the kernel spills registers", file=sys.stderr)
+    # The entry points this slice added, with their dynamic shared memory at
+    # the flagship shape (nfd 135, m_p 512) and at K=2 (nfd 15, m_p 384).
+    entries = {}
+    for src, names in ADMM_ENTRIES.items():
+        entries.update(entry_report(_build.build_log(src), names))
+    smem = {}
+    for label, nfd, m_p in (("flagship", 135, 512), ("K=2", 15, 384)):
+        smem[label] = {kind: admm_kernel.smem_bytes(nfd, m_p, nfd // 15, 15,
+                                                    128, kind=kind)
+                       for kind in admm_kernel.launches}
+    emit("build_admm_routes", libraries=[build_report(_build, "gram_band")],
+         entry_functions=entries, dynamic_smem_bytes=smem,
+         max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM,
+         threads_per_block=dict(stage=admm_kernel.THREADS,
+                                gram_band=admm_kernel.GRAM_THREADS))
+    over = {f"{label} {k}": v for label, d in smem.items()
+            for k, v in d.items() if v > MAX_DYNAMIC_SMEM}
+    if over or len(entries) != 4:
+        raise RuntimeError(f"build: entry functions {sorted(entries)}, "
+                           f"shared memory over the limit: {over}")
 
 
 def phase_kernel_check(state, mtt):
@@ -339,20 +388,219 @@ def phase_kernel_check(state, mtt):
            if not (r["within_tolerance"] and r["bit_identical"])]
     if bad:
         raise RuntimeError(f"kernel_check failed for {bad}")
+    route_kernel_check(mtt)
 
 
-@contextlib.contextmanager
-def plain_stage():
-    """Route the solver's stage calls to the plain PyTorch version (used
-    only to compare; the port itself never does this)."""
+# The kernels of the other KKT routes.  The stage kernels #2 and #7 are held
+# to kernel 1's two criteria (KERNEL_TOL, compare_outputs).  The band kernels
+# #5 and #6 to: per output, max|kernel - plain f64| <= BAND_FACTOR * max|plain
+# f32 - plain f64| + BAND_FLOOR * max(1, max|plain f64|).  Each check has a
+# negative control that must fail it: #2 and #7 with alpha WRONG_ALPHA for
+# the config's 1.6, #5 with rho times WRONG_RHO_FACTOR, #6 with the last row
+# of G^T set to zero (the plain versions get the right inputs).  The controls
+# run at every shape and must be rejected at the flagship shape, the main
+# path's; at K=2 and K=4 the result is reported.
+BAND_FACTOR = 2.0
+BAND_FLOOR = 1e-6
+WRONG_ALPHA = 1.62
+WRONG_RHO_FACTOR = 1.001
+ROUTE_SHAPES = (("K=2", 2, 256), ("K=4", 4, 64), ("flagship K=10", 10, 256))
+BAND_BLOCK = 15
+
+
+def route_inputs(mtt, k, batch, seed, config):
+    """Inputs of kernels #2, #5, #6 and #7 from a real assembly at the
+    config's rho: the dense KKT inverse of the route the structure takes
+    (K=2: the dense KKT; otherwise the banded route with kkt_apply="inverse"),
+    xq = -W^-1 q, the objective band, and for #7 m1 = W^-1 G^T with z0/u0
+    from one plain stage (u halved, as a rebalancing of rho would)."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
+                                                              linalg)
+    from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
+    sc = mtt.make_inputs(k, batch, seed=seed)
+    layout = qcqp._flagship_layout(sc.free)
+    pre = qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
+                    sc.radii, config, None, layout,
+                    warmstart_positions=sc.values[:, 1:-1, 0, :])
+    gt = pre.gt.contiguous()
+    bsz, nfd, _ = gt.shape
+    rho = torch.full((bsz, 1, 1), config.rho, dtype=torch.float32,
+                     device=gt.device)
+    blk = banded.kkt_tridiag_block(sc.free)
+    if blk is None:
+        eye = torch.eye(nfd, dtype=gt.dtype, device=gt.device)
+        pb_d = qcqp._kron_eye(pre.p_eq, 3)
+        winv = linalg.spd_inverse(pb_d + rho * (gt @ gt.transpose(1, 2))
+                                  + config.sigma * eye)
+        pb_d = pb_d.reshape(bsz, 1, nfd, nfd).contiguous()
+        pb_u = torch.zeros((bsz, 0, nfd, nfd), dtype=gt.dtype,
+                           device=gt.device)
+    else:
+        band = qcqp._kkt_band(gt, pre.p_eq, blk)
+        winv = banded.spd_block_tridiag_inverse_blocks(
+            *qcqp._kkt_band_at(band, rho, config.sigma))
+        pb_d, pb_u = band[0], band[1]
+    winv = winv.contiguous()
+    xq = -(winv @ pre.q_flat[:, :, None]).contiguous()
+    fused = (rho, winv, gt, pre.b_pad.contiguous(),
+             qcqp._rb_pad(pre.rb, layout), xq,
+             pre.x_flat0[:, :, None].contiguous())
+    kw = dict(n_iters=config.n_iters, alpha=config.alpha, nb_p=layout.nb_p,
+              n_ball=layout.n_ball)
+    x1, z1, _, u1 = admm_kernel.admm_stage_fused_plain(*fused, **kw)[:4]
+    carried = (x1.contiguous(), z1.contiguous(), (0.5 * u1).contiguous())
+    m1 = (winv @ gt).contiguous()
+    stage = (rho, m1, gt, fused[3], fused[4], xq) + carried[1:]
+    return dict(fused=fused, carried=carried, stage=stage, kw=kw, gt=gt,
+                pb_d=pb_d, pb_u=pb_u, rho=rho, sigma=config.sigma)
+
+
+def band_compare(names, ours, plain, plain64):
+    """The band kernels' criterion stated above BAND_FACTOR, per output."""
+    import torch
+    out, ok = {}, True
+    for name, a, b, c in zip(names, ours, plain, plain64):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise RuntimeError(f"band kernel output {name}: bad shape or "
+                               f"non-finite values")
+        if a.numel() == 0:
+            out[name] = dict(empty=True)
+            continue
+        e_k = float((a.double() - c).abs().max())
+        e_p = float((b.double() - c).abs().max())
+        scale = max(1.0, float(c.abs().max()))
+        good = e_k <= BAND_FACTOR * e_p + BAND_FLOOR * scale
+        out[name] = dict(kernel_vs_plain_f64=e_k, plain_vs_plain_f64=e_p,
+                         kernel_vs_plain=float((a - b).abs().max()),
+                         scale=scale, ok=good)
+        ok = ok and good
+    return out, ok
+
+
+def triple(fn, fn_plain, args, kw, wrong_args=None, wrong_kw=None):
+    """(kernel, kernel again, plain float32, plain float64) on the same
+    inputs; with ``wrong_*`` the kernel runs on those instead (a control)."""
+    import torch
+    k_args = args if wrong_args is None else wrong_args
+    k_kw = kw if wrong_kw is None else wrong_kw
+    ours = as_tuple(fn(*k_args, **k_kw))
+    again = as_tuple(fn(*k_args, **k_kw))
+    torch.cuda.synchronize()
+    plain = as_tuple(fn_plain(*args, **kw))
+    plain64 = as_tuple(fn_plain(*(to64(a) for a in args), **kw))
+    same = all(torch.equal(a, b) for a, b in zip(ours, again))
+    return ours, plain, plain64, same
+
+
+def band_checks(ak, inp):
+    """The entries of ``route_checks`` for the band kernels #6 (both
+    per_block values) and #5."""
+    gt = inp["gt"]
+    gt_cut = gt.clone()
+    gt_cut[:, -1, :] = 0.0
+    rho_off = (inp["rho"] * WRONG_RHO_FACTOR).contiguous()
+    band_args = (gt, inp["pb_d"], inp["pb_u"], inp["rho"])
+    band_kw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
+    out = []
+    for per_block in (False, True):
+        gkw = dict(blk=BAND_BLOCK, per_block=per_block)
+        out.append(("gram_band", f"per_block={per_block}", ak.gram_band,
+                    ak.gram_band_plain, (gt,), gkw, "band",
+                    ((gt_cut,), gkw)))
+    out.append(("gram_band_factors", "", ak.gram_band_factors,
+                ak.gram_band_factors_plain, band_args, band_kw, "band",
+                ((gt,) + band_args[1:3] + (rho_off,), band_kw)))
+    return out
+
+
+def route_checks(ak, inp):
+    """[(kernel, variant, fn, fn_plain, args, kw, kind, control)] for one
+    shape; ``control`` = (args, kw) of the negative control."""
+    kw = inp["kw"]
+    out = []
+    for init_z in (True, False):
+        # a later stage: x, z, u carried in from one plain stage
+        args = inp["fused"] if init_z else inp["fused"][:6] + inp["carried"]
+        fkw = dict(kw, init_z=init_z)
+        out.append(("admm_stage_fused", f"init_z={init_z}",
+                    ak.admm_stage_fused, ak.admm_stage_fused_plain, args,
+                    fkw, "stage", (args, dict(fkw, alpha=WRONG_ALPHA))))
+    out.append(("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
+                inp["stage"], kw, "stage",
+                (inp["stage"], dict(kw, alpha=WRONG_ALPHA))))
+    return out + band_checks(ak, inp)
+
+
+def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3):
+    """Band-kernel inputs of the flagship shape with random entries.  In the
+    real assemblies (K=2, 4, 10) every constraint row of G^T touches one
+    free vertex, so their super-diagonal Gram band is exactly zero; these
+    inputs hold gu and ub to a band that is not."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    m_blk = nfd // BAND_BLOCK
+    return dict(gt=rnd(batch, nfd, m_p),
+                pb_d=rnd(batch, m_blk, BAND_BLOCK, BAND_BLOCK),
+                pb_u=rnd(batch, m_blk - 1, BAND_BLOCK, BAND_BLOCK),
+                rho=(0.01 + rnd(batch, 1, 1).abs()).contiguous(), sigma=1e-6)
+
+
+def route_kernel_check(mtt):
+    """#2 (init_z True and False), #7, #6 (both per_block values) and #5
+    against their plain versions in float32 and float64 at K=2, K=4 and
+    K=10, with the negative controls; the band kernels also on a random
+    G^T of the flagship shape."""
+    import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
-    kernel_fn = admm_kernel.admm_stage_fused_factored
-    admm_kernel.admm_stage_fused_factored = \
-        admm_kernel.admm_stage_fused_factored_plain
-    try:
-        yield
-    finally:
-        admm_kernel.admm_stage_fused_factored = kernel_fn
+    cases, bad = [], []
+
+    def run(label, inp, checks, controls_gate):
+        for (name, variant, fn, fn_plain, args, kw, kind,
+             control) in checks:
+            ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
+            wrong = triple(fn, fn_plain, args, kw, *control)
+            if kind == "stage":
+                res, ok = compare_outputs(ours, plain, plain64)
+                _, ctl_ok = compare_outputs(wrong[0], plain, plain64)
+            else:
+                names = ("db", "ub") if name.endswith("factors") else \
+                    ("gd", "gu")
+                res, ok = band_compare(names, ours, plain, plain64)
+                _, ctl_ok = band_compare(names, wrong[0], plain, plain64)
+            rejected = not ctl_ok
+            cases.append(dict(kernel=name, variant=variant, shapes=label,
+                              gt_shape=list(inp["gt"].shape),
+                              within_tolerance=ok, bit_identical=same,
+                              control_rejected=rejected, errors=res))
+            if not (ok and same):
+                bad.append(f"{name} {variant} {label}")
+            if controls_gate and not rejected:
+                bad.append(f"{name} {variant} {label}: the control passes")
+
+    for label, k, batch in ROUTE_SHAPES:
+        inp = route_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
+        run(label, inp, route_checks(admm_kernel, inp),
+            label.startswith("flagship"))
+        del inp
+    inp = random_band_inputs()
+    run("random G^T, flagship shape", inp, band_checks(admm_kernel, inp),
+        True)
+    del inp
+    emit("kernel_check_routes", tolerance_is=dict(
+        stage="as kernel_check (KERNEL_TOL, both criteria)",
+        band=f"per output max|kernel - plain f64| <= {BAND_FACTOR} * "
+        f"max|plain f32 - plain f64| + {BAND_FLOOR} * max(1, max|plain "
+        f"f64|)"), controls=dict(
+        stage_alpha=WRONG_ALPHA, gram_band_factors_rho_factor=
+        WRONG_RHO_FACTOR, gram_band="last row of G^T zero"), cases=cases)
+    torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError(f"kernel_check (routes) failed for {bad}")
 
 
 def solve(mtt, sc, cfg, n=None):
@@ -376,12 +624,13 @@ PATH_COST_TOL = 2e-3
 PATH_VIOLATION_TOL = 5e-4
 
 
-def compare_paths(mtt, sc, cfg, n):
-    """Solve the first ``n`` scenarios through the kernel, through the plain
-    float32 stage and through the plain float64 stage; returns the error
-    summary and whether the kernel path is within the stated bounds."""
+def compare_paths(mtt, sc, cfg, n, kernel="admm_stage_fused_factored"):
+    """Solve the first ``n`` scenarios through the stage kernel ``kernel``,
+    through its plain version in float32 and through its plain version in
+    float64; returns the error summary and whether the kernel path is within
+    the stated bounds."""
     kern = solve(mtt, sc, cfg, n)
-    with plain_stage():
+    with plain_kernels(only=(kernel,)):
         p32 = solve(mtt, sc, cfg, n)
         sc64 = sc._replace(**{f: getattr(sc, f).double() for f in (
             "d_fixed_std", "d_fixed_free", "times", "waypoints", "radii",
@@ -423,8 +672,8 @@ def phase_main_path(state, mtt):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    admm_kernel.launches = 0
-    before = admm_kernel.launches
+    reset_launches()
+    before = 0
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_pass + 1)]
     t0 = time.perf_counter()
     marks[0].record()
@@ -435,7 +684,9 @@ def phase_main_path(state, mtt):
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_pass
     pass_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(n_pass)]
     ms = sum(pass_ms) / n_pass
-    after = admm_kernel.launches
+    after = admm_kernel.launches["admm_stage_fused_factored"]
+    others = {n: v for n, v in admm_kernel.launches.items()
+              if v and n != "admm_stage_fused_factored"}
     state["launches"] = after - before
     peak = torch.cuda.max_memory_allocated()
 
@@ -503,9 +754,10 @@ def phase_main_path(state, mtt):
          phase_ms=parts, nvidia_smi=state.get("nvidia_smi"))
     if not shapes_ok:
         raise RuntimeError("main_path: unexpected output shapes")
-    if after - before != cfg.n_stages * n_pass:
+    if after - before != cfg.n_stages * n_pass or others:
         raise RuntimeError(f"main_path: {after - before} kernel launches in "
-                           f"{n_pass} passes, expected {cfg.n_stages} each")
+                           f"{n_pass} passes, expected {cfg.n_stages} each; "
+                           f"other stage kernels launched: {others}")
     if feasible < MIN_FEASIBLE or not median_viol <= MAX_MEDIAN_VIOLATION:
         raise RuntimeError(f"main_path quality: {feasible}/{batch} feasible, "
                            f"median violation {median_viol:.3e}")
@@ -519,10 +771,10 @@ def phase_multi_stage(state, mtt):
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     cfg = bench_config(mtt, n_stages=2, n_iters=24)
     sc = mtt.make_inputs(10, 512, seed=2)
-    before = admm_kernel.launches
+    before = admm_kernel.launches["admm_stage_fused_factored"]
     kern, cmp, ok = compare_paths(mtt, sc, cfg, None)
     torch.cuda.synchronize()
-    launched = admm_kernel.launches - before
+    launched = admm_kernel.launches["admm_stage_fused_factored"] - before
     feasible = int((kern.max_violation < 1e-2).sum())
     emit("multi_stage", n_stages=2, n_iters=24, batch=512,
          kernel_launches=launched, feasible_at_1e_2=feasible,
@@ -555,23 +807,29 @@ def recorded(module, name, sink):
         setattr(module, name, fn)
 
 
+ADMM_WRAPPERS = ("admm_stage_fused_factored", "admm_stage_fused",
+                 "admm_stage", "gram_band", "gram_band_factors")
+IPM_WRAPPERS = ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
+                "ipm_solve_fused")
+
+
 @contextlib.contextmanager
 def plain_kernels(only=None):
     """Route every kernel wrapper of the port to its plain PyTorch version,
-    or with ``only`` just those interior-point wrappers (used only to
-    compare; the port itself never does this)."""
-    from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
-    names = only or ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
-                     "ipm_solve_fused")
-    kept = {n: getattr(ipm_kernel, n) for n in names}
-    for n in names:
-        setattr(ipm_kernel, n, getattr(ipm_kernel, n + "_plain"))
+    or with ``only`` just the wrappers so named (used only to compare; the
+    port itself never does this)."""
+    from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
+                                                              ipm_kernel)
+    names = only or ADMM_WRAPPERS + IPM_WRAPPERS
+    mods = [admm_kernel if n in ADMM_WRAPPERS else ipm_kernel for n in names]
+    kept = [getattr(m, n) for m, n in zip(mods, names)]
+    for m, n in zip(mods, names):
+        setattr(m, n, getattr(m, n + "_plain"))
     try:
-        with (contextlib.nullcontext() if only else plain_stage()):
-            yield
+        yield
     finally:
-        for n in names:
-            setattr(ipm_kernel, n, kept[n])
+        for m, n, fn in zip(mods, names, kept):
+            setattr(m, n, fn)
 
 
 def to_device(call, device):
@@ -810,6 +1068,336 @@ def record_lanes(mtt, k, batch, seed):
         # keep the LAST call of a pair: the state is furthest from the start
         pairs[key] = call
     return pairs, eval_calls, mv_calls, fused_calls
+
+
+# dense_path and band_gram: the other KKT routes of solve_qcqp_batch at batch
+# 6144, seed 0, on the headline config.  Bars fixed before the first run of
+# these phases.  A route against its reference run on the same inputs (the
+# default factored route, the "xla" band, or the route with the stage
+# kernel's plain version in its place): relative cost gap with a median of
+# at most ROUTE_COST_MEDIAN and a 99th percentile of at most ROUTE_COST_P99,
+# at most ROUTE_COST_OUTLIER_SHARE of the rows beyond ROUTE_COST_P99; the
+# feasible count at 1e-2 within ROUTE_FEASIBLE_SHARE of the batch of the
+# reference's (against the plain run: at most that share below it, and a
+# median violation of at most ROUTE_VIOLATION_FACTOR x the plain run's +
+# 1e-6, the violation taken as max(max_violation, 0): at K=2 every row lies
+# strictly inside its corridor, the signed median is -0.41, and a factor on
+# a negative number would ask for more than equality).  The K=10 routes also
+# meet the headline's bars (MIN_FEASIBLE, MAX_MEDIAN_VIOLATION).
+ROUTE_COST_MEDIAN = 1e-3
+ROUTE_COST_P99 = 1e-2
+ROUTE_COST_OUTLIER_SHARE = 0.0025
+ROUTE_FEASIBLE_SHARE = 0.005
+ROUTE_VIOLATION_FACTOR = 1.5
+DENSE_ROUTES = (("a", 10, dict(kkt_apply="inverse")),
+                ("b", 10, dict(kkt_inverse="cholesky")),
+                ("c", 2, {}))
+BAND_MODES = ("xla", "pallas", "pallas_block", "pallas_db")
+ROUTE_PASSES = 3
+
+
+def route_config(mtt, n_stages=1, **over):
+    import dataclasses
+    return dataclasses.replace(bench_config(mtt, n_stages=n_stages), **over)
+
+
+def cost_gap_summary(a, b):
+    """Relative cost gap of two solutions of the same scenarios."""
+    import torch
+    g = ((a.cost - b.cost).abs() / b.cost.abs()).double()
+    return dict(median=float(g.median()), p99=float(torch.quantile(g, 0.99)),
+                worst=float(g.max()),
+                rows_over_p99_limit=int((g > ROUTE_COST_P99).sum()))
+
+
+def gap_ok(gap, batch):
+    return (gap["median"] <= ROUTE_COST_MEDIAN
+            and gap["p99"] <= ROUTE_COST_P99
+            and gap["rows_over_p99_limit"] <= ROUTE_COST_OUTLIER_SHARE * batch)
+
+
+def solution_quality(sol):
+    import torch
+    finite = torch.isfinite(sol.cost) & torch.isfinite(sol.max_violation)
+    return dict(feasible_at_1e_2=int((finite & (sol.max_violation < 1e-2))
+                                     .sum()),
+                median_max_violation=float(sol.max_violation.median()),
+                median_positive_violation=float(
+                    torch.clamp(sol.max_violation, min=0.0).median()),
+                all_finite=bool(finite.all()))
+
+
+def timed_passes(fn, n_pass):
+    """(last result, ms of each pass by CUDA events, launches per kernel in
+    the passes, peak device memory); counts set to 0 just before."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_pass + 1)]
+    marks[0].record()
+    for i in range(n_pass):
+        out = fn()
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    launches = {n: v for n, v in ipm_launches().items() if v}
+    pass_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(n_pass)]
+    return out, pass_ms, launches, torch.cuda.max_memory_allocated()
+
+
+def route_pieces(mtt, sc, cfg, stage_call):
+    """ms of the pieces of one solve on cfg's route, each run alone: _pre,
+    the KKT set-up (once a solve), the KKT inverse with xq (once a stage),
+    the stage kernel, _run_stages as a whole, _post."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
+    layout = qcqp._flagship_layout(sc.free)
+    blk = banded.kkt_tridiag_block(sc.free)
+    wp = sc.values[:, 1:-1, 0, :]
+
+    def pre_fn():
+        return qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
+                         sc.radii, cfg, None, layout, warmstart_positions=wp)
+
+    parts = dict(pre_ms=cuda_ms(pre_fn, 3))
+    pre = pre_fn()
+    gt = pre.gt.contiguous()
+    rho = torch.full((gt.shape[0], 1, 1), cfg.rho, dtype=gt.dtype,
+                     device=gt.device)
+    parts["kkt_setup_ms"] = cuda_ms(lambda: qcqp._kkt_setup(cfg, pre, blk), 3)
+    kkt = qcqp._kkt_setup(cfg, pre, blk)
+
+    def inverse():
+        w = qcqp._kkt_inverse(kkt, rho, cfg.sigma, gt)
+        return w, -(w @ pre.q_flat[:, :, None])
+
+    parts["kkt_inverse_and_xq_ms"] = cuda_ms(inverse, 3)
+    del kkt
+    args, kw = stage_call
+    parts["stage_kernel_ms"] = cuda_ms(
+        lambda: admm_kernel.admm_stage_fused(*args, **kw), 3)
+    outs = qcqp._run_stages(cfg, pre, layout, blk)
+    parts["run_stages_total_ms"] = cuda_ms(
+        lambda: qcqp._run_stages(cfg, pre, layout, blk), 3)
+    parts["post_ms"] = cuda_ms(
+        lambda: qcqp._post(sc.free, cfg, sc.d_fixed_free, sc.times, pre,
+                           outs[0], outs[2], outs[3], outs[4], outs[5],
+                           outs[6]), 3)
+    return parts
+
+
+def phase_dense_path(state, mtt):
+    """solve_qcqp_batch on the routes that run kernel #2 (admm_stage_fused):
+    (a) K=10 kkt_apply="inverse", (b) K=10 kkt_inverse="cholesky", (c) K=2
+    with the default config (no block band: its only route); then (a) with
+    three stages at batch 512 against its plain-in-place run, and kernel #7
+    (admm_stage, no caller) through its public wrapper at the headline
+    shapes."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    batch = MAIN_BATCH
+    rec = state.setdefault("recorded", {})
+    routes, bad = [], []
+    for label, k, over in DENSE_ROUTES:
+        cfg = route_config(mtt, **over)
+        sc = mtt.make_inputs(k, batch, seed=0)
+        calls = []
+        with recorded(admm_kernel, "admm_stage_fused", calls):
+            solve(mtt, sc, cfg)                           # warm-up
+        torch.cuda.synchronize()
+        stage_call = to_device(calls[0][:2], "cpu")   # off the card
+        del calls
+        sol, pass_ms, launches, peak = timed_passes(
+            lambda: solve(mtt, sc, cfg), ROUTE_PASSES)
+        ms = sum(pass_ms) / ROUTE_PASSES
+        n2 = launches.get("admm_stage_fused", 0)
+        n1 = launches.get("admm_stage_fused_factored", 0)
+        state.setdefault("route_launches", {})[label] = n2
+        q = solution_quality(sol)
+        entry = dict(route=label, k=k, config=over or "default", batch=batch,
+                     passes=ROUTE_PASSES, ms_per_batch=ms, pass_ms=pass_ms,
+                     solves_per_s=batch / (ms * 1e-3),
+                     launches_in_timed_passes=launches,
+                     peak_device_memory_bytes=peak, **q)
+        ok = (n2 == cfg.n_stages * ROUTE_PASSES and n1 == 0 and q["all_finite"]
+              and sol.cost.shape == (batch,))
+        if label in ("a", "b"):
+            ref = solve(mtt, sc, bench_config(mtt))       # factored route
+            rq = solution_quality(ref)
+            gap = cost_gap_summary(sol, ref)
+            entry.update(reference="default factored route", cost_gap=gap,
+                         reference_feasible_at_1e_2=rq["feasible_at_1e_2"])
+            ok = (ok and q["feasible_at_1e_2"] >= MIN_FEASIBLE
+                  and q["median_max_violation"] <= MAX_MEDIAN_VIOLATION
+                  and gap_ok(gap, batch)
+                  and abs(q["feasible_at_1e_2"] - rq["feasible_at_1e_2"])
+                  <= ROUTE_FEASIBLE_SHARE * batch)
+            del ref
+        else:
+            with plain_kernels(only=("admm_stage_fused",)):
+                ref = solve(mtt, sc, cfg)
+            rq = solution_quality(ref)
+            gap = cost_gap_summary(sol, ref)
+            entry.update(reference="the same route with kernel #2's plain "
+                         "version in its place", cost_gap=gap,
+                         reference_feasible_at_1e_2=rq["feasible_at_1e_2"],
+                         reference_median_max_violation=rq[
+                             "median_max_violation"],
+                         reference_median_positive_violation=rq[
+                             "median_positive_violation"])
+            ok = (ok and gap_ok(gap, batch)
+                  and q["feasible_at_1e_2"] >= rq["feasible_at_1e_2"]
+                  - ROUTE_FEASIBLE_SHARE * batch
+                  and q["median_positive_violation"]
+                  <= ROUTE_VIOLATION_FACTOR
+                  * rq["median_positive_violation"] + 1e-6)
+            del ref
+        entry["phase_ms"] = route_pieces(mtt, sc, cfg, to_device(
+            stage_call, "cuda"))
+        entry["ok"] = bool(ok)
+        if not ok:
+            bad.append(label)
+        if label != "b":
+            rec[f"admm_stage_fused {label}"] = stage_call
+        routes.append(entry)
+        del sol, sc, stage_call
+        torch.cuda.empty_cache()
+
+    # (a) with three stages at batch 512: init_z=False on the card, the
+    # kernel path against the plain version of the same stage kernel.
+    cfg3 = route_config(mtt, n_stages=3, kkt_apply="inverse")
+    sc = mtt.make_inputs(10, 512, seed=2)
+    before = admm_kernel.launches["admm_stage_fused"]
+    kern, cmp, ok3 = compare_paths(mtt, sc, cfg3, None,
+                                   kernel="admm_stage_fused")
+    torch.cuda.synchronize()
+    launched = admm_kernel.launches["admm_stage_fused"] - before
+    multi = dict(n_stages=3, batch=512, kernel_launches=launched,
+                 feasible_at_1e_2=int((kern.max_violation < 1e-2).sum()),
+                 **cmp)
+    if launched != 3 or not ok3 or not torch.isfinite(kern.cost).all():
+        bad.append("a, three stages")
+
+    # Kernel #7 has no caller in either package: its path is the public
+    # wrapper, driven once at the headline shapes on route (a)'s recorded
+    # stage inputs (m1 = W^-1 G^T by torch.bmm, z0/u0 from one plain stage),
+    # counts set to 0 just before and read just after.
+    args, kw = to_device(rec["admm_stage_fused a"], "cuda")
+    rho, winv, gt, b, rb, xq, x0 = args[:7]
+    skw = {n: kw[n] for n in ("n_iters", "alpha", "nb_p", "n_ball")}
+    _, z1, _, u1 = admm_kernel.admm_stage_fused_plain(*args[:7], **skw)[:4]
+    stage_args = (rho, torch.bmm(winv, gt), gt, b, rb, xq, z1.contiguous(),
+                  (0.5 * u1).contiguous())
+    del args, z1, u1
+    reset_launches()
+    out7 = admm_kernel.admm_stage(*stage_args, **skw)
+    torch.cuda.synchronize()
+    state["stage_launches"] = admm_kernel.launches["admm_stage"]
+    finite7 = all(bool(torch.isfinite(o).all()) for o in out7)
+    rec["admm_stage"] = to_device((stage_args, skw), "cpu")
+    del stage_args, out7
+    torch.cuda.empty_cache()
+    if state["stage_launches"] != 1 or not finite7:
+        bad.append("admm_stage through its wrapper")
+
+    emit("dense_path", config="headline ADMMConfig (1 stage x 48 "
+         "iterations, rho 0.005, tube/half factors 0.125), seed 0, warm "
+         "start from vertex values; (a) K=10 kkt_apply='inverse', (b) K=10 "
+         "kkt_inverse='cholesky', (c) K=2 default", routes=routes,
+         three_stages=multi, admm_stage_wrapper=dict(
+             launches=state["stage_launches"], outputs_finite=finite7),
+         limits=dict(cost_gap_median=ROUTE_COST_MEDIAN,
+                     cost_gap_p99=ROUTE_COST_P99,
+                     rows_over_p99_limit=int(ROUTE_COST_OUTLIER_SHARE
+                                             * batch),
+                     feasible_within=int(ROUTE_FEASIBLE_SHARE * batch),
+                     median_violation_vs_plain=ROUTE_VIOLATION_FACTOR,
+                     headline=[MIN_FEASIBLE, MAX_MEDIAN_VIOLATION]),
+         nvidia_smi=state.get("nvidia_smi"))
+    if bad:
+        raise RuntimeError(f"dense_path failed for {bad}")
+
+
+def phase_band_gram(state, mtt):
+    """The headline through the band kernels: band_gram "pallas" and
+    "pallas_block" (kernel #6 once a solve) and "pallas_db" (kernel #5 once
+    a stage), each with kernel 1, against the "xla" run on the same
+    inputs."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
+    batch = MAIN_BATCH
+    sc = mtt.make_inputs(10, batch, seed=0)
+    rec = state.setdefault("recorded", {})
+    modes, bad, ref = [], [], None
+    layout = qcqp._flagship_layout(sc.free)
+    blk = banded.kkt_tridiag_block(sc.free)
+    for mode in BAND_MODES:
+        cfg = route_config(mtt, band_gram=mode)
+        calls = {"gram_band": [], "gram_band_factors": []}
+        with recorded(admm_kernel, "gram_band", calls["gram_band"]), \
+                recorded(admm_kernel, "gram_band_factors",
+                         calls["gram_band_factors"]):
+            solve(mtt, sc, cfg)                           # warm-up
+        torch.cuda.synchronize()
+        for name, c in calls.items():
+            if c and name not in rec:
+                rec[name] = to_device(c[0][:2], "cpu")
+        del calls
+        sol, pass_ms, launches, peak = timed_passes(
+            lambda: solve(mtt, sc, cfg), ROUTE_PASSES)
+        ms = sum(pass_ms) / ROUTE_PASSES
+        want = {"admm_stage_fused_factored": cfg.n_stages * ROUTE_PASSES}
+        if mode in ("pallas", "pallas_block"):
+            want["gram_band"] = ROUTE_PASSES
+        elif mode == "pallas_db":
+            want["gram_band_factors"] = cfg.n_stages * ROUTE_PASSES
+        state.setdefault("band_launches", {})[mode] = launches
+        q = solution_quality(sol)
+        pre = qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
+                        sc.radii, cfg, None, layout,
+                        warmstart_positions=sc.values[:, 1:-1, 0, :])
+        rho = torch.full((batch, 1, 1), cfg.rho, dtype=torch.float32,
+                         device=pre.gt.device)
+        band_ms = cuda_ms(lambda: qcqp._kkt_band(pre.gt, pre.p_eq, blk,
+                                                  mode), 3)
+        band = qcqp._kkt_band(pre.gt, pre.p_eq, blk, mode)
+        band_at_ms = cuda_ms(lambda: qcqp._kkt_band_at(band, rho, cfg.sigma,
+                                                        pre.gt), 3)
+        del pre, band
+        entry = dict(band_gram=mode, ms_per_batch=ms, pass_ms=pass_ms,
+                     solves_per_s=batch / (ms * 1e-3),
+                     launches_in_timed_passes=launches,
+                     expected_launches=want, peak_device_memory_bytes=peak,
+                     band_once_a_solve_ms=band_ms,
+                     band_at_rho_once_a_stage_ms=band_at_ms,
+                     band_piece_ms=band_ms + cfg.n_stages * band_at_ms, **q)
+        ok = (launches == want and q["all_finite"]
+              and q["feasible_at_1e_2"] >= MIN_FEASIBLE
+              and q["median_max_violation"] <= MAX_MEDIAN_VIOLATION)
+        if mode == "xla":
+            ref, rq = sol, q
+        else:
+            gap = cost_gap_summary(sol, ref)
+            entry["cost_gap_vs_xla"] = gap
+            ok = (ok and gap_ok(gap, batch)
+                  and abs(q["feasible_at_1e_2"] - rq["feasible_at_1e_2"])
+                  <= ROUTE_FEASIBLE_SHARE * batch)
+        entry["ok"] = bool(ok)
+        if not ok:
+            bad.append(mode)
+        modes.append(entry)
+        torch.cuda.empty_cache()
+    emit("band_gram", config="headline, K=10, batch %d, seed 0" % batch,
+         modes=modes, limits=dict(
+             cost_gap_median=ROUTE_COST_MEDIAN, cost_gap_p99=ROUTE_COST_P99,
+             rows_over_p99_limit=int(ROUTE_COST_OUTLIER_SHARE * batch),
+             feasible_within=int(ROUTE_FEASIBLE_SHARE * batch),
+             headline=[MIN_FEASIBLE, MAX_MEDIAN_VIOLATION]),
+         nvidia_smi=state.get("nvidia_smi"))
+    if bad:
+        raise RuntimeError(f"band_gram failed for {bad}")
 
 
 def phase_ipm_kernel_check(state, mtt):
@@ -1214,14 +1802,14 @@ def strict_summary(mtt, res, batch):
 def ipm_launches():
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
                                                               ipm_kernel)
-    return dict(admm_stage_fused_factored=admm_kernel.launches,
-                **ipm_kernel.launches)
+    return dict(**admm_kernel.launches, **ipm_kernel.launches)
 
 
 def reset_launches():
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
                                                               ipm_kernel)
-    admm_kernel.launches = 0
+    for name in admm_kernel.launches:
+        admm_kernel.launches[name] = 0
     for name in ipm_kernel.launches:
         ipm_kernel.launches[name] = 0
 
@@ -1735,8 +2323,135 @@ def phase_kernels(state, mtt):
                                      n_iters=kw["n_iters"]),
         flops=flops, bytes=in_bytes + out_bytes,
         bound_flops_ms=flops_ms, bound_bytes_ms=bytes_ms)
-    rows = [row] + ipm_kernel_rows(state, mtt)
+    rows = [row] + admm_route_rows(state) + ipm_kernel_rows(state, mtt)
     say(json.dumps({"kernels": rows}))
+
+
+def admm_route_rows(state):
+    """Rows of the `kernels` line for kernels #2 (at K=10 on route (a) and
+    at K=2), #7, #6 and #5, each timed on a call its path made (recorded by
+    dense_path and band_gram), and held to its check at those shapes."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
+    rec = state.get("recorded", {})
+    need = {"admm_stage_fused a", "admm_stage_fused c", "admm_stage",
+            "gram_band", "gram_band_factors"}
+    if not need <= set(rec):
+        raise RuntimeError("the kernels phase times kernels #2, #5, #6 and "
+                           "#7 on calls recorded by dense_path and "
+                           "band_gram: run them in the same call")
+    dev = torch.device("cuda")
+    src = "mav_tube_trajectory_generation_tpu/ops/admm_kernel.py"
+    rows = []
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors
+                   if isinstance(t, torch.Tensor))
+
+    def row(name, source, line, fn, fn_plain, args, kw, flops, launches,
+            kind, names=None, library=None, note=None, **extra):
+        ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
+        plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
+        lib_ms = cuda_ms(library, reps=5) if library else None
+        ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
+        if kind == "stage":
+            res, ok = compare_outputs(ours, plain, plain64)
+            err = max(res["kernel_vs_plain"].values())
+        else:
+            res, ok = band_compare(names, ours, plain, plain64)
+            err = max(v.get("kernel_vs_plain", 0.0) for v in res.values())
+        if not (ok and same):
+            raise RuntimeError(f"kernels: {name} disagrees with its plain "
+                               f"version at its path's shapes: {res}")
+        total = nbytes(args) + nbytes(ours)
+        bytes_ms = total / PEAK_BYTES_PER_S * 1e3
+        flops_ms = flops / PEAK_F32_FLOPS * 1e3
+        rows.append(dict(
+            name=name, route="cuda", source=f"{PKG}/csrc/{source}",
+            replaces=f"{src}:{line}", launches=launches, max_abs_err=err,
+            max_abs_err_is="largest |kernel - plain float32| over the "
+            "outputs", errors=res, tolerance="kernel_check_routes' criteria",
+            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, flops_ms),
+            bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+            library_ms=lib_ms, shapes=dict(gt=list(args[2 if kind == "stage"
+                                                        else 0].shape),
+                                           note=note),
+            flops=flops, bytes=total, bound_flops_ms=flops_ms,
+            bound_bytes_ms=bytes_ms, **extra))
+        del ours, plain, plain64
+
+    for label, note in (("a", "dense_path (a): K=10, kkt_apply='inverse', "
+                         "stage 0"),
+                        ("c", "dense_path (c): K=2, its only route, stage "
+                         "0")):
+        args, kw = to_device(rec[f"admm_stage_fused {label}"], dev)
+        bsz, nfd, m_p = args[2].shape
+        winv, gt = args[1], args[2]
+        # m1 = winv gt, then y0, n_iters x (x, y) and the dual matvec
+        flops = bsz * (2 * nfd * nfd * m_p
+                       + (2 * kw["n_iters"] + 2) * 2 * nfd * m_p)
+        row(f"admm_stage_fused ({'K=10' if label == 'a' else 'K=2'})",
+            "admm_stage.cu", 549, ak.admm_stage_fused,
+            ak.admm_stage_fused_plain, args, kw, flops,
+            state["route_launches"][label], "stage", note=note,
+            m1_bmm_ms=cuda_ms(lambda: torch.bmm(winv, gt), reps=5),
+            m1_bmm_is="torch.bmm(winv, gt): the kernel's m1 phase alone, "
+            "as a library product")
+        del args, winv, gt
+        torch.cuda.empty_cache()
+
+    args, kw = to_device(rec["admm_stage"], dev)
+    bsz, nfd, m_p = args[2].shape
+    row("admm_stage", "admm_stage.cu", 663, ak.admm_stage,
+        ak.admm_stage_plain, args, kw,
+        bsz * kw["n_iters"] * 2 * 2 * nfd * m_p, state["stage_launches"],
+        "stage", note="no caller in either package: its public wrapper, "
+        "driven once by dense_path on route (a)'s stage inputs")
+    del args
+    torch.cuda.empty_cache()
+
+    def band_library(gt, pb=None, rho=None, sigma=0.0):
+        bsz, nfd, _ = gt.shape
+        m_blk = nfd // BAND_BLOCK
+
+        def call():
+            g5 = torch.bmm(gt, gt.mT).reshape(bsz, m_blk, BAND_BLOCK, m_blk,
+                                              BAND_BLOCK)
+            gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], 1)
+            gu = torch.stack([g5[:, i, :, i + 1, :]
+                              for i in range(m_blk - 1)], 1)
+            if pb is None:
+                return gd, gu
+            eye = torch.eye(BAND_BLOCK, dtype=gt.dtype, device=gt.device)
+            return (pb[0] + rho[:, None] * gd + sigma * eye,
+                    pb[1] + rho[:, None] * gu)
+        return call
+
+    args, kw = to_device(rec["gram_band"], dev)
+    gt = args[0]
+    bsz, nfd, m_p = gt.shape
+    m_blk = nfd // kw["blk"]
+    band_flops = bsz * (2 * m_blk - 1) * 2 * kw["blk"] ** 2 * m_p
+    row("gram_band", "gram_band.cu", 512, ak.gram_band, ak.gram_band_plain,
+        args, kw, band_flops, state["band_launches"]["pallas"]["gram_band"],
+        "band", names=("gd", "gu"), library=band_library(gt),
+        note="band_gram='pallas', once a solve; library call: torch.bmm(gt, "
+        "gt.mT) and the band gather; bound: the 2m-1 band blocks only")
+    del args, gt
+    args, kw = to_device(rec["gram_band_factors"], dev)
+    gt, pb_d, pb_u, rho = args
+    row("gram_band_factors", "gram_band.cu", 437, ak.gram_band_factors,
+        ak.gram_band_factors_plain, args, kw,
+        band_flops + bsz * ((2 * m_blk - 1) * 2 * kw["blk"] ** 2
+                            + m_blk * kw["blk"]),
+        state["band_launches"]["pallas_db"]["gram_band_factors"], "band",
+        names=("db", "ub"), library=band_library(gt, (pb_d, pb_u), rho,
+                                                  kw["sigma"]),
+        note="band_gram='pallas_db', once a stage; library call: as "
+        "gram_band's, then the adds")
+    del args, gt, pb_d, pb_u, rho
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -1776,6 +2491,8 @@ def main():
         "kernel_check": lambda: phase_kernel_check(state, mtt),
         "main_path": lambda: phase_main_path(state, mtt),
         "multi_stage": lambda: phase_multi_stage(state, mtt),
+        "dense_path": lambda: phase_dense_path(state, mtt),
+        "band_gram": lambda: phase_band_gram(state, mtt),
         "ipm_kernel_check": lambda: phase_ipm_kernel_check(state, mtt),
         "fused_path": lambda: phase_fused_path(state, mtt),
         "strict_path": lambda: phase_strict_path(state, mtt),
@@ -1791,6 +2508,7 @@ def main():
               f"{time.perf_counter() - t_start:.1f} s; no final line",
               file=sys.stderr)
         return 4
+    emit("total", seconds=round(time.perf_counter() - t_start, 3))
     say(state["nvidia_smi"])
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

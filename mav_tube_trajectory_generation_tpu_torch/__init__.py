@@ -5,8 +5,10 @@ The JAX package stays in the repository as the reference; this package sits
 beside it, imports ``torch`` and ``numpy`` only, and shares no module with
 it.  Sub-packages carry the same names (``ops``, ``solver``, ``models``) so
 each counterpart is easy to find.  Ported so far: the headline QP+QCQP path
-(``solve_qcqp_batch`` with the fused ADMM-stage CUDA kernel), the closed-form
-linear solve beneath it, the strict verdict router (``solve_qcqp_strict`` /
+(``solve_qcqp_batch`` on every KKT route of ``ADMMConfig``: the banded
+factored stage, the dense-inverse stage and the Gram-band kernels), the
+closed-form linear solve beneath it, the strict verdict router
+(``solve_qcqp_strict`` /
 ``solve_qcqp_auto``: ADMM plus snap sweeps, the plane-layout interior-point
 polish with its CUDA step kernels or as one whole-polish launch
 (``IPMConfig(fused=True)``), the float32 restart chain, and the float64 last
@@ -55,6 +57,9 @@ from .solver.qcqp import (ADMMConfig, QCQPSolution,             # noqa: E402
 from .solver.ipm import (IPMConfig, solve_qcqp_ipm,             # noqa: E402
                          solve_qcqp_polished)
 from .ops.ipm_kernel import ipm_solve_fused                     # noqa: E402
+from .ops.admm_kernel import (admm_stage_fused_factored,        # noqa: E402
+                              admm_stage_fused, admm_stage, gram_band,
+                              gram_band_factors)
 from .solver.ipm_lanes import (solve_qcqp_ipm_lanes,            # noqa: E402
                                solve_qcqp_polished_batch)
 from .solver.auto import (AutoResult, solve_qcqp_auto,          # noqa: E402
@@ -72,7 +77,8 @@ from .scenarios import (ScenarioBatch, make_inputs,             # noqa: E402
                         tight_radii)
 from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
                       solution_to_numpy, solution_from_numpy,
-                      ipm_config_from_fields, lanes_state_from_numpy,
+                      ipm_config_from_fields, admm_config_from_fields,
+                      lanes_state_from_numpy,
                       fused_state_from_numpy, auto_result_to_numpy)
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

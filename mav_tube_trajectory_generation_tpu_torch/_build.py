@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(_HERE, "build")
 
 #: Every kernel source of the package (``csrc/<name>.cu``); ``prebuild()``
 #: builds them all.
-SOURCES = ("admm_stage", "gt_matvec", "ipm_eval", "ipm_pipe", "ipm_solve")
+SOURCES = ("admm_stage", "gram_band", "gt_matvec", "ipm_eval", "ipm_pipe",
+           "ipm_solve")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -16,7 +16,7 @@ import torch
 
 from ._tensors import DeviceLike, as_tensor, resolve_device
 from .solver.ipm import IPMConfig
-from .solver.qcqp import QCQPSolution, _Pre
+from .solver.qcqp import ADMMConfig, QCQPSolution, _Pre
 from .solver.structure import ProblemStructure, make_structure
 
 _STRUCTURE_ARRAYS = ("fixed_mask", "gather_idx", "fixed_cols", "free_cols")
@@ -46,6 +46,23 @@ def ipm_config_from_fields(other: Any) -> IPMConfig:
     ignored)."""
     return IPMConfig(**{f.name: getattr(other, f.name)
                         for f in dataclasses.fields(IPMConfig)})
+
+
+def admm_config_from_fields(other: Any) -> ADMMConfig:
+    """This package's ``ADMMConfig`` from any object with its fields (e.g.
+    the JAX package's, with its KKT route selectors ``kkt_inverse``,
+    ``kkt_apply`` and ``band_gram``).  That package's ``use_pallas`` is
+    ignored (here the device of the tensors picks kernel or plain version);
+    ``gt_assembly="kernel"`` is refused: it needs the kernels that expand
+    G^T from its rank-1 factors (``admm_stage_fused_factored_ew`` and
+    ``gram_band_factors_ew``), which are not ported."""
+    if getattr(other, "gt_assembly", "xla") != "xla":
+        raise ValueError(
+            f"gt_assembly={other.gt_assembly!r} is not supported: it needs "
+            "the TPU kernels #3 admm_stage_fused_factored_ew and #4 "
+            "gram_band_factors_ew, which this package has no port of yet")
+    return ADMMConfig(**{f.name: getattr(other, f.name)
+                         for f in dataclasses.fields(ADMMConfig)})
 
 
 def pre_from_numpy(pre: Any, device: DeviceLike = None,

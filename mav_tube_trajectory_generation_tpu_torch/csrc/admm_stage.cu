@@ -1,34 +1,51 @@
-// One fused ADMM stage of the tube-constrained QCQP, per scenario, for
-// Hopper (sm_90a).  Replaces the Pallas TPU kernel _kernel_fused_factored +
-// _stage_core of the JAX package's ops/admm_kernel.py.
+// The ADMM stage of the tube-constrained QCQP, per scenario, for Hopper
+// (sm_90a): three entry points over one iteration phase.
+//
+//   admm_stage_fused_factored_launch  replaces the Pallas TPU kernel
+//       _kernel_fused_factored + _stage_core of the JAX package's
+//       ops/admm_kernel.py (admm_stage_fused_factored);
+//   admm_stage_fused_launch           replaces _kernel_fused + _stage_core
+//       (admm_stage_fused);
+//   admm_stage_launch                 replaces _kernel (admm_stage).
 //
 // Per scenario (one thread block each; the grid runs over the batch):
-//   1. m1 = W^-1 G^T by block-Thomas sweeps over the block-LDL^T factors of
-//      the KKT matrix W: forward y_i = gt_i - T_i y_{i-1}, diagonal
-//      z_i = S_i^-1 y_i, backward x_i = z_i - T_{i+1}^T x_{i+1}, over m_blk
-//      row blocks of (bsz, m_p).  Each lane (column of G^T) is an independent
-//      solve, so a thread owns a lane and keeps the two live (bsz)-vectors in
-//      shared-memory panels; the (bsz x bsz) factors are broadcast reads.
-//   2. z/u initialisation from the warm start x0 (init_z) or carried in.
-//   3. n_iters over-relaxed ADMM steps
+//   1. m1 = W^-1 G^T, written to a scratch tensor the caller allocates:
+//      - factored: block-Thomas sweeps over the block-LDL^T factors of the
+//        KKT matrix W: forward y_i = gt_i - T_i y_{i-1}, diagonal
+//        z_i = S_i^-1 y_i, backward x_i = z_i - T_{i+1}^T x_{i+1}, over m_blk
+//        row blocks of (bsz, m_p).  Each lane (column of G^T) is an
+//        independent solve, so a thread owns a lane and keeps the two live
+//        (bsz)-vectors in shared-memory panels; the (bsz x bsz) factors are
+//        broadcast reads.
+//      - fused: m1 = winv gt from the dense (nfd x nfd) inverse, held in
+//        shared memory (73 KB at nfd 135).  A thread owns a lane and walks
+//        its column of gt once per chunk of ROW_CHUNK rows of m1, the chunk's
+//        sums in registers, four winv entries a shared load.
+//      - stage: m1 is the caller's; no phase 1.
+//   2. z/u initialisation from the warm start x0 (init_z) or carried in; the
+//      stage entry point starts from x = xq, z = z_prev = z0, u = u0.
+//   3. n_iters over-relaxed ADMM steps (stage_iterations, shared by all
+//      three)
 //        v = z - u - b;  x = xq + rho (m1 v);  y = G x + b;
 //        yr = alpha y + (1 - alpha) z;  z+ = Proj(yr + u);  u += yr - z+.
-//   4. prim = max|y - z|, dual = max|G^T' (z - z_prev)|.
+//   4. prim = max|y - z| (inf when n_iters == 0); the fused entry points
+//      also give dual = max|G^T' (z - z_prev)| and y.
 //
 // Memory plan.  One scenario's G^T and m1 are nfd x m_p floats each (2 x
 // 270 KB at the flagship shape 135 x 512): more than one block's shared
-// memory.  m1 is therefore written once to a scratch tensor the caller
-// allocates, and both matrices are re-read from L2 / device memory in every
-// iteration; the vectors (b, z, u, v, y, x, xq) and the factors stay in
-// shared memory.  The iteration phase is bound by those bytes, not by
-// arithmetic.
+// memory.  m1 therefore lives in device memory, and both matrices are
+// re-read from L2 / device memory in every iteration; the vectors (b, z, u,
+// v, y, x, xq) and the factors or the dense inverse stay in shared memory.
+// The iteration phase is bound by those bytes, not by arithmetic.
 //
 // Determinism.  Every reduction has a fixed order (warp butterfly, then a
-// serial sum over a fixed number of partials); there are no float atomics,
-// so two runs on the same inputs give the same bits.
+// serial sum over a fixed number of partials; m1 = winv gt sums over the
+// columns of winv in order); there are no float atomics, so two runs on the
+// same inputs give the same bits.
 //
-// Nothing here assumes m_p == 512: m_p % 4 == 0 (float4 rows) is the only
-// lane requirement and every loop strides by the block size.
+// Nothing here assumes m_p == 512 or a multiple of 15: m_p % 4 == 0 (float4
+// rows) is the only lane requirement, every loop strides by the block size,
+// and a final half-space plane (m_p > 3 nb_p) may be absent.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -36,20 +53,27 @@
 
 namespace {
 
+// How phase 1 gets m1.
+enum Phase1 { kFactored = 0, kInverse = 1, kGiven = 2 };
+
+// Rows of m1 a thread sums at once in the fused entry point's phase 1.
+constexpr int ROW_CHUNK = 16;
+
 struct StageArgs {
   // inputs
   const float* rho;   // (B)
-  const float* sinv;  // (B, m_blk, bsz, bsz)
-  const float* t;     // (B, m_blk-1, bsz, bsz)   T_i
-  const float* tt;    // (B, m_blk-1, bsz, bsz)   T_i^T
+  const float* sinv;  // (B, m_blk, bsz, bsz)   factored
+  const float* t;     // (B, m_blk-1, bsz, bsz) factored: T_i
+  const float* tt;    // (B, m_blk-1, bsz, bsz) factored: T_i^T
+  const float* winv;  // (B, nfd, nfd)          fused
   const float* gt;    // (B, nfd, m_p)
   const float* b;     // (B, m_p)
   const float* rb;    // (B, nb_p)
   const float* xq;    // (B, nfd)
-  const float* x0;    // (B, nfd)
+  const float* x0;    // (B, nfd), null for the stage entry point
   const float* z0;    // (B, m_p) or null when init_z
   const float* u0;    // (B, m_p) or null when init_z
-  // scratch
+  // scratch (the stage entry point: its input m1)
   float* m1;          // (B, nfd, m_p)
   // outputs
   float* x;           // (B, nfd)
@@ -57,31 +81,40 @@ struct StageArgs {
   float* zp;          // (B, m_p)
   float* u;           // (B, m_p)
   float* prim;        // (B)
-  float* dual;        // (B)
-  float* y;           // (B, m_p)
+  float* dual;        // (B), null for the stage entry point
+  float* y;           // (B, m_p), null for the stage entry point
   int nfd, m_p, m_blk, bsz, nb_p, n_ball, n_iters, init_z, groups;
   float alpha;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// Shared-memory layout in floats; every region starts 16-byte aligned.
+// Shared-memory layout in floats; every region starts 16-byte aligned.  The
+// phase-1 region comes first, then the vectors every entry point uses.
 struct Layout {
-  int sinv, t, tt, panel0, panel1;          // phase 1
+  int sinv, t, tt, panel0, panel1;          // phase 1, factored
+  int winv, ldw;                            // phase 1, fused (row stride)
   int b, rb, z, zp, u, v, y, xq, x, tmp, part, red;
   int total;
 };
 
-__host__ __device__ inline Layout make_layout(int nfd, int m_p, int m_blk,
-                                              int bsz, int nb_p, int groups) {
+__host__ __device__ inline Layout make_layout(int phase1, int nfd, int m_p,
+                                              int m_blk, int bsz, int nb_p,
+                                              int groups) {
   Layout L;
   int o = 0;
   const int bb = bsz * bsz;
-  L.sinv = o;   o += round4(m_blk * bb);
-  L.t = o;      o += round4((m_blk - 1) * bb);
-  L.tt = o;     o += round4((m_blk - 1) * bb);
-  L.panel0 = o; o += bsz * m_p;
-  L.panel1 = o; o += bsz * m_p;
+  L.sinv = L.t = L.tt = L.panel0 = L.panel1 = L.winv = 0;
+  L.ldw = round4(nfd);
+  if (phase1 == kFactored) {
+    L.sinv = o;   o += round4(m_blk * bb);
+    L.t = o;      o += round4((m_blk - 1) * bb);
+    L.tt = o;     o += round4((m_blk - 1) * bb);
+    L.panel0 = o; o += bsz * m_p;
+    L.panel1 = o; o += bsz * m_p;
+  } else if (phase1 == kInverse) {
+    L.winv = o;   o += nfd * L.ldw;
+  }
   L.b = o;      o += m_p;
   L.rb = o;     o += round4(nb_p);
   L.z = o;      o += m_p;
@@ -96,6 +129,20 @@ __host__ __device__ inline Layout make_layout(int nfd, int m_p, int m_blk,
   L.red = o;    o += 32;
   L.total = o;
   return L;
+}
+
+// The vector regions of one block's shared memory.
+struct Vecs {
+  float *b, *rb, *z, *zp, *u, *v, *y, *xq, *x, *tmp, *part, *red;
+};
+
+__device__ __forceinline__ Vecs vecs_of(float* smem, const Layout& L) {
+  Vecs S;
+  S.b = smem + L.b;     S.rb = smem + L.rb;   S.z = smem + L.z;
+  S.zp = smem + L.zp;   S.u = smem + L.u;     S.v = smem + L.v;
+  S.y = smem + L.y;     S.xq = smem + L.xq;   S.x = smem + L.x;
+  S.tmp = smem + L.tmp; S.part = smem + L.part; S.red = smem + L.red;
+  return S;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -185,55 +232,27 @@ __device__ __forceinline__ float ball_scale(float wx, float wy, float wz,
   return sq > rb * rb ? rb * rsqrtf(fmaxf(sq, 1e-30f)) : 1.0f;
 }
 
-__global__ void __launch_bounds__(1024)
-admm_stage_kernel(StageArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int s = blockIdx.x;
+// Loads b, rb and xq of scenario s into shared memory.
+__device__ __forceinline__ void load_vectors(const StageArgs& a, int s,
+                                             const Vecs& S) {
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int nfd = a.nfd, m_p = a.m_p, m_blk = a.m_blk, bsz = a.bsz;
-  const int nb_p = a.nb_p, n_ball = a.n_ball, groups = a.groups;
+  for (int l = tid; l < a.m_p; l += nt) S.b[l] = a.b[(size_t)s * a.m_p + l];
+  for (int j = tid; j < a.nb_p; j += nt)
+    S.rb[j] = a.rb[(size_t)s * a.nb_p + j];
+  for (int r = tid; r < a.nfd; r += nt) S.xq[r] = a.xq[(size_t)s * a.nfd + r];
+}
+
+// Phase 1, factored: m1 = W^-1 G^T by block-Thomas sweeps, one independent
+// column solve per lane.
+__device__ __forceinline__ void m1_factored(
+    const float* gt, float* m1, const float* sinv_s, const float* t_s,
+    const float* tt_s, float* panel0, float* panel1, int m_p, int m_blk,
+    int bsz) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   const int bb = bsz * bsz;
-  const Layout L = make_layout(nfd, m_p, m_blk, bsz, nb_p, groups);
-
-  const float* gt = a.gt + (size_t)s * nfd * m_p;
-  float* m1 = a.m1 + (size_t)s * nfd * m_p;
-
-  float* sinv_s = smem + L.sinv;
-  float* t_s = smem + L.t;
-  float* tt_s = smem + L.tt;
-  float* b_s = smem + L.b;
-  float* rb_s = smem + L.rb;
-  float* z_s = smem + L.z;
-  float* zp_s = smem + L.zp;
-  float* u_s = smem + L.u;
-  float* v_s = smem + L.v;
-  float* y_s = smem + L.y;
-  float* xq_s = smem + L.xq;
-  float* x_s = smem + L.x;
-  float* tmp_s = smem + L.tmp;
-  float* part_s = smem + L.part;
-  float* red_s = smem + L.red;
-
-  // ---- load the small per-scenario operands --------------------------------
-  for (int i = tid; i < m_blk * bb; i += nt)
-    sinv_s[i] = a.sinv[(size_t)s * m_blk * bb + i];
-  for (int i = tid; i < (m_blk - 1) * bb; i += nt) {
-    t_s[i] = a.t[(size_t)s * (m_blk - 1) * bb + i];
-    tt_s[i] = a.tt[(size_t)s * (m_blk - 1) * bb + i];
-  }
-  for (int l = tid; l < m_p; l += nt) b_s[l] = a.b[(size_t)s * m_p + l];
-  for (int j = tid; j < nb_p; j += nt) rb_s[j] = a.rb[(size_t)s * nb_p + j];
-  for (int r = tid; r < nfd; r += nt) {
-    xq_s[r] = a.xq[(size_t)s * nfd + r];
-    x_s[r] = a.x0[(size_t)s * nfd + r];
-  }
-  const float rho = a.rho[s];
-  __syncthreads();
-
-  // ---- phase 1: m1 = W^-1 G^T, one independent column solve per lane -------
   for (int l = tid; l < m_p; l += nt) {
-    float* prev = smem + L.panel0;
-    float* cur = smem + L.panel1;
+    float* prev = panel0;
+    float* cur = panel1;
     // y_0 = gt_0;  z_0 = S_0^-1 y_0
     for (int r = 0; r < bsz; ++r) prev[r * m_p + l] = gt[(size_t)r * m_p + l];
     for (int r = 0; r < bsz; ++r) {
@@ -276,22 +295,62 @@ admm_stage_kernel(StageArgs a) {
       float* sw = prev; prev = cur; cur = sw;
     }
   }
-  // m1 is read by other threads of this block from here on.
-  __syncthreads();
+}
 
-  // ---- phase 2: y0 = G x0 + b; z/u from the warm start or carried in -------
-  cols_dot(gt, x_s, part_s, nfd, m_p, groups);
+// Phase 1, fused: m1 = winv gt.  winv_s is (nfd, ldw) in shared memory with
+// zero columns nfd..ldw-1.  m1[r, l] = sum_c winv[r, c] gt[c, l], c in order.
+__device__ __forceinline__ void m1_inverse(const float* gt, float* m1,
+                                           const float* winv_s, int nfd,
+                                           int ldw, int m_p) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nc4 = ldw >> 2;
+  for (int l = tid; l < m_p; l += nt) {
+    for (int r0 = 0; r0 < nfd; r0 += ROW_CHUNK) {
+      float acc[ROW_CHUNK];
+#pragma unroll
+      for (int i = 0; i < ROW_CHUNK; ++i) acc[i] = 0.0f;
+      for (int c4 = 0; c4 < nc4; ++c4) {
+        const int c = 4 * c4;
+        const float g0 = gt[(size_t)c * m_p + l];
+        const float g1 = c + 1 < nfd ? gt[(size_t)(c + 1) * m_p + l] : 0.0f;
+        const float g2 = c + 2 < nfd ? gt[(size_t)(c + 2) * m_p + l] : 0.0f;
+        const float g3 = c + 3 < nfd ? gt[(size_t)(c + 3) * m_p + l] : 0.0f;
+#pragma unroll
+        for (int i = 0; i < ROW_CHUNK; ++i) {
+          const int r = min(r0 + i, nfd - 1);
+          const float4 w =
+              reinterpret_cast<const float4*>(winv_s + (size_t)r * ldw)[c4];
+          acc[i] = fmaf(w.x, g0, acc[i]);
+          acc[i] = fmaf(w.y, g1, acc[i]);
+          acc[i] = fmaf(w.z, g2, acc[i]);
+          acc[i] = fmaf(w.w, g3, acc[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < ROW_CHUNK; ++i)
+        if (r0 + i < nfd) m1[(size_t)(r0 + i) * m_p + l] = acc[i];
+    }
+  }
+}
+
+// Phase 2 of the fused entry points: y0 = G x0 + b; z/u from the warm start
+// (init_z) or carried in.  x0 is in S.x.
+__device__ __forceinline__ void init_from_x0(const StageArgs& a, int s,
+                                             const float* gt, const Vecs& S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m_p = a.m_p, nb_p = a.nb_p, n_ball = a.n_ball, groups = a.groups;
+  cols_dot(gt, S.x, S.part, a.nfd, m_p, groups);
   __syncthreads();
   for (int j = tid; j < nb_p; j += nt) {
     const int lx = j, ly = nb_p + j, lz = 2 * nb_p + j;
-    const float yx = gather_y(part_s, b_s, lx, m_p, groups);
-    const float yy = gather_y(part_s, b_s, ly, m_p, groups);
-    const float yz = gather_y(part_s, b_s, lz, m_p, groups);
-    y_s[lx] = yx; y_s[ly] = yy; y_s[lz] = yz;
+    const float yx = gather_y(S.part, S.b, lx, m_p, groups);
+    const float yy = gather_y(S.part, S.b, ly, m_p, groups);
+    const float yz = gather_y(S.part, S.b, lz, m_p, groups);
+    S.y[lx] = yx; S.y[ly] = yy; S.y[lz] = yz;
     float zx, zy, zz, ux = 0.0f, uy = 0.0f, uz = 0.0f;
     if (a.init_z) {
       if (j < n_ball) {
-        const float sc = ball_scale(yx, yy, yz, rb_s[j]);
+        const float sc = ball_scale(yx, yy, yz, S.rb[j]);
         zx = yx * sc; zy = yy * sc; zz = yz * sc;
       } else {
         zx = fminf(yx, 0.0f); zy = fminf(yy, 0.0f); zz = fminf(yz, 0.0f);
@@ -302,16 +361,16 @@ admm_stage_kernel(StageArgs a) {
       zx = z0[lx]; zy = z0[ly]; zz = z0[lz];
       ux = u0[lx]; uy = u0[ly]; uz = u0[lz];
     }
-    z_s[lx] = zx; z_s[ly] = zy; z_s[lz] = zz;
-    zp_s[lx] = zx; zp_s[ly] = zy; zp_s[lz] = zz;
-    u_s[lx] = ux; u_s[ly] = uy; u_s[lz] = uz;
-    v_s[lx] = zx - ux - b_s[lx];
-    v_s[ly] = zy - uy - b_s[ly];
-    v_s[lz] = zz - uz - b_s[lz];
+    S.z[lx] = zx; S.z[ly] = zy; S.z[lz] = zz;
+    S.zp[lx] = zx; S.zp[ly] = zy; S.zp[lz] = zz;
+    S.u[lx] = ux; S.u[ly] = uy; S.u[lz] = uz;
+    S.v[lx] = zx - ux - S.b[lx];
+    S.v[ly] = zy - uy - S.b[ly];
+    S.v[lz] = zz - uz - S.b[lz];
   }
   for (int l = 3 * nb_p + tid; l < m_p; l += nt) {
-    const float yl = gather_y(part_s, b_s, l, m_p, groups);
-    y_s[l] = yl;
+    const float yl = gather_y(S.part, S.b, l, m_p, groups);
+    S.y[l] = yl;
     float zl, ul = 0.0f;
     if (a.init_z) {
       zl = fminf(yl, 0.0f);
@@ -319,81 +378,203 @@ admm_stage_kernel(StageArgs a) {
       zl = a.z0[(size_t)s * m_p + l];
       ul = a.u0[(size_t)s * m_p + l];
     }
-    z_s[l] = zl; zp_s[l] = zl; u_s[l] = ul;
-    v_s[l] = zl - ul - b_s[l];
+    S.z[l] = zl; S.zp[l] = zl; S.u[l] = ul;
+    S.v[l] = zl - ul - S.b[l];
   }
-  __syncthreads();
+}
 
-  // ---- phase 3: the iteration chain ----------------------------------------
+// Phase 3, shared by the three entry points: n_iters over-relaxed ADMM
+// steps from the state in S (z, u, v = z - u - b).
+__device__ __forceinline__ void stage_iterations(const StageArgs& a,
+                                                 const float* m1,
+                                                 const float* gt, float rho,
+                                                 const Vecs& S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p, nb_p = a.nb_p, n_ball = a.n_ball;
+  const int groups = a.groups;
   const float alpha = a.alpha, one_m_alpha = 1.0f - a.alpha;
   for (int it = 0; it < a.n_iters; ++it) {
-    rows_dot(m1, v_s, x_s, nfd, m_p, xq_s, rho);
+    rows_dot(m1, S.v, S.x, nfd, m_p, S.xq, rho);
     __syncthreads();
-    cols_dot(gt, x_s, part_s, nfd, m_p, groups);
+    cols_dot(gt, S.x, S.part, nfd, m_p, groups);
     __syncthreads();
     for (int j = tid; j < nb_p; j += nt) {
       const int lx = j, ly = nb_p + j, lz = 2 * nb_p + j;
-      const float yx = gather_y(part_s, b_s, lx, m_p, groups);
-      const float yy = gather_y(part_s, b_s, ly, m_p, groups);
-      const float yz = gather_y(part_s, b_s, lz, m_p, groups);
-      const float zx0 = z_s[lx], zy0 = z_s[ly], zz0 = z_s[lz];
+      const float yx = gather_y(S.part, S.b, lx, m_p, groups);
+      const float yy = gather_y(S.part, S.b, ly, m_p, groups);
+      const float yz = gather_y(S.part, S.b, lz, m_p, groups);
+      const float zx0 = S.z[lx], zy0 = S.z[ly], zz0 = S.z[lz];
       const float rx = alpha * yx + one_m_alpha * zx0;
       const float ry = alpha * yy + one_m_alpha * zy0;
       const float rz = alpha * yz + one_m_alpha * zz0;
-      const float ux = u_s[lx], uy = u_s[ly], uz = u_s[lz];
+      const float ux = S.u[lx], uy = S.u[ly], uz = S.u[lz];
       const float wx = rx + ux, wy = ry + uy, wz = rz + uz;
       float zx, zy, zz;
       if (j < n_ball) {
-        const float sc = ball_scale(wx, wy, wz, rb_s[j]);
+        const float sc = ball_scale(wx, wy, wz, S.rb[j]);
         zx = wx * sc; zy = wy * sc; zz = wz * sc;
       } else {
         zx = fminf(wx, 0.0f); zy = fminf(wy, 0.0f); zz = fminf(wz, 0.0f);
       }
       const float nux = wx - zx, nuy = wy - zy, nuz = wz - zz;
-      y_s[lx] = yx; y_s[ly] = yy; y_s[lz] = yz;
-      zp_s[lx] = zx0; zp_s[ly] = zy0; zp_s[lz] = zz0;
-      z_s[lx] = zx; z_s[ly] = zy; z_s[lz] = zz;
-      u_s[lx] = nux; u_s[ly] = nuy; u_s[lz] = nuz;
-      v_s[lx] = zx - nux - b_s[lx];
-      v_s[ly] = zy - nuy - b_s[ly];
-      v_s[lz] = zz - nuz - b_s[lz];
+      S.y[lx] = yx; S.y[ly] = yy; S.y[lz] = yz;
+      S.zp[lx] = zx0; S.zp[ly] = zy0; S.zp[lz] = zz0;
+      S.z[lx] = zx; S.z[ly] = zy; S.z[lz] = zz;
+      S.u[lx] = nux; S.u[ly] = nuy; S.u[lz] = nuz;
+      S.v[lx] = zx - nux - S.b[lx];
+      S.v[ly] = zy - nuy - S.b[ly];
+      S.v[lz] = zz - nuz - S.b[lz];
     }
     for (int l = 3 * nb_p + tid; l < m_p; l += nt) {
-      const float yl = gather_y(part_s, b_s, l, m_p, groups);
-      const float z0 = z_s[l];
-      const float w = (alpha * yl + one_m_alpha * z0) + u_s[l];
+      const float yl = gather_y(S.part, S.b, l, m_p, groups);
+      const float z0 = S.z[l];
+      const float w = (alpha * yl + one_m_alpha * z0) + S.u[l];
       const float zl = fminf(w, 0.0f);
       const float nu = w - zl;
-      y_s[l] = yl; zp_s[l] = z0; z_s[l] = zl; u_s[l] = nu;
-      v_s[l] = zl - nu - b_s[l];
+      S.y[l] = yl; S.zp[l] = z0; S.z[l] = zl; S.u[l] = nu;
+      S.v[l] = zl - nu - S.b[l];
     }
     __syncthreads();
   }
+}
 
-  // ---- phase 4: residuals and outputs --------------------------------------
+// Phase 4: residuals and outputs.  The dual matvec and y only where the
+// entry point has them (a.dual, a.y not null).
+__device__ __forceinline__ void stage_finish(const StageArgs& a, int s,
+                                             const float* gt, const Vecs& S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p;
+  const bool with_dual = a.dual != nullptr;
   float pmax = 0.0f;
   for (int l = tid; l < m_p; l += nt) {
-    pmax = fmaxf(pmax, fabsf(y_s[l] - z_s[l]));
-    v_s[l] = z_s[l] - zp_s[l];
+    pmax = fmaxf(pmax, fabsf(S.y[l] - S.z[l]));
+    S.v[l] = S.z[l] - S.zp[l];
   }
-  __syncthreads();
-  rows_dot(gt, v_s, tmp_s, nfd, m_p, nullptr, 0.0f);
-  __syncthreads();
   float dmax = 0.0f;
-  for (int r = tid; r < nfd; r += nt) dmax = fmaxf(dmax, fabsf(tmp_s[r]));
-  pmax = block_max(pmax, red_s);
-  dmax = block_max(dmax, red_s);
+  if (with_dual) {
+    __syncthreads();
+    rows_dot(gt, S.v, S.tmp, nfd, m_p, nullptr, 0.0f);
+    __syncthreads();
+    for (int r = tid; r < nfd; r += nt) dmax = fmaxf(dmax, fabsf(S.tmp[r]));
+  }
+  pmax = block_max(pmax, S.red);
+  if (with_dual) dmax = block_max(dmax, S.red);
   if (tid == 0) {
     a.prim[s] = a.n_iters > 0 ? pmax : CUDART_INF_F;
-    a.dual[s] = dmax;
+    if (with_dual) a.dual[s] = dmax;
   }
-  for (int r = tid; r < nfd; r += nt) a.x[(size_t)s * nfd + r] = x_s[r];
+  for (int r = tid; r < nfd; r += nt) a.x[(size_t)s * nfd + r] = S.x[r];
   for (int l = tid; l < m_p; l += nt) {
-    a.z[(size_t)s * m_p + l] = z_s[l];
-    a.zp[(size_t)s * m_p + l] = zp_s[l];
-    a.u[(size_t)s * m_p + l] = u_s[l];
-    a.y[(size_t)s * m_p + l] = y_s[l];
+    a.z[(size_t)s * m_p + l] = S.z[l];
+    a.zp[(size_t)s * m_p + l] = S.zp[l];
+    a.u[(size_t)s * m_p + l] = S.u[l];
+    if (a.y) a.y[(size_t)s * m_p + l] = S.y[l];
   }
+}
+
+__global__ void __launch_bounds__(1024)
+admm_stage_fused_factored_kernel(StageArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p, m_blk = a.m_blk, bsz = a.bsz;
+  const int bb = bsz * bsz;
+  const Layout L =
+      make_layout(kFactored, nfd, m_p, m_blk, bsz, a.nb_p, a.groups);
+  const Vecs S = vecs_of(smem, L);
+
+  const float* gt = a.gt + (size_t)s * nfd * m_p;
+  float* m1 = a.m1 + (size_t)s * nfd * m_p;
+
+  float* sinv_s = smem + L.sinv;
+  float* t_s = smem + L.t;
+  float* tt_s = smem + L.tt;
+
+  // ---- load the small per-scenario operands --------------------------------
+  for (int i = tid; i < m_blk * bb; i += nt)
+    sinv_s[i] = a.sinv[(size_t)s * m_blk * bb + i];
+  for (int i = tid; i < (m_blk - 1) * bb; i += nt) {
+    t_s[i] = a.t[(size_t)s * (m_blk - 1) * bb + i];
+    tt_s[i] = a.tt[(size_t)s * (m_blk - 1) * bb + i];
+  }
+  load_vectors(a, s, S);
+  for (int r = tid; r < nfd; r += nt) S.x[r] = a.x0[(size_t)s * nfd + r];
+  const float rho = a.rho[s];
+  __syncthreads();
+
+  // ---- phase 1: m1 = W^-1 G^T, one independent column solve per lane -------
+  m1_factored(gt, m1, sinv_s, t_s, tt_s, smem + L.panel0, smem + L.panel1,
+              m_p, m_blk, bsz);
+  // m1 is read by other threads of this block from here on.
+  __syncthreads();
+
+  // ---- phases 2-4 ------------------------------------------------------------
+  init_from_x0(a, s, gt, S);
+  __syncthreads();
+  stage_iterations(a, m1, gt, rho, S);
+  stage_finish(a, s, gt, S);
+}
+
+__global__ void __launch_bounds__(1024)
+admm_stage_fused_kernel(StageArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p;
+  const Layout L = make_layout(kInverse, nfd, m_p, 0, 0, a.nb_p, a.groups);
+  const Vecs S = vecs_of(smem, L);
+
+  const float* gt = a.gt + (size_t)s * nfd * m_p;
+  float* m1 = a.m1 + (size_t)s * nfd * m_p;
+  float* winv_s = smem + L.winv;
+  const int ldw = L.ldw;
+
+  for (int i = tid; i < nfd * ldw; i += nt) {
+    const int r = i / ldw, c = i - r * ldw;
+    winv_s[i] = c < nfd ? a.winv[(size_t)s * nfd * nfd + r * nfd + c] : 0.0f;
+  }
+  load_vectors(a, s, S);
+  for (int r = tid; r < nfd; r += nt) S.x[r] = a.x0[(size_t)s * nfd + r];
+  const float rho = a.rho[s];
+  __syncthreads();
+
+  // ---- phase 1: m1 = winv gt ------------------------------------------------
+  m1_inverse(gt, m1, winv_s, nfd, ldw, m_p);
+  __syncthreads();
+
+  // ---- phases 2-4 ------------------------------------------------------------
+  init_from_x0(a, s, gt, S);
+  __syncthreads();
+  stage_iterations(a, m1, gt, rho, S);
+  stage_finish(a, s, gt, S);
+}
+
+__global__ void __launch_bounds__(1024)
+admm_stage_iter_kernel(StageArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p;
+  const Layout L = make_layout(kGiven, nfd, m_p, 0, 0, a.nb_p, a.groups);
+  const Vecs S = vecs_of(smem, L);
+
+  const float* gt = a.gt + (size_t)s * nfd * m_p;
+  const float* m1 = a.m1 + (size_t)s * nfd * m_p;
+
+  load_vectors(a, s, S);
+  const float rho = a.rho[s];
+  // x starts at xq; z = z_prev = z0, u = u0.
+  for (int r = tid; r < nfd; r += nt) S.x[r] = a.xq[(size_t)s * nfd + r];
+  for (int l = tid; l < m_p; l += nt) {
+    const float zl = a.z0[(size_t)s * m_p + l];
+    const float ul = a.u0[(size_t)s * m_p + l];
+    S.z[l] = zl; S.zp[l] = zl; S.u[l] = ul; S.y[l] = 0.0f;
+    S.v[l] = zl - ul - a.b[(size_t)s * m_p + l];
+  }
+  __syncthreads();
+
+  stage_iterations(a, m1, gt, rho, S);
+  stage_finish(a, s, gt, S);
 }
 
 int row_groups(int threads, int m_p) {
@@ -403,15 +584,48 @@ int row_groups(int threads, int m_p) {
   return g;
 }
 
+size_t smem_of(int phase1, int nfd, int m_p, int m_blk, int bsz, int nb_p,
+               int threads) {
+  const Layout L = make_layout(phase1, nfd, m_p, m_blk, bsz, nb_p,
+                               row_groups(threads, m_p));
+  return (size_t)L.total * sizeof(float);
+}
+
+cudaError_t launch(void (*kernel)(StageArgs), const StageArgs& a, int batch,
+                   int threads, size_t smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int batch, int nfd, int m_p, int nb_p, int n_ball,
+               int threads) {
+  return threads < 32 || threads > 1024 || threads % 32 != 0 ||
+         m_p % 4 != 0 || 3 * nb_p > m_p || n_ball < 0 || n_ball > nb_p ||
+         nfd < 1 || batch < 1;
+}
+
 }  // namespace
 
-// Dynamic shared memory, in bytes, that one block of the stage kernel takes
-// at these shapes.
+// Dynamic shared memory, in bytes, that one block of the factored stage
+// kernel takes at these shapes.
 extern "C" int admm_stage_smem_bytes(int nfd, int m_p, int m_blk, int bsz,
                                      int nb_p, int threads) {
-  const Layout L =
-      make_layout(nfd, m_p, m_blk, bsz, nb_p, row_groups(threads, m_p));
-  return L.total * (int)sizeof(float);
+  return (int)smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads);
+}
+
+// The same for the fused (dense-inverse) stage kernel and for the stage
+// from a given m1.
+extern "C" int admm_stage_fused_smem_bytes(int nfd, int m_p, int nb_p,
+                                           int threads) {
+  return (int)smem_of(kInverse, nfd, m_p, 0, 0, nb_p, threads);
+}
+
+extern "C" int admm_stage_iter_smem_bytes(int nfd, int m_p, int nb_p,
+                                          int threads) {
+  return (int)smem_of(kGiven, nfd, m_p, 0, 0, nb_p, threads);
 }
 
 // Launches one stage for `batch` scenarios on `stream`.  Returns the CUDA
@@ -423,10 +637,10 @@ extern "C" int admm_stage_fused_factored_launch(
     float* z, float* zp, float* u, float* prim, float* dual, float* y,
     int batch, int nfd, int m_p, int m_blk, int bsz, int nb_p, int n_ball,
     int n_iters, float alpha, int init_z, int threads, void* stream) {
-  if (threads < 32 || threads > 1024 || threads % 32 != 0 || m_p % 4 != 0 ||
-      m_blk * bsz != nfd || 3 * nb_p > m_p || batch < 1)
+  if (bad_shape(batch, nfd, m_p, nb_p, n_ball, threads) ||
+      m_blk * bsz != nfd)
     return (int)cudaErrorInvalidValue;
-  StageArgs a;
+  StageArgs a = {};
   a.rho = rho; a.sinv = sinv; a.t = t; a.tt = tt; a.gt = gt; a.b = b;
   a.rb = rb; a.xq = xq; a.x0 = x0; a.z0 = z0; a.u0 = u0; a.m1 = m1;
   a.x = x; a.z = z; a.zp = zp; a.u = u; a.prim = prim; a.dual = dual;
@@ -435,12 +649,54 @@ extern "C" int admm_stage_fused_factored_launch(
   a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
-  const Layout L = make_layout(nfd, m_p, m_blk, bsz, nb_p, a.groups);
-  const size_t smem = (size_t)L.total * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      admm_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  admm_stage_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch(admm_stage_fused_factored_kernel, a, batch, threads,
+                     smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads),
+                     stream);
+}
+
+// One stage from the dense KKT inverse winv (B, nfd, nfd): m1 = winv gt in
+// the kernel, then the same phases 2-4.
+extern "C" int admm_stage_fused_launch(
+    const float* rho, const float* winv, const float* gt, const float* b,
+    const float* rb, const float* xq, const float* x0, const float* z0,
+    const float* u0, float* m1, float* x, float* z, float* zp, float* u,
+    float* prim, float* dual, float* y, int batch, int nfd, int m_p,
+    int nb_p, int n_ball, int n_iters, float alpha, int init_z, int threads,
+    void* stream) {
+  if (bad_shape(batch, nfd, m_p, nb_p, n_ball, threads))
+    return (int)cudaErrorInvalidValue;
+  StageArgs a = {};
+  a.rho = rho; a.winv = winv; a.gt = gt; a.b = b; a.rb = rb; a.xq = xq;
+  a.x0 = x0; a.z0 = z0; a.u0 = u0; a.m1 = m1;
+  a.x = x; a.z = z; a.zp = zp; a.u = u; a.prim = prim; a.dual = dual;
+  a.y = y;
+  a.nfd = nfd; a.m_p = m_p; a.m_blk = 0; a.bsz = 0; a.nb_p = nb_p;
+  a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
+  a.groups = row_groups(threads, m_p);
+  a.alpha = alpha;
+  return (int)launch(admm_stage_fused_kernel, a, batch, threads,
+                     smem_of(kInverse, nfd, m_p, 0, 0, nb_p, threads),
+                     stream);
+}
+
+// The iterations from the caller's m1 (B, nfd, m_p): x from xq, z and
+// z_prev from z0, u from u0; outputs x, z, z_prev, u, prim.
+extern "C" int admm_stage_launch(
+    const float* rho, const float* m1, const float* gt, const float* b,
+    const float* rb, const float* xq, const float* z0, const float* u0,
+    float* x, float* z, float* zp, float* u, float* prim, int batch,
+    int nfd, int m_p, int nb_p, int n_ball, int n_iters, float alpha,
+    int threads, void* stream) {
+  if (bad_shape(batch, nfd, m_p, nb_p, n_ball, threads))
+    return (int)cudaErrorInvalidValue;
+  StageArgs a = {};
+  a.rho = rho; a.gt = gt; a.b = b; a.rb = rb; a.xq = xq; a.z0 = z0;
+  a.u0 = u0; a.m1 = const_cast<float*>(m1);
+  a.x = x; a.z = z; a.zp = zp; a.u = u; a.prim = prim;
+  a.nfd = nfd; a.m_p = m_p; a.nb_p = nb_p; a.n_ball = n_ball;
+  a.n_iters = n_iters; a.init_z = 0;
+  a.groups = row_groups(threads, m_p);
+  a.alpha = alpha;
+  return (int)launch(admm_stage_iter_kernel, a, batch, threads,
+                     smem_of(kGiven, nfd, m_p, 0, 0, nb_p, threads), stream);
 }

@@ -1,58 +1,73 @@
-"""The fused ADMM stage of the tube-constrained QCQP: CUDA kernel, wrapper
-and plain PyTorch version.
+"""The ADMM stage of the tube-constrained QCQP and the Gram band of its KKT
+matrix: CUDA kernels, wrappers and plain PyTorch versions.
 
-Replaces the JAX package's Pallas TPU kernel ``admm_stage_fused_factored``
-(``ops/admm_kernel.py``: ``_kernel_fused_factored`` + ``_stage_core``).  One
-stage, per scenario:
+Replaces the Pallas TPU kernels of the JAX package's ``ops/admm_kernel.py``:
 
-  1. m1 = W^-1 G^T by block-Thomas sweeps over the block-LDL^T factors of
-     the KKT matrix (``solver.banded.spd_block_tridiag_factor``),
-  2. z = Proj(G x0 + b), u = 0 on the first stage (``init_z``), else z0/u0
-     are carried in,
-  3. ``n_iters`` over-relaxed ADMM steps: v = z - u - b; x = xq + rho m1 v;
-     y = G x + b; yr = alpha y + (1 - alpha) z; z+ = Proj(yr + u);
-     u += yr - z+,
-  4. prim = max|y - z|, dual = max|G^T' (z - z_prev)|.
+  * ``admm_stage_fused_factored`` (``_kernel_fused_factored`` +
+    ``_stage_core``), one stage, per scenario:
+
+      1. m1 = W^-1 G^T by block-Thomas sweeps over the block-LDL^T factors of
+         the KKT matrix (``solver.banded.spd_block_tridiag_factor``),
+      2. z = Proj(G x0 + b), u = 0 on the first stage (``init_z``), else
+         z0/u0 are carried in,
+      3. ``n_iters`` over-relaxed ADMM steps: v = z - u - b; x = xq + rho m1 v;
+         y = G x + b; yr = alpha y + (1 - alpha) z; z+ = Proj(yr + u);
+         u += yr - z+,
+      4. prim = max|y - z|, dual = max|G^T' (z - z_prev)|;
+
+  * ``admm_stage_fused`` (``_kernel_fused`` + ``_stage_core``): the same
+    stage with m1 = winv G^T formed from a dense KKT inverse winv;
+  * ``admm_stage`` (``_kernel``): step 3 alone from a given m1, starting at
+    x = xq, z = z_prev = z0, u = u0, with no y and no dual;
+  * ``gram_band`` (``_kernel_gram_band``): the block-tridiagonal band (gd,
+    gu) of G^T G, and ``gram_band_factors`` (``_kernel_gram_band_factors``):
+    the KKT band db = pb_d + rho gd + sigma I, ub = pb_u + rho gu.
 
 Constraint lanes are ``[ball-x | ball-y | ball-z | half]``: each ball plane
 is ``nb_p`` lanes whose first ``n_ball`` carry the coupled (x, y, z) ball
 rows and whose tail carries packed half-space rows; the rest of the
-half-space rows follow in a final plane (``solver.qcqp._PadLayout``).
+half-space rows follow in a final plane, which may be absent
+(``solver.qcqp._PadLayout``).
 
-The kernel is ``csrc/admm_stage.cu`` (CUDA C++, sm_90a), one thread block
-per scenario.  What bounds it on an H100: per scenario the stage does 26
-products of (15, 15) @ (15, 512) and 2 * n_iters matvecs against (135, 512)
-matrices -- about 19 MFLOP at n_iters = 48 -- on 0.29 MB of inputs, so by
-each input read once it is bound by float32 arithmetic.  But G^T and m1
-together are 0.54 MB a scenario, more than the 227 KB of shared memory a
-block can have, so this first design writes m1 once to a scratch tensor and
-re-reads both matrices from L2 / device memory in every iteration (about
-26 MB a scenario): as built it is bound by those bytes.  The vectors and
-the factors stay in shared memory.  Keeping G^T in its rank-1 form, or a
-thread-block cluster per scenario, would lift that and is left for later.
+The kernels are ``csrc/admm_stage.cu`` (three entry points over one
+iteration phase) and ``csrc/gram_band.cu`` (two entry points), CUDA C++ for
+sm_90a, one thread block per scenario.  What bounds the stage on an H100:
+per scenario it does 2 * n_iters matvecs against (nfd, m_p) matrices plus the
+m1 formation -- about 19 MFLOP at n_iters = 48 with the factors, 32 with the
+dense inverse -- on 0.29-0.36 MB of inputs, so by each input read once it is
+bound by float32 arithmetic.  But G^T and m1 together are 0.54 MB a
+scenario, more than the 227 KB of shared memory a block can have, so m1 is
+written once to a scratch tensor and both matrices are re-read from L2 /
+device memory in every iteration (about 26 MB a scenario): as built it is
+bound by those bytes.  The vectors and the factors or the dense inverse stay
+in shared memory.  The Gram band reads G^T once; what bounds it is stated in
+its source.
 
-``admm_stage_fused_factored`` launches the kernel for CUDA tensors and runs
-``admm_stage_fused_factored_plain`` only for CPU tensors; it never falls
-back from one to the other.  ``launches`` counts kernel launches.
+Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
+version only for CPU tensors; it never falls back from one to the other.
+``launches`` counts kernel launches per kernel name.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import _build
 
-# Number of times the wrapper has launched the CUDA kernel in this process.
-launches = 0
+# Number of times each wrapper has launched its CUDA kernel in this process.
+launches: Dict[str, int] = {"admm_stage_fused_factored": 0,
+                            "admm_stage_fused": 0, "admm_stage": 0,
+                            "gram_band": 0, "gram_band_factors": 0}
 
-# Threads per block (one block per scenario).
+# Threads per block of the stage kernels and of the Gram-band kernel (one
+# block per scenario).
 THREADS = 512
+GRAM_THREADS = 256
 
-_LIB_NAME = "admm_stage"
-_configured = False
+_configured = set()
 
 StageOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor, torch.Tensor]
@@ -87,6 +102,41 @@ def _project(w: torch.Tensor, rb: torch.Tensor, nb_p: int, n_ball: int
     return torch.cat(parts, dim=2)
 
 
+def _iterate_plain(rho, m1, gt, b, rb, xq, x, z, zp, u, prim, y, *,
+                   n_iters: int, alpha: float, nb_p: int, n_ball: int):
+    """The iteration phase every stage shares: ``n_iters`` over-relaxed ADMM
+    steps from (x, z, z_prev, u, prim, y); returns the six after them."""
+    for _ in range(n_iters):
+        v = z - u - b                                     # (B, 1, m_p)
+        x = xq + rho * (m1 @ v.transpose(1, 2))           # (B, nfd, 1)
+        y = x.transpose(1, 2) @ gt + b
+        y_rel = alpha * y + (1.0 - alpha) * z
+        z_new = _project(y_rel + u, rb, nb_p, n_ball)
+        u = u + y_rel - z_new
+        zp, z = z, z_new
+        prim = (y - z).abs().amax(dim=2, keepdim=True)    # (B, 1, 1)
+    return x, z, zp, u, prim, y
+
+
+def _stage_core_plain(rho, m1, gt, b, rb, xq, x0, z0, u0, *, n_iters: int,
+                      alpha: float, nb_p: int, n_ball: int, init_z: bool
+                      ) -> StageOut:
+    """Phases 2-4 of a fused stage from its m1 (the JAX ``_stage_core``)."""
+    y = x0.transpose(1, 2) @ gt + b                       # (B, 1, m_p)
+    if init_z:
+        z = _project(y, rb, nb_p, n_ball)
+        u = torch.zeros_like(z)
+    else:
+        z, u = z0, u0
+    prim = torch.full_like(rho, float("inf"))
+    x, z, zp, u, prim, y = _iterate_plain(
+        rho, m1, gt, b, rb, xq, x0, z, z, u, prim, y, n_iters=n_iters,
+        alpha=alpha, nb_p=nb_p, n_ball=n_ball)
+    gdz = gt @ (z - zp).transpose(1, 2)                   # (B, nfd, 1)
+    dual = gdz.abs().amax(dim=1, keepdim=True)            # (B, 1, 1)
+    return x, z, zp, u, prim, dual, y
+
+
 def admm_stage_fused_factored_plain(
         rho: torch.Tensor, sinv: torch.Tensor, t: torch.Tensor,
         tt: torch.Tensor, gt: torch.Tensor, b: torch.Tensor,
@@ -116,50 +166,111 @@ def admm_stage_fused_factored_plain(
         x_p[i] = z_p[i] - tt[:, i] @ x_p[i + 1]
     m1 = torch.cat(x_p, dim=1)                            # (B, nfd, m_p)
     del y_p, z_p, x_p
+    return _stage_core_plain(rho, m1, gt, b, rb, xq, x0, z0, u0,
+                             n_iters=n_iters, alpha=alpha, nb_p=nb_p,
+                             n_ball=n_ball, init_z=init_z)
 
-    x = x0
-    y = x0.transpose(1, 2) @ gt + b                       # (B, 1, m_p)
-    if init_z:
-        z = _project(y, rb, nb_p, n_ball)
-        u = torch.zeros_like(z)
-    else:
-        z, u = z0, u0
-    zp = z
+
+def admm_stage_fused_plain(
+        rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
+        b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
+        x0: torch.Tensor, z0: Optional[torch.Tensor] = None,
+        u0: Optional[torch.Tensor] = None, *, n_iters: int, alpha: float,
+        nb_p: int, n_ball: int = -1, init_z: bool = True) -> StageOut:
+    """``admm_stage_fused`` in plain PyTorch; any float dtype, any device."""
+    if n_ball < 0:
+        n_ball = nb_p
+    return _stage_core_plain(rho, winv @ gt, gt, b, rb, xq, x0, z0, u0,
+                             n_iters=n_iters, alpha=alpha, nb_p=nb_p,
+                             n_ball=n_ball, init_z=init_z)
+
+
+def admm_stage_plain(rho: torch.Tensor, m1: torch.Tensor, gt: torch.Tensor,
+                     b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
+                     z0: torch.Tensor, u0: torch.Tensor, *, n_iters: int,
+                     alpha: float, nb_p: int, n_ball: int = -1):
+    """``admm_stage`` in plain PyTorch; any float dtype, any device."""
+    if n_ball < 0:
+        n_ball = nb_p
     prim = torch.full_like(rho, float("inf"))
-    for _ in range(n_iters):
-        v = z - u - b                                     # (B, 1, m_p)
-        x = xq + rho * (m1 @ v.transpose(1, 2))           # (B, nfd, 1)
-        y = x.transpose(1, 2) @ gt + b
-        y_rel = alpha * y + (1.0 - alpha) * z
-        z_new = _project(y_rel + u, rb, nb_p, n_ball)
-        u = u + y_rel - z_new
-        zp, z = z, z_new
-        prim = (y - z).abs().amax(dim=2, keepdim=True)    # (B, 1, 1)
-    gdz = gt @ (z - zp).transpose(1, 2)                   # (B, nfd, 1)
-    dual = gdz.abs().amax(dim=1, keepdim=True)            # (B, 1, 1)
-    return x, z, zp, u, prim, dual, y
+    x, z, zp, u, prim, _ = _iterate_plain(
+        rho, m1, gt, b, rb, xq, xq, z0, z0, u0, prim, None, n_iters=n_iters,
+        alpha=alpha, nb_p=nb_p, n_ball=n_ball)
+    return x, z, zp, u, prim
 
 
-def _library() -> ctypes.CDLL:
+def gram_band_plain(gt: torch.Tensor, *, blk: int, per_block: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gram_band`` in plain PyTorch (one batched product per block
+    diagonal); any float dtype, any device.  ``per_block`` is accepted and
+    changes nothing."""
+    bsz, nfd, m_p = gt.shape
+    rows = gt.reshape(bsz, nfd // blk, blk, m_p)
+    gd = rows @ rows.transpose(-1, -2)
+    gu = rows[:, :-1] @ rows[:, 1:].transpose(-1, -2)
+    return gd, gu
+
+
+def gram_band_factors_plain(gt: torch.Tensor, pb_d: torch.Tensor,
+                            pb_u: torch.Tensor, rho: torch.Tensor, *,
+                            blk: int, sigma: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gram_band_factors`` in plain PyTorch; any float dtype, any
+    device."""
+    gd, gu = gram_band_plain(gt, blk=blk)
+    rho_b = rho[:, None]                                  # (B, 1, 1, 1)
+    eye = torch.eye(blk, dtype=gt.dtype, device=gt.device)
+    return pb_d + rho_b * gd + sigma * eye, pb_u + rho_b * gu
+
+
+def _library(name: str) -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
-    global _configured
-    lib = _build.load(_LIB_NAME)
-    if not _configured:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = _build.load(name)
+    if name in _configured:
+        return lib
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "admm_stage":
         lib.admm_stage_fused_factored_launch.argtypes = (
-            [ptr] * 19 + [i32] * 8 + [ctypes.c_float, i32, i32, ptr])
-        lib.admm_stage_fused_factored_launch.restype = i32
+            [ptr] * 19 + [i32] * 8 + [f32, i32, i32, ptr])
+        lib.admm_stage_fused_launch.argtypes = (
+            [ptr] * 17 + [i32] * 6 + [f32, i32, i32, ptr])
+        lib.admm_stage_launch.argtypes = (
+            [ptr] * 13 + [i32] * 6 + [f32, i32, ptr])
         lib.admm_stage_smem_bytes.argtypes = [i32] * 6
-        lib.admm_stage_smem_bytes.restype = i32
-        _configured = True
+        lib.admm_stage_fused_smem_bytes.argtypes = [i32] * 4
+        lib.admm_stage_iter_smem_bytes.argtypes = [i32] * 4
+        for fn in ("admm_stage_fused_factored_launch",
+                   "admm_stage_fused_launch", "admm_stage_launch",
+                   "admm_stage_smem_bytes", "admm_stage_fused_smem_bytes",
+                   "admm_stage_iter_smem_bytes"):
+            getattr(lib, fn).restype = i32
+    else:
+        lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.gram_band_factors_launch.argtypes = (
+            [ptr] * 6 + [i32] * 4 + [f32, i32, ptr])
+        lib.gram_band_smem_bytes.argtypes = [i32] * 2
+        for fn in ("gram_band_launch", "gram_band_factors_launch",
+                   "gram_band_smem_bytes"):
+            getattr(lib, fn).restype = i32
+    _configured.add(name)
     return lib
 
 
-def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at these shapes
-    (builds the library if needed)."""
-    return int(_library().admm_stage_smem_bytes(nfd, m_p, m_blk, bsz, nb_p,
-                                                THREADS))
+def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
+               kind: str = "admm_stage_fused_factored") -> int:
+    """Dynamic shared memory one block of a kernel of this module takes at
+    these shapes (builds the library if needed).  ``kind``: a key of
+    ``launches``; ``m_blk`` and ``bsz`` are read by the factored stage only,
+    ``bsz`` (the band block) by the Gram-band kernels."""
+    if kind in ("gram_band", "gram_band_factors"):
+        return int(_library("gram_band").gram_band_smem_bytes(m_p, bsz))
+    lib = _library("admm_stage")
+    if kind == "admm_stage_fused_factored":
+        return int(lib.admm_stage_smem_bytes(nfd, m_p, m_blk, bsz, nb_p,
+                                             THREADS))
+    fn = (lib.admm_stage_fused_smem_bytes if kind == "admm_stage_fused"
+          else lib.admm_stage_iter_smem_bytes)
+    return int(fn(nfd, m_p, nb_p, THREADS))
 
 
 def _check(name: str, a: torch.Tensor, shape, device) -> None:
@@ -175,6 +286,55 @@ def _check(name: str, a: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
     if a.data_ptr() % 16:
         raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _device_of(gt: torch.Tensor) -> Optional[torch.device]:
+    """None for a CPU tensor (the plain version runs), the CUDA device
+    otherwise; raises for any other device."""
+    if gt.device.type == "cpu":
+        return None
+    if gt.device.type != "cuda":
+        raise ValueError(f"unsupported device {gt.device}")
+    return gt.device
+
+
+def _check_lanes(gt: torch.Tensor, nb_p: int, n_ball: int):
+    if gt.dim() != 3:
+        raise ValueError(f"gt: expected (B, nfd, m_p), got {tuple(gt.shape)}")
+    bsz_b, nfd, m_p = gt.shape
+    if m_p % 4 or 3 * nb_p > m_p or not 0 <= n_ball <= nb_p or nfd < 1:
+        raise ValueError(f"bad lane layout: m_p={m_p}, nb_p={nb_p}, "
+                         f"n_ball={n_ball}")
+    return bsz_b, nfd, m_p
+
+
+def _check_stage_vectors(b, rb, xq, x0, z0, u0, init_z, bsz_b, nfd, m_p,
+                         nb_p, dev) -> None:
+    _check("b", b, (bsz_b, 1, m_p), dev)
+    _check("rb", rb, (bsz_b, 1, nb_p), dev)
+    _check("xq", xq, (bsz_b, nfd, 1), dev)
+    if x0 is not None:
+        _check("x0", x0, (bsz_b, nfd, 1), dev)
+    if not init_z:
+        _check("z0", z0, (bsz_b, 1, m_p), dev)
+        _check("u0", u0, (bsz_b, 1, m_p), dev)
+
+
+def _raise_on(err: int, name: str, **shapes) -> None:
+    if err != 0:
+        desc = ", ".join(f"{k}={v}" for k, v in shapes.items())
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err} ({desc})")
+
+
+def _stage_outputs(bsz_b: int, nfd: int, m_p: int, dev, with_y: bool):
+    f32 = torch.float32
+    x = torch.empty((bsz_b, nfd, 1), dtype=f32, device=dev)
+    lanes = [torch.empty((bsz_b, 1, m_p), dtype=f32, device=dev)
+             for _ in range(4 if with_y else 3)]
+    scalars = [torch.empty((bsz_b, 1, 1), dtype=f32, device=dev)
+               for _ in range(2 if with_y else 1)]
+    return x, lanes, scalars
 
 
 def admm_stage_fused_factored(
@@ -202,54 +362,37 @@ def admm_stage_fused_factored(
     CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
     through the plain version.  Anything the kernel does not take raises.
     """
-    global launches
     if n_ball < 0:
         n_ball = nb_p
     if not init_z and (z0 is None or u0 is None):
         raise ValueError("init_z=False needs z0 and u0")
-    if gt.device.type == "cpu":
+    dev = _device_of(gt)
+    if dev is None:
         return admm_stage_fused_factored_plain(
             rho, sinv, t, tt, gt, b, rb, xq, x0, z0, u0, n_iters=n_iters,
             alpha=alpha, nb_p=nb_p, n_ball=n_ball, init_z=init_z)
-    if gt.device.type != "cuda":
-        raise ValueError(f"unsupported device {gt.device}")
 
-    dev = gt.device
-    if gt.dim() != 3:
-        raise ValueError(f"gt: expected (B, nfd, m_p), got {tuple(gt.shape)}")
-    bsz_b, nfd, m_p = gt.shape
+    bsz_b, nfd, m_p = _check_lanes(gt, nb_p, n_ball)
     if sinv.dim() != 4:
         raise ValueError("sinv: expected (B, m, bs, bs)")
     m_blk, bsz = sinv.shape[1], sinv.shape[-1]
     if m_blk * bsz != nfd:
         raise ValueError(f"nfd={nfd} is not m*bs = {m_blk}*{bsz}")
-    if m_p % 4 or 3 * nb_p > m_p or not 0 <= n_ball <= nb_p:
-        raise ValueError(f"bad lane layout: m_p={m_p}, nb_p={nb_p}, "
-                         f"n_ball={n_ball}")
     _check("rho", rho, (bsz_b, 1, 1), dev)
     _check("sinv", sinv, (bsz_b, m_blk, bsz, bsz), dev)
     _check("t", t, (bsz_b, m_blk - 1, bsz, bsz), dev)
     _check("tt", tt, (bsz_b, m_blk - 1, bsz, bsz), dev)
     _check("gt", gt, (bsz_b, nfd, m_p), dev)
-    _check("b", b, (bsz_b, 1, m_p), dev)
-    _check("rb", rb, (bsz_b, 1, nb_p), dev)
-    _check("xq", xq, (bsz_b, nfd, 1), dev)
-    _check("x0", x0, (bsz_b, nfd, 1), dev)
-    if not init_z:
-        _check("z0", z0, (bsz_b, 1, m_p), dev)
-        _check("u0", u0, (bsz_b, 1, m_p), dev)
+    _check_stage_vectors(b, rb, xq, x0, z0, u0, init_z, bsz_b, nfd, m_p,
+                         nb_p, dev)
 
-    lib = _library()
-    f32 = torch.float32
+    lib = _library("admm_stage")
     # Scratch for W^-1 G^T.  It is released when this function returns, while
     # the kernel may still run: safe, because PyTorch's allocator hands the
     # block out again only to work queued later on the same stream.
     m1 = torch.empty_like(gt)
-    x = torch.empty((bsz_b, nfd, 1), dtype=f32, device=dev)
-    z, zp, u, y = (torch.empty((bsz_b, 1, m_p), dtype=f32, device=dev)
-                   for _ in range(4))
-    prim, dual = (torch.empty((bsz_b, 1, 1), dtype=f32, device=dev)
-                  for _ in range(2))
+    x, (z, zp, u, y), (prim, dual) = _stage_outputs(bsz_b, nfd, m_p, dev,
+                                                    True)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.admm_stage_fused_factored_launch(
@@ -262,9 +405,187 @@ def admm_stage_fused_factored(
             u.data_ptr(), prim.data_ptr(), dual.data_ptr(), y.data_ptr(),
             bsz_b, nfd, m_p, m_blk, bsz, nb_p, n_ball, int(n_iters),
             float(alpha), int(bool(init_z)), THREADS, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"admm_stage kernel launch failed with CUDA error {err} "
-            f"(B={bsz_b}, nfd={nfd}, m_p={m_p}, m={m_blk}, bs={bsz})")
-    launches += 1
+    _raise_on(err, "admm_stage_fused_factored", B=bsz_b, nfd=nfd, m_p=m_p,
+              m=m_blk, bs=bsz)
+    launches["admm_stage_fused_factored"] += 1
     return x, z, zp, u, prim, dual, y
+
+
+def admm_stage_fused(rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
+                     b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
+                     x0: torch.Tensor, z0: Optional[torch.Tensor] = None,
+                     u0: Optional[torch.Tensor] = None, *, n_iters: int,
+                     alpha: float, nb_p: int, n_ball: int = -1,
+                     init_z: bool = True) -> StageOut:
+    """One fused ADMM stage from a dense KKT inverse, for a flat batch: m1 =
+    winv G^T is formed in the kernel, then the phases of
+    ``admm_stage_fused_factored``.
+
+    Args:
+      rho: (B, 1, 1).  winv: (B, nfd, nfd) KKT inverse.  gt: (B, nfd, m_p).
+      b: (B, 1, m_p).  rb: (B, 1, nb_p).  xq / x0: (B, nfd, 1).
+      z0 / u0: (B, 1, m_p), needed when ``init_z`` is False.
+
+    Returns the seven outputs of ``admm_stage_fused_factored``.
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if n_ball < 0:
+        n_ball = nb_p
+    if not init_z and (z0 is None or u0 is None):
+        raise ValueError("init_z=False needs z0 and u0")
+    dev = _device_of(gt)
+    if dev is None:
+        return admm_stage_fused_plain(
+            rho, winv, gt, b, rb, xq, x0, z0, u0, n_iters=n_iters,
+            alpha=alpha, nb_p=nb_p, n_ball=n_ball, init_z=init_z)
+
+    bsz_b, nfd, m_p = _check_lanes(gt, nb_p, n_ball)
+    _check("rho", rho, (bsz_b, 1, 1), dev)
+    _check("winv", winv, (bsz_b, nfd, nfd), dev)
+    _check("gt", gt, (bsz_b, nfd, m_p), dev)
+    _check_stage_vectors(b, rb, xq, x0, z0, u0, init_z, bsz_b, nfd, m_p,
+                         nb_p, dev)
+
+    lib = _library("admm_stage")
+    m1 = torch.empty_like(gt)          # scratch, as in the factored wrapper
+    x, (z, zp, u, y), (prim, dual) = _stage_outputs(bsz_b, nfd, m_p, dev,
+                                                    True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.admm_stage_fused_launch(
+            rho.data_ptr(), winv.data_ptr(), gt.data_ptr(), b.data_ptr(),
+            rb.data_ptr(), xq.data_ptr(), x0.data_ptr(),
+            None if init_z else z0.data_ptr(),
+            None if init_z else u0.data_ptr(),
+            m1.data_ptr(), x.data_ptr(), z.data_ptr(), zp.data_ptr(),
+            u.data_ptr(), prim.data_ptr(), dual.data_ptr(), y.data_ptr(),
+            bsz_b, nfd, m_p, nb_p, n_ball, int(n_iters), float(alpha),
+            int(bool(init_z)), THREADS, stream)
+    _raise_on(err, "admm_stage_fused", B=bsz_b, nfd=nfd, m_p=m_p)
+    launches["admm_stage_fused"] += 1
+    return x, z, zp, u, prim, dual, y
+
+
+def admm_stage(rho: torch.Tensor, m1: torch.Tensor, gt: torch.Tensor,
+               b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
+               z0: torch.Tensor, u0: torch.Tensor, *, n_iters: int,
+               alpha: float, nb_p: int, n_ball: int = -1):
+    """The ADMM iterations of one stage from a given m1 = W^-1 G^T.
+
+    Args:
+      rho: (B, 1, 1).  m1 / gt: (B, nfd, m_p).  b: (B, 1, m_p).
+      rb: (B, 1, nb_p).  xq: (B, nfd, 1).  z0 / u0: (B, 1, m_p).
+
+    Starts at x = xq, z = z_prev = z0, u = u0, prim = inf; returns (x
+    (B, nfd, 1), z, z_prev, u (B, 1, m_p), prim (B, 1, 1)) -- with
+    ``n_iters=0`` exactly (xq, z0, z0, u0, inf).
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if n_ball < 0:
+        n_ball = nb_p
+    dev = _device_of(gt)
+    if dev is None:
+        return admm_stage_plain(rho, m1, gt, b, rb, xq, z0, u0,
+                                n_iters=n_iters, alpha=alpha, nb_p=nb_p,
+                                n_ball=n_ball)
+
+    bsz_b, nfd, m_p = _check_lanes(gt, nb_p, n_ball)
+    _check("rho", rho, (bsz_b, 1, 1), dev)
+    _check("m1", m1, (bsz_b, nfd, m_p), dev)
+    _check("gt", gt, (bsz_b, nfd, m_p), dev)
+    _check_stage_vectors(b, rb, xq, None, z0, u0, False, bsz_b, nfd, m_p,
+                         nb_p, dev)
+
+    lib = _library("admm_stage")
+    x, (z, zp, u), (prim,) = _stage_outputs(bsz_b, nfd, m_p, dev, False)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.admm_stage_launch(
+            rho.data_ptr(), m1.data_ptr(), gt.data_ptr(), b.data_ptr(),
+            rb.data_ptr(), xq.data_ptr(), z0.data_ptr(), u0.data_ptr(),
+            x.data_ptr(), z.data_ptr(), zp.data_ptr(), u.data_ptr(),
+            prim.data_ptr(), bsz_b, nfd, m_p, nb_p, n_ball, int(n_iters),
+            float(alpha), THREADS, stream)
+    _raise_on(err, "admm_stage", B=bsz_b, nfd=nfd, m_p=m_p)
+    launches["admm_stage"] += 1
+    return x, z, zp, u, prim
+
+
+def _check_band(gt: torch.Tensor, blk: int):
+    if gt.dim() != 3:
+        raise ValueError(f"gt: expected (B, nfd, m_p), got {tuple(gt.shape)}")
+    bsz_b, nfd, m_p = gt.shape
+    if blk < 1 or nfd % blk or m_p % 4:
+        raise ValueError(f"gram band: nfd={nfd} must be a multiple of "
+                         f"blk={blk} and m_p={m_p} of 4")
+    return bsz_b, nfd, m_p, nfd // blk
+
+
+def gram_band(gt: torch.Tensor, *, blk: int, per_block: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-tridiagonal band of the Gram G^T G for a flat batch.
+
+    gt: (B, nfd, m_p) with nfd = m * blk.  Returns (gd (B, m, blk, blk)
+    diagonal blocks, gu (B, m-1, blk, blk) super-diagonal blocks).
+
+    ``per_block`` chose between two Mosaic code-generation strategies of the
+    TPU kernel that compute the same band; it is accepted here, and both
+    values launch the same kernel.
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    dev = _device_of(gt)
+    if dev is None:
+        return gram_band_plain(gt, blk=blk, per_block=per_block)
+    bsz_b, nfd, m_p, m_blk = _check_band(gt, blk)
+    _check("gt", gt, (bsz_b, nfd, m_p), dev)
+    lib = _library("gram_band")
+    gd = torch.empty((bsz_b, m_blk, blk, blk), dtype=torch.float32,
+                     device=dev)
+    gu = torch.empty((bsz_b, m_blk - 1, blk, blk), dtype=torch.float32,
+                     device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gram_band_launch(
+            gt.data_ptr(), gd.data_ptr(), gu.data_ptr(), bsz_b, nfd, m_p, blk,
+            GRAM_THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gram_band", B=bsz_b, nfd=nfd, m_p=m_p, blk=blk)
+    launches["gram_band"] += 1
+    return gd, gu
+
+
+def gram_band_factors(gt: torch.Tensor, pb_d: torch.Tensor,
+                      pb_u: torch.Tensor, rho: torch.Tensor, *, blk: int,
+                      sigma: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stage KKT band for a flat batch: db = pb_d + rho gd + sigma I,
+    ub = pb_u + rho gu, with (gd, gu) the Gram band of ``gram_band``.
+
+    gt: (B, nfd, m_p).  pb_d: (B, m, blk, blk), pb_u: (B, m-1, blk, blk)
+    objective band.  rho: (B, 1, 1).  Returns (db, ub) of the same shapes.
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    dev = _device_of(gt)
+    if dev is None:
+        return gram_band_factors_plain(gt, pb_d, pb_u, rho, blk=blk,
+                                       sigma=sigma)
+    bsz_b, nfd, m_p, m_blk = _check_band(gt, blk)
+    _check("gt", gt, (bsz_b, nfd, m_p), dev)
+    _check("pb_d", pb_d, (bsz_b, m_blk, blk, blk), dev)
+    _check("pb_u", pb_u, (bsz_b, m_blk - 1, blk, blk), dev)
+    _check("rho", rho, (bsz_b, 1, 1), dev)
+    lib = _library("gram_band")
+    db, ub = torch.empty_like(pb_d), torch.empty_like(pb_u)
+    with torch.cuda.device(dev):
+        err = lib.gram_band_factors_launch(
+            gt.data_ptr(), pb_d.data_ptr(), pb_u.data_ptr(), rho.data_ptr(),
+            db.data_ptr(), ub.data_ptr(), bsz_b, nfd, m_p, blk, float(sigma),
+            GRAM_THREADS, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gram_band_factors", B=bsz_b, nfd=nfd, m_p=m_p, blk=blk)
+    launches["gram_band_factors"] += 1
+    return db, ub

@@ -2,10 +2,12 @@
 
 Counterpart of the parts of the JAX package's ``solver/banded.py`` that the
 QP+QCQP path runs: the structure test (``kkt_tridiag_block``), the block
-LDL^T factorization and the factored solve.  The chain structure of a
-K-segment trajectory makes kron(R_pp, I_D) + rho G^T G block-tridiagonal in
-vertex blocks; the factors feed both the xq solve here and the m1 = W^-1 G^T
-sweeps inside the ADMM-stage kernel.
+LDL^T factorization, the factored solve and the dense inverse from the band
+(``spd_block_tridiag_inverse_blocks``).  The chain structure of a K-segment
+trajectory makes kron(R_pp, I_D) + rho G^T G block-tridiagonal in vertex
+blocks; the factors feed both the xq solve here and the m1 = W^-1 G^T sweeps
+inside the ADMM-stage kernel, the dense inverse the stage kernel that takes
+one.
 """
 
 from __future__ import annotations
@@ -100,9 +102,39 @@ def spd_block_tridiag_solve_factored(s_inv: Sequence[torch.Tensor],
     z = S^{-1} y, backward (I+L)^T x = z; every step is one batched
     (b, b) @ (b, R) product.
     """
+    bsz = s_inv[0].shape[-1]
+    return spd_block_tridiag_solve_factored_rows(
+        s_inv, t, [rhs[..., i * bsz:(i + 1) * bsz, :]
+                   for i in range(len(s_inv))])
+
+
+def spd_block_tridiag_inverse_blocks(dblk: Blocks, ublk: Blocks
+                                     ) -> torch.Tensor:
+    """Dense inverse (..., n, n) of an SPD block-tridiagonal matrix given by
+    its m diagonal blocks ``dblk`` and m-1 super-diagonal blocks ``ublk``
+    (lists of (..., b, b) or stacked (..., m, b, b) tensors), n = m * b.
+
+    Block-Thomas sweeps against the identity over the factors of
+    ``spd_block_tridiag_factor`` (whose pivot blocks go through the one
+    ``ops.linalg.spd_inverse``): forward (I+L) Y = I, diagonal Z = S^-1 Y,
+    backward (I+L)^T X = Z, each step one batched (b, b) @ (b, n) product.
+    """
+    s_inv, t = spd_block_tridiag_factor(dblk, ublk)
     m = len(s_inv)
     bsz = s_inv[0].shape[-1]
-    r = [rhs[..., i * bsz:(i + 1) * bsz, :] for i in range(m)]
+    eye = torch.eye(m * bsz, dtype=s_inv[0].dtype, device=s_inv[0].device)
+    shape = s_inv[0].shape[:-2] + (bsz, m * bsz)
+    return spd_block_tridiag_solve_factored_rows(
+        s_inv, t, [eye[i * bsz:(i + 1) * bsz].expand(shape)
+                   for i in range(m)])
+
+
+def spd_block_tridiag_solve_factored_rows(
+        s_inv: Sequence[torch.Tensor], t: Sequence[Optional[torch.Tensor]],
+        r: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``spd_block_tridiag_solve_factored`` with the right-hand side given
+    as its m block rows r[i] (..., b, R)."""
+    m = len(s_inv)
     y = [r[0]]
     for i in range(1, m):
         y.append(r[i] - t[i] @ y[i - 1])

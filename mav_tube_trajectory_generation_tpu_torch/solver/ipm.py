@@ -228,8 +228,7 @@ def _solve_qcqp_ipm_rows(structure: ProblemStructure, d_fixed, times,
         pe_u = kron_e(torch.stack([pe5[:, i, :, i + 1, :]
                                    for i in range(m_blk - 1)], dim=1))
     else:
-        p_big = torch.einsum('bpq,cd->bpcqd', p_eq, eye_d).reshape(
-            bsz, nfd, nfd)
+        p_big = qcqp_mod._kron_eye(p_eq, dim)
         eye_n = torch.eye(nfd, dtype=dt, device=dev)
 
     def mv(mat, vec):

@@ -1,7 +1,8 @@
 """Tube/corridor-constrained QCQP solver: batched first-order ADMM.
 
-Counterpart of the headline path of the JAX package's ``solver/qcqp.py``
-(``solve_qcqp_batch`` with the fused factored stage kernel).  Replaces the
+Counterpart of the JAX package's ``solver/qcqp.py``: ``solve_qcqp_batch``
+on every KKT route of its stage kernels, and the generic ``solve_qcqp``.
+Replaces the
 reference's Mosek interior-point QCQP (polynomial_optimization_qcqp.h +
 qcqp_impl.h): minimize the derivative energy subject to
 
@@ -26,10 +27,24 @@ per-constraint row equilibration keep it float32-robust.
 All tensors carry the batch dimension B written out in front; nothing is
 vmapped.  Per batch: objective blocks and warm start, the equilibrated
 constraint system assembled directly in the stage kernel's padded lane
-layout, the block-tridiagonal KKT band and its block-LDL^T factors, then
-``n_stages`` calls of ``ops.admm_kernel.admm_stage_fused_factored`` (the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors) with the penalty
-rho rebalanced between stages.
+layout, then per stage the KKT matrix for the current penalty rho and one
+call of a stage kernel of ``ops.admm_kernel`` (the CUDA kernel for CUDA
+tensors, its plain version for CPU tensors), rho rebalanced between stages.
+The KKT routes (``ADMMConfig.kkt_inverse`` / ``kkt_apply`` / ``band_gram``,
+as in the JAX package):
+
+  * banded + factored (the default where ``banded.kkt_tridiag_block``
+    holds): the block-tridiagonal KKT band, its block-LDL^T factors and
+    ``admm_stage_fused_factored``; the Gram band from the dense Gram
+    (``band_gram="xla"``), from ``gram_band`` ("pallas", "pallas_block"),
+    or the whole KKT band from ``gram_band_factors`` each stage
+    ("pallas_db");
+  * banded + inverse (``kkt_apply="inverse"``): the dense inverse from the
+    band (``banded.spd_block_tridiag_inverse_blocks``) and
+    ``admm_stage_fused``;
+  * dense (``kkt_inverse="cholesky"``, or no block band, e.g. K = 2):
+    kron(p_eq, I3) + rho G^T G + sigma I, its inverse by
+    ``linalg.spd_inverse``, and ``admm_stage_fused``.
 
 ``build_constraints`` gives the same constraints in the reference layout
 (per-constraint Jacobians).  ``solve_qcqp`` is the generic solve on that
@@ -38,9 +53,9 @@ plain batched products, no kernel.  It is what the float64 last tier of the
 verdict router (``solver.auto``) starts from, and the ground truth the tests
 hold the kernel path against.
 
-Not here yet (they wait for later work): non-banded KKT structures on the
-kernel path, and the alternative kernel back ends the JAX ``ADMMConfig``
-selects between.
+Not here yet: ``gt_assembly="kernel"`` of the JAX ``ADMMConfig`` (G^T
+expanded from its rank-1 factors inside the kernels), which waits for the
+kernels that do it.
 """
 
 from __future__ import annotations
@@ -82,6 +97,38 @@ class ADMMConfig:
     rho_sphere_factor: float = 1.0
     rho_tube_factor: float = 1.0
     rho_half_factor: float = 1.0
+    # The KKT route of ``solve_qcqp_batch``, with the JAX package's names and
+    # defaults.  kkt_inverse: "schur" keeps the block-tridiagonal band where
+    # the structure has one, "cholesky" switches it off (the dense KKT).
+    # Both invert with this package's one dense inverse, the equilibrated
+    # Cholesky of ``ops.linalg.spd_inverse`` (the JAX package's "schur" is a
+    # matmul-only inverse; the two differ by float32 rounding only).
+    kkt_inverse: str = "schur"
+    # On the band: "factored" applies W^-1 by block-Thomas sweeps over the
+    # LDL^T factors in the stage kernel; "inverse" forms the dense inverse
+    # from the band and runs the dense-inverse stage kernel.
+    kkt_apply: str = "factored"
+    # Where the Gram band comes from (read only where there is a band):
+    # "xla" the dense Gram G^T G, one batched product, and its band;
+    # "pallas" / "pallas_block" the band kernel ``gram_band`` (the two were
+    # code-generation variants of the TPU kernel and are one kernel here);
+    # "pallas_db" the whole KKT band from ``gram_band_factors`` each stage.
+    band_gram: str = "xla"
+
+    def __post_init__(self):
+        if self.band_gram not in ("xla", "pallas", "pallas_block",
+                                  "pallas_db"):
+            raise ValueError(
+                f"band_gram must be 'xla', 'pallas', 'pallas_block' or "
+                f"'pallas_db', got {self.band_gram!r}")
+        if self.kkt_apply not in ("factored", "inverse"):
+            raise ValueError(
+                f"kkt_apply must be 'factored' or 'inverse', got "
+                f"{self.kkt_apply!r}")
+        if self.kkt_inverse not in ("schur", "cholesky"):
+            raise ValueError(
+                f"kkt_inverse must be 'schur' or 'cholesky', got "
+                f"{self.kkt_inverse!r}")
 
 
 class QCQPSolution(NamedTuple):
@@ -576,14 +623,18 @@ def _pre(structure: ProblemStructure, d_fixed, times, waypoints, radii,
                 d_scale=d_scale)
 
 
-def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int):
+def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
+              band_gram: str = "xla"):
     """Band of the stage KKT kron(p_eq, I_D) + rho G^T G + sigma I, which is
     exactly block-tridiagonal in vertex blocks (banded.kkt_tridiag_block).
 
     Returns (pb_d (B, m, blk, blk), pb_u (B, m-1, blk, blk)) objective
-    blocks and (gd, gu) the matching blocks of the Gram G^T G.  The dense
-    Gram is one batched product outside any kernel, as in the reference's
-    default configuration; only its band is read.
+    blocks and (gd, gu) the matching blocks of the Gram G^T G.  With
+    ``band_gram="xla"`` the dense Gram is one batched product outside any
+    kernel, as in the reference's default configuration, and only its band
+    is read; "pallas" / "pallas_block" take the band from the kernel
+    ``gram_band``; "pallas_db" leaves gd and gu None: ``_kkt_band_at`` then
+    forms each stage's whole band in ``gram_band_factors``.
     """
     bsz, nfd, _ = gt.shape
     m_blk = nfd // blk
@@ -597,30 +648,47 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int):
 
     def kron(a):
         return torch.einsum('smab,cd->smacbd', a, eye_d).reshape(
-            bsz, a.shape[1], blk, blk)
+            bsz, a.shape[1], blk, blk).contiguous()
 
-    gtg = gt @ gt.transpose(-1, -2)                        # (B, nfd, nfd)
-    g5 = gtg.reshape(bsz, m_blk, blk, m_blk, blk)
-    gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], dim=1)
-    gu = torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)],
-                     dim=1)
+    if band_gram == "pallas_db":
+        gd = gu = None
+    elif band_gram in ("pallas", "pallas_block"):
+        gd, gu = admm_kernel.gram_band(
+            gt, blk=blk, per_block=(band_gram == "pallas_block"))
+    else:
+        gtg = gt @ gt.transpose(-1, -2)                    # (B, nfd, nfd)
+        g5 = gtg.reshape(bsz, m_blk, blk, m_blk, blk)
+        gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], dim=1)
+        gu = torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)],
+                         dim=1)
     return kron(pe_d), kron(pe_u), gd, gu
 
 
-def _stage_factors(band, rho: torch.Tensor, sigma: float,
-                   q_flat: torch.Tensor):
-    """Block-LDL^T factors of one stage's KKT band and xq = -W^-1 q.
-
-    band: (pb_d, pb_u, gd, gu) from ``_kkt_band``; rho: (B, 1, 1).
-    Returns (sinv (B, m, b, b), t (B, m-1, b, b), tt = t^T, xq (B, nfd, 1)),
-    contiguous, as the stage kernel takes them.
-    """
+def _kkt_band_at(band, rho: torch.Tensor, sigma: float,
+                 gt: Optional[torch.Tensor] = None):
+    """The KKT band (db (B, m, b, b), ub (B, m-1, b, b)) of one stage:
+    db = pb_d + rho gd + sigma I, ub = pb_u + rho gu.  band: from
+    ``_kkt_band``; rho: (B, 1, 1); gt: needed when the band came without its
+    Gram blocks (``band_gram="pallas_db"``)."""
     pb_d, pb_u, gd, gu = band
     blk = pb_d.shape[-1]
+    if gd is None:
+        return admm_kernel.gram_band_factors(gt, pb_d, pb_u, rho, blk=blk,
+                                             sigma=sigma)
     eye_b = torch.eye(blk, dtype=pb_d.dtype, device=pb_d.device)
     rho_b = rho[:, None, :, :]                             # (B, 1, 1, 1)
-    db = pb_d + rho_b * gd + sigma * eye_b
-    ub = pb_u + rho_b * gu
+    return pb_d + rho_b * gd + sigma * eye_b, pb_u + rho_b * gu
+
+
+def _stage_factors(band, rho: torch.Tensor, sigma: float,
+                   q_flat: torch.Tensor, gt: Optional[torch.Tensor] = None):
+    """Block-LDL^T factors of one stage's KKT band and xq = -W^-1 q.
+
+    band: (pb_d, pb_u, gd, gu) from ``_kkt_band``; rho: (B, 1, 1); gt as
+    ``_kkt_band_at`` takes it.  Returns (sinv (B, m, b, b), t (B, m-1, b, b),
+    tt = t^T, xq (B, nfd, 1)), contiguous, as the stage kernel takes them.
+    """
+    db, ub = _kkt_band_at(band, rho, sigma, gt)
     s_inv, t_fac = banded.spd_block_tridiag_factor(db, ub)
     xq = -banded.spd_block_tridiag_solve_factored(
         s_inv, t_fac, q_flat[:, :, None])
@@ -638,15 +706,63 @@ def _rb_pad(rb: torch.Tensor, layout: _PadLayout) -> torch.Tensor:
     return torch.cat([rb, ones], dim=-1)[:, None, :].contiguous()
 
 
-def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
-                kkt_block: int):
-    """Staged ADMM with the inner iterations in the fused stage kernel.
+def _kron_eye(p_eq: torch.Tensor, dim: int) -> torch.Tensor:
+    """kron(p_eq, I_dim) for a batch: (B, n, n) -> (B, n dim, n dim), index
+    p * dim + d (the p-major order of the flattened free derivatives)."""
+    bsz, n, _ = p_eq.shape
+    eye_d = torch.eye(dim, dtype=p_eq.dtype, device=p_eq.device)
+    return torch.einsum('bpq,cd->bpcqd', p_eq, eye_d).reshape(
+        bsz, n * dim, n * dim)
 
-    Per stage: assemble the KKT band for the current rho, factor it, solve
-    for xq, run ``n_iters`` iterations in ``admm_stage_fused_factored``
-    (entered with ``init_z`` on the first stage only), then rebalance rho
-    from the residual ratio (OSQP section 5.2: rho <- rho sqrt(rp/rd), the
-    scaled duals u = nu/rho rescale inversely).
+
+class _KKT(NamedTuple):
+    """What every stage of one solve reuses, on the route of
+    ``_kkt_setup``: the band from ``_kkt_band`` (banded routes), or the
+    dense Gram and kron(p_eq, I3) (dense route)."""
+    factored: bool
+    band: Optional[tuple] = None
+    gtg: Optional[torch.Tensor] = None
+    p_big: Optional[torch.Tensor] = None
+
+
+def _kkt_setup(config: ADMMConfig, pre: _Pre, kkt_block: Optional[int]
+               ) -> _KKT:
+    """The route (module docstring) and its once-a-solve tensors."""
+    gt = pre.gt
+    if kkt_block is not None and config.kkt_inverse == "schur":
+        return _KKT(factored=config.kkt_apply == "factored",
+                    band=_kkt_band(gt, pre.p_eq, kkt_block,
+                                   config.band_gram))
+    # The dense Gram and the dense inverse stay library calls, as in the JAX
+    # package, where they sit outside any kernel.
+    return _KKT(factored=False, gtg=gt @ gt.transpose(-1, -2),
+                p_big=_kron_eye(pre.p_eq, gt.shape[1] // pre.p_eq.shape[-1]))
+
+
+def _kkt_inverse(kkt: _KKT, rho: torch.Tensor, sigma: float,
+                 gt: torch.Tensor) -> torch.Tensor:
+    """Dense inverse (B, nfd, nfd) of one stage's KKT matrix on a dense
+    route: from the band by block-Thomas sweeps, or of kron(p_eq, I3) +
+    rho G^T G + sigma I by ``linalg.spd_inverse``."""
+    if kkt.band is not None:
+        return banded.spd_block_tridiag_inverse_blocks(
+            *_kkt_band_at(kkt.band, rho, sigma, gt))
+    eye = torch.eye(gt.shape[1], dtype=gt.dtype, device=gt.device)
+    return linalg.spd_inverse(kkt.p_big + rho * kkt.gtg + sigma * eye)
+
+
+def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
+                kkt_block: Optional[int]):
+    """Staged ADMM with the inner iterations in a fused stage kernel.
+
+    Per stage: the KKT matrix for the current rho on the route the config
+    and the structure pick (module docstring), xq = -W^-1 q, ``n_iters``
+    iterations in ``admm_stage_fused_factored`` (banded + factored) or
+    ``admm_stage_fused`` (a dense inverse), entered with ``init_z`` on the
+    first stage only; then rho is rebalanced from the residual ratio (OSQP
+    section 5.2: rho <- rho sqrt(rp/rd), the scaled duals u = nu/rho rescale
+    inversely).  ``kkt_block``: ``banded.kkt_tridiag_block`` of the
+    structure, None where there is no block band.
 
     Returns (x (B, nfd), z, u, y (B, m) unpadded in the flat
     [ball-x | ball-y | ball-z | half] order, rho, prim, dual (B,));
@@ -658,19 +774,30 @@ def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
     bsz = gt.shape[0]
     nb_p, n_ball = layout.nb_p, layout.n_ball
     rb_pad = _rb_pad(pre.rb, layout)
-    band = _kkt_band(gt, pre.p_eq, kkt_block)
+    kkt = _kkt_setup(config, pre._replace(gt=gt), kkt_block)
+    q_col = pre.q_flat[:, :, None]
 
     x = pre.x_flat0[:, :, None].contiguous()               # (B, nfd, 1)
     z = u = None    # the first stage initializes z/u from x inside the kernel
     rho = torch.full((bsz, 1, 1), config.rho, dtype=dt, device=dev)
     prim_res = dual_res = y = None
     for stage in range(config.n_stages):
-        sinv, t_st, tt_st, xq = _stage_factors(band, rho, config.sigma,
-                                               pre.q_flat)
-        x, z, _, u, prim, dualm, y = admm_kernel.admm_stage_fused_factored(
-            rho, sinv, t_st, tt_st, gt, b_pad, rb_pad, xq, x, z, u,
-            n_iters=config.n_iters, alpha=config.alpha, nb_p=nb_p,
-            n_ball=n_ball, init_z=(stage == 0))
+        kw = dict(n_iters=config.n_iters, alpha=config.alpha, nb_p=nb_p,
+                  n_ball=n_ball, init_z=(stage == 0))
+        if kkt.factored:
+            sinv, t_st, tt_st, xq = _stage_factors(kkt.band, rho,
+                                                   config.sigma, pre.q_flat,
+                                                   gt)
+            x, z, _, u, prim, dualm, y = \
+                admm_kernel.admm_stage_fused_factored(
+                    rho, sinv, t_st, tt_st, gt, b_pad, rb_pad, xq, x, z, u,
+                    **kw)
+        else:
+            w_inv = _kkt_inverse(kkt, rho, config.sigma, gt)
+            xq = -(w_inv @ q_col)                          # (B, nfd, 1)
+            x, z, _, u, prim, dualm, y = admm_kernel.admm_stage_fused(
+                rho, w_inv.contiguous(), gt, b_pad, rb_pad, xq.contiguous(),
+                x, z, u, **kw)
         prim_res = prim[:, 0, 0]
         # Padded entries of z are fixed points of the iteration (y=0, b=0),
         # so dz is zero there and the padded matvec is exact.
@@ -724,6 +851,21 @@ def _post(structure: ProblemStructure, config: ADMMConfig, d_fixed, times,
         max_violation=viol, dual_ball=dual_ball, dual_half=dual_half)
 
 
+def _check_free_interior(structure: ProblemStructure) -> None:
+    """ValueError unless ``structure`` is of the free-interior family that
+    ``solve_qcqp_batch`` solves."""
+    mask = np.asarray(structure.fixed_mask, dtype=bool)
+    if (structure.dimension != 3 or structure.n_vertices < 3
+            or not mask[0].all() or not mask[-1].all() or mask[1:-1].any()):
+        raise ValueError(
+            "solve_qcqp_batch needs the free-interior family "
+            "(free_interior_mask): D = 3, start and goal fully fixed, every "
+            "derivative of the interior vertices free, and at least one "
+            f"interior vertex; got D = {structure.dimension}, "
+            f"{structure.n_vertices} vertices, fixed_mask "
+            f"{mask.astype(int).tolist()}")
+
+
 def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
                      radii, config: ADMMConfig = ADMMConfig(),
                      x0=None, warmstart_values=None,
@@ -732,8 +874,11 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
     axis B; tensors or array-likes).
 
     ``structure`` must be the free-interior family (``free_interior_mask``):
-    start/goal fully fixed, interior vertex derivatives all free, positions
-    confined by the sphere/tube geometry, D = 3.
+    start/goal fully fixed, interior vertex derivatives all free (at least
+    one interior vertex), positions confined by the sphere/tube geometry,
+    D = 3; any other structure raises ValueError.  The KKT route follows
+    ``config`` and the structure (module docstring): K = 2 has no block
+    band and always takes the dense route.
 
     Args:
       d_fixed: (B, n_fixed, 3) fixed start/goal derivatives.
@@ -760,15 +905,12 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
     """
     if x0 is not None and warmstart_values is not None:
         raise ValueError("pass x0 or warmstart_values, not both")
+    _check_free_interior(structure)
     dev = resolve_device(device)
     dtype = torch.promote_types(tensor_dtype(d_fixed), tensor_dtype(times))
     d_fixed, times, waypoints, radii = (
         as_tensor(a, dtype, dev) for a in (d_fixed, times, waypoints, radii))
     kkt_block = banded.kkt_tridiag_block(structure)
-    if kkt_block is None:
-        raise NotImplementedError(
-            "the fused stage needs the block-tridiagonal KKT structure "
-            "(fully fixed endpoints, uniform free interior, >= 4 vertices)")
     layout = _flagship_layout(structure)
     wp = None
     if warmstart_values is not None:
@@ -853,8 +995,7 @@ def _solve_qcqp_rows(structure: ProblemStructure, d_fixed, times, waypoints,
     p_eq, q_eq, d_scale, x_init = _objective_blocks(
         structure, d_fixed, times, config, x0,
         warmstart_positions=warmstart_positions)
-    eye_d = torch.eye(dim, dtype=dt, device=dev)
-    p_big = torch.einsum('bpq,cd->bpcqd', p_eq, eye_d).reshape(bsz, nfd, nfd)
+    p_big = _kron_eye(p_eq, dim)
     q_flat = q_eq.reshape(bsz, nfd)
     x_flat0 = x_init.reshape(bsz, nfd)
 

@@ -85,7 +85,7 @@ def _run_both(si, init_z, z0=None, u0=None, rho_scale=1.0, n_iters=N_ITERS):
     ref = jkernel.admm_stage_fused_factored(
         *aj.values(), None if z0 is None else jnp.asarray(z0),
         None if u0 is None else jnp.asarray(u0), interpret=True, **kw)
-    before = tkernel.launches
+    before = dict(tkernel.launches)
     ours = tkernel.admm_stage_fused_factored(
         *at.values(), None if z0 is None else tt(z0),
         None if u0 is None else tt(u0), **kw)
@@ -230,10 +230,10 @@ def test_kernel_matches_plain_on_the_card(stage_inputs):
     at = {k: v.cuda() for k, v in stage_inputs["torch"].items()}
     kw = dict(n_iters=N_ITERS, alpha=ALPHA, nb_p=lay.nb_p, n_ball=lay.n_ball,
               init_z=True)
-    before = tkernel.launches
+    before = tkernel.launches["admm_stage_fused_factored"]
     ours = tkernel.admm_stage_fused_factored(*at.values(), **kw)
     torch.cuda.synchronize()
-    assert tkernel.launches == before + 1
+    assert tkernel.launches["admm_stage_fused_factored"] == before + 1
     plain = tkernel.admm_stage_fused_factored_plain(*at.values(), **kw)
     for a, b, name in zip(ours, plain, NAMES):
         # rsqrtf on the card is not correctly rounded; sums run in another

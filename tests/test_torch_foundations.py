@@ -383,6 +383,17 @@ def test_port_imports_without_jax():
         "    sc.waypoints, sc.radii, m.ADMMConfig(n_stages=1, n_iters=5),\n"
         "    warmstart_values=sc.values, device='cpu')\n"
         "assert torch.isfinite(s.cost).all()\n"
+        "for cfg in (m.ADMMConfig(n_stages=2, n_iters=5, kkt_apply='inverse'),\n"
+        "            m.ADMMConfig(n_stages=2, n_iters=5, band_gram='pallas_db')):\n"
+        "    s = m.solve_qcqp_batch(sc.free, sc.d_fixed_free, sc.times,\n"
+        "        sc.waypoints, sc.radii, cfg, warmstart_values=sc.values,\n"
+        "        device='cpu')\n"
+        "    assert torch.isfinite(s.cost).all()\n"
+        "s2 = m.make_inputs(2, 2, device='cpu')\n"
+        "s = m.solve_qcqp_batch(s2.free, s2.d_fixed_free, s2.times,\n"
+        "    s2.waypoints, s2.radii, m.ADMMConfig(n_stages=1, n_iters=5),\n"
+        "    warmstart_values=s2.values, device='cpu')\n"
+        "assert torch.isfinite(s.cost).all()\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')]\n"
         "assert bad == ['jax'] and sys.modules['jax'] is None, bad\n"

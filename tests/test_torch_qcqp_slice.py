@@ -80,7 +80,7 @@ def _solve_port(p, n_stages, n_iters, mode="values"):
         kw["warmstart_values"] = p["values"]
     elif mode == "x0":
         kw["x0"] = p["x0"]
-    before = tkernel.launches
+    before = dict(tkernel.launches)
     sol = mtt.solve_qcqp_batch(ts, d_fixed, p["times"], p["waypoints"],
                                p["radii"], config=cfg, device="cpu", **kw)
     assert tkernel.launches == before      # host run: no kernel launch
@@ -231,18 +231,20 @@ def test_config_and_argument_errors():
     with pytest.raises(ValueError, match="not both"):
         mtt.solve_qcqp_batch(*args, x0=np.zeros((2, 15, 3), np.float32),
                              warmstart_values=p["values"], device="cpu")
-    # The TPU back-end selectors are not carried over.
-    for gone in ("use_pallas", "kkt_inverse", "kkt_apply", "band_gram",
-                 "gt_assembly"):
+    # The KKT route selectors are carried over with the JAX defaults; the
+    # Pallas switch and the in-kernel G^T assembly are not.
+    for gone in ("use_pallas", "gt_assembly"):
         assert not hasattr(mtt.ADMMConfig(), gone)
     for kept in ("rho", "sigma", "alpha", "n_iters", "n_stages", "rho_min",
                  "rho_max", "eps_primal", "eps_dual", "rho_sphere_factor",
-                 "rho_tube_factor", "rho_half_factor"):
+                 "rho_tube_factor", "rho_half_factor", "kkt_inverse",
+                 "kkt_apply", "band_gram"):
         assert getattr(mtt.ADMMConfig(), kept) == \
             getattr(jqcqp.ADMMConfig(), kept)
-    # structures without the block-tridiagonal KKT are refused, not mis-solved
+    # structures outside the free-interior family are refused up front, not
+    # mis-solved
     std = mtt.make_structure(mtt.standard_mask(3, N), 3, N)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="free-interior family"):
         mtt.solve_qcqp_batch(std, np.zeros((1, 12, 3), np.float32),
                              np.ones((1, 2), np.float32),
                              np.zeros((1, 3, 3), np.float32),
@@ -270,10 +272,10 @@ def test_slice_on_the_card_matches_host():
     host = _solve_port(p, 1, 48)
     ts = mtt.make_structure(mtt.free_interior_mask(K + 1, N), 3, N)
     d_fixed = mtt.extract_fixed_values(ts, tt(p["values"]))
-    before = tkernel.launches
+    before = tkernel.launches["admm_stage_fused_factored"]
     card = mtt.solve_qcqp_batch(
         ts, d_fixed, p["times"], p["waypoints"], p["radii"],
         config=mtt.ADMMConfig(n_stages=1, **BENCH_KW),
         warmstart_values=p["values"])
-    assert tkernel.launches == before + 1
+    assert tkernel.launches["admm_stage_fused_factored"] == before + 1
     _compare(card, host, _f32_tols(host))
