@@ -11,10 +11,12 @@ entry points and checks the solution quality: ``solve_qcqp_batch`` on the
 10-segment min-snap QP+QCQP benchmark configuration, batch 6144; the polish
 with the whole interior-point method in one kernel launch
 (``solve_qcqp_polished_batch`` with ``IPMConfig(fused=True)``) on the same
-batch, beside the step-by-step polish at the router's row counts; and the
+batch, beside the step-by-step polish at the router's row counts; the
 strict verdict router ``solve_qcqp_strict`` with its defaults (float64 last
 tier on) on the same batch and on a tight-corridor batch of 512, where its
-escalation tiers do the work.
+escalation tiers do the work; the other KKT routes of ``solve_qcqp_batch``;
+and the headline with ``gt_assembly="kernel"`` (G^T never formed: the stage
+and band kernels expand it from its rank-1 factors).
 Every phase prints one JSON object on a line of its own;
 a failing phase raises, so the script exits non-zero and prints no final
 line.  There is no CPU mode: without a CUDA device it exits with code 2.
@@ -57,7 +59,7 @@ OUT_NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
 ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
               "multi_stage", "dense_path", "band_gram", "ipm_kernel_check",
               "fused_path", "strict_path",
-              "strict_tight", "kernels")
+              "strict_tight", "ew_path", "kernels")
 
 # The interior-point kernels against their plain versions, per output, on
 # inputs recorded from real solves.  Every row is compared (one scenario at a
@@ -276,9 +278,10 @@ def build_report(_build, name):
 
 # The entry functions of the two ADMM sources, by the name in the source.
 ADMM_ENTRIES = {"admm_stage": ("admm_stage_fused_factored_kernel",
+                               "admm_stage_fused_factored_ew_kernel",
                                "admm_stage_fused_kernel",
                                "admm_stage_iter_kernel"),
-                "gram_band": ("gram_band_kernel",)}
+                "gram_band": ("gram_band_kernel", "gram_band_ew_kernel")}
 # A block's dynamic shared memory may not exceed this on an H100.
 MAX_DYNAMIC_SMEM = 232448
 
@@ -348,7 +351,7 @@ def phase_build(state):
                                 gram_band=admm_kernel.GRAM_THREADS))
     over = {f"{label} {k}": v for label, d in smem.items()
             for k, v in d.items() if v > MAX_DYNAMIC_SMEM}
-    if over or len(entries) != 4:
+    if over or len(entries) != sum(map(len, ADMM_ENTRIES.values())):
         raise RuntimeError(f"build: entry functions {sorted(entries)}, "
                            f"shared memory over the limit: {over}")
 
@@ -550,6 +553,32 @@ def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3):
                 rho=(0.01 + rnd(batch, 1, 1).abs()).contiguous(), sigma=1e-6)
 
 
+def run_checks(label, shape, checks, controls_gate, cases, bad):
+    """Each check of ``checks`` ([(kernel, variant, fn, fn_plain, args, kw,
+    kind, control)]): kernel against plain float32 and float64 by its
+    kind's criterion, run to run, and the negative control; appends a
+    summary to ``cases`` and what failed to ``bad``."""
+    for (name, variant, fn, fn_plain, args, kw, kind, control) in checks:
+        ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
+        wrong = triple(fn, fn_plain, args, kw, *control)
+        if kind == "stage":
+            res, ok = compare_outputs(ours, plain, plain64)
+            _, ctl_ok = compare_outputs(wrong[0], plain, plain64)
+        else:
+            names = ("db", "ub") if "factors" in name else ("gd", "gu")
+            res, ok = band_compare(names, ours, plain, plain64)
+            _, ctl_ok = band_compare(names, wrong[0], plain, plain64)
+        rejected = not ctl_ok
+        cases.append(dict(kernel=name, variant=variant, shapes=label,
+                          gt_shape=list(shape), within_tolerance=ok,
+                          bit_identical=same, control_rejected=rejected,
+                          errors=res))
+        if not (ok and same):
+            bad.append(f"{name} {variant} {label}")
+        if controls_gate and not rejected:
+            bad.append(f"{name} {variant} {label}: the control passes")
+
+
 def route_kernel_check(mtt):
     """#2 (init_z True and False), #7, #6 (both per_block values) and #5
     against their plain versions in float32 and float64 at K=2, K=4 and
@@ -558,38 +587,14 @@ def route_kernel_check(mtt):
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     cases, bad = [], []
-
-    def run(label, inp, checks, controls_gate):
-        for (name, variant, fn, fn_plain, args, kw, kind,
-             control) in checks:
-            ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
-            wrong = triple(fn, fn_plain, args, kw, *control)
-            if kind == "stage":
-                res, ok = compare_outputs(ours, plain, plain64)
-                _, ctl_ok = compare_outputs(wrong[0], plain, plain64)
-            else:
-                names = ("db", "ub") if name.endswith("factors") else \
-                    ("gd", "gu")
-                res, ok = band_compare(names, ours, plain, plain64)
-                _, ctl_ok = band_compare(names, wrong[0], plain, plain64)
-            rejected = not ctl_ok
-            cases.append(dict(kernel=name, variant=variant, shapes=label,
-                              gt_shape=list(inp["gt"].shape),
-                              within_tolerance=ok, bit_identical=same,
-                              control_rejected=rejected, errors=res))
-            if not (ok and same):
-                bad.append(f"{name} {variant} {label}")
-            if controls_gate and not rejected:
-                bad.append(f"{name} {variant} {label}: the control passes")
-
     for label, k, batch in ROUTE_SHAPES:
         inp = route_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
-        run(label, inp, route_checks(admm_kernel, inp),
-            label.startswith("flagship"))
+        run_checks(label, inp["gt"].shape, route_checks(admm_kernel, inp),
+                   label.startswith("flagship"), cases, bad)
         del inp
     inp = random_band_inputs()
-    run("random G^T, flagship shape", inp, band_checks(admm_kernel, inp),
-        True)
+    run_checks("random G^T, flagship shape", inp["gt"].shape,
+               band_checks(admm_kernel, inp), True, cases, bad)
     del inp
     emit("kernel_check_routes", tolerance_is=dict(
         stage="as kernel_check (KERNEL_TOL, both criteria)",
@@ -624,13 +629,13 @@ PATH_COST_TOL = 2e-3
 PATH_VIOLATION_TOL = 5e-4
 
 
-def compare_paths(mtt, sc, cfg, n, kernel="admm_stage_fused_factored"):
-    """Solve the first ``n`` scenarios through the stage kernel ``kernel``,
-    through its plain version in float32 and through its plain version in
-    float64; returns the error summary and whether the kernel path is within
-    the stated bounds."""
+def compare_paths(mtt, sc, cfg, n, kernels=("admm_stage_fused_factored",)):
+    """Solve the first ``n`` scenarios through the kernels ``kernels``,
+    through their plain versions in float32 and through their plain
+    versions in float64; returns the error summary and whether the kernel
+    path is within the stated bounds."""
     kern = solve(mtt, sc, cfg, n)
-    with plain_kernels(only=(kernel,)):
+    with plain_kernels(only=kernels):
         p32 = solve(mtt, sc, cfg, n)
         sc64 = sc._replace(**{f: getattr(sc, f).double() for f in (
             "d_fixed_std", "d_fixed_free", "times", "waypoints", "radii",
@@ -689,6 +694,7 @@ def phase_main_path(state, mtt):
               if v and n != "admm_stage_fused_factored"}
     state["launches"] = after - before
     peak = torch.cuda.max_memory_allocated()
+    state["headline_peak"] = peak
 
     finite = torch.isfinite(sol.cost) & torch.isfinite(sol.max_violation)
     feasible = int((finite & (sol.max_violation < 1e-2)).sum())
@@ -808,7 +814,8 @@ def recorded(module, name, sink):
 
 
 ADMM_WRAPPERS = ("admm_stage_fused_factored", "admm_stage_fused",
-                 "admm_stage", "gram_band", "gram_band_factors")
+                 "admm_stage", "gram_band", "gram_band_factors",
+                 "admm_stage_fused_factored_ew", "gram_band_factors_ew")
 IPM_WRAPPERS = ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
                 "ipm_solve_fused")
 
@@ -1145,10 +1152,12 @@ def timed_passes(fn, n_pass):
     return out, pass_ms, launches, torch.cuda.max_memory_allocated()
 
 
-def route_pieces(mtt, sc, cfg, stage_call):
+def route_pieces(mtt, sc, cfg, stage_call, stage_kernel="admm_stage_fused"):
     """ms of the pieces of one solve on cfg's route, each run alone: _pre,
-    the KKT set-up (once a solve), the KKT inverse with xq (once a stage),
-    the stage kernel, _run_stages as a whole, _post."""
+    the KKT set-up (once a solve), the KKT inverse with xq (dense inverse
+    routes) or the band, its factors and xq (factored routes; once a
+    stage), the stage kernel ``stage_kernel`` on ``stage_call``,
+    _run_stages as a whole, _post."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
@@ -1162,9 +1171,10 @@ def route_pieces(mtt, sc, cfg, stage_call):
 
     parts = dict(pre_ms=cuda_ms(pre_fn, 3))
     pre = pre_fn()
-    gt = pre.gt.contiguous()
-    rho = torch.full((gt.shape[0], 1, 1), cfg.rho, dtype=gt.dtype,
-                     device=gt.device)
+    gt = None if pre.gt is None else pre.gt.contiguous()
+    b = pre.b_pad
+    rho = torch.full((b.shape[0], 1, 1), cfg.rho, dtype=b.dtype,
+                     device=b.device)
     parts["kkt_setup_ms"] = cuda_ms(lambda: qcqp._kkt_setup(cfg, pre, blk), 3)
     kkt = qcqp._kkt_setup(cfg, pre, blk)
 
@@ -1172,11 +1182,16 @@ def route_pieces(mtt, sc, cfg, stage_call):
         w = qcqp._kkt_inverse(kkt, rho, cfg.sigma, gt)
         return w, -(w @ pre.q_flat[:, :, None])
 
-    parts["kkt_inverse_and_xq_ms"] = cuda_ms(inverse, 3)
+    if kkt.factored:
+        parts["kkt_band_factor_and_xq_ms"] = cuda_ms(
+            lambda: qcqp._stage_factors(kkt.band, rho, cfg.sigma, pre.q_flat,
+                                        gt, kkt.factors), 3)
+    else:
+        parts["kkt_inverse_and_xq_ms"] = cuda_ms(inverse, 3)
     del kkt
     args, kw = stage_call
-    parts["stage_kernel_ms"] = cuda_ms(
-        lambda: admm_kernel.admm_stage_fused(*args, **kw), 3)
+    stage_fn = getattr(admm_kernel, stage_kernel)
+    parts["stage_kernel_ms"] = cuda_ms(lambda: stage_fn(*args, **kw), 3)
     outs = qcqp._run_stages(cfg, pre, layout, blk)
     parts["run_stages_total_ms"] = cuda_ms(
         lambda: qcqp._run_stages(cfg, pre, layout, blk), 3)
@@ -1270,7 +1285,7 @@ def phase_dense_path(state, mtt):
     sc = mtt.make_inputs(10, 512, seed=2)
     before = admm_kernel.launches["admm_stage_fused"]
     kern, cmp, ok3 = compare_paths(mtt, sc, cfg3, None,
-                                   kernel="admm_stage_fused")
+                                   kernels=("admm_stage_fused",))
     torch.cuda.synchronize()
     launched = admm_kernel.launches["admm_stage_fused"] - before
     multi = dict(n_stages=3, batch=512, kernel_launches=launched,
@@ -1341,9 +1356,10 @@ def phase_band_gram(state, mtt):
                          calls["gram_band_factors"]):
             solve(mtt, sc, cfg)                           # warm-up
         torch.cuda.synchronize()
-        for name, c in calls.items():
-            if c and name not in rec:
-                rec[name] = to_device(c[0][:2], "cpu")
+        # (a comprehension: a loop variable would keep the last call's
+        # device tensors alive through the timed passes' peak memory)
+        rec.update({name: to_device(c[0][:2], "cpu")
+                    for name, c in calls.items() if c and name not in rec})
         del calls
         sol, pass_ms, launches, peak = timed_passes(
             lambda: solve(mtt, sc, cfg), ROUTE_PASSES)
@@ -1398,6 +1414,284 @@ def phase_band_gram(state, mtt):
          nvidia_smi=state.get("nvidia_smi"))
     if bad:
         raise RuntimeError(f"band_gram failed for {bad}")
+
+
+# The gt_assembly="kernel" route (G^T kept as its rank-1 row factors e, w):
+# kernels #3 and #4, each against its plain version by the rules of #1
+# (compare_outputs) and #5 (band_compare), on real factors at K=4 and K=10
+# and, for #4, on random ones (a real assembly's super-diagonal band is
+# exactly zero).  The negative control of both hands the kernel w with its
+# rows in the wrong order: G^T row p*3 + d then reads w[(d + 1) % 3], what a
+# wrong row interleave would do.  The path is gated as the KKT routes are
+# (ROUTE_*), against the "pallas_db" route on the same inputs (kernels #5 and
+# #1 on the assembled G^T, which the factors expand to), and at the
+# headline's bars.
+EW_KERNELS = ("admm_stage_fused_factored_ew", "gram_band_factors_ew")
+EW_SHAPES = (("K=4", 4, 64), ("flagship K=10", 10, 256))
+EW_STAGES = 3
+
+
+def ew_inputs(mtt, k, batch, seed, config):
+    """Inputs of kernels #3 and #4 from a real assembly on the
+    gt_assembly="kernel" route at the config's rho: the factors e, w, the
+    objective band, the stage's LDL^T factors and xq (the band from #4),
+    and x, z, u carried from one plain stage (u halved, as a rebalancing of
+    rho would) for the init_z=False entry."""
+    import dataclasses
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
+    cfg = dataclasses.replace(config, gt_assembly="kernel")
+    sc = mtt.make_inputs(k, batch, seed=seed)
+    layout = qcqp._flagship_layout(sc.free)
+    pre = qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
+                    sc.radii, cfg, None, layout,
+                    warmstart_positions=sc.values[:, 1:-1, 0, :])
+    kkt = qcqp._kkt_setup(cfg, pre, banded.kkt_tridiag_block(sc.free))
+    e, w = kkt.factors
+    rho = torch.full((batch, 1, 1), cfg.rho, dtype=torch.float32,
+                     device=e.device)
+    sinv, t_st, tt_st, xq = qcqp._stage_factors(
+        kkt.band, rho, cfg.sigma, pre.q_flat, factors=kkt.factors)
+    stage = (rho, sinv, t_st, tt_st, e, w, pre.b_pad.contiguous(),
+             qcqp._rb_pad(pre.rb, layout), xq)
+    x0 = pre.x_flat0[:, :, None].contiguous()
+    kw = dict(n_iters=cfg.n_iters, alpha=cfg.alpha, nb_p=layout.nb_p,
+              n_ball=layout.n_ball)
+    x1, z1, _, u1 = admm_kernel.admm_stage_fused_factored_ew_plain(
+        *stage, x0, **kw)[:4]
+    return dict(stage=stage, x0=x0, carried=(x1.contiguous(),
+                                             z1.contiguous(),
+                                             (0.5 * u1).contiguous()),
+                kw=kw, e=e, w=w, pb_d=kkt.band[0], pb_u=kkt.band[1],
+                rho=rho, sigma=cfg.sigma)
+
+
+def random_ew_band_inputs(batch=256, nf=45, m_p=512, seed=4):
+    """Inputs of kernel #4 of the flagship shape with random factors."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    m_blk = 3 * nf // BAND_BLOCK
+    return dict(e=rnd(batch, nf, m_p), w=rnd(batch, 3, m_p),
+                pb_d=rnd(batch, m_blk, BAND_BLOCK, BAND_BLOCK),
+                pb_u=rnd(batch, m_blk - 1, BAND_BLOCK, BAND_BLOCK),
+                rho=(0.01 + rnd(batch, 1, 1).abs()).contiguous(), sigma=1e-6)
+
+
+def ew_checks(ak, inp):
+    """The entries of ``run_checks`` for kernels #3 (init_z True and False,
+    where ``inp`` has stage inputs) and #4, each with the control stated
+    above EW_KERNELS."""
+    w_bad = inp["w"][:, [1, 2, 0]].contiguous()
+    out = []
+    if "stage" in inp:
+        for init_z in (True, False):
+            args = inp["stage"] + ((inp["x0"],) if init_z else inp["carried"])
+            kw = dict(inp["kw"], init_z=init_z)
+            out.append((EW_KERNELS[0], f"init_z={init_z}",
+                        ak.admm_stage_fused_factored_ew,
+                        ak.admm_stage_fused_factored_ew_plain, args, kw,
+                        "stage", (args[:5] + (w_bad,) + args[6:], kw)))
+    band_args = (inp["e"], inp["w"], inp["pb_d"], inp["pb_u"], inp["rho"])
+    band_kw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
+    out.append((EW_KERNELS[1], "", ak.gram_band_factors_ew,
+                ak.gram_band_factors_ew_plain, band_args, band_kw, "band",
+                ((inp["e"], w_bad) + band_args[2:], band_kw)))
+    return out
+
+
+def same_bits_as_gt_kernels(ak, inp):
+    """Whether #3 and #4 give the bits of #1 and #5 on the G^T their factors
+    expand to (reported: the route's bit-identity rests on it)."""
+    import torch
+    gt = ak.expand_gt(inp["e"], inp["w"])
+    st = inp["stage"]
+    kw = dict(inp["kw"], init_z=True)
+    ew = ak.admm_stage_fused_factored_ew(*st, inp["x0"], **kw)
+    ref = ak.admm_stage_fused_factored(*st[:4], gt, *st[6:], inp["x0"], **kw)
+    band = (inp["pb_d"], inp["pb_u"], inp["rho"])
+    bkw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
+    ew_b = ak.gram_band_factors_ew(inp["e"], inp["w"], *band, **bkw)
+    ref_b = ak.gram_band_factors(gt, *band, **bkw)
+    torch.cuda.synchronize()
+    return {EW_KERNELS[0]: all(torch.equal(a, b) for a, b in zip(ew, ref)),
+            EW_KERNELS[1]: all(torch.equal(a, b) for a, b in zip(ew_b, ref_b))}
+
+
+def ew_kernel_check(mtt):
+    """#3 and #4 against their plain versions in float32 and float64, with
+    their controls; whether they give #1's and #5's bits."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    cases, bad, bits = [], [], {}
+    for label, k, batch in EW_SHAPES:
+        inp = ew_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
+        run_checks(label, inp["e"].shape, ew_checks(admm_kernel, inp),
+                   label.startswith("flagship"), cases, bad)
+        bits[label] = same_bits_as_gt_kernels(admm_kernel, inp)
+        del inp
+    inp = random_ew_band_inputs()
+    run_checks("random e, w, flagship shape", inp["e"].shape,
+               ew_checks(admm_kernel, inp), True, cases, bad)
+    del inp
+    torch.cuda.empty_cache()
+    emit("kernel_check_ew", tolerance_is=dict(
+        stage="as kernel_check (KERNEL_TOL, both criteria)",
+        band="as kernel_check_routes' band criterion"),
+        control="w's rows in the order (1, 2, 0)", cases=cases,
+        same_bits_as_gt_kernels_on_the_expanded_gt=bits)
+    if bad:
+        raise RuntimeError(f"kernel_check (ew) failed for {bad}")
+
+
+def memory_pieces(mtt, sc, cfg):
+    """Device memory of one solve on cfg's route, in bytes above what was
+    allocated before it: the peak of the whole solve through its entry
+    point, the _pre bundle, the peak while _pre runs, and the peak while
+    _run_stages runs with the bundle alive."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
+    layout = qcqp._flagship_layout(sc.free)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    solve(mtt, sc, cfg)
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    pre = qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
+                    sc.radii, cfg, None, layout,
+                    warmstart_positions=sc.values[:, 1:-1, 0, :])
+    torch.cuda.synchronize()
+    out = dict(peak_in_solve=whole,
+               pre_bundle=torch.cuda.memory_allocated() - base,
+               peak_in_pre=torch.cuda.max_memory_allocated() - base)
+    torch.cuda.reset_peak_memory_stats()
+    outs = qcqp._run_stages(cfg, pre, layout,
+                            banded.kkt_tridiag_block(sc.free))
+    torch.cuda.synchronize()
+    out["peak_in_run_stages"] = torch.cuda.max_memory_allocated() - base
+    del pre, outs
+    return out
+
+
+def phase_ew_path(state, mtt):
+    """The headline with gt_assembly="kernel": kernels #4 and #3 once a
+    stage, no G^T tensor; against the "pallas_db" route (#5 and #1 on the
+    assembled G^T) and the "xla" headline on the same inputs; three stages
+    at batch 512 against the same route with the two kernels' plain
+    versions in their place; #3 and #4 against their plain versions."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
+    ew_kernel_check(mtt)
+    batch = MAIN_BATCH
+    sc = mtt.make_inputs(10, batch, seed=0)
+    cfg = route_config(mtt, gt_assembly="kernel")
+    rec = state.setdefault("recorded", {})
+    calls = {n: [] for n in EW_KERNELS}
+    with recorded(ak, EW_KERNELS[0], calls[EW_KERNELS[0]]), \
+            recorded(ak, EW_KERNELS[1], calls[EW_KERNELS[1]]):
+        solve(mtt, sc, cfg)                               # warm-up
+    torch.cuda.synchronize()
+    rec.update({name: to_device(c[0][:2], "cpu")
+                for name, c in calls.items()})
+    del calls
+    sol, pass_ms, launches, peak = timed_passes(
+        lambda: solve(mtt, sc, cfg), ROUTE_PASSES)
+    ms = sum(pass_ms) / ROUTE_PASSES
+    want = {n: cfg.n_stages * ROUTE_PASSES for n in EW_KERNELS}
+    state["ew_launches"] = launches
+    q = solution_quality(sol)
+    db_cfg = route_config(mtt, band_gram="pallas_db")
+    db, db_pass_ms, db_launches, db_peak = timed_passes(
+        lambda: solve(mtt, sc, db_cfg), ROUTE_PASSES)
+    dq = solution_quality(db)
+    xla = solve(mtt, sc, bench_config(mtt))
+
+    def against(ref):
+        out = {}
+        for name, a, b in (("x", sol.d_free, ref.d_free),
+                           ("cost", sol.cost, ref.cost),
+                           ("max_violation", sol.max_violation,
+                            ref.max_violation)):
+            out[name] = dict(bit_identical=bool(torch.equal(a, b)),
+                             max_abs_diff=float((a - b).abs().max()))
+        out["cost_gap"] = cost_gap_summary(sol, ref)
+        out["feasible_at_1e_2"] = solution_quality(ref)["feasible_at_1e_2"]
+        return out
+
+    vs_db, vs_xla = against(db), against(xla)
+    ok = (launches == want and q["all_finite"] and sol.cost.shape == (batch,)
+          and q["feasible_at_1e_2"] >= MIN_FEASIBLE
+          and q["median_max_violation"] <= MAX_MEDIAN_VIOLATION
+          and gap_ok(vs_db["cost_gap"], batch)
+          and abs(q["feasible_at_1e_2"] - dq["feasible_at_1e_2"])
+          <= ROUTE_FEASIBLE_SHARE * batch)
+    del sol, db, xla
+    torch.cuda.empty_cache()
+    memory = {name: memory_pieces(mtt, sc, c) for name, c in (
+        ("ew", cfg), ("pallas_db", db_cfg), ("xla", bench_config(mtt)))}
+    parts = route_pieces(mtt, sc, cfg, to_device(rec[EW_KERNELS[0]], "cuda"),
+                         stage_kernel=EW_KERNELS[0])
+    args, kw = to_device(rec[EW_KERNELS[1]], "cuda")
+    parts["band_kernel_ms"] = cuda_ms(
+        lambda: ak.gram_band_factors_ew(*args, **kw), 3)
+    del args, sc
+    torch.cuda.empty_cache()
+
+    # EW_STAGES stages at batch 512: the init_z=False entry on the card,
+    # the path against the same route with #3's and #4's plain versions.
+    cfg3 = route_config(mtt, n_stages=EW_STAGES, gt_assembly="kernel")
+    sc3 = mtt.make_inputs(10, 512, seed=2)
+    before = {n: ak.launches[n] for n in EW_KERNELS}
+    stage_calls = []
+    with recorded(ak, EW_KERNELS[0], stage_calls):
+        kern, cmp, ok3 = compare_paths(mtt, sc3, cfg3, None,
+                                       kernels=EW_KERNELS)
+    torch.cuda.synchronize()
+    launched = {n: ak.launches[n] - before[n] for n in EW_KERNELS}
+    s_args, s_kw = stage_calls[1][:2]
+    ours, plain, plain64, same = triple(
+        ak.admm_stage_fused_factored_ew, ak.admm_stage_fused_factored_ew_plain,
+        s_args, s_kw)
+    later, later_ok = compare_outputs(ours, plain, plain64)
+    multi = dict(n_stages=EW_STAGES, batch=512, kernel_launches=launched,
+                 feasible_at_1e_2=int((kern.max_violation < 1e-2).sum()),
+                 stage_1_entry=dict(init_z=s_kw["init_z"], ok=later_ok,
+                                    bit_identical=same, errors=later), **cmp)
+    ok3 = (ok3 and later_ok and same and not s_kw["init_z"]
+           and all(v == EW_STAGES for v in launched.values())
+           and bool(torch.isfinite(kern.cost).all()))
+    del stage_calls, s_args, ours, plain, plain64, kern
+    torch.cuda.empty_cache()
+
+    emit("ew_path", config="headline ADMMConfig (K=10, 1 stage x 48 "
+         "iterations, rho 0.005, tube/half factors 0.125, radii 0.8, warm "
+         "start from vertex values) with gt_assembly='kernel', seed 0",
+         source="benchmarks/headline_variants.py, variant 'ew'", batch=batch,
+         passes=ROUTE_PASSES, ms_per_batch=ms, pass_ms=pass_ms,
+         solves_per_s=batch / (ms * 1e-3), launches_in_timed_passes=launches,
+         expected_launches=want, peak_device_memory_bytes=peak,
+         headline_peak_device_memory_bytes=state.get("headline_peak"), **q,
+         pallas_db=dict(ms_per_batch=sum(db_pass_ms) / ROUTE_PASSES,
+                        pass_ms=db_pass_ms, launches_in_timed_passes=
+                        db_launches, peak_device_memory_bytes=db_peak),
+         vs_pallas_db=vs_db, vs_xla_headline=vs_xla, phase_ms=parts,
+         memory_bytes_by_piece=memory,
+         three_stages=multi, limits=dict(
+             cost_gap_median=ROUTE_COST_MEDIAN, cost_gap_p99=ROUTE_COST_P99,
+             rows_over_p99_limit=int(ROUTE_COST_OUTLIER_SHARE * batch),
+             feasible_within=int(ROUTE_FEASIBLE_SHARE * batch),
+             headline=[MIN_FEASIBLE, MAX_MEDIAN_VIOLATION]),
+         ok=bool(ok), three_stages_ok=bool(ok3),
+         nvidia_smi=state.get("nvidia_smi"))
+    if not (ok and ok3):
+        raise RuntimeError(f"ew_path failed: path ok {ok}, three stages ok "
+                           f"{ok3}")
 
 
 def phase_ipm_kernel_check(state, mtt):
@@ -2083,19 +2377,15 @@ def ipm_kernel_rows(state, mtt):
     the full-Gram evaluation on tier 1's recorded inputs)."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
-    rec = state.get("recorded", {})
-    if not {"ipm_eval_step", "ipm_solve_fused"} <= set(rec):
-        raise RuntimeError("the kernels phase times the interior-point "
-                           "kernels on calls recorded by fused_path and "
-                           "strict_path: run all three in one call")
+    if not have_recorded(state, ("ipm_eval_step", "ipm_solve_fused"),
+                         "the interior-point kernels (fused_path and "
+                         "strict_path)"):
+        return []
+    rec = state["recorded"]
     launches = dict(state["strict_launches"],
                     ipm_solve_fused=state["fused_launches"],
                     ipm_eval_step_gram=state["gram_launches"])
     rows = []
-
-    def nbytes(tensors):
-        return sum(t.numel() * t.element_size() for t in tensors
-                   if isinstance(t, torch.Tensor))
 
     def finish(name, source, replaces, fn, fn_plain, names, args, kw, flops,
                library=None, note=None, count=None, extra_check=None,
@@ -2296,14 +2586,12 @@ def phase_kernels(state, mtt):
     diffs = cmp["kernel_vs_plain"]
 
     # Bound from this run's shapes: every input read once, every output
-    # written once; (3m - 2) products of (b, b) @ (b, m_p) and
-    # 2 n_iters + 2 matvecs against (nfd, m_p), 2 flops per multiply-add.
+    # written once; the work of ``stage_flops``.
     _, nfd, m_p = args[4].shape
     m_blk, bsz = args[1].shape[1], args[1].shape[-1]
-    in_bytes = sum(a.numel() * a.element_size() for a in args)
-    out_bytes = sum(a.numel() * a.element_size() for a in ours)
-    flops = batch * ((3 * m_blk - 2) * 2 * bsz * bsz * m_p
-                     + (2 * kw["n_iters"] + 2) * 2 * nfd * m_p)
+    in_bytes = nbytes(args)
+    out_bytes = nbytes(ours)
+    flops = stage_flops(batch, nfd, m_p, m_blk, bsz, kw["n_iters"])
     bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_F32_FLOPS * 1e3
     row = dict(
@@ -2323,8 +2611,108 @@ def phase_kernels(state, mtt):
                                      n_iters=kw["n_iters"]),
         flops=flops, bytes=in_bytes + out_bytes,
         bound_flops_ms=flops_ms, bound_bytes_ms=bytes_ms)
-    rows = [row] + admm_route_rows(state) + ipm_kernel_rows(state, mtt)
+    rows = ([row] + ew_rows(state) + admm_route_rows(state)
+            + ipm_kernel_rows(state, mtt))
+    # twelve kernels; #2 has a row at K=10 and one at K=2
+    if not state.get("partial") and len(rows) != 13:
+        raise RuntimeError(f"kernels: {len(rows)} rows, expected 13")
     say(json.dumps({"kernels": rows}))
+
+
+def nbytes(tensors):
+    import torch
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
+             kind, shape_arg, names=None, library=None, note=None, **extra):
+    """A row of the `kernels` line for a kernel of ops.admm_kernel, timed on
+    ``args`` and held there to its check (``kind`` "stage": compare_outputs;
+    "band": band_compare with output ``names``)."""
+    import torch
+    ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
+    plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
+    lib_ms = cuda_ms(library, reps=5) if library else None
+    ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
+    if kind == "stage":
+        res, ok = compare_outputs(ours, plain, plain64)
+        err = max(res["kernel_vs_plain"].values())
+    else:
+        res, ok = band_compare(names, ours, plain, plain64)
+        err = max(v.get("kernel_vs_plain", 0.0) for v in res.values())
+    if not (ok and same):
+        raise RuntimeError(f"kernels: {name} disagrees with its plain "
+                           f"version at its path's shapes: {res}")
+    total = nbytes(args) + nbytes(ours)
+    bytes_ms = total / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_F32_FLOPS * 1e3
+    del ours, plain, plain64
+    torch.cuda.empty_cache()
+    return dict(
+        name=name, route="cuda", source=f"{PKG}/csrc/{source}",
+        replaces=f"mav_tube_trajectory_generation_tpu/ops/admm_kernel.py:"
+        f"{line}", launches=launches, max_abs_err=err,
+        max_abs_err_is="largest |kernel - plain float32| over the outputs",
+        errors=res, tolerance="kernel_check_routes' criteria", ms=ms,
+        plain_ms=plain_ms, bound_ms=max(bytes_ms, flops_ms),
+        bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+        library_ms=lib_ms, shapes=dict(
+            **{"e" if name.endswith("_ew") else "gt":
+               list(args[shape_arg].shape)}, note=note),
+        flops=flops, bytes=total, bound_flops_ms=flops_ms,
+        bound_bytes_ms=bytes_ms, **extra)
+
+
+def band_library(gt_fn, pb=None, rho=None, sigma=0.0):
+    """One PyTorch computation of the band kernels' function: G^T
+    (``gt_fn()``), ``torch.bmm(gt, gt.mT)``, the band gather, and with
+    ``pb`` the adds of the KKT band."""
+    import torch
+
+    def call():
+        gt = gt_fn()
+        bsz, nfd, _ = gt.shape
+        m_blk = nfd // BAND_BLOCK
+        g5 = torch.bmm(gt, gt.mT).reshape(bsz, m_blk, BAND_BLOCK, m_blk,
+                                          BAND_BLOCK)
+        gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], 1)
+        gu = torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)], 1)
+        if pb is None:
+            return gd, gu
+        eye = torch.eye(BAND_BLOCK, dtype=gt.dtype, device=gt.device)
+        return (pb[0] + rho[:, None] * gd + sigma * eye,
+                pb[1] + rho[:, None] * gu)
+    return call
+
+
+def band_flops(bsz, nfd, m_p, blk, factors=False):
+    """Multiply-adds (x2) of the 2m-1 band blocks over m_p lanes, and with
+    ``factors`` the KKT band's adds."""
+    m_blk = nfd // blk
+    out = bsz * (2 * m_blk - 1) * 2 * blk * blk * m_p
+    if factors:
+        out += bsz * ((2 * m_blk - 1) * 2 * blk * blk + m_blk * blk)
+    return out
+
+
+def stage_flops(bsz, nfd, m_p, m_blk, bs, n_iters):
+    """Kernel 1's work: (3m - 2) products of (b, b) @ (b, m_p) and
+    2 n_iters + 2 matvecs against (nfd, m_p), 2 flops per multiply-add."""
+    return bsz * ((3 * m_blk - 2) * 2 * bs * bs * m_p
+                  + (2 * n_iters + 2) * 2 * nfd * m_p)
+
+
+def have_recorded(state, need, what):
+    """Whether the calls a group of rows is timed on were recorded; in a
+    partial run a group without them is left out, in a whole run that
+    raises."""
+    if set(need) <= set(state.get("recorded", {})):
+        return True
+    if state.get("partial"):
+        return False
+    raise RuntimeError(f"the kernels phase times {what} on calls recorded "
+                       f"by earlier phases: run them in the same call")
 
 
 def admm_route_rows(state):
@@ -2333,52 +2721,14 @@ def admm_route_rows(state):
     dense_path and band_gram), and held to its check at those shapes."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
-    rec = state.get("recorded", {})
     need = {"admm_stage_fused a", "admm_stage_fused c", "admm_stage",
             "gram_band", "gram_band_factors"}
-    if not need <= set(rec):
-        raise RuntimeError("the kernels phase times kernels #2, #5, #6 and "
-                           "#7 on calls recorded by dense_path and "
-                           "band_gram: run them in the same call")
+    if not have_recorded(state, need, "kernels #2, #5, #6 and #7 (dense_path "
+                         "and band_gram)"):
+        return []
+    rec = state["recorded"]
     dev = torch.device("cuda")
-    src = "mav_tube_trajectory_generation_tpu/ops/admm_kernel.py"
     rows = []
-
-    def nbytes(tensors):
-        return sum(t.numel() * t.element_size() for t in tensors
-                   if isinstance(t, torch.Tensor))
-
-    def row(name, source, line, fn, fn_plain, args, kw, flops, launches,
-            kind, names=None, library=None, note=None, **extra):
-        ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
-        plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
-        lib_ms = cuda_ms(library, reps=5) if library else None
-        ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
-        if kind == "stage":
-            res, ok = compare_outputs(ours, plain, plain64)
-            err = max(res["kernel_vs_plain"].values())
-        else:
-            res, ok = band_compare(names, ours, plain, plain64)
-            err = max(v.get("kernel_vs_plain", 0.0) for v in res.values())
-        if not (ok and same):
-            raise RuntimeError(f"kernels: {name} disagrees with its plain "
-                               f"version at its path's shapes: {res}")
-        total = nbytes(args) + nbytes(ours)
-        bytes_ms = total / PEAK_BYTES_PER_S * 1e3
-        flops_ms = flops / PEAK_F32_FLOPS * 1e3
-        rows.append(dict(
-            name=name, route="cuda", source=f"{PKG}/csrc/{source}",
-            replaces=f"{src}:{line}", launches=launches, max_abs_err=err,
-            max_abs_err_is="largest |kernel - plain float32| over the "
-            "outputs", errors=res, tolerance="kernel_check_routes' criteria",
-            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, flops_ms),
-            bound_by="operations" if flops_ms >= bytes_ms else "bytes",
-            library_ms=lib_ms, shapes=dict(gt=list(args[2 if kind == "stage"
-                                                        else 0].shape),
-                                           note=note),
-            flops=flops, bytes=total, bound_flops_ms=flops_ms,
-            bound_bytes_ms=bytes_ms, **extra))
-        del ours, plain, plain64
 
     for label, note in (("a", "dense_path (a): K=10, kkt_apply='inverse', "
                          "stage 0"),
@@ -2390,66 +2740,93 @@ def admm_route_rows(state):
         # m1 = winv gt, then y0, n_iters x (x, y) and the dual matvec
         flops = bsz * (2 * nfd * nfd * m_p
                        + (2 * kw["n_iters"] + 2) * 2 * nfd * m_p)
-        row(f"admm_stage_fused ({'K=10' if label == 'a' else 'K=2'})",
+        rows.append(admm_row(
+            f"admm_stage_fused ({'K=10' if label == 'a' else 'K=2'})",
             "admm_stage.cu", 549, ak.admm_stage_fused,
             ak.admm_stage_fused_plain, args, kw, flops,
-            state["route_launches"][label], "stage", note=note,
+            state["route_launches"][label], "stage", 2, note=note,
             m1_bmm_ms=cuda_ms(lambda: torch.bmm(winv, gt), reps=5),
             m1_bmm_is="torch.bmm(winv, gt): the kernel's m1 phase alone, "
-            "as a library product")
+            "as a library product"))
         del args, winv, gt
         torch.cuda.empty_cache()
 
     args, kw = to_device(rec["admm_stage"], dev)
     bsz, nfd, m_p = args[2].shape
-    row("admm_stage", "admm_stage.cu", 663, ak.admm_stage,
+    rows.append(admm_row(
+        "admm_stage", "admm_stage.cu", 663, ak.admm_stage,
         ak.admm_stage_plain, args, kw,
         bsz * kw["n_iters"] * 2 * 2 * nfd * m_p, state["stage_launches"],
-        "stage", note="no caller in either package: its public wrapper, "
-        "driven once by dense_path on route (a)'s stage inputs")
+        "stage", 2, note="no caller in either package: its public wrapper, "
+        "driven once by dense_path on route (a)'s stage inputs"))
     del args
     torch.cuda.empty_cache()
 
-    def band_library(gt, pb=None, rho=None, sigma=0.0):
-        bsz, nfd, _ = gt.shape
-        m_blk = nfd // BAND_BLOCK
-
-        def call():
-            g5 = torch.bmm(gt, gt.mT).reshape(bsz, m_blk, BAND_BLOCK, m_blk,
-                                              BAND_BLOCK)
-            gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], 1)
-            gu = torch.stack([g5[:, i, :, i + 1, :]
-                              for i in range(m_blk - 1)], 1)
-            if pb is None:
-                return gd, gu
-            eye = torch.eye(BAND_BLOCK, dtype=gt.dtype, device=gt.device)
-            return (pb[0] + rho[:, None] * gd + sigma * eye,
-                    pb[1] + rho[:, None] * gu)
-        return call
-
     args, kw = to_device(rec["gram_band"], dev)
     gt = args[0]
-    bsz, nfd, m_p = gt.shape
-    m_blk = nfd // kw["blk"]
-    band_flops = bsz * (2 * m_blk - 1) * 2 * kw["blk"] ** 2 * m_p
-    row("gram_band", "gram_band.cu", 512, ak.gram_band, ak.gram_band_plain,
-        args, kw, band_flops, state["band_launches"]["pallas"]["gram_band"],
-        "band", names=("gd", "gu"), library=band_library(gt),
+    rows.append(admm_row(
+        "gram_band", "gram_band.cu", 512, ak.gram_band, ak.gram_band_plain,
+        args, kw, band_flops(*gt.shape, kw["blk"]),
+        state["band_launches"]["pallas"]["gram_band"], "band", 0,
+        names=("gd", "gu"), library=band_library(lambda: gt),
         note="band_gram='pallas', once a solve; library call: torch.bmm(gt, "
-        "gt.mT) and the band gather; bound: the 2m-1 band blocks only")
+        "gt.mT) and the band gather; bound: the 2m-1 band blocks only"))
     del args, gt
     args, kw = to_device(rec["gram_band_factors"], dev)
     gt, pb_d, pb_u, rho = args
-    row("gram_band_factors", "gram_band.cu", 437, ak.gram_band_factors,
+    rows.append(admm_row(
+        "gram_band_factors", "gram_band.cu", 437, ak.gram_band_factors,
         ak.gram_band_factors_plain, args, kw,
-        band_flops + bsz * ((2 * m_blk - 1) * 2 * kw["blk"] ** 2
-                            + m_blk * kw["blk"]),
-        state["band_launches"]["pallas_db"]["gram_band_factors"], "band",
-        names=("db", "ub"), library=band_library(gt, (pb_d, pb_u), rho,
-                                                  kw["sigma"]),
+        band_flops(*gt.shape, kw["blk"], factors=True),
+        state["band_launches"]["pallas_db"]["gram_band_factors"], "band", 0,
+        names=("db", "ub"), library=band_library(
+            lambda: gt, (pb_d, pb_u), rho, kw["sigma"]),
         note="band_gram='pallas_db', once a stage; library call: as "
-        "gram_band's, then the adds")
+        "gram_band's, then the adds"))
     del args, gt, pb_d, pb_u, rho
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ew_rows(state):
+    """Rows of the `kernels` line for kernels #3 and #4, each timed on the
+    call the ew path made in its warm-up (stage 0, batch 6144) and held to
+    its check there."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
+    if not have_recorded(state, EW_KERNELS, "kernels #3 and #4 (ew_path)"):
+        return []
+    rec = state["recorded"]
+    dev = torch.device("cuda")
+    launches = state["ew_launches"]
+    args, kw = to_device(rec[EW_KERNELS[0]], dev)
+    sinv, e = args[1], args[4]
+    bsz, nf, m_p = e.shape
+    nfd = 3 * nf
+    # kernel 1's work, and forming G^T from its factors once
+    flops = (stage_flops(bsz, nfd, m_p, sinv.shape[1], sinv.shape[-1],
+                         kw["n_iters"]) + bsz * nfd * m_p)
+    rows = [admm_row(
+        EW_KERNELS[0], "admm_stage.cu", 317, ak.admm_stage_fused_factored_ew,
+        ak.admm_stage_fused_factored_ew_plain, args, kw, flops,
+        launches.get(EW_KERNELS[0], 0), "stage", 4,
+        note="ew_path (gt_assembly='kernel'), stage 0; no single PyTorch "
+        "call computes a stage")]
+    del args, sinv, e
+    torch.cuda.empty_cache()
+    args, kw = to_device(rec[EW_KERNELS[1]], dev)
+    e, w, pb_d, pb_u, rho = args
+    bsz, nf, m_p = e.shape
+    rows.append(admm_row(
+        EW_KERNELS[1], "gram_band.cu", 384, ak.gram_band_factors_ew,
+        ak.gram_band_factors_ew_plain, args, kw,
+        band_flops(bsz, 3 * nf, m_p, kw["blk"], factors=True)
+        + bsz * 3 * nf * m_p, launches.get(EW_KERNELS[1], 0), "band", 0,
+        names=("db", "ub"), library=band_library(
+            lambda: ak.expand_gt(e, w), (pb_d, pb_u), rho, kw["sigma"]),
+        note="ew_path, once a stage; library call: e*w expanded, then as "
+        "gram_band_factors'; bound: the 17 band blocks and the expansion"))
+    del args, e, w, pb_d, pb_u, rho
     torch.cuda.empty_cache()
     return rows
 
@@ -2484,7 +2861,7 @@ def main():
         return 2
 
     t_start = time.perf_counter()
-    state = {"launches": 0}
+    state = {"launches": 0, "partial": set(phases) != set(ALL_PHASES)}
     runners = {
         "toolchain": lambda: phase_toolchain(state),
         "build": lambda: phase_build(state),
@@ -2497,6 +2874,7 @@ def main():
         "fused_path": lambda: phase_fused_path(state, mtt),
         "strict_path": lambda: phase_strict_path(state, mtt),
         "strict_tight": lambda: phase_strict_tight(state, mtt),
+        "ew_path": lambda: phase_ew_path(state, mtt),
         "kernels": lambda: phase_kernels(state, mtt),
     }
     for name in ALL_PHASES:

@@ -51,16 +51,9 @@ def ipm_config_from_fields(other: Any) -> IPMConfig:
 def admm_config_from_fields(other: Any) -> ADMMConfig:
     """This package's ``ADMMConfig`` from any object with its fields (e.g.
     the JAX package's, with its KKT route selectors ``kkt_inverse``,
-    ``kkt_apply`` and ``band_gram``).  That package's ``use_pallas`` is
-    ignored (here the device of the tensors picks kernel or plain version);
-    ``gt_assembly="kernel"`` is refused: it needs the kernels that expand
-    G^T from its rank-1 factors (``admm_stage_fused_factored_ew`` and
-    ``gram_band_factors_ew``), which are not ported."""
-    if getattr(other, "gt_assembly", "xla") != "xla":
-        raise ValueError(
-            f"gt_assembly={other.gt_assembly!r} is not supported: it needs "
-            "the TPU kernels #3 admm_stage_fused_factored_ew and #4 "
-            "gram_band_factors_ew, which this package has no port of yet")
+    ``kkt_apply``, ``band_gram`` and ``gt_assembly``).  That package's
+    ``use_pallas`` is ignored (here the device of the tensors picks kernel or
+    plain version)."""
     return ADMMConfig(**{f.name: getattr(other, f.name)
                          for f in dataclasses.fields(ADMMConfig)})
 
@@ -73,12 +66,14 @@ def pre_from_numpy(pre: Any, device: DeviceLike = None,
     the JAX package's ``_PallasPre`` as ``solve_qcqp_batch(...,
     _return_pre=True)`` returns it (flat batch axis; its other fields are
     ignored), so that ``solve_qcqp_ipm_lanes(pre=...)`` starts from the same
-    assembled system in both packages."""
+    assembled system in both packages.  G^T's row factors, which only the
+    ``gt_assembly="kernel"`` route has, are left None."""
     dev = resolve_device(device)
     get = pre.__getitem__ if isinstance(pre, Mapping) else \
         (lambda name: getattr(pre, name))
     return _Pre(**{name: as_tensor(np.asarray(get(name)), dtype, dev)
-                   for name in _Pre._fields})
+                   for name in _Pre._fields
+                   if name not in _Pre._field_defaults})
 
 
 #: The 20 inputs of one ``ops.ipm_kernel.ipm_pipe_step`` call, in order.

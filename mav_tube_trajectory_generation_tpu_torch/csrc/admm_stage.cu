@@ -1,9 +1,12 @@
 // The ADMM stage of the tube-constrained QCQP, per scenario, for Hopper
-// (sm_90a): three entry points over one iteration phase.
+// (sm_90a): four entry points over one iteration phase.
 //
 //   admm_stage_fused_factored_launch  replaces the Pallas TPU kernel
 //       _kernel_fused_factored + _stage_core of the JAX package's
 //       ops/admm_kernel.py (admm_stage_fused_factored);
+//   admm_stage_fused_factored_ew_launch  replaces
+//       _kernel_fused_factored_ew (admm_stage_fused_factored_ew): the same
+//       stage with G^T read from its rank-1 row factors (below);
 //   admm_stage_fused_launch           replaces _kernel_fused + _stage_core
 //       (admm_stage_fused);
 //   admm_stage_launch                 replaces _kernel (admm_stage).
@@ -25,7 +28,7 @@
 //   2. z/u initialisation from the warm start x0 (init_z) or carried in; the
 //      stage entry point starts from x = xq, z = z_prev = z0, u = u0.
 //   3. n_iters over-relaxed ADMM steps (stage_iterations, shared by all
-//      three)
+//      four)
 //        v = z - u - b;  x = xq + rho (m1 v);  y = G x + b;
 //        yr = alpha y + (1 - alpha) z;  z+ = Proj(yr + u);  u += yr - z+.
 //   4. prim = max|y - z| (inf when n_iters == 0); the fused entry points
@@ -37,6 +40,21 @@
 // re-read from L2 / device memory in every iteration; the vectors (b, z, u,
 // v, y, x, xq) and the factors or the dense inverse stay in shared memory.
 // The iteration phase is bound by those bytes, not by arithmetic.
+//
+// G^T from its factors (the "ew" entry point).  Every constraint row of G^T
+// is an outer product, gt[p*3 + d, l] = e[p, l] * w[d, l] for the nf = nfd/3
+// free derivatives p and the three dimensions d (row order p-major).  That
+// entry point reads each G^T entry as the float32 product of the two factor
+// entries, rounded once (__fmul_rn, never contracted into an FMA), where the
+// others read the stored entry: every device function below takes its G^T
+// through a source type (GtStored or GtFactors) and does the same
+// arithmetic, in the same order, on what it reads.  So on the same inputs
+// the ew entry point gives the bits of the factored one on the expanded
+// G^T.  It re-forms a product at every read: two loads and a multiply for
+// each G^T entry, the factors (0.10 MB a scenario at the flagship shape)
+// coming from L1 / L2 / device memory as G^T does in the others, so it is
+// bound by the same re-reads.  Keeping them in shared memory, or applying
+// G^T in its factored form, is left for later.
 //
 // Determinism.  Every reduction has a fixed order (warp butterfly, then a
 // serial sum over a fixed number of partials; m1 = winv gt sums over the
@@ -66,7 +84,9 @@ struct StageArgs {
   const float* t;     // (B, m_blk-1, bsz, bsz) factored: T_i
   const float* tt;    // (B, m_blk-1, bsz, bsz) factored: T_i^T
   const float* winv;  // (B, nfd, nfd)          fused
-  const float* gt;    // (B, nfd, m_p)
+  const float* gt;    // (B, nfd, m_p), null for the ew entry point
+  const float* e;     // (B, nfd / 3, m_p)       ew: G^T's row factors
+  const float* w;     // (B, 3, m_p)             ew
   const float* b;     // (B, m_p)
   const float* rb;    // (B, nb_p)
   const float* xq;    // (B, nfd)
@@ -88,6 +108,59 @@ struct StageArgs {
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Dimensions of the problem: rows of w, and G^T rows per free derivative.
+constexpr int kDims = 3;
+
+// G^T as stored, (nfd, m_p) row-major: the source of the factored, fused
+// and stage entry points (and of m1 for rows_dot).
+struct GtStored {
+  const float* gt;
+  __device__ __forceinline__ float at(int r, int l, int m_p) const {
+    return gt[(size_t)r * m_p + l];
+  }
+  __device__ __forceinline__ const float4* row4(int r, int m_p) const {
+    return reinterpret_cast<const float4*>(gt + (size_t)r * m_p);
+  }
+  // Read-only-cache load of lanes 4 l4 .. 4 l4 + 3 of row r (nl4 = m_p / 4).
+  __device__ __forceinline__ float4 ldg4(int r, int l4, int nl4) const {
+    return __ldg(reinterpret_cast<const float4*>(gt) + (size_t)r * nl4 + l4);
+  }
+};
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y),
+                     __fmul_rn(a.z, b.z), __fmul_rn(a.w, b.w));
+}
+
+// Four lanes of G^T row r = p*3 + d formed from the factor rows e_p and w_d.
+struct FactorRow {
+  const float4* e;
+  const float4* w;
+  __device__ __forceinline__ float4 operator[](int l4) const {
+    return mul4(e[l4], w[l4]);
+  }
+};
+
+// G^T from its rank-1 row factors e (nfd / 3, m_p) and w (3, m_p).
+struct GtFactors {
+  const float* e;
+  const float* w;
+  __device__ __forceinline__ float at(int r, int l, int m_p) const {
+    return __fmul_rn(e[(size_t)(r / kDims) * m_p + l], w[(r % kDims) * m_p + l]);
+  }
+  __device__ __forceinline__ FactorRow row4(int r, int m_p) const {
+    return FactorRow{
+        reinterpret_cast<const float4*>(e + (size_t)(r / kDims) * m_p),
+        reinterpret_cast<const float4*>(w + (r % kDims) * m_p)};
+  }
+  __device__ __forceinline__ float4 ldg4(int r, int l4, int nl4) const {
+    const float4* e4 = reinterpret_cast<const float4*>(e);
+    const float4* w4 = reinterpret_cast<const float4*>(w);
+    return mul4(__ldg(e4 + (size_t)(r / kDims) * nl4 + l4),
+                __ldg(w4 + (r % kDims) * nl4 + l4));
+  }
+};
 
 // Shared-memory layout in floats; every region starts 16-byte aligned.  The
 // phase-1 region comes first, then the vectors every entry point uses.
@@ -173,16 +246,18 @@ __device__ float block_max(float v, float* red) {
 
 // dst[r] = base[r] + scale * sum_l M[r, l] * v[l] (just the sum when base is
 // null): one warp per row, float4 loads, butterfly reduce.  M is global
-// (nfd, m_p); v, base and dst are shared.  M may have been written by this
-// block earlier in the kernel, so no read-only-cache loads.
-__device__ void rows_dot(const float* M, const float* v, float* dst, int nfd,
+// (nfd, m_p), read through its source (m1 or G^T); v, base and dst are
+// shared.  m1 was written by this block earlier in the kernel, so no
+// read-only-cache loads.
+template <class Src>
+__device__ void rows_dot(const Src& M, const float* v, float* dst, int nfd,
                          int m_p, const float* base, float scale) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const int nl4 = m_p >> 2;
   const float4* v4 = reinterpret_cast<const float4*>(v);
   for (int r = warp; r < nfd; r += nw) {
-    const float4* row = reinterpret_cast<const float4*>(M + (size_t)r * m_p);
+    const auto row = M.row4(r, m_p);
     float acc = 0.0f;
     for (int l4 = lane; l4 < nl4; l4 += 32) {
       const float4 a = row[l4];
@@ -199,15 +274,15 @@ __device__ void rows_dot(const float* M, const float* v, float* dst, int nfd,
 
 // part[g, l] = sum_{r = g, g+G, ...} gt[r, l] * x[r]: the rows are split
 // over `groups` thread groups, each thread owning four neighbouring lanes.
-__device__ void cols_dot(const float* __restrict__ gt, const float* x,
-                         float* part, int nfd, int m_p, int groups) {
+template <class G>
+__device__ void cols_dot(const G& gt, const float* x, float* part, int nfd,
+                         int m_p, int groups) {
   const int nl4 = m_p >> 2;
-  const float4* g4 = reinterpret_cast<const float4*>(gt);
   for (int idx = threadIdx.x; idx < groups * nl4; idx += blockDim.x) {
     const int g = idx / nl4, l4 = idx - g * nl4;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int r = g; r < nfd; r += groups) {
-      const float4 a = __ldg(g4 + (size_t)r * nl4 + l4);
+      const float4 a = gt.ldg4(r, l4, nl4);
       const float xr = x[r];
       acc.x = fmaf(a.x, xr, acc.x);
       acc.y = fmaf(a.y, xr, acc.y);
@@ -244,8 +319,9 @@ __device__ __forceinline__ void load_vectors(const StageArgs& a, int s,
 
 // Phase 1, factored: m1 = W^-1 G^T by block-Thomas sweeps, one independent
 // column solve per lane.
+template <class G>
 __device__ __forceinline__ void m1_factored(
-    const float* gt, float* m1, const float* sinv_s, const float* t_s,
+    const G& gt, float* m1, const float* sinv_s, const float* t_s,
     const float* tt_s, float* panel0, float* panel1, int m_p, int m_blk,
     int bsz) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -254,7 +330,7 @@ __device__ __forceinline__ void m1_factored(
     float* prev = panel0;
     float* cur = panel1;
     // y_0 = gt_0;  z_0 = S_0^-1 y_0
-    for (int r = 0; r < bsz; ++r) prev[r * m_p + l] = gt[(size_t)r * m_p + l];
+    for (int r = 0; r < bsz; ++r) prev[r * m_p + l] = gt.at(r, l, m_p);
     for (int r = 0; r < bsz; ++r) {
       float acc = 0.0f;
       for (int c = 0; c < bsz; ++c)
@@ -269,7 +345,7 @@ __device__ __forceinline__ void m1_factored(
         float acc = 0.0f;
         for (int c = 0; c < bsz; ++c)
           acc = fmaf(ti[r * bsz + c], prev[c * m_p + l], acc);
-        cur[r * m_p + l] = gt[(size_t)(i * bsz + r) * m_p + l] - acc;
+        cur[r * m_p + l] = gt.at(i * bsz + r, l, m_p) - acc;
       }
       for (int r = 0; r < bsz; ++r) {
         float acc = 0.0f;
@@ -335,8 +411,9 @@ __device__ __forceinline__ void m1_inverse(const float* gt, float* m1,
 
 // Phase 2 of the fused entry points: y0 = G x0 + b; z/u from the warm start
 // (init_z) or carried in.  x0 is in S.x.
+template <class G>
 __device__ __forceinline__ void init_from_x0(const StageArgs& a, int s,
-                                             const float* gt, const Vecs& S) {
+                                             const G& gt, const Vecs& S) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int m_p = a.m_p, nb_p = a.nb_p, n_ball = a.n_ball, groups = a.groups;
   cols_dot(gt, S.x, S.part, a.nfd, m_p, groups);
@@ -385,16 +462,16 @@ __device__ __forceinline__ void init_from_x0(const StageArgs& a, int s,
 
 // Phase 3, shared by the three entry points: n_iters over-relaxed ADMM
 // steps from the state in S (z, u, v = z - u - b).
+template <class G>
 __device__ __forceinline__ void stage_iterations(const StageArgs& a,
-                                                 const float* m1,
-                                                 const float* gt, float rho,
-                                                 const Vecs& S) {
+                                                 const float* m1, const G& gt,
+                                                 float rho, const Vecs& S) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nfd = a.nfd, m_p = a.m_p, nb_p = a.nb_p, n_ball = a.n_ball;
   const int groups = a.groups;
   const float alpha = a.alpha, one_m_alpha = 1.0f - a.alpha;
   for (int it = 0; it < a.n_iters; ++it) {
-    rows_dot(m1, S.v, S.x, nfd, m_p, S.xq, rho);
+    rows_dot(GtStored{m1}, S.v, S.x, nfd, m_p, S.xq, rho);
     __syncthreads();
     cols_dot(gt, S.x, S.part, nfd, m_p, groups);
     __syncthreads();
@@ -440,8 +517,9 @@ __device__ __forceinline__ void stage_iterations(const StageArgs& a,
 
 // Phase 4: residuals and outputs.  The dual matvec and y only where the
 // entry point has them (a.dual, a.y not null).
+template <class G>
 __device__ __forceinline__ void stage_finish(const StageArgs& a, int s,
-                                             const float* gt, const Vecs& S) {
+                                             const G& gt, const Vecs& S) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nfd = a.nfd, m_p = a.m_p;
   const bool with_dual = a.dual != nullptr;
@@ -472,8 +550,10 @@ __device__ __forceinline__ void stage_finish(const StageArgs& a, int s,
   }
 }
 
-__global__ void __launch_bounds__(1024)
-admm_stage_fused_factored_kernel(StageArgs a) {
+// The factored stage of scenario blockIdx.x, G^T from `gt`.
+template <class G>
+__device__ __forceinline__ void factored_stage(const StageArgs& a,
+                                               const G& gt) {
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -483,7 +563,6 @@ admm_stage_fused_factored_kernel(StageArgs a) {
       make_layout(kFactored, nfd, m_p, m_blk, bsz, a.nb_p, a.groups);
   const Vecs S = vecs_of(smem, L);
 
-  const float* gt = a.gt + (size_t)s * nfd * m_p;
   float* m1 = a.m1 + (size_t)s * nfd * m_p;
 
   float* sinv_s = smem + L.sinv;
@@ -516,6 +595,18 @@ admm_stage_fused_factored_kernel(StageArgs a) {
 }
 
 __global__ void __launch_bounds__(1024)
+admm_stage_fused_factored_kernel(StageArgs a) {
+  factored_stage(a, GtStored{a.gt + (size_t)blockIdx.x * a.nfd * a.m_p});
+}
+
+__global__ void __launch_bounds__(1024)
+admm_stage_fused_factored_ew_kernel(StageArgs a) {
+  const size_t s = blockIdx.x;
+  factored_stage(a, GtFactors{a.e + s * (a.nfd / kDims) * a.m_p,
+                              a.w + s * kDims * a.m_p});
+}
+
+__global__ void __launch_bounds__(1024)
 admm_stage_fused_kernel(StageArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x;
@@ -525,6 +616,7 @@ admm_stage_fused_kernel(StageArgs a) {
   const Vecs S = vecs_of(smem, L);
 
   const float* gt = a.gt + (size_t)s * nfd * m_p;
+  const GtStored g{gt};
   float* m1 = a.m1 + (size_t)s * nfd * m_p;
   float* winv_s = smem + L.winv;
   const int ldw = L.ldw;
@@ -543,10 +635,10 @@ admm_stage_fused_kernel(StageArgs a) {
   __syncthreads();
 
   // ---- phases 2-4 ------------------------------------------------------------
-  init_from_x0(a, s, gt, S);
+  init_from_x0(a, s, g, S);
   __syncthreads();
-  stage_iterations(a, m1, gt, rho, S);
-  stage_finish(a, s, gt, S);
+  stage_iterations(a, m1, g, rho, S);
+  stage_finish(a, s, g, S);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -558,7 +650,7 @@ admm_stage_iter_kernel(StageArgs a) {
   const Layout L = make_layout(kGiven, nfd, m_p, 0, 0, a.nb_p, a.groups);
   const Vecs S = vecs_of(smem, L);
 
-  const float* gt = a.gt + (size_t)s * nfd * m_p;
+  const GtStored gt{a.gt + (size_t)s * nfd * m_p};
   const float* m1 = a.m1 + (size_t)s * nfd * m_p;
 
   load_vectors(a, s, S);
@@ -610,7 +702,7 @@ bool bad_shape(int batch, int nfd, int m_p, int nb_p, int n_ball,
 }  // namespace
 
 // Dynamic shared memory, in bytes, that one block of the factored stage
-// kernel takes at these shapes.
+// kernel (either source of G^T) takes at these shapes.
 extern "C" int admm_stage_smem_bytes(int nfd, int m_p, int m_blk, int bsz,
                                      int nb_p, int threads) {
   return (int)smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads);
@@ -650,6 +742,34 @@ extern "C" int admm_stage_fused_factored_launch(
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
   return (int)launch(admm_stage_fused_factored_kernel, a, batch, threads,
+                     smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads),
+                     stream);
+}
+
+// The factored stage with G^T given as its rank-1 row factors e
+// (B, nfd / 3, m_p) and w (B, 3, m_p): gt[p*3 + d, l] = e[p, l] * w[d, l].
+// Same shared memory as the factored entry point (admm_stage_smem_bytes).
+extern "C" int admm_stage_fused_factored_ew_launch(
+    const float* rho, const float* sinv, const float* t, const float* tt,
+    const float* e, const float* w, const float* b, const float* rb,
+    const float* xq, const float* x0, const float* z0, const float* u0,
+    float* m1, float* x, float* z, float* zp, float* u, float* prim,
+    float* dual, float* y, int batch, int nfd, int m_p, int m_blk, int bsz,
+    int nb_p, int n_ball, int n_iters, float alpha, int init_z, int threads,
+    void* stream) {
+  if (bad_shape(batch, nfd, m_p, nb_p, n_ball, threads) ||
+      m_blk * bsz != nfd || nfd % kDims != 0)
+    return (int)cudaErrorInvalidValue;
+  StageArgs a = {};
+  a.rho = rho; a.sinv = sinv; a.t = t; a.tt = tt; a.e = e; a.w = w;
+  a.b = b; a.rb = rb; a.xq = xq; a.x0 = x0; a.z0 = z0; a.u0 = u0; a.m1 = m1;
+  a.x = x; a.z = z; a.zp = zp; a.u = u; a.prim = prim; a.dual = dual;
+  a.y = y;
+  a.nfd = nfd; a.m_p = m_p; a.m_blk = m_blk; a.bsz = bsz; a.nb_p = nb_p;
+  a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
+  a.groups = row_groups(threads, m_p);
+  a.alpha = alpha;
+  return (int)launch(admm_stage_fused_factored_ew_kernel, a, batch, threads,
                      smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads),
                      stream);
 }

@@ -21,7 +21,12 @@ Replaces the Pallas TPU kernels of the JAX package's ``ops/admm_kernel.py``:
     x = xq, z = z_prev = z0, u = u0, with no y and no dual;
   * ``gram_band`` (``_kernel_gram_band``): the block-tridiagonal band (gd,
     gu) of G^T G, and ``gram_band_factors`` (``_kernel_gram_band_factors``):
-    the KKT band db = pb_d + rho gd + sigma I, ub = pb_u + rho gu.
+    the KKT band db = pb_d + rho gd + sigma I, ub = pb_u + rho gu;
+  * ``admm_stage_fused_factored_ew`` (``_kernel_fused_factored_ew``) and
+    ``gram_band_factors_ew`` (``_kernel_gram_band_factors_ew``): the factored
+    stage and the KKT band with G^T given as its rank-1 row factors e
+    (B, nf, m_p) and w (B, 3, m_p), ``gt[:, p*3 + d, m] = e[:, p, m] *
+    w[:, d, m]`` (``expand_gt``); G^T never exists as a tensor.
 
 Constraint lanes are ``[ball-x | ball-y | ball-z | half]``: each ball plane
 is ``nb_p`` lanes whose first ``n_ball`` carry the coupled (x, y, z) ball
@@ -29,9 +34,12 @@ rows and whose tail carries packed half-space rows; the rest of the
 half-space rows follow in a final plane, which may be absent
 (``solver.qcqp._PadLayout``).
 
-The kernels are ``csrc/admm_stage.cu`` (three entry points over one
-iteration phase) and ``csrc/gram_band.cu`` (two entry points), CUDA C++ for
-sm_90a, one thread block per scenario.  What bounds the stage on an H100:
+The kernels are ``csrc/admm_stage.cu`` (four entry points over one
+iteration phase) and ``csrc/gram_band.cu`` (three entry points), CUDA C++
+for sm_90a, one thread block per scenario.  The ew entry points read each
+G^T entry as the rounded float32 product of its two factor entries and do
+the arithmetic of the others on it, so they give the bits of
+``admm_stage_fused_factored`` / ``gram_band_factors`` on the expanded G^T.  What bounds the stage on an H100:
 per scenario it does 2 * n_iters matvecs against (nfd, m_p) matrices plus the
 m1 formation -- about 19 MFLOP at n_iters = 48 with the factors, 32 with the
 dense inverse -- on 0.29-0.36 MB of inputs, so by each input read once it is
@@ -59,8 +67,13 @@ from .. import _build
 
 # Number of times each wrapper has launched its CUDA kernel in this process.
 launches: Dict[str, int] = {"admm_stage_fused_factored": 0,
+                            "admm_stage_fused_factored_ew": 0,
                             "admm_stage_fused": 0, "admm_stage": 0,
-                            "gram_band": 0, "gram_band_factors": 0}
+                            "gram_band": 0, "gram_band_factors": 0,
+                            "gram_band_factors_ew": 0}
+
+# Rows of w, the G^T factor the ew kernels take (the problem's dimension).
+DIMS = 3
 
 # Threads per block of the stage kernels and of the Gram-band kernel (one
 # block per scenario).
@@ -171,6 +184,31 @@ def admm_stage_fused_factored_plain(
                              n_ball=n_ball, init_z=init_z)
 
 
+def expand_gt(e: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """G^T (B, nf * dw, m_p) from its rank-1 row factors e (B, nf, m_p) and
+    w (B, dw, m_p): ``gt[:, p * dw + d, m] = e[:, p, m] * w[:, d, m]``, the
+    expression ``solver.qcqp._padded_constraint_system`` assembles G^T by."""
+    bsz, nf, m_p = e.shape
+    return (e[:, :, None, :] * w[:, None, :, :]).reshape(
+        bsz, nf * w.shape[1], m_p)
+
+
+def admm_stage_fused_factored_ew_plain(
+        rho: torch.Tensor, sinv: torch.Tensor, t: torch.Tensor,
+        tt: torch.Tensor, e: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        rb: torch.Tensor, xq: torch.Tensor, x0: torch.Tensor,
+        z0: Optional[torch.Tensor] = None, u0: Optional[torch.Tensor] = None,
+        *, n_iters: int, alpha: float, nb_p: int, n_ball: int = -1,
+        init_z: bool = True) -> StageOut:
+    """``admm_stage_fused_factored_ew`` in plain PyTorch: G^T expanded from
+    its factors, then ``admm_stage_fused_factored_plain``; any float dtype,
+    any device."""
+    return admm_stage_fused_factored_plain(
+        rho, sinv, t, tt, expand_gt(e, w), b, rb, xq, x0, z0, u0,
+        n_iters=n_iters, alpha=alpha, nb_p=nb_p, n_ball=n_ball,
+        init_z=init_z)
+
+
 def admm_stage_fused_plain(
         rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
         b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
@@ -223,6 +261,17 @@ def gram_band_factors_plain(gt: torch.Tensor, pb_d: torch.Tensor,
     return pb_d + rho_b * gd + sigma * eye, pb_u + rho_b * gu
 
 
+def gram_band_factors_ew_plain(e: torch.Tensor, w: torch.Tensor,
+                               pb_d: torch.Tensor, pb_u: torch.Tensor,
+                               rho: torch.Tensor, *, blk: int, sigma: float
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gram_band_factors_ew`` in plain PyTorch: G^T expanded from its
+    factors, then ``gram_band_factors_plain``; any float dtype, any
+    device."""
+    return gram_band_factors_plain(expand_gt(e, w), pb_d, pb_u, rho, blk=blk,
+                                   sigma=sigma)
+
+
 def _library(name: str) -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(name)
@@ -232,6 +281,8 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "admm_stage":
         lib.admm_stage_fused_factored_launch.argtypes = (
             [ptr] * 19 + [i32] * 8 + [f32, i32, i32, ptr])
+        lib.admm_stage_fused_factored_ew_launch.argtypes = (
+            [ptr] * 20 + [i32] * 8 + [f32, i32, i32, ptr])
         lib.admm_stage_fused_launch.argtypes = (
             [ptr] * 17 + [i32] * 6 + [f32, i32, i32, ptr])
         lib.admm_stage_launch.argtypes = (
@@ -240,6 +291,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib.admm_stage_fused_smem_bytes.argtypes = [i32] * 4
         lib.admm_stage_iter_smem_bytes.argtypes = [i32] * 4
         for fn in ("admm_stage_fused_factored_launch",
+                   "admm_stage_fused_factored_ew_launch",
                    "admm_stage_fused_launch", "admm_stage_launch",
                    "admm_stage_smem_bytes", "admm_stage_fused_smem_bytes",
                    "admm_stage_iter_smem_bytes"):
@@ -248,9 +300,11 @@ def _library(name: str) -> ctypes.CDLL:
         lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.gram_band_factors_launch.argtypes = (
             [ptr] * 6 + [i32] * 4 + [f32, i32, ptr])
+        lib.gram_band_factors_ew_launch.argtypes = (
+            [ptr] * 7 + [i32] * 4 + [f32, i32, ptr])
         lib.gram_band_smem_bytes.argtypes = [i32] * 2
         for fn in ("gram_band_launch", "gram_band_factors_launch",
-                   "gram_band_smem_bytes"):
+                   "gram_band_factors_ew_launch", "gram_band_smem_bytes"):
             getattr(lib, fn).restype = i32
     _configured.add(name)
     return lib
@@ -260,12 +314,12 @@ def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
                kind: str = "admm_stage_fused_factored") -> int:
     """Dynamic shared memory one block of a kernel of this module takes at
     these shapes (builds the library if needed).  ``kind``: a key of
-    ``launches``; ``m_blk`` and ``bsz`` are read by the factored stage only,
+    ``launches``; ``m_blk`` and ``bsz`` are read by the factored stages only,
     ``bsz`` (the band block) by the Gram-band kernels."""
-    if kind in ("gram_band", "gram_band_factors"):
+    if kind.startswith("gram_band"):
         return int(_library("gram_band").gram_band_smem_bytes(m_p, bsz))
     lib = _library("admm_stage")
-    if kind == "admm_stage_fused_factored":
+    if kind.startswith("admm_stage_fused_factored"):
         return int(lib.admm_stage_smem_bytes(nfd, m_p, m_blk, bsz, nb_p,
                                              THREADS))
     fn = (lib.admm_stage_fused_smem_bytes if kind == "admm_stage_fused"
@@ -301,11 +355,26 @@ def _device_of(gt: torch.Tensor) -> Optional[torch.device]:
 def _check_lanes(gt: torch.Tensor, nb_p: int, n_ball: int):
     if gt.dim() != 3:
         raise ValueError(f"gt: expected (B, nfd, m_p), got {tuple(gt.shape)}")
-    bsz_b, nfd, m_p = gt.shape
+    return _check_lane_layout(*gt.shape, nb_p, n_ball)
+
+
+def _check_lane_layout(bsz_b: int, nfd: int, m_p: int, nb_p: int,
+                       n_ball: int):
     if m_p % 4 or 3 * nb_p > m_p or not 0 <= n_ball <= nb_p or nfd < 1:
         raise ValueError(f"bad lane layout: m_p={m_p}, nb_p={nb_p}, "
                          f"n_ball={n_ball}")
     return bsz_b, nfd, m_p
+
+
+def _factor_shape(e: torch.Tensor, w: torch.Tensor):
+    """(B, nfd, m_p) of the G^T that e (B, nf, m_p) and w (B, 3, m_p)
+    factor; raises on other shapes (the kernels take three dimensions)."""
+    if (e.dim() != 3 or w.dim() != 3 or w.shape[0] != e.shape[0]
+            or w.shape[1] != DIMS or w.shape[2] != e.shape[2]):
+        raise ValueError(f"G^T factors: expected e (B, nf, m_p) and w (B, "
+                         f"{DIMS}, m_p), got {tuple(e.shape)} and "
+                         f"{tuple(w.shape)}")
+    return e.shape[0], e.shape[1] * DIMS, e.shape[2]
 
 
 def _check_stage_vectors(b, rb, xq, x0, z0, u0, init_z, bsz_b, nfd, m_p,
@@ -408,6 +477,68 @@ def admm_stage_fused_factored(
     _raise_on(err, "admm_stage_fused_factored", B=bsz_b, nfd=nfd, m_p=m_p,
               m=m_blk, bs=bsz)
     launches["admm_stage_fused_factored"] += 1
+    return x, z, zp, u, prim, dual, y
+
+
+def admm_stage_fused_factored_ew(
+        rho: torch.Tensor, sinv: torch.Tensor, t: torch.Tensor,
+        tt: torch.Tensor, e: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        rb: torch.Tensor, xq: torch.Tensor, x0: torch.Tensor,
+        z0: Optional[torch.Tensor] = None, u0: Optional[torch.Tensor] = None,
+        *, n_iters: int, alpha: float, nb_p: int, n_ball: int = -1,
+        init_z: bool = True) -> StageOut:
+    """``admm_stage_fused_factored`` with G^T given as its rank-1 row factors
+    e (B, nf, m_p) and w (B, 3, m_p), ``gt[:, p*3 + d] = e[:, p] * w[:, d]``
+    (``expand_gt``); the other arguments and the seven outputs as there.
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    if n_ball < 0:
+        n_ball = nb_p
+    if not init_z and (z0 is None or u0 is None):
+        raise ValueError("init_z=False needs z0 and u0")
+    dev = _device_of(e)
+    if dev is None:
+        return admm_stage_fused_factored_ew_plain(
+            rho, sinv, t, tt, e, w, b, rb, xq, x0, z0, u0, n_iters=n_iters,
+            alpha=alpha, nb_p=nb_p, n_ball=n_ball, init_z=init_z)
+
+    bsz_b, nfd, m_p = _check_lane_layout(*_factor_shape(e, w), nb_p, n_ball)
+    if sinv.dim() != 4:
+        raise ValueError("sinv: expected (B, m, bs, bs)")
+    m_blk, bsz = sinv.shape[1], sinv.shape[-1]
+    if m_blk * bsz != nfd:
+        raise ValueError(f"nfd={nfd} is not m*bs = {m_blk}*{bsz}")
+    _check("rho", rho, (bsz_b, 1, 1), dev)
+    _check("sinv", sinv, (bsz_b, m_blk, bsz, bsz), dev)
+    _check("t", t, (bsz_b, m_blk - 1, bsz, bsz), dev)
+    _check("tt", tt, (bsz_b, m_blk - 1, bsz, bsz), dev)
+    _check("e", e, (bsz_b, nfd // DIMS, m_p), dev)
+    _check("w", w, (bsz_b, DIMS, m_p), dev)
+    _check_stage_vectors(b, rb, xq, x0, z0, u0, init_z, bsz_b, nfd, m_p,
+                         nb_p, dev)
+
+    lib = _library("admm_stage")
+    # Scratch for W^-1 G^T, as in the factored wrapper.
+    m1 = torch.empty((bsz_b, nfd, m_p), dtype=torch.float32, device=dev)
+    x, (z, zp, u, y), (prim, dual) = _stage_outputs(bsz_b, nfd, m_p, dev,
+                                                    True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.admm_stage_fused_factored_ew_launch(
+            rho.data_ptr(), sinv.data_ptr(), t.data_ptr(), tt.data_ptr(),
+            e.data_ptr(), w.data_ptr(), b.data_ptr(), rb.data_ptr(),
+            xq.data_ptr(), x0.data_ptr(),
+            None if init_z else z0.data_ptr(),
+            None if init_z else u0.data_ptr(),
+            m1.data_ptr(), x.data_ptr(), z.data_ptr(), zp.data_ptr(),
+            u.data_ptr(), prim.data_ptr(), dual.data_ptr(), y.data_ptr(),
+            bsz_b, nfd, m_p, m_blk, bsz, nb_p, n_ball, int(n_iters),
+            float(alpha), int(bool(init_z)), THREADS, stream)
+    _raise_on(err, "admm_stage_fused_factored_ew", B=bsz_b, nfd=nfd, m_p=m_p,
+              m=m_blk, bs=bsz)
+    launches["admm_stage_fused_factored_ew"] += 1
     return x, z, zp, u, prim, dual, y
 
 
@@ -588,4 +719,42 @@ def gram_band_factors(gt: torch.Tensor, pb_d: torch.Tensor,
             GRAM_THREADS, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gram_band_factors", B=bsz_b, nfd=nfd, m_p=m_p, blk=blk)
     launches["gram_band_factors"] += 1
+    return db, ub
+
+
+def gram_band_factors_ew(e: torch.Tensor, w: torch.Tensor,
+                         pb_d: torch.Tensor, pb_u: torch.Tensor,
+                         rho: torch.Tensor, *, blk: int, sigma: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gram_band_factors`` with G^T given as its rank-1 row factors e
+    (B, nf, m_p) and w (B, 3, m_p) (``expand_gt``).
+
+    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
+    """
+    dev = _device_of(e)
+    if dev is None:
+        return gram_band_factors_ew_plain(e, w, pb_d, pb_u, rho, blk=blk,
+                                          sigma=sigma)
+    bsz_b, nfd, m_p = _factor_shape(e, w)
+    if blk < 1 or nfd % blk or m_p % 4:
+        raise ValueError(f"gram band: nfd={nfd} must be a multiple of "
+                         f"blk={blk} and m_p={m_p} of 4")
+    m_blk = nfd // blk
+    _check("e", e, (bsz_b, nfd // DIMS, m_p), dev)
+    _check("w", w, (bsz_b, DIMS, m_p), dev)
+    _check("pb_d", pb_d, (bsz_b, m_blk, blk, blk), dev)
+    _check("pb_u", pb_u, (bsz_b, m_blk - 1, blk, blk), dev)
+    _check("rho", rho, (bsz_b, 1, 1), dev)
+    lib = _library("gram_band")
+    db, ub = torch.empty_like(pb_d), torch.empty_like(pb_u)
+    with torch.cuda.device(dev):
+        err = lib.gram_band_factors_ew_launch(
+            e.data_ptr(), w.data_ptr(), pb_d.data_ptr(), pb_u.data_ptr(),
+            rho.data_ptr(), db.data_ptr(), ub.data_ptr(), bsz_b, nfd, m_p,
+            blk, float(sigma), GRAM_THREADS,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "gram_band_factors_ew", B=bsz_b, nfd=nfd, m_p=m_p,
+              blk=blk)
+    launches["gram_band_factors_ew"] += 1
     return db, ub

@@ -39,6 +39,13 @@ as in the JAX package):
     (``band_gram="xla"``), from ``gram_band`` ("pallas", "pallas_block"),
     or the whole KKT band from ``gram_band_factors`` each stage
     ("pallas_db");
+  * banded + factored with ``gt_assembly="kernel"``: G^T is never formed;
+    the assembly stops at its rank-1 row factors e (B, n_free, m_p) and w
+    (B, 3, m_p), and each stage runs ``gram_band_factors_ew`` (the whole
+    KKT band, whatever ``band_gram`` says) and
+    ``admm_stage_fused_factored_ew``, which expand G^T as they read it.  On
+    the same inputs it gives the bits of the "pallas_db" route.  A structure
+    without the block band (K = 2) and ``_return_pre`` are refused;
   * banded + inverse (``kkt_apply="inverse"``): the dense inverse from the
     band (``banded.spd_block_tridiag_inverse_blocks``) and
     ``admm_stage_fused``;
@@ -52,10 +59,6 @@ layout: any float dtype, a dense KKT inverse per stage and the iterations as
 plain batched products, no kernel.  It is what the float64 last tier of the
 verdict router (``solver.auto``) starts from, and the ground truth the tests
 hold the kernel path against.
-
-Not here yet: ``gt_assembly="kernel"`` of the JAX ``ADMMConfig`` (G^T
-expanded from its rank-1 factors inside the kernels), which waits for the
-kernels that do it.
 """
 
 from __future__ import annotations
@@ -114,8 +117,19 @@ class ADMMConfig:
     # code-generation variants of the TPU kernel and are one kernel here);
     # "pallas_db" the whole KKT band from ``gram_band_factors`` each stage.
     band_gram: str = "xla"
+    # Where G^T comes from on the banded factored route: "xla" assembles the
+    # (B, nfd, m_p) tensor; "kernel" stops at its rank-1 row factors, and
+    # the stage and band kernels expand it as they read it (the Gram band
+    # then always comes from ``gram_band_factors_ew``).  "kernel" needs
+    # kkt_apply="factored" and kkt_inverse="schur", and a structure with the
+    # block band.
+    gt_assembly: str = "xla"
 
     def __post_init__(self):
+        if self.gt_assembly not in ("xla", "kernel"):
+            raise ValueError(
+                f"gt_assembly must be 'xla' or 'kernel', got "
+                f"{self.gt_assembly!r}")
         if self.band_gram not in ("xla", "pallas", "pallas_block",
                                   "pallas_db"):
             raise ValueError(
@@ -129,6 +143,12 @@ class ADMMConfig:
             raise ValueError(
                 f"kkt_inverse must be 'schur' or 'cholesky', got "
                 f"{self.kkt_inverse!r}")
+        if self.gt_assembly == "kernel" and (
+                self.kkt_apply != "factored" or self.kkt_inverse != "schur"):
+            raise ValueError(
+                "gt_assembly='kernel' requires kkt_apply='factored' and "
+                "kkt_inverse='schur' (the banded factored route is the only "
+                "G^T consumer there)")
 
 
 class QCQPSolution(NamedTuple):
@@ -422,7 +442,7 @@ def _padded_constraint_system(structure: ProblemStructure,
                               waypoints: torch.Tensor, radii: torch.Tensor,
                               d_scale: torch.Tensor, layout: _PadLayout,
                               f_sphere: float = 1.0, f_tube: float = 1.0,
-                              f_half: float = 1.0):
+                              f_half: float = 1.0, with_factors: bool = False):
     """Equilibrated constraint system assembled directly in the stage
     kernel's padded component-plane layout.
 
@@ -438,6 +458,10 @@ def _padded_constraint_system(structure: ProblemStructure,
 
     Returns (gt (B, nfd, m_p), b_pad (B, 1, m_p), rb (B, n_ball) scaled
     radii, sb (B, n_ball), sh (B, n_half)), all in the dtype of ``times``.
+    With ``with_factors`` (``gt_assembly="kernel"``) gt is None and G^T's
+    rank-1 row factors follow: (None, b_pad, rb, sb, sh, e_t (B, n_free,
+    m_p), w_t (B, 3, m_p)), gt[:, p*3 + d] = e_t[:, p] * w_t[:, d].  The pad
+    lanes stay exact zeros: the scale pool's zero entry lives in w_t.
     """
     k = structure.n_segments
     n = structure.n_coefficients
@@ -447,7 +471,6 @@ def _padded_constraint_system(structure: ProblemStructure,
     bsz = times.shape[0]
     cp0, ecp = _control_point_maps(structure, times, d_fixed)
     n_free = ecp.shape[-1]
-    nfd = n_free * 3
     n_mid = n - 2
 
     p_start = waypoints[:, :-1]
@@ -494,8 +517,7 @@ def _padded_constraint_system(structure: ProblemStructure,
         :, :, ecp_idx]                                     # (B, n_free, m_p)
     w_t = (dir_pool.transpose(1, 2)[:, :, dir_idx]
            * scl_pool[:, None, scl_idx])                   # (B, 3, m_p)
-    gt = (e_sel_t[:, :, None, :] * w_t[:, None, :, :]).reshape(
-        bsz, nfd, layout.m_p)
+    gt = None if with_factors else admm_kernel.expand_gt(e_sel_t, w_t)
 
     # --- Offsets / radii (small tensors; same gather trick for b). ---------
     b_sph = ((cp0[:, :k - 1, n - 1, :] - waypoints[:, 1:k])
@@ -519,12 +541,14 @@ def _padded_constraint_system(structure: ProblemStructure,
     rb = torch.cat([radii[:, :k - 1, 1] * sb_sph,
                     (radii[:, :, :1].expand(bsz, k, n_mid)
                      * sb_tube).reshape(bsz, -1)], dim=1)
+    if with_factors:
+        return gt, b_pad, rb, sb, sh, e_sel_t, w_t
     return gt, b_pad, rb, sb, sh
 
 
 class _Pre(NamedTuple):
     """Pre-stage tensors of a batch (equilibrated, padded layout)."""
-    gt: torch.Tensor           # (B, nfd, m_p)
+    gt: Optional[torch.Tensor]  # (B, nfd, m_p); None with gt_assembly="kernel"
     b_pad: torch.Tensor        # (B, 1, m_p)
     rb: torch.Tensor           # (B, n_ball) scaled radii
     sb: torch.Tensor           # (B, n_ball)
@@ -533,6 +557,10 @@ class _Pre(NamedTuple):
     q_flat: torch.Tensor       # (B, nfd)
     x_flat0: torch.Tensor      # (B, nfd)
     d_scale: torch.Tensor      # (B, n_free)
+    # gt_assembly="kernel" only: G^T's rank-1 row factors, gt[:, p*3 + d] =
+    # e_t[:, p] * w_t[:, d].
+    e_t: Optional[torch.Tensor] = None   # (B, n_free, m_p)
+    w_t: Optional[torch.Tensor] = None   # (B, 3, m_p)
 
 
 def _warmstart_position_cols(structure: ProblemStructure):
@@ -609,18 +637,37 @@ def _pre(structure: ProblemStructure, d_fixed, times, waypoints, radii,
          config: ADMMConfig, x0, layout: _PadLayout,
          warmstart_positions=None) -> _Pre:
     """Batch setup for the fused stage: the equilibrated system assembled
-    directly in the kernel's padded component-plane layout."""
+    directly in the kernel's padded component-plane layout (G^T as its
+    factors with ``gt_assembly="kernel"``)."""
     p_eq, q_eq, d_scale, x_init = _objective_blocks(
         structure, d_fixed, times, config, x0,
         warmstart_positions=warmstart_positions)
-    gt, b_pad, rb, sb, sh = _padded_constraint_system(
+    gt, b_pad, rb, sb, sh, *factors = _padded_constraint_system(
         structure, times, d_fixed, waypoints, radii, d_scale, layout,
         config.rho_sphere_factor, config.rho_tube_factor,
-        config.rho_half_factor)
+        config.rho_half_factor, with_factors=config.gt_assembly == "kernel")
     bsz = times.shape[0]
-    return _Pre(gt=gt, b_pad=b_pad, rb=rb, sb=sb, sh=sh, p_eq=p_eq,
-                q_flat=q_eq.reshape(bsz, -1), x_flat0=x_init.reshape(bsz, -1),
-                d_scale=d_scale)
+    return _Pre(gt, b_pad, rb, sb, sh, p_eq, q_eq.reshape(bsz, -1),
+                x_init.reshape(bsz, -1), d_scale, *factors)
+
+
+def _objective_band(p_eq: torch.Tensor, blk: int, dim: int):
+    """(pb_d (B, m, blk, blk), pb_u (B, m-1, blk, blk)): the band of
+    kron(p_eq, I_dim) in vertex blocks of ``blk`` rows."""
+    bsz, n_free, _ = p_eq.shape
+    m_blk = n_free * dim // blk
+    bp = blk // dim                                        # p_eq block (5)
+    eye_d = torch.eye(dim, dtype=p_eq.dtype, device=p_eq.device)
+    pe = p_eq.reshape(bsz, m_blk, bp, m_blk, bp)
+    pe_d = torch.stack([pe[:, i, :, i, :] for i in range(m_blk)], dim=1)
+    pe_u = torch.stack([pe[:, i, :, i + 1, :] for i in range(m_blk - 1)],
+                       dim=1)
+
+    def kron(a):
+        return torch.einsum('smab,cd->smacbd', a, eye_d).reshape(
+            bsz, a.shape[1], blk, blk).contiguous()
+
+    return kron(pe_d), kron(pe_u)
 
 
 def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
@@ -638,18 +685,7 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
     """
     bsz, nfd, _ = gt.shape
     m_blk = nfd // blk
-    dim = nfd // p_eq.shape[-1]
-    bp = blk // dim                                        # p_eq block (5)
-    eye_d = torch.eye(dim, dtype=gt.dtype, device=gt.device)
-    pe = p_eq.reshape(bsz, m_blk, bp, m_blk, bp)
-    pe_d = torch.stack([pe[:, i, :, i, :] for i in range(m_blk)], dim=1)
-    pe_u = torch.stack([pe[:, i, :, i + 1, :] for i in range(m_blk - 1)],
-                       dim=1)
-
-    def kron(a):
-        return torch.einsum('smab,cd->smacbd', a, eye_d).reshape(
-            bsz, a.shape[1], blk, blk).contiguous()
-
+    pb_d, pb_u = _objective_band(p_eq, blk, nfd // p_eq.shape[-1])
     if band_gram == "pallas_db":
         gd = gu = None
     elif band_gram in ("pallas", "pallas_block"):
@@ -661,17 +697,23 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
         gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], dim=1)
         gu = torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)],
                          dim=1)
-    return kron(pe_d), kron(pe_u), gd, gu
+    return pb_d, pb_u, gd, gu
 
 
 def _kkt_band_at(band, rho: torch.Tensor, sigma: float,
-                 gt: Optional[torch.Tensor] = None):
+                 gt: Optional[torch.Tensor] = None, factors=None):
     """The KKT band (db (B, m, b, b), ub (B, m-1, b, b)) of one stage:
     db = pb_d + rho gd + sigma I, ub = pb_u + rho gu.  band: from
-    ``_kkt_band``; rho: (B, 1, 1); gt: needed when the band came without its
-    Gram blocks (``band_gram="pallas_db"``)."""
+    ``_kkt_band``; rho: (B, 1, 1).  Where the band came without its Gram
+    blocks, the whole band comes from a kernel: from G^T's row factors
+    ``factors`` = (e_t, w_t) in ``gram_band_factors_ew`` when given
+    (``gt_assembly="kernel"``), else from ``gt`` in ``gram_band_factors``
+    (``band_gram="pallas_db"``)."""
     pb_d, pb_u, gd, gu = band
     blk = pb_d.shape[-1]
+    if gd is None and factors is not None:
+        return admm_kernel.gram_band_factors_ew(*factors, pb_d, pb_u, rho,
+                                                blk=blk, sigma=sigma)
     if gd is None:
         return admm_kernel.gram_band_factors(gt, pb_d, pb_u, rho, blk=blk,
                                              sigma=sigma)
@@ -681,14 +723,16 @@ def _kkt_band_at(band, rho: torch.Tensor, sigma: float,
 
 
 def _stage_factors(band, rho: torch.Tensor, sigma: float,
-                   q_flat: torch.Tensor, gt: Optional[torch.Tensor] = None):
+                   q_flat: torch.Tensor, gt: Optional[torch.Tensor] = None,
+                   factors=None):
     """Block-LDL^T factors of one stage's KKT band and xq = -W^-1 q.
 
-    band: (pb_d, pb_u, gd, gu) from ``_kkt_band``; rho: (B, 1, 1); gt as
-    ``_kkt_band_at`` takes it.  Returns (sinv (B, m, b, b), t (B, m-1, b, b),
-    tt = t^T, xq (B, nfd, 1)), contiguous, as the stage kernel takes them.
+    band: (pb_d, pb_u, gd, gu) from ``_kkt_band``; rho: (B, 1, 1); gt and
+    factors as ``_kkt_band_at`` takes them.  Returns (sinv (B, m, b, b), t
+    (B, m-1, b, b), tt = t^T, xq (B, nfd, 1)), contiguous, as the stage
+    kernel takes them.
     """
-    db, ub = _kkt_band_at(band, rho, sigma, gt)
+    db, ub = _kkt_band_at(band, rho, sigma, gt, factors)
     s_inv, t_fac = banded.spd_block_tridiag_factor(db, ub)
     xq = -banded.spd_block_tridiag_solve_factored(
         s_inv, t_fac, q_flat[:, :, None])
@@ -718,16 +762,22 @@ def _kron_eye(p_eq: torch.Tensor, dim: int) -> torch.Tensor:
 class _KKT(NamedTuple):
     """What every stage of one solve reuses, on the route of
     ``_kkt_setup``: the band from ``_kkt_band`` (banded routes), or the
-    dense Gram and kron(p_eq, I3) (dense route)."""
+    dense Gram and kron(p_eq, I3) (dense route); G^T's row factors (e_t,
+    w_t), contiguous, on the ``gt_assembly="kernel"`` route."""
     factored: bool
     band: Optional[tuple] = None
     gtg: Optional[torch.Tensor] = None
     p_big: Optional[torch.Tensor] = None
+    factors: Optional[tuple] = None
 
 
 def _kkt_setup(config: ADMMConfig, pre: _Pre, kkt_block: Optional[int]
                ) -> _KKT:
     """The route (module docstring) and its once-a-solve tensors."""
+    if config.gt_assembly == "kernel":
+        band = _objective_band(pre.p_eq, kkt_block, pre.w_t.shape[1])
+        return _KKT(factored=True, band=band + (None, None),
+                    factors=(pre.e_t.contiguous(), pre.w_t.contiguous()))
     gt = pre.gt
     if kkt_block is not None and config.kkt_inverse == "schur":
         return _KKT(factored=config.kkt_apply == "factored",
@@ -757,7 +807,9 @@ def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
 
     Per stage: the KKT matrix for the current rho on the route the config
     and the structure pick (module docstring), xq = -W^-1 q, ``n_iters``
-    iterations in ``admm_stage_fused_factored`` (banded + factored) or
+    iterations in ``admm_stage_fused_factored`` (banded + factored),
+    ``admm_stage_fused_factored_ew`` (the same from G^T's row factors, with
+    the band from ``gram_band_factors_ew``: ``gt_assembly="kernel"``) or
     ``admm_stage_fused`` (a dense inverse), entered with ``init_z`` on the
     first stage only; then rho is rebalanced from the residual ratio (OSQP
     section 5.2: rho <- rho sqrt(rp/rd), the scaled duals u = nu/rho rescale
@@ -768,10 +820,10 @@ def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
     [ball-x | ball-y | ball-z | half] order, rho, prim, dual (B,));
     y = G x + b in scaled space, for the caller's violation check.
     """
-    gt = pre.gt.contiguous()
+    gt = None if pre.gt is None else pre.gt.contiguous()
     b_pad = pre.b_pad.contiguous()
-    dt, dev = gt.dtype, gt.device
-    bsz = gt.shape[0]
+    dt, dev = b_pad.dtype, b_pad.device
+    bsz = b_pad.shape[0]
     nb_p, n_ball = layout.nb_p, layout.n_ball
     rb_pad = _rb_pad(pre.rb, layout)
     kkt = _kkt_setup(config, pre._replace(gt=gt), kkt_block)
@@ -787,11 +839,15 @@ def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
         if kkt.factored:
             sinv, t_st, tt_st, xq = _stage_factors(kkt.band, rho,
                                                    config.sigma, pre.q_flat,
-                                                   gt)
-            x, z, _, u, prim, dualm, y = \
-                admm_kernel.admm_stage_fused_factored(
-                    rho, sinv, t_st, tt_st, gt, b_pad, rb_pad, xq, x, z, u,
-                    **kw)
+                                                   gt, kkt.factors)
+            if kkt.factors is not None:
+                stage_fn, g_src = (admm_kernel.admm_stage_fused_factored_ew,
+                                   kkt.factors)
+            else:
+                stage_fn, g_src = admm_kernel.admm_stage_fused_factored, (gt,)
+            x, z, _, u, prim, dualm, y = stage_fn(
+                rho, sinv, t_st, tt_st, *g_src, b_pad, rb_pad, xq, x, z, u,
+                **kw)
         else:
             w_inv = _kkt_inverse(kkt, rho, config.sigma, gt)
             xq = -(w_inv @ q_col)                          # (B, nfd, 1)
@@ -878,7 +934,8 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
     one interior vertex), positions confined by the sphere/tube geometry,
     D = 3; any other structure raises ValueError.  The KKT route follows
     ``config`` and the structure (module docstring): K = 2 has no block
-    band and always takes the dense route.
+    band and always takes the dense route (with ``gt_assembly="kernel"``,
+    which has no dense route, it raises ValueError).
 
     Args:
       d_fixed: (B, n_fixed, 3) fixed start/goal derivatives.
@@ -901,16 +958,26 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
     Returns QCQPSolution with per-scenario convergence status; with
     ``_return_pre`` the pair (solution, ``_Pre`` bundle), so that
     ``ipm_lanes.solve_qcqp_ipm_lanes(pre=...)`` can polish from the system
-    assembled here.
+    assembled here (not with ``gt_assembly="kernel"``, whose bundle has no
+    G^T: ValueError).
     """
     if x0 is not None and warmstart_values is not None:
         raise ValueError("pass x0 or warmstart_values, not both")
+    if _return_pre and config.gt_assembly == "kernel":
+        raise ValueError("_return_pre requires gt_assembly='xla': the "
+                         "lanes polish reuses the assembled G^T, which the "
+                         "'kernel' assembly never forms")
     _check_free_interior(structure)
+    kkt_block = banded.kkt_tridiag_block(structure)
+    if config.gt_assembly == "kernel" and kkt_block is None:
+        raise ValueError(
+            "gt_assembly='kernel' needs the banded factored route "
+            "(block-tridiagonal KKT + LDL^T factors); this structure has no "
+            "block band (e.g. K = 2): use gt_assembly='xla'")
     dev = resolve_device(device)
     dtype = torch.promote_types(tensor_dtype(d_fixed), tensor_dtype(times))
     d_fixed, times, waypoints, radii = (
         as_tensor(a, dtype, dev) for a in (d_fixed, times, waypoints, radii))
-    kkt_block = banded.kkt_tridiag_block(structure)
     layout = _flagship_layout(structure)
     wp = None
     if warmstart_values is not None:

@@ -64,7 +64,8 @@ ROUTES = (("k2_default", 2, {}),
           ("k4_cholesky", 4, dict(kkt_inverse="cholesky")),
           ("k4_pallas", 4, dict(band_gram="pallas")),
           ("k4_pallas_block", 4, dict(band_gram="pallas_block")),
-          ("k4_pallas_db", 4, dict(band_gram="pallas_db")))
+          ("k4_pallas_db", 4, dict(band_gram="pallas_db")),
+          ("ew", 4, dict(gt_assembly="kernel")))
 
 
 def _scale(ref):
@@ -317,7 +318,8 @@ def _force_interpret():
     interpret mode, stated explicitly rather than left to its CPU
     auto-detection."""
     names = ("admm_stage_fused_factored", "admm_stage_fused", "gram_band",
-             "gram_band_factors")
+             "gram_band_factors", "admm_stage_fused_factored_ew",
+             "gram_band_factors_ew")
     orig = {n: getattr(jkernel, n) for n in names}
     for n, fn in orig.items():
         setattr(jkernel, n, functools.partial(fn, interpret=True))
@@ -451,10 +453,10 @@ def test_return_pre_on_the_dense_routes():
 
 def test_admm_config_route_fields():
     ours, ref = mtt.ADMMConfig(), jqcqp.ADMMConfig()
-    for name in ("kkt_inverse", "kkt_apply", "band_gram"):
+    for name in ("kkt_inverse", "kkt_apply", "band_gram", "gt_assembly"):
         assert getattr(ours, name) == getattr(ref, name)
     for name, bad in (("kkt_apply", "fctored"), ("kkt_inverse", "cholsky"),
-                      ("band_gram", "pallas_dbb")):
+                      ("band_gram", "pallas_dbb"), ("gt_assembly", "kernl")):
         with pytest.raises(ValueError, match=name):
             mtt.ADMMConfig(**{name: bad})
         with pytest.raises(ValueError, match=name):
@@ -467,13 +469,14 @@ def test_admm_config_from_fields():
     src = jqcqp.ADMMConfig(rho=0.02, n_iters=7, kkt_apply="inverse",
                            kkt_inverse="cholesky", band_gram="pallas_db",
                            use_pallas=True, rho_tube_factor=0.125)
-    ours = mtt.admm_config_from_fields(src)
-    for f in dataclasses.fields(mtt.ADMMConfig):
-        assert getattr(ours, f.name) == getattr(src, f.name), f.name
-    assert not hasattr(ours, "use_pallas")
-    with pytest.raises(ValueError, match="#3.*#4"):
-        mtt.admm_config_from_fields(jqcqp.ADMMConfig(
-            use_pallas=True, gt_assembly="kernel"))
+    ew = jqcqp.ADMMConfig(use_pallas=True, gt_assembly="kernel",
+                          band_gram="pallas", rho=0.03, n_stages=2)
+    for src in (src, ew):
+        ours = mtt.admm_config_from_fields(src)
+        for f in dataclasses.fields(mtt.ADMMConfig):
+            assert getattr(ours, f.name) == getattr(src, f.name), f.name
+        assert not hasattr(ours, "use_pallas")
+    assert ours.gt_assembly == "kernel" and ours.band_gram == "pallas"
 
 
 def test_wrappers_take_cpu_and_cuda_tensors_only():

@@ -384,7 +384,8 @@ def test_port_imports_without_jax():
         "    warmstart_values=sc.values, device='cpu')\n"
         "assert torch.isfinite(s.cost).all()\n"
         "for cfg in (m.ADMMConfig(n_stages=2, n_iters=5, kkt_apply='inverse'),\n"
-        "            m.ADMMConfig(n_stages=2, n_iters=5, band_gram='pallas_db')):\n"
+        "            m.ADMMConfig(n_stages=2, n_iters=5, band_gram='pallas_db'),\n"
+        "            m.ADMMConfig(n_stages=2, n_iters=5, gt_assembly='kernel')):\n"
         "    s = m.solve_qcqp_batch(sc.free, sc.d_fixed_free, sc.times,\n"
         "        sc.waypoints, sc.radii, cfg, warmstart_values=sc.values,\n"
         "        device='cpu')\n"

@@ -194,7 +194,9 @@ def test_pre_assembly_f32_against_jax():
     pre = tqcqp._pre(ts, tt(p["d_fixed"]), tt(p["times"]), tt(p["waypoints"]),
                      tt(p["radii"]), cfg, None, layout,
                      warmstart_positions=tt(p["values"][:, 1:-1, 0, :]))
-    for name in tqcqp._Pre._fields:
+    # G^T's row factors belong to the gt_assembly="kernel" route only
+    assert pre.e_t is None and pre.w_t is None
+    for name in pre_np:
         ours, ref = to_np(getattr(pre, name)), pre_np[name]
         assert ours.shape == ref.shape and ours.dtype == np.float32, name
         tol = 2e-4 if name == "x_flat0" else 2e-5
@@ -231,14 +233,13 @@ def test_config_and_argument_errors():
     with pytest.raises(ValueError, match="not both"):
         mtt.solve_qcqp_batch(*args, x0=np.zeros((2, 15, 3), np.float32),
                              warmstart_values=p["values"], device="cpu")
-    # The KKT route selectors are carried over with the JAX defaults; the
-    # Pallas switch and the in-kernel G^T assembly are not.
-    for gone in ("use_pallas", "gt_assembly"):
-        assert not hasattr(mtt.ADMMConfig(), gone)
+    # The KKT route selectors and the G^T assembly are carried over with the
+    # JAX defaults; the Pallas switch is not.
+    assert not hasattr(mtt.ADMMConfig(), "use_pallas")
     for kept in ("rho", "sigma", "alpha", "n_iters", "n_stages", "rho_min",
                  "rho_max", "eps_primal", "eps_dual", "rho_sphere_factor",
                  "rho_tube_factor", "rho_half_factor", "kkt_inverse",
-                 "kkt_apply", "band_gram"):
+                 "kkt_apply", "band_gram", "gt_assembly"):
         assert getattr(mtt.ADMMConfig(), kept) == \
             getattr(jqcqp.ADMMConfig(), kept)
     # structures outside the free-interior family are refused up front, not
