@@ -48,6 +48,12 @@ PEAK_BYTES_PER_S = 3.35e12
 #  2. against the plain version run in float64 on the same inputs, the
 #     kernel is no worse than float32 arithmetic allows:
 #     |kernel - plain_f64| <= 3 |plain_f32 - plain_f64| + 1e-6 max(1, max|x|).
+# Kernel 1's cluster design computes x = xq + rho W^-1 (G^T v) in place of
+# xq + rho (W^-1 G^T) v: criterion 1 holds it to the plain version in that
+# order (admm_stage_fused_factored_winv_plain), criterion 2 to the reference
+# order's plain version in float64 with the reference order's float32 error
+# as the floor, as before.  A negative control, the kernel with alpha
+# WRONG_ALPHA for the config's 1.6, must fail them at the flagship shape.
 KERNEL_TOL = 2e-5
 
 # Quality bars of the main path at seed 0: the JAX reference recorded
@@ -141,6 +147,12 @@ FUSED_COST_P99 = 1e-2
 FUSED_COST_OUTLIER_SHARE = 0.0025
 FUSED_UNDER_GATE_SHARE = 0.005
 FUSED_SEEDS = (0, 1)
+# The whole polish's residual class (fused_class) must fail a kernel that
+# skips its last snap sweep: the snap-only polish run with one sweep, judged
+# against the plain version with two, rejected at the flagship shape (gated)
+# and at K=4 (reported).  The six polishes are judged again, reported only,
+# at FUSED_WIDE_ROWS rows, where fused_class reads the 99th percentile.
+FUSED_WIDE_ROWS = 512
 IPM_SOURCES = ("gt_matvec", "ipm_eval", "ipm_pipe", "ipm_solve")
 PKG = "mav_tube_trajectory_generation_tpu_torch"
 
@@ -212,38 +224,55 @@ def stage_inputs(mtt, k, batch, seed, config):
     return args, kw
 
 
-def compare_outputs(ours, plain, plain64):
+def compare_outputs(ours, plain, plain64, ref32=None):
     """Per-output max abs differences (kernel vs plain float32, kernel vs
     plain float64, plain float32 vs plain float64) and whether both criteria
-    stated at KERNEL_TOL hold."""
+    stated at KERNEL_TOL hold.  ``ref32``: the float32 run whose distance to
+    ``plain64`` is criterion 2's floor, where it is not ``plain`` (kernel 1:
+    the reference order's)."""
     import torch
-    diffs, diffs64, floor64, ok = {}, {}, {}, True
+    ref32 = plain if ref32 is None else ref32
+    diffs, diffs64, floor64, plain64_err, ok = {}, {}, {}, {}, True
     scale = max(1.0, float(plain[0].abs().max()))
-    for name, a, b, c in zip(OUT_NAMES, ours, plain, plain64):
+    for name, a, b, c, r in zip(OUT_NAMES, ours, plain, plain64, ref32):
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise RuntimeError(f"kernel output {name}: bad shape or "
                                f"non-finite values")
         diffs[name] = float((a - b).abs().max())
         diffs64[name] = float((a.double() - c).abs().max())
-        floor64[name] = float((b.double() - c).abs().max())
+        floor64[name] = float((r.double() - c).abs().max())
+        plain64_err[name] = float((b.double() - c).abs().max())
         ok = (ok and diffs[name] <= KERNEL_TOL * scale
               and diffs64[name] <= 3.0 * floor64[name] + 1e-6 * scale)
-    return dict(kernel_vs_plain=diffs, kernel_vs_plain_f64=diffs64,
-                plain_vs_plain_f64=floor64, scale=scale), ok
+    out = dict(kernel_vs_plain=diffs, kernel_vs_plain_f64=diffs64,
+               plain_vs_plain_f64=floor64, scale=scale)
+    if ref32 is not plain:
+        out["order_plain_vs_plain_f64"] = plain64_err
+    return out, ok
 
 
-def run_three(admm_kernel, args, kw, extra=(), init_z=True):
-    """(kernel, plain float32, plain float64) outputs on the same inputs."""
+def run_three(admm_kernel, args, kw, extra=(), init_z=True, alpha=None,
+              design="cluster"):
+    """Kernel 1's (kernel, plain float32 in the kernel's order, plain
+    float64, plain float32 in the reference order) outputs on the same
+    inputs; with ``alpha`` the kernel alone runs with that alpha (the
+    negative control).  The kernel's order is the cluster design's
+    (``admm_stage_fused_factored_winv_plain``) or, for ``design`` "stream",
+    the reference order itself."""
     import torch
+    k_kw = kw if alpha is None else dict(kw, alpha=alpha)
     ours = admm_kernel.admm_stage_fused_factored(*args, *extra,
-                                                 init_z=init_z, **kw)
+                                                 init_z=init_z, **k_kw)
     torch.cuda.synchronize()
-    plain = admm_kernel.admm_stage_fused_factored_plain(
+    ref32 = admm_kernel.admm_stage_fused_factored_plain(
         *args, *extra, init_z=init_z, **kw)
+    plain = ref32 if design == "stream" else \
+        admm_kernel.admm_stage_fused_factored_winv_plain(
+            *args, *extra, init_z=init_z, **kw)
     plain64 = admm_kernel.admm_stage_fused_factored_plain(
         *(a.double() for a in args), *(a.double() for a in extra),
         init_z=init_z, **kw)
-    return ours, plain, plain64
+    return ours, plain, plain64, ref32
 
 
 def phase_toolchain(state):
@@ -280,10 +309,17 @@ def build_report(_build, name):
 ADMM_ENTRIES = {"admm_stage": ("admm_stage_fused_factored_kernel",
                                "admm_stage_fused_factored_ew_kernel",
                                "admm_stage_fused_kernel",
-                               "admm_stage_iter_kernel"),
+                               "admm_stage_iter_kernel",
+                               "admm_stage_cluster_kernel"),
                 "gram_band": ("gram_band_kernel", "gram_band_ew_kernel")}
 # A block's dynamic shared memory may not exceed this on an H100.
 MAX_DYNAMIC_SMEM = 232448
+# Kernel 1 (nfd, m_p) at K=10, 4 and 12 and the design it must take there:
+# the cluster design wherever a block's share of G^T and W^-1 fits, the
+# stream design past that (K=12: half of G^T alone is 211 KB).
+FACTORED_DESIGNS = {"flagship": (135, 512, "cluster"),
+                    "K=4": (45, 384, "cluster"),
+                    "K=12": (165, 640, "stream")}
 
 
 def entry_report(log, names):
@@ -344,9 +380,27 @@ def phase_build(state):
         smem[label] = {kind: admm_kernel.smem_bytes(nfd, m_p, nfd // 15, 15,
                                                     128, kind=kind)
                        for kind in admm_kernel.launches}
+    # Kernel 1's two designs: which one each shape takes (FACTORED_DESIGNS),
+    # either design's shared memory a block and, where the cluster design is
+    # taken, the clusters the card holds at once.
+    designs = {}
+    for label, (k_nfd, k_mp, _) in FACTORED_DESIGNS.items():
+        design = admm_kernel.factored_design(k_nfd, k_mp, k_nfd // 15, 15,
+                                             128)
+        designs[label] = dict(
+            design=design,
+            cluster_dynamic_smem_bytes=admm_kernel.smem_bytes(
+                k_nfd, k_mp, k_nfd // 15, 15, 128, kind="cluster"),
+            stream_dynamic_smem_bytes=admm_kernel.smem_bytes(
+                k_nfd, k_mp, k_nfd // 15, 15, 128, kind="stream"),
+            max_active_clusters=admm_kernel.cluster_occupancy(
+                k_nfd, k_mp, k_nfd // 15, 15, 128)
+            if design == "cluster" else None)
+    state["factored_designs"] = designs
     emit("build_admm_routes", libraries=[build_report(_build, "gram_band")],
          entry_functions=entries, dynamic_smem_bytes=smem,
          max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM,
+         admm_stage_fused_factored_designs=designs,
          threads_per_block=dict(stage=admm_kernel.THREADS,
                                 gram_band=admm_kernel.GRAM_THREADS))
     over = {f"{label} {k}": v for label, d in smem.items()
@@ -354,41 +408,75 @@ def phase_build(state):
     if over or len(entries) != sum(map(len, ADMM_ENTRIES.values())):
         raise RuntimeError(f"build: entry functions {sorted(entries)}, "
                            f"shared memory over the limit: {over}")
+    if any(d["design"] != FACTORED_DESIGNS[label][2]
+           or (d["design"] == "cluster" and d["max_active_clusters"] < 1)
+           for label, d in designs.items()):
+        raise RuntimeError(f"build: kernel 1 does not take the expected "
+                           f"design at each shape {FACTORED_DESIGNS}: "
+                           f"{designs}")
 
 
 def phase_kernel_check(state, mtt):
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     results = []
-    for label, k, batch in (("flagship K=10", 10, 256), ("K=4", 4, 64)):
+    # (label, K, batch, the design it must take, control gated?)
+    cases = (("flagship K=10", 10, 256, "cluster", True),
+             ("K=4", 4, 64, "cluster", False),
+             ("K=12", 12, 32, "stream", True))
+    for label, k, batch, want, gated in cases:
         cfg = bench_config(mtt)
         args, kw = stage_inputs(mtt, k, batch, seed=1, config=cfg)
-        ours, plain, plain64 = run_three(admm_kernel, args, kw)
+        _, nfd, m_p = args[4].shape
+        design = admm_kernel.factored_design(nfd, m_p, args[1].shape[1],
+                                             args[1].shape[-1], kw["nb_p"])
+        ours, plain, plain64, ref32 = run_three(admm_kernel, args, kw,
+                                                design=design)
         again = admm_kernel.admm_stage_fused_factored(*args, init_z=True,
                                                       **kw)
         torch.cuda.synchronize()
         identical = all(torch.equal(a, b) for a, b in zip(ours, again))
-        d1, ok1 = compare_outputs(ours, plain, plain64)
+        d1, ok1 = compare_outputs(ours, plain, plain64, ref32)
+        wrong = run_three(admm_kernel, args, kw, alpha=WRONG_ALPHA,
+                          design=design)
+        _, ctl_ok = compare_outputs(wrong[0], *wrong[1:3], wrong[3])
         # second stage: z/u carried in (u rescaled as the rho rebalancing
         # does), the kernel entered with init_z=False
-        x1, z1, _, u1 = plain[:4]
+        x1, z1, _, u1 = ref32[:4]
         args2 = args[:8] + (x1.contiguous(),)
         extra = (z1.contiguous(), (u1 * 0.5).contiguous())
-        ours2, plain2, plain2_64 = run_three(admm_kernel, args2, kw, extra,
-                                             init_z=False)
-        d2, ok2 = compare_outputs(ours2, plain2, plain2_64)
-        results.append(dict(shapes=label, batch=batch,
+        out2 = run_three(admm_kernel, args2, kw, extra, init_z=False,
+                         design=design)
+        d2, ok2 = compare_outputs(out2[0], *out2[1:3], out2[3])
+        wrong2 = run_three(admm_kernel, args2, kw, extra, init_z=False,
+                           alpha=WRONG_ALPHA, design=design)
+        _, ctl2_ok = compare_outputs(wrong2[0], *wrong2[1:3], wrong2[3])
+        results.append(dict(shapes=label, batch=batch, design=design,
+                            expected_design=want, control_gated=gated,
                             gt_shape=list(args[4].shape),
                             n_iters=kw["n_iters"], init_z=d1, carried=d2,
                             bit_identical=identical,
-                            within_tolerance=ok1 and ok2))
+                            within_tolerance=ok1 and ok2,
+                            control_rejected=dict(init_z=not ctl_ok,
+                                                  carried=not ctl2_ok)))
+        del ours, plain, plain64, ref32, wrong, out2, wrong2
     emit("kernel_check", kernel="admm_stage_fused_factored",
-         tolerance=KERNEL_TOL, tolerance_is="kernel vs plain f32 <= "
-         "tolerance * max(1, max|x|) per output, and kernel vs plain f64 <= "
-         "3 * (plain f32 vs plain f64) + 1e-6 * max(1, max|x|)",
-         cases=results)
+         tolerance=KERNEL_TOL, tolerance_is="kernel vs plain f32 in the "
+         "kernel's order (cluster design: admm_stage_fused_factored_winv_"
+         "plain; stream design: the reference order) <= tolerance * max(1, "
+         "max|x|) per output, and kernel vs plain f64 (reference order) <= "
+         "3 * (plain f32 vs plain f64, reference order) + 1e-6 * "
+         "max(1, max|x|)",
+         control=f"the kernel with alpha {WRONG_ALPHA} for "
+         f"{bench_config(mtt).alpha}, rejected at the flagship shape and at "
+         f"K=12 (gated) and at K=4 (reported)", cases=results)
     bad = [r["shapes"] for r in results
            if not (r["within_tolerance"] and r["bit_identical"])]
+    bad += [f"{r['shapes']}: takes the {r['design']} design, expected "
+            f"{r['expected_design']}" for r in results
+            if r["design"] != r["expected_design"]]
+    bad += [f"{r['shapes']}: the control passes" for r in results
+            if r["control_gated"] and not all(r["control_rejected"].values())]
     if bad:
         raise RuntimeError(f"kernel_check failed for {bad}")
     route_kernel_check(mtt)
@@ -754,7 +842,9 @@ def phase_main_path(state, mtt):
          converged=int(sol.converged.sum()),
          median_cost=float(sol.cost.median()),
          median_warm_start_cost=float(lin.cost.median()),
-         peak_device_memory_bytes=peak, launches_before=before,
+         peak_device_memory_bytes=peak,
+         admm_stage_fused_factored_design=admm_kernel.factored_design(
+             135, 512, 9, 15, 128), launches_before=before,
          launches_after=after, launches_per_pass=(after - before) / n_pass,
          plain_prefix=prefix,
          phase_ms=parts, nvidia_smi=state.get("nvidia_smi"))
@@ -967,23 +1057,26 @@ def gram_band_mismatch(gram, hd, hu, blk):
 def fused_class(ipm_kernel, args, kw, ours):
     """Where a whole polish ends, beside the row criteria: the scaled primal
     residual max(c, 0) of the kernel's final point, per scenario, has a
-    median and a 99th percentile at most 3x the plain float32 version's plus
+    median and a tail quantile at most 3x the plain float32 version's plus
     5e-5 and 5e-4 (c = 0.5 (|y|^2 - r^2) with |y|^2 of 1e2 to 1e3 in scaled
     space resolves 8e-6 to 6e-5 in float32, so a median of exactly 0 in one
     run and of one such step in the other are the same result), and is
-    finite in every row.  And what the dynamic infeasibility certificate
-    reads, the growth lam_fin_max / lam_mid of the largest multiplier over
-    the second half of the Newton steps: the scenarios where it exceeds the
+    finite in every row.  The tail quantile is the 99th percentile where
+    IPM_TAIL_ROWS rows lie beyond it, else the highest of IPM_QUANTILES that
+    has as many beyond it (the 90th at 64 and 256 rows): the rule the row
+    criteria follow.  And what the dynamic infeasibility certificate reads,
+    the growth lam_fin_max / lam_mid of the largest multiplier over the
+    second half of the Newton steps: the scenarios where it exceeds the
     certificate's threshold (IPMConfig.infeas_growth) number at most twice
     the plain float32 version's plus IPM_GROSS_SLACK of the batch (at least
-    2)."""
+    2).  Reported besides: the rows that start above 5e-4 (the residual of
+    y0) and end no lower, in either run."""
     import torch
     rb, act = args[2], args[10]
     plain = ipm_kernel.ipm_solve_fused_plain(*args, **kw)
 
-    def residual(outs):
-        c = ipm_kernel._c_lanes_k(outs[1].float(), rb, kw["nb_p"],
-                                  kw["n_ball"])
+    def residual(y):
+        c = ipm_kernel._c_lanes_k(y.float(), rb, kw["nb_p"], kw["n_ball"])
         return torch.where(act > 0, torch.clamp(c, min=0.0),
                            torch.zeros_like(c)).amax(dim=2)[:, 0]
 
@@ -991,17 +1084,25 @@ def fused_class(ipm_kernel, args, kw, ours):
         g = outs[7][:, 0, 0] / torch.clamp(outs[6][:, 0, 0], min=1e-30)
         return int((g > FUSED_INFEAS_GROWTH).sum()) if kw["n_iters"] else 0
 
-    r_k, r_p = residual(ours), residual(plain)
+    r_k, r_p, r_0 = residual(ours[1]), residual(plain[1]), residual(args[9])
     q = lambda r, p: float(torch.quantile(r.double(), p))
+    bsz = r_k.shape[0]
+    tail = max([p for p in IPM_QUANTILES
+                if (1.0 - p) * bsz >= IPM_TAIL_ROWS] or [0.5])
+    stalled = lambda r: int(((r_0 > 5e-4) & (r >= r_0)).sum())
     out = dict(kernel_median=q(r_k, 0.5), plain_median=q(r_p, 0.5),
+               tail_quantile=tail, kernel_tail=q(r_k, tail),
+               plain_tail=q(r_p, tail),
                kernel_p99=q(r_k, 0.99), plain_p99=q(r_p, 0.99),
                kernel_max=float(r_k.max()), plain_max=float(r_p.max()),
+               kernel_rows_stalled=stalled(r_k),
+               plain_rows_stalled=stalled(r_p),
                kernel_rows_multiplier_growing=growing(ours),
                plain_rows_multiplier_growing=growing(plain))
-    slack = max(2, int(IPM_GROSS_SLACK * r_k.shape[0]))
+    slack = max(2, int(IPM_GROSS_SLACK * bsz))
     ok = (bool(torch.isfinite(r_k).all())
           and out["kernel_median"] <= 3.0 * out["plain_median"] + 5e-5
-          and out["kernel_p99"] <= 3.0 * out["plain_p99"] + 5e-4
+          and out["kernel_tail"] <= 3.0 * out["plain_tail"] + 5e-4
           and out["kernel_rows_multiplier_growing"]
           <= 2 * out["plain_rows_multiplier_growing"] + slack)
     return out, ok
@@ -1039,6 +1140,31 @@ def fused_controls_rejected(ipm_kernel, args, kw, summary):
     return out, ok
 
 
+def wide_fused_report(mtt, label, k):
+    """The six whole polishes of ``record_lanes`` at FUSED_WIDE_ROWS rows of
+    seed 1, each held to the row criteria and the residual class (its 99th
+    percentile at this batch): reported, not gated."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
+    fused_calls = record_lanes(mtt, k, FUSED_WIDE_ROWS, seed=1)[3]
+    out = []
+    for args, kw, ours in fused_calls:
+        res, ok, summary = check_call(
+            ipm_kernel.ipm_solve_fused, ipm_kernel.ipm_solve_fused_plain,
+            FUSED_OUT, args, kw, ours=ours, uncapped=fused_uncapped(kw))
+        cls, cls_ok = fused_class(ipm_kernel, args, kw, ours)
+        out.append(dict(
+            kernel="ipm_solve_fused", shapes=label, gated=False,
+            gt_shape=list(args[0].shape), n_iters=kw["n_iters"],
+            snap_iters=kw["snap_iters"], row_criteria_hold=ok,
+            outputs_failing_row_criteria=[
+                n for n, v in summary.items() if not v["ok"]],
+            residual_class_holds=cls_ok, residual_class=cls))
+    del fused_calls
+    torch.cuda.empty_cache()
+    return out
+
+
 def record_lanes(mtt, k, batch, seed):
     """Calls of the interior-point kernels recorded from real solves: an
     ADMM tier-0 solve, then pipelined polishes that reach all seven mode
@@ -1063,12 +1189,9 @@ def record_lanes(mtt, k, batch, seed):
             recorded(ipm_kernel, "gt_matvec", mv_calls):
         polish(n_iters=2, snap_iters=1)
     with recorded(ipm_kernel, "ipm_solve_fused", fused_calls):
-        polish(n_iters=10, snap_iters=2, fused=True)
-        polish(n_iters=0, snap_iters=2, fused=True)
-        polish(n_iters=1, snap_iters=0, fused=True)
-        polish(n_iters=1, snap_iters=1, fused=True)
-        polish(n_iters=2, snap_iters=1, fused=True)
-        polish(n_iters=3, snap_iters=0, fused=True)
+        for n_iters, snap_iters in ((10, 2), (0, 2), (1, 0), (1, 1), (2, 1),
+                                    (3, 0)):
+            polish(n_iters=n_iters, snap_iters=snap_iters, fused=True)
     pairs = {}
     for call in pipe_calls:
         key = (call[1]["upd_mode"], call[1]["eval_mode"])
@@ -1338,7 +1461,7 @@ def phase_band_gram(state, mtt):
     """The headline through the band kernels: band_gram "pallas" and
     "pallas_block" (kernel #6 once a solve) and "pallas_db" (kernel #5 once
     a stage), each with kernel 1, against the "xla" run on the same
-    inputs."""
+    inputs; "pallas_db" against "xla" again on the scenarios of seed 1."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
@@ -1405,8 +1528,13 @@ def phase_band_gram(state, mtt):
             bad.append(mode)
         modes.append(entry)
         torch.cuda.empty_cache()
+    del sc, ref
+    seed_1 = second_seed_gap(mtt, batch, route_config(mtt, band_gram="xla"),
+                             route_config(mtt, band_gram="pallas_db"))
+    if not seed_1["ok"]:
+        bad.append("pallas_db against xla, seed 1")
     emit("band_gram", config="headline, K=10, batch %d, seed 0" % batch,
-         modes=modes, limits=dict(
+         modes=modes, pallas_db_vs_xla_seed_1=seed_1, limits=dict(
              cost_gap_median=ROUTE_COST_MEDIAN, cost_gap_p99=ROUTE_COST_P99,
              rows_over_p99_limit=int(ROUTE_COST_OUTLIER_SHARE * batch),
              feasible_within=int(ROUTE_FEASIBLE_SHARE * batch),
@@ -1414,6 +1542,24 @@ def phase_band_gram(state, mtt):
          nvidia_smi=state.get("nvidia_smi"))
     if bad:
         raise RuntimeError(f"band_gram failed for {bad}")
+
+
+def second_seed_gap(mtt, batch, ref_cfg, cfg):
+    """The relative cost gap of the solve on ``cfg`` to the one on
+    ``ref_cfg`` on the scenarios of seed 1 (untimed), gated at the KKT
+    routes' limits (``gap_ok``); feasibility reported."""
+    import torch
+    sc = mtt.make_inputs(10, batch, seed=1)
+    ref = solve(mtt, sc, ref_cfg)
+    sol = solve(mtt, sc, cfg)
+    gap = cost_gap_summary(sol, ref)
+    out = dict(seed=1, cost_gap=gap,
+               feasible_at_1e_2=solution_quality(sol)["feasible_at_1e_2"],
+               reference_feasible_at_1e_2=solution_quality(ref)[
+                   "feasible_at_1e_2"], ok=bool(gap_ok(gap, batch)))
+    del sc, ref, sol
+    torch.cuda.empty_cache()
+    return out
 
 
 # The gt_assembly="kernel" route (G^T kept as its rank-1 row factors e, w):
@@ -1584,7 +1730,8 @@ def phase_ew_path(state, mtt):
     stage, no G^T tensor; against the "pallas_db" route (#5 and #1 on the
     assembled G^T) and the "xla" headline on the same inputs; three stages
     at batch 512 against the same route with the two kernels' plain
-    versions in their place; #3 and #4 against their plain versions."""
+    versions in their place; #3 and #4 against their plain versions; the
+    route against "pallas_db" again on the scenarios of seed 1."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
     ew_kernel_check(mtt)
@@ -1625,14 +1772,16 @@ def phase_ew_path(state, mtt):
         return out
 
     vs_db, vs_xla = against(db), against(xla)
-    ok = (launches == want and q["all_finite"] and sol.cost.shape == (batch,)
+    shape_ok = sol.cost.shape == (batch,)
+    del sol, db, xla
+    torch.cuda.empty_cache()
+    seed_1 = second_seed_gap(mtt, batch, db_cfg, cfg)
+    ok = (launches == want and q["all_finite"] and shape_ok
           and q["feasible_at_1e_2"] >= MIN_FEASIBLE
           and q["median_max_violation"] <= MAX_MEDIAN_VIOLATION
           and gap_ok(vs_db["cost_gap"], batch)
           and abs(q["feasible_at_1e_2"] - dq["feasible_at_1e_2"])
-          <= ROUTE_FEASIBLE_SHARE * batch)
-    del sol, db, xla
-    torch.cuda.empty_cache()
+          <= ROUTE_FEASIBLE_SHARE * batch and seed_1["ok"])
     memory = {name: memory_pieces(mtt, sc, c) for name, c in (
         ("ew", cfg), ("pallas_db", db_cfg), ("xla", bench_config(mtt)))}
     parts = route_pieces(mtt, sc, cfg, to_device(rec[EW_KERNELS[0]], "cuda"),
@@ -1680,7 +1829,8 @@ def phase_ew_path(state, mtt):
          pallas_db=dict(ms_per_batch=sum(db_pass_ms) / ROUTE_PASSES,
                         pass_ms=db_pass_ms, launches_in_timed_passes=
                         db_launches, peak_device_memory_bytes=db_peak),
-         vs_pallas_db=vs_db, vs_xla_headline=vs_xla, phase_ms=parts,
+         vs_pallas_db=vs_db, vs_pallas_db_seed_1=seed_1,
+         vs_xla_headline=vs_xla, phase_ms=parts,
          memory_bytes_by_piece=memory,
          three_stages=multi, limits=dict(
              cost_gap_median=ROUTE_COST_MEDIAN, cost_gap_p99=ROUTE_COST_P99,
@@ -1746,7 +1896,8 @@ def phase_ipm_kernel_check(state, mtt):
                 FUSED_OUT, args, kw, ours=out, uncapped=fused_uncapped(kw))
             cls, cls_ok = fused_class(ipm_kernel, args, kw, out)
             cases.append(dict(kernel="ipm_solve_fused", shapes=label,
-                              gt_shape=gt_shape, n_iters=kw["n_iters"],
+                              gt_shape=list(args[0].shape),
+                              n_iters=kw["n_iters"],
                               snap_iters=kw["snap_iters"], **res,
                               residual_class=cls))
             if not (ok and cls_ok):
@@ -1759,6 +1910,19 @@ def phase_ipm_kernel_check(state, mtt):
                     snap_iters=0, kernel_with_one_scalar_off_rejected=rejected))
                 if not rej_ok:
                     bad.append(f"fused {label}: a wrong kernel passes")
+            if (kw["n_iters"], kw["snap_iters"]) == (0, 2):
+                wrong = ipm_kernel.ipm_solve_fused(*args,
+                                                   **dict(kw, snap_iters=1))
+                w_cls, w_ok = fused_class(ipm_kernel, args, kw, wrong)
+                cases.append(dict(
+                    kernel="ipm_solve_fused", shapes=label, n_iters=0,
+                    snap_iters=2, kernel_with_one_sweep_rejected=not w_ok,
+                    control_gated=label.startswith("flagship"),
+                    residual_class=w_cls))
+                if w_ok and label.startswith("flagship"):
+                    bad.append(f"fused {label}: a kernel with one snap "
+                               f"sweep passes the residual class")
+                del wrong
         args, kw, out = mv_calls[-1]
         res, ok, _ = check_call(ipm_kernel.gt_matvec,
                                 ipm_kernel.gt_matvec_plain, ("y",), args, kw,
@@ -1829,6 +1993,8 @@ def phase_ipm_kernel_check(state, mtt):
         if not (frozen and finite and same_pattern and untouched):
             bad.append(f"fused nan row {label}")
         del pairs, eval_calls, mv_calls, fused_calls
+        torch.cuda.empty_cache()
+        cases.extend(wide_fused_report(mtt, label, k))
     emit("ipm_kernel_check", tolerance_is="per output, errors per scenario "
          "as a share of max|plain f64 output|, e_k = kernel vs plain f64, "
          "e_p = plain f32 vs plain f64: (1) at each listed quantile over the "
@@ -2563,7 +2729,64 @@ def ipm_kernel_rows(state, mtt):
            kw, 2 * bsz * nfd * m_p,
            library=lambda: torch.bmm(v.transpose(1, 2), gt),
            note="tier 1 (the escalated rows); library call: torch.bmm")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    by_rows = {}
+    # The restart's and the chain's row counts: the first rows of the same
+    # call, each beside torch.bmm in this call.
+    # Each output held to the float32 summation bound of any order, nfd
+    # 2^-24 sum_r |gt[r, l] v[r]| from the exact sum, and run to run.
+    for n in (bsz, 128, 1):
+        g_n, v_n = gt[:n].contiguous(), v[:n].contiguous()
+        y = ipm_kernel.gt_matvec(g_n, v_n)
+        again = ipm_kernel.gt_matvec(g_n, v_n)
+        exact = ipm_kernel.gt_matvec_plain(g_n.double(), v_n.double())
+        mags = ipm_kernel.gt_matvec_plain(g_n.double().abs(),
+                                          v_n.double().abs())
+        err = (y.double() - exact).abs()
+        if not (torch.equal(y, again)
+                and bool((err <= nfd * 2.0 ** -24 * mags).all())):
+            raise RuntimeError(f"kernels: gt_matvec outside the float32 "
+                               f"summation bound at {n} rows")
+        by_rows[n] = dict(
+            ms=cuda_ms(lambda: ipm_kernel.gt_matvec(g_n, v_n), reps=20),
+            bmm_ms=cuda_ms(lambda: torch.bmm(v_n.transpose(1, 2), g_n),
+                           reps=20),
+            device_ms=device_ms_each(
+                lambda: ipm_kernel.gt_matvec(g_n, v_n), 20),
+            bmm_device_ms=device_ms_each(
+                lambda: torch.bmm(v_n.transpose(1, 2), g_n), 20),
+            bound_ms=(nbytes((g_n, v_n)) + n * m_p * 4)
+            / PEAK_BYTES_PER_S * 1e3,
+            chunk=ipm_kernel.matvec_chunk(n, m_p, sms),
+            max_err_share_of_bound=float((err / (nfd * 2.0 ** -24 * mags)
+                                          ).nan_to_num(0.0).max()))
+    # At 128 and 1 rows a call takes less device time than its wrapper
+    # takes on the host, so CUDA events over back-to-back calls time the
+    # host: the row's ms and library_ms stay the event times (as in every
+    # earlier row), the device times of one call stand beside them.
+    row = rows[-1]
+    row.update(device_ms=by_rows[bsz]["device_ms"],
+               library_device_ms=by_rows[bsz]["bmm_device_ms"],
+               device_ms_is="device time of one call by torch.profiler "
+               "(mean of 20), the kernels alone")
+    row["by_rows"] = by_rows
+    row["by_rows_is"] = (
+        "rows of tier 1's call (about 650), the speculative restart's 128, "
+        "the chain's 1; ms and bmm_ms by CUDA events over 20 calls (host time "
+        "of a call included where it exceeds the kernel's), device_ms and "
+        "bmm_device_ms by torch.profiler, the kernels alone")
     return rows
+
+
+def device_ms_each(fn, reps):
+    """Device time of one ``fn()`` (the mean of ``reps`` under
+    torch.profiler, ``device_time_of``); raises where the profiler shows
+    no device time."""
+    fn()
+    res = device_time_of(lambda: [fn() for _ in range(reps)])
+    if res is None:
+        raise RuntimeError("kernels: torch.profiler shows no device time")
+    return res["device_ms"] / reps
 
 
 def phase_kernels(state, mtt):
@@ -2574,38 +2797,69 @@ def phase_kernels(state, mtt):
     cfg = bench_config(mtt)
     batch = MAIN_BATCH
     args, kw = stage_inputs(mtt, 10, batch, seed=0, config=cfg)
-    kernel_ms = cuda_ms(lambda: admm_kernel.admm_stage_fused_factored(
-        *args, init_z=True, **kw), reps=5)
+    _, nfd, m_p = args[4].shape
+    m_blk, bsz = args[1].shape[1], args[1].shape[-1]
+    design = admm_kernel.factored_design(nfd, m_p, m_blk, bsz, kw["nb_p"])
+
+    def kernel():
+        return admm_kernel.admm_stage_fused_factored(*args, init_z=True, **kw)
+
+    kernel_ms = cuda_ms(kernel, reps=5)
     plain_ms = cuda_ms(lambda: admm_kernel.admm_stage_fused_factored_plain(
         *args, init_z=True, **kw), reps=2)
-    ours, plain, plain64 = run_three(admm_kernel, args, kw)
-    cmp, ok = compare_outputs(ours, plain, plain64)
-    del plain, plain64
+    winv_plain_ms = cuda_ms(
+        lambda: admm_kernel.admm_stage_fused_factored_winv_plain(
+            *args, init_z=True, **kw), reps=2)
+    # Device memory the wrapper takes beyond its seven outputs (the stream
+    # design's m1 scratch; none on the cluster design).
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = kernel()
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - nbytes(outs)
+    del outs
+    ours, plain, plain64, ref32 = run_three(admm_kernel, args, kw)
+    cmp, ok = compare_outputs(ours, plain, plain64, ref32)
+    del plain, plain64, ref32
     if not ok:
         raise RuntimeError(f"kernels: disagreement at batch {batch}: {cmp}")
+    if design == "cluster" and scratch > 0:
+        raise RuntimeError(f"kernels: kernel 1's cluster design took "
+                           f"{scratch} bytes of scratch")
     diffs = cmp["kernel_vs_plain"]
 
     # Bound from this run's shapes: every input read once, every output
-    # written once; the work of ``stage_flops``.
-    _, nfd, m_p = args[4].shape
-    m_blk, bsz = args[1].shape[1], args[1].shape[-1]
+    # written once; the work of ``stage_flops`` (the reference order's, so
+    # that rows compare across designs), and beside it the work of the
+    # design's own order.
     in_bytes = nbytes(args)
     out_bytes = nbytes(ours)
     flops = stage_flops(batch, nfd, m_p, m_blk, bsz, kw["n_iters"])
+    d_flops = winv_stage_flops(batch, nfd, m_p, m_blk, bsz, kw["n_iters"])
     bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_F32_FLOPS * 1e3
+    d_flops_ms = d_flops / PEAK_F32_FLOPS * 1e3
     row = dict(
         name="admm_stage_fused_factored", route="cuda",
         source="mav_tube_trajectory_generation_tpu_torch/csrc/admm_stage.cu",
         replaces="mav_tube_trajectory_generation_tpu/ops/admm_kernel.py:604",
-        launches=state["launches"],
+        launches=state["launches"], design=design,
+        cluster=2 if design == "cluster" else 1,
         max_abs_err=max(diffs.values()), max_abs_diff=max(diffs.values()),
+        max_abs_err_is="largest |kernel - plain float32 in the kernel's "
+        "order| over the outputs",
         max_abs_err_vs_plain_f64=max(cmp["kernel_vs_plain_f64"].values()),
         plain_f32_vs_plain_f64=max(cmp["plain_vs_plain_f64"].values()),
-        tolerance=KERNEL_TOL * cmp["scale"],
+        errors=cmp, tolerance=KERNEL_TOL * cmp["scale"],
         ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        winv_plain_ms=winv_plain_ms,
+        plain_ms_is="the reference order's plain version (the wrapper's on "
+        "the CPU); winv_plain_ms: the cluster design's order",
+        wrapper_scratch_bytes=scratch,
         bound_ms=max(bytes_ms, flops_ms),
         bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+        design_flops=d_flops, design_bound_ms=max(bytes_ms, d_flops_ms),
         library_ms=None, shapes=dict(batch=batch, nfd=nfd, m_p=m_p,
                                      m_blk=m_blk, bsz=bsz,
                                      n_iters=kw["n_iters"]),
@@ -2701,6 +2955,15 @@ def stage_flops(bsz, nfd, m_p, m_blk, bs, n_iters):
     2 n_iters + 2 matvecs against (nfd, m_p), 2 flops per multiply-add."""
     return bsz * ((3 * m_blk - 2) * 2 * bs * bs * m_p
                   + (2 * n_iters + 2) * 2 * nfd * m_p)
+
+
+def winv_stage_flops(bsz, nfd, m_p, m_blk, bs, n_iters):
+    """The cluster design's work: W^-1 by the (3m - 2) sweep steps of
+    (b, b) @ (b, nfd), then y0, n_iters x (G^T v, W^-1 g, G x) and the dual
+    matvec, 2 flops per multiply-add."""
+    return bsz * ((3 * m_blk - 2) * 2 * bs * bs * nfd
+                  + n_iters * (2 * 2 * nfd * m_p + 2 * nfd * nfd)
+                  + 2 * 2 * nfd * m_p)
 
 
 def have_recorded(state, need, what):

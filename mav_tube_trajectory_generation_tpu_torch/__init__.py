@@ -6,7 +6,9 @@ beside it, imports ``torch`` and ``numpy`` only, and shares no module with
 it.  Sub-packages carry the same names (``ops``, ``solver``, ``models``) so
 each counterpart is easy to find.  Ported so far: the headline QP+QCQP path
 (``solve_qcqp_batch`` on every KKT route of ``ADMMConfig``: the banded
-factored stage, the dense-inverse stage and the Gram-band kernels), the
+factored stage, the dense-inverse stage, the Gram-band kernels, and the
+``gt_assembly="kernel"`` ("ew") route, whose stage and band kernels read
+G^T as its rank-1 row factors and never form it), the
 closed-form linear solve beneath it, the strict verdict router
 (``solve_qcqp_strict`` /
 ``solve_qcqp_auto``: ADMM plus snap sweeps, the plane-layout interior-point
@@ -56,10 +58,12 @@ from .solver.qcqp import (ADMMConfig, QCQPSolution,             # noqa: E402
                           solve_qcqp, solve_qcqp_batch, build_constraints)
 from .solver.ipm import (IPMConfig, solve_qcqp_ipm,             # noqa: E402
                          solve_qcqp_polished)
-from .ops.ipm_kernel import ipm_solve_fused                     # noqa: E402
+from .ops.ipm_kernel import (gt_matvec, ipm_eval_step,          # noqa: E402
+                             ipm_pipe_step, ipm_solve_fused)
 from .ops.admm_kernel import (admm_stage_fused_factored,        # noqa: E402
+                              admm_stage_fused_factored_ew,
                               admm_stage_fused, admm_stage, gram_band,
-                              gram_band_factors)
+                              gram_band_factors, gram_band_factors_ew)
 from .solver.ipm_lanes import (solve_qcqp_ipm_lanes,            # noqa: E402
                                solve_qcqp_polished_batch)
 from .solver.auto import (AutoResult, solve_qcqp_auto,          # noqa: E402
@@ -81,4 +85,4 @@ from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
                       lanes_state_from_numpy,
                       fused_state_from_numpy, auto_result_to_numpy)
 
-__version__ = "0.4.0"
+__version__ = "0.6.0"

@@ -1,5 +1,6 @@
 // The ADMM stage of the tube-constrained QCQP, per scenario, for Hopper
-// (sm_90a): four entry points over one iteration phase.
+// (sm_90a): four entry points over one iteration phase, and a second design
+// of the factored one (the cluster design, below).
 //
 //   admm_stage_fused_factored_launch  replaces the Pallas TPU kernel
 //       _kernel_fused_factored + _stage_core of the JAX package's
@@ -56,18 +57,58 @@
 // bound by the same re-reads.  Keeping them in shared memory, or applying
 // G^T in its factored form, is left for later.
 //
+// The factored entry point in a two-block cluster ("cluster" design, the
+// one admm_stage_fused_factored_launch takes wherever a block's share fits;
+// the body above, "stream", takes every other shape).  The same function in
+// another order:
+//   x = xq + rho W^-1 (G^T v)     in place of     xq + rho (W^-1 G^T) v,
+// with the dense W^-1 (nfd x nfd, 73 KB at nfd 135) formed once a scenario
+// by the block-Thomas sweeps above run on the nfd unit columns (not the m_p
+// lanes), so there is no m1 at all.  Each scenario is a cluster of two
+// blocks on neighbouring SMs; each block keeps, for all iterations, its half
+// of the lanes' columns of G^T (135 x 256 floats, 138 KB) in shared memory,
+// loaded once with cp.async, beside the whole W^-1 and its lanes' vectors.
+// The lanes split so that a ball triple stays in one block: block 0 holds
+// lanes j < ceil(nb_p / 2) of each of the three ball planes (and their rb[j])
+// and the first half of the final half-space plane, block 1 the rest
+// (cluster_lane_split in ops/admm_kernel.py is the same map).  An iteration:
+//   each block  g_c = G^T_c v_c  (its lanes' partial, nfd floats);
+//   cluster barrier; each block reads the other's partial through
+//   distributed shared memory and forms g = g_0 + g_1, so both hold the same
+//   bits; x = xq + rho W^-1 g (in both blocks, identically); y_c = G_c x + b;
+//   the projection and the z/u/v updates on its own lanes.
+// Each block stores its partial to its own and to the other block's shared
+// memory before the barrier, so that after it both read only their own.  The
+// partials are double-buffered, so one cluster barrier an iteration
+// suffices: a block writes buffer it & 1 only after the barrier of iteration
+// it - 1, which the other block passes only once it has read that buffer in
+// iteration it - 2.  prim and the dual matvec are combined the same way at
+// the end.  Each block forms half of W^-1's columns (four columns a thread,
+// the factor row broadcast) and stores them to both blocks' shared memory.
+// Device memory sees each input once (G^T's share with 16-byte cp.async
+// where its segments are aligned).  What bounds it: not the bytes, and not
+// shared-memory bandwidth (an iteration reads about 350 KB a block, some
+// 2.8k cycles at 128 B a cycle): measured with clock64 on an H100, an
+// iteration takes about 9k cycles, each of the three products about 2k
+// (instruction issue and latency at 16 warps an SM) and the cluster barrier
+// about 1.2k; forming W^-1 about 45k cycles a scenario.
+//
 // Determinism.  Every reduction has a fixed order (warp butterfly, then a
 // serial sum over a fixed number of partials; m1 = winv gt sums over the
-// columns of winv in order); there are no float atomics, so two runs on the
-// same inputs give the same bits.
+// columns of winv in order; the cluster's two partials are added as rank 0's
+// plus rank 1's); there are no float atomics, so two runs on the same inputs
+// give the same bits.
 //
 // Nothing here assumes m_p == 512 or a multiple of 15: m_p % 4 == 0 (float4
 // rows) is the only lane requirement, every loop strides by the block size,
 // and a final half-space plane (m_p > 3 nb_p) may be absent.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -669,6 +710,716 @@ admm_stage_iter_kernel(StageArgs a) {
   stage_finish(a, s, gt, S);
 }
 
+// ---------------------------------------------------------------------------
+// The cluster design of the factored entry point (see the top of the file).
+// ---------------------------------------------------------------------------
+
+constexpr int kCluster = 2;
+// row_dots: threads a row, float4 of the vector each thread keeps in
+// registers (so rows of up to 4 * KL * VMAX floats), and rows a thread sums
+// at once (loads of PG rows in flight together).
+constexpr int KL = 16;
+constexpr int VMAX = 5;
+constexpr int PG = 5;
+// col_dots: row groups, one lane each of an aligned group of eight; rows a
+// thread loads at once.
+constexpr int RG = 8;
+constexpr int CU = 4;
+
+// One block's share of the lanes: hb lanes j0 .. j0 + hb - 1 of each ball
+// plane, fb lanes f0 .. f0 + fb - 1 of the final plane; nl in all, in the
+// local order [ball-x | ball-y | ball-z | half].
+struct Split {
+  int hb, j0, fb, f0, nl;
+};
+
+__host__ __device__ inline Split split_of(int rank, int m_p, int nb_p) {
+  const int nh = m_p - 3 * nb_p;
+  Split q;
+  q.hb = rank == 0 ? (nb_p + 1) / 2 : nb_p / 2;
+  q.j0 = rank == 0 ? 0 : (nb_p + 1) / 2;
+  q.fb = rank == 0 ? (nh + 1) / 2 : nh / 2;
+  q.f0 = rank == 0 ? 0 : (nh + 1) / 2;
+  q.nl = 3 * q.hb + q.fb;
+  return q;
+}
+
+// Global lane of local lane l.
+__device__ __forceinline__ int lane_of(const Split& q, int l, int nb_p) {
+  if (l < 3 * q.hb) {
+    const int d = l / q.hb;
+    return d * nb_p + q.j0 + (l - d * q.hb);
+  }
+  return 3 * nb_p + q.f0 + (l - 3 * q.hb);
+}
+
+// Shared-memory layout of one block of the cluster design, in floats.  The
+// G^T region doubles, before G^T is complete, as the scratch of the W^-1
+// sweeps (the factors and two panels), placed at its end so that the rows
+// of G^T before it (r_pre of them) load while W^-1 forms.
+struct CLayout {
+  int winv, ldw, gts, ldl, scr, ncl, r_pre;
+  int b, z, zp, u, v, y, rb, xq, x, g, gpart, red, xch, total;
+};
+
+__host__ __device__ inline CLayout make_cluster_layout(int nfd, int m_p,
+                                                       int m_blk, int bsz,
+                                                       int nb_p) {
+  CLayout L;
+  const int bb = bsz * bsz;
+  const int nl = split_of(0, m_p, nb_p).nl;  // rank 0's share is the larger
+  L.ldw = round4(nfd);
+  // An odd number of float4 a row: the eight rows col_dots reads at once
+  // fall in eight different bank groups.
+  L.ldl = round4(nl);
+  if ((L.ldl / 4) % 2 == 0) L.ldl += 4;
+  L.ncl = round4((nfd + 1) / 2);
+  const int scr = round4(m_blk * bb) + 2 * round4((m_blk - 1) * bb) +
+                  2 * bsz * L.ncl;
+  int o = 0;
+  L.winv = o; o += nfd * L.ldw;
+  L.gts = o;
+  const int region = nfd * L.ldl > scr ? nfd * L.ldl : scr;
+  L.scr = o + region - scr;
+  L.r_pre = (L.scr - L.gts) / L.ldl;
+  if (L.r_pre > nfd) L.r_pre = nfd;
+  o += region;
+  L.b = o;     o += L.ldl;
+  L.z = o;     o += L.ldl;
+  L.zp = o;    o += L.ldl;
+  L.u = o;     o += L.ldl;
+  L.v = o;     o += L.ldl;
+  L.y = o;     o += L.ldl;
+  L.rb = o;    o += round4((nb_p + 1) / 2);
+  L.xq = o;    o += L.ldw;
+  L.x = o;     o += L.ldw;
+  L.g = o;     o += L.ldw;
+  L.gpart = o; o += 2 * kCluster * L.ldw;
+  L.red = o;   o += 32;
+  L.xch = o;   o += 4;
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n floats from global src to shared dst, 4 bytes a copy, left in flight.
+__device__ __forceinline__ void load_async(float* dst, const float* src,
+                                          int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, src + i);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Rows r0 .. r1-1 of this block's share of G^T, from global gt (nfd, m_p)
+// to shared gts (nfd, ldl), left in flight: 16 bytes a copy where the
+// share's four segments (three ball planes and the final plane) start and
+// end on 16-byte boundaries (nb_p and the halves multiples of 4), else 4.
+__device__ __forceinline__ void load_gt_rows(const float* gt, float* gts,
+                                             const Split& q, int r0, int r1,
+                                             int m_p, int nb_p, int ldl) {
+  if (nb_p % 4 == 0 && q.hb % 4 == 0 && q.j0 % 4 == 0 && q.fb % 4 == 0 &&
+      q.f0 % 4 == 0) {
+    const int hb4 = q.hb / 4, nl4 = q.nl / 4;
+    const int n = (r1 - r0) * nl4;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int r = r0 + i / nl4, l4 = i % nl4;
+      int src;
+      if (l4 < 3 * hb4) {
+        const int d = l4 / hb4;
+        src = d * nb_p + q.j0 + 4 * (l4 - d * hb4);
+      } else {
+        src = 3 * nb_p + q.f0 + 4 * (l4 - 3 * hb4);
+      }
+      cp_async16(gts + (size_t)r * ldl + 4 * l4, gt + (size_t)r * m_p + src);
+    }
+    return;
+  }
+  const int n = (r1 - r0) * q.nl;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = r0 + i / q.nl, l = i % q.nl;
+    cp_async4(gts + (size_t)r * ldl + l,
+              gt + (size_t)r * m_p + lane_of(q, l, nb_p));
+  }
+}
+
+// dst[r] = base[r] + scale * sum_c M[r, c] v[c] (the sum alone when base is
+// null) for r < rows, stored also to dst_r where that is not null (the other
+// block's copy); M (rows, ld) and v (n4 <= KL * NV float4, zero past the
+// row's end) in shared memory.  KL threads a row; each keeps its NV float4
+// of v in registers and sums PG rows at once, each row in the order j = 0,
+// 1, ... of its float4; butterfly over the KL.  The loads are predicated,
+// not branched around, so that the compiler can keep them in flight
+// together; a float4 past n4 reads as zero and adds an exact 0.
+template <int NV>
+__device__ __forceinline__ void row_dots_nv(const float* M, int ld,
+                                            const float* v, int n4, int rows,
+                                            float* dst, float* dst_r,
+                                            const float* base, float scale) {
+  const int k = threadIdx.x % KL, rg = threadIdx.x / KL;
+  const int nrg = blockDim.x / KL;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  const float4* M4 = reinterpret_cast<const float4*>(M);
+  const int ld4 = ld >> 2;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4 vr[NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c4 = k + KL * j;
+    vr[j] = c4 < n4 ? v4[c4] : zero;
+  }
+  for (int r0 = 0; r0 < rows; r0 += PG * nrg) {
+    float acc[PG];
+#pragma unroll
+    for (int p = 0; p < PG; ++p) acc[p] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c4 = k + KL * j;
+      float4 a[PG];
+#pragma unroll
+      for (int p = 0; p < PG; ++p) {
+        const int r = r0 + rg + p * nrg;
+        a[p] = (r < rows && c4 < n4) ? M4[(size_t)r * ld4 + c4] : zero;
+      }
+#pragma unroll
+      for (int p = 0; p < PG; ++p) {
+        acc[p] = fmaf(a[p].x, vr[j].x, acc[p]);
+        acc[p] = fmaf(a[p].y, vr[j].y, acc[p]);
+        acc[p] = fmaf(a[p].z, vr[j].z, acc[p]);
+        acc[p] = fmaf(a[p].w, vr[j].w, acc[p]);
+      }
+    }
+#pragma unroll
+    for (int o = KL / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int p = 0; p < PG; ++p)
+        acc[p] += __shfl_xor_sync(0xffffffffu, acc[p], o);
+    }
+    if (k == 0) {
+#pragma unroll
+      for (int p = 0; p < PG; ++p) {
+        const int r = r0 + rg + p * nrg;
+        if (r < rows) {
+          const float val = base ? base[r] + scale * acc[p] : acc[p];
+          dst[r] = val;
+          if (dst_r) dst_r[r] = val;
+        }
+      }
+    }
+  }
+}
+
+// row_dots_nv with the fewest float4 a thread that cover n4 (<= KL * VMAX).
+__device__ __forceinline__ void row_dots(const float* M, int ld,
+                                         const float* v, int n4, int rows,
+                                         float* dst, float* dst_r,
+                                         const float* base, float scale) {
+  if (n4 <= 3 * KL)
+    row_dots_nv<3>(M, ld, v, n4, rows, dst, dst_r, base, scale);
+  else if (n4 <= 4 * KL)
+    row_dots_nv<4>(M, ld, v, n4, rows, dst, dst_r, base, scale);
+  else
+    row_dots_nv<VMAX>(M, ld, v, n4, rows, dst, dst_r, base, scale);
+}
+
+// y[l] = b[l] + sum_r M[r, l] x[r] for the n4 float4 columns of M (rows,
+// ld) in shared memory: RG row groups (r = g, g + RG, ...), one lane each of
+// an aligned group of RG lanes, four neighbouring columns a thread;
+// butterfly over the group.
+__device__ void col_dots(const float* M, int ld, const float* x, int n4,
+                         int rows, const float* b, float* y) {
+  const int ld4 = ld >> 2;
+  const float4* M4 = reinterpret_cast<const float4*>(M);
+  const int total = n4 * RG;
+  for (int b0 = 0; b0 < total; b0 += blockDim.x) {
+    const int idx = b0 + threadIdx.x;
+    const int l4 = idx / RG, g = idx % RG;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (l4 < n4) {
+      int r = g;
+      for (; r + (CU - 1) * RG < rows; r += CU * RG) {
+        float4 a[CU];
+        float xr[CU];
+#pragma unroll
+        for (int i = 0; i < CU; ++i) {
+          a[i] = M4[(size_t)(r + i * RG) * ld4 + l4];
+          xr[i] = x[r + i * RG];
+        }
+#pragma unroll
+        for (int i = 0; i < CU; ++i) {
+          acc.x = fmaf(a[i].x, xr[i], acc.x);
+          acc.y = fmaf(a[i].y, xr[i], acc.y);
+          acc.z = fmaf(a[i].z, xr[i], acc.z);
+          acc.w = fmaf(a[i].w, xr[i], acc.w);
+        }
+      }
+      for (; r < rows; r += RG) {
+        const float4 a = M4[(size_t)r * ld4 + l4];
+        const float xr = x[r];
+        acc.x = fmaf(a.x, xr, acc.x);
+        acc.y = fmaf(a.y, xr, acc.y);
+        acc.z = fmaf(a.z, xr, acc.z);
+        acc.w = fmaf(a.w, xr, acc.w);
+      }
+    }
+#pragma unroll
+    for (int o = RG / 2; o > 0; o >>= 1) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+    }
+    if (l4 < n4 && g == 0) {
+      const float4 bb = reinterpret_cast<const float4*>(b)[l4];
+      reinterpret_cast<float4*>(y)[l4] = make_float4(
+          acc.x + bb.x, acc.y + bb.y, acc.z + bb.z, acc.w + bb.w);
+    }
+  }
+}
+
+__device__ __forceinline__ void put2(float* mine, float* theirs, int i,
+                                     float v) {
+  mine[i] = v;
+  theirs[i] = v;
+}
+
+// acc + sum_c F[c] X[c, 4 q .. 4 q + 3] for c = 0 .. bsz - 1 in order: a row
+// of a (bsz x bsz) factor (F, broadcast) against four neighbouring columns
+// of a (bsz, ncl) panel (X, float4 rows).
+__device__ __forceinline__ float4 quad_dot(const float* F, const float* X,
+                                           int ncl, int q, int bsz) {
+  const float4* X4 = reinterpret_cast<const float4*>(X);
+  const int ncl4 = ncl >> 2;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 5
+  for (int c = 0; c < bsz; ++c) {
+    const float f = F[c];
+    const float4 x = X4[c * ncl4 + q];
+    acc.x = fmaf(f, x.x, acc.x);
+    acc.y = fmaf(f, x.y, acc.y);
+    acc.z = fmaf(f, x.z, acc.z);
+    acc.w = fmaf(f, x.w, acc.w);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float comp(const float4& a, int t) {
+  return t == 0 ? a.x : t == 1 ? a.y : t == 2 ? a.z : a.w;
+}
+
+// W^-1 columns c0 .. c0 + nc - 1 (unit right-hand sides) by the sweeps of
+// m1_factored; a task is one row of a sweep step for four neighbouring
+// columns.  Each column is stored to this block's winv and to the other
+// block's (winv_r).  P and Q are (bsz, ncl) panels, ncl % 4 == 0; columns
+// past nc carry zeros.
+__device__ __forceinline__ void winv_columns(
+    float* winv, float* winv_r, int ldw, int c0, int nc, int ncl,
+    const float* sinv_s, const float* t_s, const float* tt_s, float* P,
+    float* Q, int m_blk, int bsz) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int bb = bsz * bsz;
+  const int nq = (nc + 3) / 4;
+  const int tasks = bsz * nq;
+  // y_0 = e_c restricted to block 0;  z_0 = S_0^-1 y_0
+  for (int i = tid; i < bsz * ncl; i += nt) {
+    const int r = i / ncl, cc = i - r * ncl;
+    P[i] = cc < nc && r == c0 + cc ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  // forward + diagonal: Q = e_c|block i - T_i P;  z_i = S_i^-1 Q.  The next
+  // T step reads Q (synchronised before the S step) and overwrites the old
+  // P, last read before that synchronisation; the last S step also keeps
+  // z_{m-1} in the free panel P for the backward sweep.
+  for (int blk = 0; blk < m_blk; ++blk) {
+    const float* si = sinv_s + blk * bb;
+    if (blk > 0) {
+      const float* ti = t_s + (blk - 1) * bb;
+      for (int i = tid; i < tasks; i += nt) {
+        const int r = i / nq, q = i - r * nq;
+        const float4 acc = quad_dot(ti + r * bsz, P, ncl, q, bsz);
+        float4 y;
+        const int col = c0 + 4 * q - (blk * bsz + r);
+        y.x = (col == 0 ? 1.0f : 0.0f) - acc.x;
+        y.y = (col == -1 ? 1.0f : 0.0f) - acc.y;
+        y.z = (col == -2 ? 1.0f : 0.0f) - acc.z;
+        y.w = (col == -3 ? 1.0f : 0.0f) - acc.w;
+        reinterpret_cast<float4*>(Q)[r * (ncl >> 2) + q] = y;
+      }
+      __syncthreads();
+      float* sw = P; P = Q; Q = sw;
+    }
+    // P holds y_blk; Q is free
+    const bool last = blk == m_blk - 1;
+    for (int i = tid; i < tasks; i += nt) {
+      const int r = i / nq, q = i - r * nq;
+      const float4 acc = quad_dot(si + r * bsz, P, ncl, q, bsz);
+      if (last) reinterpret_cast<float4*>(Q)[r * (ncl >> 2) + q] = acc;
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (4 * q + t < nc)
+          put2(winv, winv_r, (blk * bsz + r) * ldw + c0 + 4 * q + t,
+               comp(acc, t));
+    }
+    __syncthreads();
+  }
+  // backward: x_{m-1} = z_{m-1} (in Q);  x_i = z_i - T_{i+1}^T x_{i+1}
+  float* prev = Q;
+  float* cur = P;
+  for (int blk = m_blk - 2; blk >= 0; --blk) {
+    const float* tti = tt_s + blk * bb;
+    for (int i = tid; i < tasks; i += nt) {
+      const int r = i / nq, q = i - r * nq;
+      const float4 acc = quad_dot(tti + r * bsz, prev, ncl, q, bsz);
+      float4 x;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int at = (blk * bsz + r) * ldw + c0 + 4 * q + t;
+        const float xv = 4 * q + t < nc ? winv[at] - comp(acc, t) : 0.0f;
+        if (4 * q + t < nc) put2(winv, winv_r, at, xv);
+        (t == 0 ? x.x : t == 1 ? x.y : t == 2 ? x.z : x.w) = xv;
+      }
+      reinterpret_cast<float4*>(cur)[r * (ncl >> 2) + q] = x;
+    }
+    __syncthreads();
+    float* sw = prev; prev = cur; cur = sw;
+  }
+}
+
+// The projection and the z/u/v updates of one iteration on this block's
+// lanes (y in S.y); the arithmetic of stage_iterations.
+__device__ __forceinline__ void cluster_update(const StageArgs& a,
+                                               const Split& q, const Vecs& S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float alpha = a.alpha, one_m_alpha = 1.0f - a.alpha;
+  const int hb = q.hb;
+  for (int j = tid; j < hb; j += nt) {
+    const int lx = j, ly = hb + j, lz = 2 * hb + j;
+    const float yx = S.y[lx], yy = S.y[ly], yz = S.y[lz];
+    const float zx0 = S.z[lx], zy0 = S.z[ly], zz0 = S.z[lz];
+    const float rx = alpha * yx + one_m_alpha * zx0;
+    const float ry = alpha * yy + one_m_alpha * zy0;
+    const float rz = alpha * yz + one_m_alpha * zz0;
+    const float ux = S.u[lx], uy = S.u[ly], uz = S.u[lz];
+    const float wx = rx + ux, wy = ry + uy, wz = rz + uz;
+    float zx, zy, zz;
+    if (q.j0 + j < a.n_ball) {
+      const float sc = ball_scale(wx, wy, wz, S.rb[j]);
+      zx = wx * sc; zy = wy * sc; zz = wz * sc;
+    } else {
+      zx = fminf(wx, 0.0f); zy = fminf(wy, 0.0f); zz = fminf(wz, 0.0f);
+    }
+    const float nux = wx - zx, nuy = wy - zy, nuz = wz - zz;
+    S.zp[lx] = zx0; S.zp[ly] = zy0; S.zp[lz] = zz0;
+    S.z[lx] = zx; S.z[ly] = zy; S.z[lz] = zz;
+    S.u[lx] = nux; S.u[ly] = nuy; S.u[lz] = nuz;
+    S.v[lx] = zx - nux - S.b[lx];
+    S.v[ly] = zy - nuy - S.b[ly];
+    S.v[lz] = zz - nuz - S.b[lz];
+  }
+  for (int l = 3 * hb + tid; l < q.nl; l += nt) {
+    const float z0 = S.z[l];
+    const float w = (alpha * S.y[l] + one_m_alpha * z0) + S.u[l];
+    const float zl = fminf(w, 0.0f);
+    const float nu = w - zl;
+    S.zp[l] = z0; S.z[l] = zl; S.u[l] = nu;
+    S.v[l] = zl - nu - S.b[l];
+  }
+}
+
+// z/u from the warm start (init_z) or carried in, on this block's lanes, from
+// y = G x0 + b in S.y.
+__device__ __forceinline__ void cluster_init(const StageArgs& a, int s,
+                                             const Split& q, const Vecs& S) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int hb = q.hb, m_p = a.m_p, nb_p = a.nb_p;
+  for (int j = tid; j < hb; j += nt) {
+    const int lx = j, ly = hb + j, lz = 2 * hb + j;
+    const float yx = S.y[lx], yy = S.y[ly], yz = S.y[lz];
+    float zx, zy, zz, ux = 0.0f, uy = 0.0f, uz = 0.0f;
+    if (a.init_z) {
+      if (q.j0 + j < a.n_ball) {
+        const float sc = ball_scale(yx, yy, yz, S.rb[j]);
+        zx = yx * sc; zy = yy * sc; zz = yz * sc;
+      } else {
+        zx = fminf(yx, 0.0f); zy = fminf(yy, 0.0f); zz = fminf(yz, 0.0f);
+      }
+    } else {
+      const size_t o = (size_t)s * m_p + q.j0 + j;
+      zx = a.z0[o]; zy = a.z0[o + nb_p]; zz = a.z0[o + 2 * nb_p];
+      ux = a.u0[o]; uy = a.u0[o + nb_p]; uz = a.u0[o + 2 * nb_p];
+    }
+    S.z[lx] = zx; S.z[ly] = zy; S.z[lz] = zz;
+    S.zp[lx] = zx; S.zp[ly] = zy; S.zp[lz] = zz;
+    S.u[lx] = ux; S.u[ly] = uy; S.u[lz] = uz;
+    S.v[lx] = zx - ux - S.b[lx];
+    S.v[ly] = zy - uy - S.b[ly];
+    S.v[lz] = zz - uz - S.b[lz];
+  }
+  for (int l = 3 * hb + tid; l < q.nl; l += nt) {
+    float zl, ul = 0.0f;
+    if (a.init_z) {
+      zl = fminf(S.y[l], 0.0f);
+    } else {
+      const size_t o = (size_t)s * m_p + 3 * nb_p + q.f0 + (l - 3 * hb);
+      zl = a.z0[o];
+      ul = a.u0[o];
+    }
+    S.z[l] = zl; S.zp[l] = zl; S.u[l] = ul;
+    S.v[l] = zl - ul - S.b[l];
+  }
+}
+
+// Phase profile of the cluster design (stage_profile.py at the top of the
+// repository builds this source with -DADMM_STAGE_PROFILE): thread 0 of the
+// grid's first block adds the clock64 cycles since its last mark to
+// stage_prof[i] at mark i.  Without the macro the marks compile to nothing.
+#ifdef ADMM_STAGE_PROFILE
+__device__ unsigned long long stage_prof[16];
+#define PROF_START long long prof_last = clock64()
+#define PROF(i)                                                        \
+  do {                                                                 \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                         \
+      const long long c_ = clock64();                                  \
+      stage_prof[i] += (unsigned long long)(c_ - prof_last);           \
+      prof_last = c_;                                                  \
+    }                                                                  \
+  } while (0)
+#else
+#define PROF_START do {} while (0)
+#define PROF(i) do {} while (0)
+#endif
+
+// One scenario a cluster of kCluster blocks (blockIdx.x / 2), G^T stored.
+__global__ void __launch_bounds__(512, 1)
+admm_stage_cluster_kernel(StageArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  PROF_START;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int other = rank ^ 1;
+  const int s = blockIdx.x / kCluster;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p, nb_p = a.nb_p;
+  const int m_blk = a.m_blk, bsz = a.bsz, bb = bsz * bsz;
+  const CLayout L = make_cluster_layout(nfd, m_p, m_blk, bsz, nb_p);
+  const Split q = split_of(rank, m_p, nb_p);
+  const int nl = q.nl, ldl = L.ldl, ldw = L.ldw, n4 = (nl + 3) / 4;
+  Vecs S;
+  S.b = smem + L.b;   S.rb = smem + L.rb; S.z = smem + L.z;
+  S.zp = smem + L.zp; S.u = smem + L.u;   S.v = smem + L.v;
+  S.y = smem + L.y;   S.xq = smem + L.xq; S.x = smem + L.x;
+  S.tmp = smem + L.g; S.part = smem + L.gpart; S.red = smem + L.red;
+  float* winv = smem + L.winv;
+  float* gts = smem + L.gts;
+  float* xch = smem + L.xch;
+  const float* gt = a.gt + (size_t)s * nfd * m_p;
+
+  // ---- copies in flight: the factors and vectors (group 1), then the rows
+  // of G^T before the scratch (group 2) --------------------------------------
+  float* sinv_s = smem + L.scr;
+  float* t_s = sinv_s + round4(m_blk * bb);
+  float* tt_s = t_s + round4((m_blk - 1) * bb);
+  float* P = tt_s + round4((m_blk - 1) * bb);
+  float* Q = P + bsz * L.ncl;
+  load_async(sinv_s, a.sinv + (size_t)s * m_blk * bb, m_blk * bb);
+  load_async(t_s, a.t + (size_t)s * (m_blk - 1) * bb, (m_blk - 1) * bb);
+  load_async(tt_s, a.tt + (size_t)s * (m_blk - 1) * bb, (m_blk - 1) * bb);
+  load_async(S.xq, a.xq + (size_t)s * nfd, nfd);
+  load_async(S.x, a.x0 + (size_t)s * nfd, nfd);
+  load_async(S.rb, a.rb + (size_t)s * nb_p + q.j0, q.hb);
+  for (int l = tid; l < nl; l += nt)
+    cp_async4(S.b + l, a.b + (size_t)s * m_p + lane_of(q, l, nb_p));
+  cp_async_commit();
+  load_gt_rows(gt, gts, q, 0, L.r_pre, m_p, nb_p, ldl);
+  cp_async_commit();
+
+  // ---- zero padding ---------------------------------------------------------
+  for (int i = tid; i < nfd * (ldw - nfd); i += nt) {
+    const int r = i / (ldw - nfd);
+    winv[r * ldw + nfd + (i - r * (ldw - nfd))] = 0.0f;
+  }
+  for (int l = tid; l < ldl; l += nt) {
+    if (l >= nl) S.b[l] = 0.0f;
+    S.z[l] = 0.0f; S.zp[l] = 0.0f; S.u[l] = 0.0f; S.v[l] = 0.0f;
+    S.y[l] = 0.0f;
+  }
+  for (int r = nfd + tid; r < ldw; r += nt) {
+    S.xq[r] = 0.0f; S.x[r] = 0.0f;
+  }
+  for (int r = tid; r < ldw; r += nt) S.tmp[r] = 0.0f;
+  const float rho = a.rho[s];
+  cp_async_wait<1>();
+  // Both blocks have started (the other's shared memory is written next)
+  // and this block's copies of group 1 are visible to all its threads.
+  cluster.sync();
+  PROF(0);
+
+  // ---- W^-1: half of its columns here, stored to both blocks --------------
+  const int half = (nfd + 1) / 2;
+  winv_columns(winv, cluster.map_shared_rank(winv, other), ldw,
+               rank == 0 ? 0 : half, rank == 0 ? half : nfd - half, L.ncl,
+               sinv_s, t_s, tt_s, P, Q, m_blk, bsz);
+  cluster.sync();
+  PROF(1);
+
+  // ---- the rest of G^T over the scratch -------------------------------------
+  load_gt_rows(gt, gts, q, L.r_pre, nfd, m_p, nb_p, ldl);
+  cp_async_commit();
+  for (int i = tid; i < nfd * (4 * n4 - nl); i += nt) {
+    const int r = i / (4 * n4 - nl);
+    gts[(size_t)r * ldl + nl + (i - r * (4 * n4 - nl))] = 0.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  PROF(2);
+
+  // ---- y = G x0 + b; z, u ---------------------------------------------------
+  col_dots(gts, ldl, S.x, n4, nfd, S.b, S.y);
+  __syncthreads();
+  cluster_init(a, s, q, S);
+  __syncthreads();
+  PROF(3);
+
+  // ---- the iterations -------------------------------------------------------
+  // part[(buf * kCluster + rank) * ldw + r]: rank's partial of buffer buf,
+  // stored by its block to its own and to the other block's shared memory
+  // before the barrier; after it each block reads both from its own.
+  float* part_r = cluster.map_shared_rank(S.part, other);
+  for (int it = 0; it < a.n_iters; ++it) {
+    const int buf = (it & 1) * kCluster * ldw;
+    row_dots(gts, ldl, S.v, n4, nfd, S.part + buf + rank * ldw,
+             part_r + buf + rank * ldw, nullptr, 0.0f);
+    PROF(4);
+    cluster.sync();
+    PROF(5);
+    for (int r = tid; r < nfd; r += nt)
+      S.tmp[r] = S.part[buf + r] + S.part[buf + ldw + r];
+    __syncthreads();
+    PROF(6);
+    row_dots(winv, ldw, S.tmp, ldw / 4, nfd, S.x, nullptr, S.xq, rho);
+    __syncthreads();
+    PROF(7);
+    col_dots(gts, ldl, S.x, n4, nfd, S.b, S.y);
+    __syncthreads();
+    PROF(8);
+    cluster_update(a, q, S);
+    __syncthreads();
+    PROF(9);
+  }
+
+  // ---- residuals and outputs ------------------------------------------------
+  float pmax = 0.0f;
+  for (int l = tid; l < nl; l += nt) {
+    pmax = fmaxf(pmax, fabsf(S.y[l] - S.z[l]));
+    S.v[l] = S.z[l] - S.zp[l];
+  }
+  __syncthreads();
+  // the other buffer than the last iteration's: see the top of the file
+  const int dbuf = (a.n_iters & 1) * kCluster * ldw;
+  row_dots(gts, ldl, S.v, n4, nfd, S.part + dbuf + rank * ldw,
+           part_r + dbuf + rank * ldw, nullptr, 0.0f);
+  pmax = block_max(pmax, S.red);
+  if (tid == 0) {
+    xch[rank] = pmax;
+    *cluster.map_shared_rank(xch + rank, other) = pmax;
+  }
+  cluster.sync();
+  float dmax = 0.0f;
+  for (int r = tid; r < nfd; r += nt)
+    dmax = fmaxf(dmax, fabsf(S.part[dbuf + r] + S.part[dbuf + ldw + r]));
+  dmax = block_max(dmax, S.red);
+  if (rank == 0) {
+    if (tid == 0) {
+      a.prim[s] = a.n_iters > 0 ? fmaxf(xch[0], xch[1]) : CUDART_INF_F;
+      a.dual[s] = dmax;
+    }
+    for (int r = tid; r < nfd; r += nt) a.x[(size_t)s * nfd + r] = S.x[r];
+  }
+  for (int l = tid; l < nl; l += nt) {
+    const size_t o = (size_t)s * m_p + lane_of(q, l, nb_p);
+    a.z[o] = S.z[l];
+    a.zp[o] = S.zp[l];
+    a.u[o] = S.u[l];
+    a.y[o] = S.y[l];
+  }
+  // No block leaves while the other may still address its shared memory.
+  cluster.sync();
+  PROF(10);
+}
+
+size_t cluster_smem_of(int nfd, int m_p, int m_blk, int bsz, int nb_p) {
+  return (size_t)make_cluster_layout(nfd, m_p, m_blk, bsz, nb_p).total *
+         sizeof(float);
+}
+
+// Whether a block's share of the factored stage fits the cluster design on
+// the current device: its shared memory, and rows of G^T's share and of W^-1
+// short enough for row_dots' registers.
+bool cluster_fits(int nfd, int m_p, int m_blk, int bsz, int nb_p,
+                  int threads) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return false;
+  const int n4 = (split_of(0, m_p, nb_p).nl + 3) / 4;
+  return cluster_smem_of(nfd, m_p, m_blk, bsz, nb_p) <= (size_t)optin &&
+         n4 <= KL * VMAX && round4(nfd) / 4 <= KL * VMAX && threads <= 512 &&
+         threads % KL == 0;
+}
+
+cudaLaunchConfig_t cluster_config(int batch, int threads, size_t smem,
+                                  void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * batch, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+cudaError_t launch_cluster(const StageArgs& a, int batch, int threads,
+                           void* stream) {
+  const size_t smem =
+      cluster_smem_of(a.nfd, a.m_p, a.m_blk, a.bsz, a.nb_p);
+  cudaError_t e = cudaFuncSetAttribute(
+      admm_stage_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(batch, threads, smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, admm_stage_cluster_kernel, a);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 int row_groups(int threads, int m_p) {
   int g = threads / (m_p / 4);
   if (g < 1) g = 1;
@@ -720,8 +1471,40 @@ extern "C" int admm_stage_iter_smem_bytes(int nfd, int m_p, int nb_p,
   return (int)smem_of(kGiven, nfd, m_p, 0, 0, nb_p, threads);
 }
 
-// Launches one stage for `batch` scenarios on `stream`.  Returns the CUDA
-// error code of the launch (0 on success); does not synchronise.
+// The design the factored entry point takes at these shapes on the current
+// device: 1 the cluster design (no m1), 0 the stream design (m1 scratch).
+extern "C" int admm_stage_factored_design(int nfd, int m_p, int m_blk,
+                                          int bsz, int nb_p, int threads) {
+  return cluster_fits(nfd, m_p, m_blk, bsz, nb_p, threads) ? 1 : 0;
+}
+
+// Dynamic shared memory, in bytes, of one block of the cluster design.
+extern "C" int admm_stage_cluster_smem_bytes(int nfd, int m_p, int m_blk,
+                                             int bsz, int nb_p) {
+  return (int)cluster_smem_of(nfd, m_p, m_blk, bsz, nb_p);
+}
+
+// How many clusters of the cluster design the device holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
+extern "C" int admm_stage_cluster_occupancy(int nfd, int m_p, int m_blk,
+                                            int bsz, int nb_p, int threads) {
+  const size_t smem = cluster_smem_of(nfd, m_p, m_blk, bsz, nb_p);
+  cudaError_t e = cudaFuncSetAttribute(
+      admm_stage_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(1, threads, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, admm_stage_cluster_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launches one stage for `batch` scenarios on `stream`, in the design
+// admm_stage_factored_design names (m1 is read only by the stream design
+// and may be null for the cluster one).  Returns the CUDA error code of the
+// launch (0 on success); does not synchronise.
 extern "C" int admm_stage_fused_factored_launch(
     const float* rho, const float* sinv, const float* t, const float* tt,
     const float* gt, const float* b, const float* rb, const float* xq,
@@ -741,6 +1524,9 @@ extern "C" int admm_stage_fused_factored_launch(
   a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
+  if (cluster_fits(nfd, m_p, m_blk, bsz, nb_p, threads))
+    return (int)launch_cluster(a, batch, threads, stream);
+  if (m1 == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch(admm_stage_fused_factored_kernel, a, batch, threads,
                      smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads),
                      stream);
@@ -820,3 +1606,15 @@ extern "C" int admm_stage_launch(
   return (int)launch(admm_stage_iter_kernel, a, batch, threads,
                      smem_of(kGiven, nfd, m_p, 0, 0, nb_p, threads), stream);
 }
+
+#ifdef ADMM_STAGE_PROFILE
+// The phase profile's sums (16 counters), and their reset.
+extern "C" int admm_stage_profile_read(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, stage_prof, sizeof(stage_prof));
+}
+
+extern "C" int admm_stage_profile_clear() {
+  const unsigned long long zero[16] = {0};
+  return (int)cudaMemcpyToSymbol(stage_prof, zero, sizeof(zero));
+}
+#endif

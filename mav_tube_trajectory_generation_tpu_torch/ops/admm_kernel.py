@@ -35,21 +35,33 @@ half-space rows follow in a final plane, which may be absent
 (``solver.qcqp._PadLayout``).
 
 The kernels are ``csrc/admm_stage.cu`` (four entry points over one
-iteration phase) and ``csrc/gram_band.cu`` (three entry points), CUDA C++
-for sm_90a, one thread block per scenario.  The ew entry points read each
-G^T entry as the rounded float32 product of its two factor entries and do
-the arithmetic of the others on it, so they give the bits of
-``admm_stage_fused_factored`` / ``gram_band_factors`` on the expanded G^T.  What bounds the stage on an H100:
-per scenario it does 2 * n_iters matvecs against (nfd, m_p) matrices plus the
-m1 formation -- about 19 MFLOP at n_iters = 48 with the factors, 32 with the
-dense inverse -- on 0.29-0.36 MB of inputs, so by each input read once it is
-bound by float32 arithmetic.  But G^T and m1 together are 0.54 MB a
-scenario, more than the 227 KB of shared memory a block can have, so m1 is
-written once to a scratch tensor and both matrices are re-read from L2 /
-device memory in every iteration (about 26 MB a scenario): as built it is
-bound by those bytes.  The vectors and the factors or the dense inverse stay
-in shared memory.  The Gram band reads G^T once; what bounds it is stated in
-its source.
+iteration phase, and a second design of the factored one) and
+``csrc/gram_band.cu`` (three entry points), CUDA C++ for sm_90a.  What
+bounds the stage on an H100: per scenario it does 2 * n_iters matvecs
+against (nfd, m_p) matrices plus the m1 formation -- about 19 MFLOP at
+n_iters = 48 with the factors, 32 with the dense inverse -- on 0.29-0.36 MB
+of inputs, so by each input read once it is bound by float32 arithmetic.
+
+* ``admm_stage_fused_factored`` runs, wherever a block's share fits
+  (``factored_design``, the flagship and the K=4 shapes among them), in a
+  cluster of two thread blocks a scenario: x = xq + rho W^-1 (G^T v) with
+  the dense W^-1 formed once from the factors, no m1, each block keeping its
+  half of the lanes' G^T columns (``cluster_lane_split``) and W^-1 in shared
+  memory for all iterations and exchanging one nfd-vector an iteration
+  through distributed shared memory.  It reads each input from device
+  memory once; what bounds it is stated in its source.
+  ``admm_stage_fused_factored_winv_plain`` is the same order in plain
+  PyTorch.
+* Its other shapes, and the other stage entry points, run one block a
+  scenario ("stream"): G^T and m1 together are 0.54 MB a scenario, more than
+  a block's 227 KB of shared memory, so m1 is written once to a scratch
+  tensor and both are re-read from L2 / device memory in every iteration
+  (about 26 MB a scenario), which bounds them.  The ew entry points read
+  each G^T entry as the rounded float32 product of its two factor entries
+  and do the arithmetic of the stream design on it, so they give the bits of
+  ``gram_band_factors`` and of the stream design on the expanded G^T.
+
+The Gram band reads G^T once; what bounds it is stated in its source.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version only for CPU tensors; it never falls back from one to the other.
@@ -81,6 +93,8 @@ THREADS = 512
 GRAM_THREADS = 256
 
 _configured = set()
+# factored_design's answers, by (device, shapes).
+_designs: Dict[tuple, str] = {}
 
 StageOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor, torch.Tensor]
@@ -115,13 +129,15 @@ def _project(w: torch.Tensor, rb: torch.Tensor, nb_p: int, n_ball: int
     return torch.cat(parts, dim=2)
 
 
-def _iterate_plain(rho, m1, gt, b, rb, xq, x, z, zp, u, prim, y, *,
+def _iterate_plain(rho, solve, gt, b, rb, xq, x, z, zp, u, prim, y, *,
                    n_iters: int, alpha: float, nb_p: int, n_ball: int):
     """The iteration phase every stage shares: ``n_iters`` over-relaxed ADMM
-    steps from (x, z, z_prev, u, prim, y); returns the six after them."""
+    steps from (x, z, z_prev, u, prim, y); returns the six after them.
+    ``solve(v)`` is W^-1 G^T v (B, nfd, 1) for v (B, 1, m_p), in the order
+    of the stage at hand."""
     for _ in range(n_iters):
         v = z - u - b                                     # (B, 1, m_p)
-        x = xq + rho * (m1 @ v.transpose(1, 2))           # (B, nfd, 1)
+        x = xq + rho * solve(v)                           # (B, nfd, 1)
         y = x.transpose(1, 2) @ gt + b
         y_rel = alpha * y + (1.0 - alpha) * z
         z_new = _project(y_rel + u, rb, nb_p, n_ball)
@@ -131,10 +147,16 @@ def _iterate_plain(rho, m1, gt, b, rb, xq, x, z, zp, u, prim, y, *,
     return x, z, zp, u, prim, y
 
 
-def _stage_core_plain(rho, m1, gt, b, rb, xq, x0, z0, u0, *, n_iters: int,
+def _with_m1(m1):
+    """``solve`` for ``_iterate_plain`` from m1 = W^-1 G^T: (m1 v)."""
+    return lambda v: m1 @ v.transpose(1, 2)
+
+
+def _stage_core_plain(rho, solve, gt, b, rb, xq, x0, z0, u0, *, n_iters: int,
                       alpha: float, nb_p: int, n_ball: int, init_z: bool
                       ) -> StageOut:
-    """Phases 2-4 of a fused stage from its m1 (the JAX ``_stage_core``)."""
+    """Phases 2-4 of a fused stage (the JAX ``_stage_core``), W^-1 G^T
+    applied by ``solve`` (``_iterate_plain``)."""
     y = x0.transpose(1, 2) @ gt + b                       # (B, 1, m_p)
     if init_z:
         z = _project(y, rb, nb_p, n_ball)
@@ -143,7 +165,7 @@ def _stage_core_plain(rho, m1, gt, b, rb, xq, x0, z0, u0, *, n_iters: int,
         z, u = z0, u0
     prim = torch.full_like(rho, float("inf"))
     x, z, zp, u, prim, y = _iterate_plain(
-        rho, m1, gt, b, rb, xq, x0, z, z, u, prim, y, n_iters=n_iters,
+        rho, solve, gt, b, rb, xq, x0, z, z, u, prim, y, n_iters=n_iters,
         alpha=alpha, nb_p=nb_p, n_ball=n_ball)
     gdz = gt @ (z - zp).transpose(1, 2)                   # (B, nfd, 1)
     dual = gdz.abs().amax(dim=1, keepdim=True)            # (B, 1, 1)
@@ -162,13 +184,21 @@ def admm_stage_fused_factored_plain(
     ``admm_stage_fused_factored``."""
     if n_ball < 0:
         n_ball = nb_p
-    m_blk, bsz = sinv.shape[1], sinv.shape[-1]
+    m1 = factored_solve(sinv, t, tt, gt)                  # (B, nfd, m_p)
+    return _stage_core_plain(rho, _with_m1(m1), gt, b, rb, xq, x0, z0, u0,
+                             n_iters=n_iters, alpha=alpha, nb_p=nb_p,
+                             n_ball=n_ball, init_z=init_z)
 
-    # m1 = W^-1 G^T: forward (I+L) y = G^T, diagonal z = S^-1 y, backward
-    # (I+L)^T x = z, block row by block row.
+
+def factored_solve(sinv: torch.Tensor, t: torch.Tensor, tt: torch.Tensor,
+                   rhs: torch.Tensor) -> torch.Tensor:
+    """W^-1 rhs (B, nfd, k) by block-Thomas sweeps over W's block-LDL^T
+    factors: forward (I+L) y = rhs, diagonal z = S^-1 y, backward (I+L)^T x
+    = z, block row by block row (the kernels' phase 1)."""
+    m_blk, bsz = sinv.shape[1], sinv.shape[-1]
     y_p = []
     for i in range(m_blk):
-        r_i = gt[:, i * bsz:(i + 1) * bsz, :]
+        r_i = rhs[:, i * bsz:(i + 1) * bsz, :]
         if i:
             r_i = r_i - t[:, i - 1] @ y_p[i - 1]
         y_p.append(r_i)
@@ -177,11 +207,54 @@ def admm_stage_fused_factored_plain(
     x_p[m_blk - 1] = z_p[m_blk - 1]
     for i in range(m_blk - 2, -1, -1):
         x_p[i] = z_p[i] - tt[:, i] @ x_p[i + 1]
-    m1 = torch.cat(x_p, dim=1)                            # (B, nfd, m_p)
-    del y_p, z_p, x_p
-    return _stage_core_plain(rho, m1, gt, b, rb, xq, x0, z0, u0,
-                             n_iters=n_iters, alpha=alpha, nb_p=nb_p,
-                             n_ball=n_ball, init_z=init_z)
+    return torch.cat(x_p, dim=1)
+
+
+def admm_stage_fused_factored_winv_plain(
+        rho: torch.Tensor, sinv: torch.Tensor, t: torch.Tensor,
+        tt: torch.Tensor, gt: torch.Tensor, b: torch.Tensor,
+        rb: torch.Tensor, xq: torch.Tensor, x0: torch.Tensor,
+        z0: Optional[torch.Tensor] = None, u0: Optional[torch.Tensor] = None,
+        *, n_iters: int, alpha: float, nb_p: int, n_ball: int = -1,
+        init_z: bool = True) -> StageOut:
+    """``admm_stage_fused_factored`` in plain PyTorch in the order of its
+    cluster design: the dense W^-1 formed once from the factors (the sweeps
+    on the identity), then x = xq + rho W^-1 (G^T v) each iteration, in
+    place of xq + rho (W^-1 G^T) v.  The same function; any float dtype, any
+    device.  The wrapper's plain version stays the reference order
+    (``admm_stage_fused_factored_plain``); this one is the float32 yardstick
+    of the cluster design's rounding."""
+    if n_ball < 0:
+        n_ball = nb_p
+    nfd = gt.shape[1]
+    eye = torch.eye(nfd, dtype=gt.dtype, device=gt.device).expand(
+        gt.shape[0], nfd, nfd)
+    winv = factored_solve(sinv, t, tt, eye)               # (B, nfd, nfd)
+    return _stage_core_plain(
+        rho, lambda v: winv @ (gt @ v.transpose(1, 2)), gt, b, rb, xq, x0,
+        z0, u0, n_iters=n_iters, alpha=alpha, nb_p=nb_p, n_ball=n_ball,
+        init_z=init_z)
+
+
+def cluster_lane_split(m_p: int, nb_p: int):
+    """The lanes of each block of the cluster design (``csrc/admm_stage.cu``
+    ``split_of``): [(lanes, balls)] for ranks 0 and 1, ``lanes`` the global
+    lanes in the block's local order [ball-x | ball-y | ball-z | half] and
+    ``balls`` the ball-plane indices j (with their rb[j]) it holds.  Rank 0
+    takes the first ceil(nb_p / 2) of each ball plane and the first half
+    (rounded up) of the final plane, rank 1 the rest, so that a ball triple
+    (j, nb_p + j, 2 nb_p + j) lives in one block."""
+    nh = m_p - 3 * nb_p
+    out = []
+    for rank in (0, 1):
+        hb = (nb_p + 1) // 2 if rank == 0 else nb_p // 2
+        j0 = 0 if rank == 0 else (nb_p + 1) // 2
+        fb = (nh + 1) // 2 if rank == 0 else nh // 2
+        f0 = 0 if rank == 0 else (nh + 1) // 2
+        lanes = [d * nb_p + j0 + j for d in range(3) for j in range(hb)]
+        lanes += [3 * nb_p + f0 + k for k in range(fb)]
+        out.append((lanes, range(j0, j0 + hb)))
+    return out
 
 
 def expand_gt(e: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -218,8 +291,8 @@ def admm_stage_fused_plain(
     """``admm_stage_fused`` in plain PyTorch; any float dtype, any device."""
     if n_ball < 0:
         n_ball = nb_p
-    return _stage_core_plain(rho, winv @ gt, gt, b, rb, xq, x0, z0, u0,
-                             n_iters=n_iters, alpha=alpha, nb_p=nb_p,
+    return _stage_core_plain(rho, _with_m1(winv @ gt), gt, b, rb, xq, x0, z0,
+                             u0, n_iters=n_iters, alpha=alpha, nb_p=nb_p,
                              n_ball=n_ball, init_z=init_z)
 
 
@@ -232,8 +305,8 @@ def admm_stage_plain(rho: torch.Tensor, m1: torch.Tensor, gt: torch.Tensor,
         n_ball = nb_p
     prim = torch.full_like(rho, float("inf"))
     x, z, zp, u, prim, _ = _iterate_plain(
-        rho, m1, gt, b, rb, xq, xq, z0, z0, u0, prim, None, n_iters=n_iters,
-        alpha=alpha, nb_p=nb_p, n_ball=n_ball)
+        rho, _with_m1(m1), gt, b, rb, xq, xq, z0, z0, u0, prim, None,
+        n_iters=n_iters, alpha=alpha, nb_p=nb_p, n_ball=n_ball)
     return x, z, zp, u, prim
 
 
@@ -290,11 +363,16 @@ def _library(name: str) -> ctypes.CDLL:
         lib.admm_stage_smem_bytes.argtypes = [i32] * 6
         lib.admm_stage_fused_smem_bytes.argtypes = [i32] * 4
         lib.admm_stage_iter_smem_bytes.argtypes = [i32] * 4
+        lib.admm_stage_factored_design.argtypes = [i32] * 6
+        lib.admm_stage_cluster_smem_bytes.argtypes = [i32] * 5
+        lib.admm_stage_cluster_occupancy.argtypes = [i32] * 6
         for fn in ("admm_stage_fused_factored_launch",
                    "admm_stage_fused_factored_ew_launch",
                    "admm_stage_fused_launch", "admm_stage_launch",
                    "admm_stage_smem_bytes", "admm_stage_fused_smem_bytes",
-                   "admm_stage_iter_smem_bytes"):
+                   "admm_stage_iter_smem_bytes", "admm_stage_factored_design",
+                   "admm_stage_cluster_smem_bytes",
+                   "admm_stage_cluster_occupancy"):
             getattr(lib, fn).restype = i32
     else:
         lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
@@ -310,16 +388,50 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def factored_design(nfd: int, m_p: int, m_blk: int, bsz: int,
+                    nb_p: int) -> str:
+    """The design ``admm_stage_fused_factored`` launches at these shapes on
+    the current CUDA device: "cluster" (two blocks a scenario, G^T's halves
+    and W^-1 in their shared memory, no m1) wherever a block's share fits,
+    else "stream" (one block a scenario, m1 in a scratch tensor).  A choice
+    by shape between two kernels; builds the library if needed."""
+    key = (torch.cuda.current_device(), nfd, m_p, m_blk, bsz, nb_p)
+    if key not in _designs:
+        lib = _library("admm_stage")
+        _designs[key] = ("cluster" if lib.admm_stage_factored_design(
+            nfd, m_p, m_blk, bsz, nb_p, THREADS) else "stream")
+    return _designs[key]
+
+
+def cluster_occupancy(nfd: int, m_p: int, m_blk: int, bsz: int,
+                      nb_p: int) -> int:
+    """Clusters of the cluster design the current device holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    n = int(_library("admm_stage").admm_stage_cluster_occupancy(
+        nfd, m_p, m_blk, bsz, nb_p, THREADS))
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA "
+                           f"error {-n}")
+    return n
+
+
 def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
                kind: str = "admm_stage_fused_factored") -> int:
     """Dynamic shared memory one block of a kernel of this module takes at
     these shapes (builds the library if needed).  ``kind``: a key of
-    ``launches``; ``m_blk`` and ``bsz`` are read by the factored stages only,
+    ``launches`` (``admm_stage_fused_factored``: of the design it takes
+    there, ``factored_design``) or "cluster" / "stream" for either design
+    of it; ``m_blk`` and ``bsz`` are read by the factored stages only,
     ``bsz`` (the band block) by the Gram-band kernels."""
     if kind.startswith("gram_band"):
         return int(_library("gram_band").gram_band_smem_bytes(m_p, bsz))
     lib = _library("admm_stage")
-    if kind.startswith("admm_stage_fused_factored"):
+    if kind == "admm_stage_fused_factored":
+        kind = factored_design(nfd, m_p, m_blk, bsz, nb_p)
+    if kind == "cluster":
+        return int(lib.admm_stage_cluster_smem_bytes(nfd, m_p, m_blk, bsz,
+                                                     nb_p))
+    if kind in ("stream", "admm_stage_fused_factored_ew"):
         return int(lib.admm_stage_smem_bytes(nfd, m_p, m_blk, bsz, nb_p,
                                              THREADS))
     fn = (lib.admm_stage_fused_smem_bytes if kind == "admm_stage_fused"
@@ -428,8 +540,10 @@ def admm_stage_fused_factored(
     dual_matvec_max (B, 1, 1) -- multiply by rho for the dual residual --,
     y (B, 1, m_p) = G x + b).
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``factored_design`` names for these shapes; CPU tensors through the
+    plain version (the reference order).  Anything the kernel does not take
+    raises.
     """
     if n_ball < 0:
         n_ball = nb_p
@@ -456,13 +570,15 @@ def admm_stage_fused_factored(
                          nb_p, dev)
 
     lib = _library("admm_stage")
-    # Scratch for W^-1 G^T.  It is released when this function returns, while
-    # the kernel may still run: safe, because PyTorch's allocator hands the
-    # block out again only to work queued later on the same stream.
-    m1 = torch.empty_like(gt)
     x, (z, zp, u, y), (prim, dual) = _stage_outputs(bsz_b, nfd, m_p, dev,
                                                     True)
     with torch.cuda.device(dev):
+        # Scratch for W^-1 G^T, on the stream design only.  It is released
+        # when this function returns, while the kernel may still run: safe,
+        # because PyTorch's allocator hands the block out again only to work
+        # queued later on the same stream.
+        m1 = (None if factored_design(nfd, m_p, m_blk, bsz, nb_p) == "cluster"
+              else torch.empty_like(gt))
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.admm_stage_fused_factored_launch(
             rho.data_ptr(), sinv.data_ptr(), t.data_ptr(), tt.data_ptr(),
@@ -470,7 +586,8 @@ def admm_stage_fused_factored(
             x0.data_ptr(),
             None if init_z else z0.data_ptr(),
             None if init_z else u0.data_ptr(),
-            m1.data_ptr(), x.data_ptr(), z.data_ptr(), zp.data_ptr(),
+            None if m1 is None else m1.data_ptr(), x.data_ptr(),
+            z.data_ptr(), zp.data_ptr(),
             u.data_ptr(), prim.data_ptr(), dual.data_ptr(), y.data_ptr(),
             bsz_b, nfd, m_p, m_blk, bsz, nb_p, n_ball, int(n_iters),
             float(alpha), int(bool(init_z)), THREADS, stream)

@@ -29,8 +29,10 @@ m_p)``, lane rows ``(B, 1, m_p)``, columns ``(B, nfd, 1)``.
 
 The kernels are ``csrc/gt_matvec.cu``, ``csrc/ipm_eval.cu``,
 ``csrc/ipm_pipe.cu`` and ``csrc/ipm_solve.cu`` (CUDA C++, sm_90a, one thread
-block per scenario, the shared device code in ``csrc/ipm_common.cuh``).  What bounds them on an H100
-is stated at the top of each source.
+block per scenario but for ``gt_matvec``, which splits a scenario's lanes
+over ``matvec_chunk`` blocks; the shared device code in
+``csrc/ipm_common.cuh``).  What bounds them on an H100 is stated at the top
+of each source.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version only for CPU tensors; it never falls back from one to the other.
@@ -54,11 +56,19 @@ launches: Dict[str, int] = {"gt_matvec": 0, "ipm_eval_step": 0,
 # Threads per block (one block per scenario).
 THREADS = 512
 
+# Float4 columns of G^T one block of ``gt_matvec`` covers, largest first.
+MATVEC_CHUNKS = (32, 16, 8)
+# Blocks per SM ``matvec_chunk`` asks of the grid before it takes a larger
+# chunk.
+MATVEC_BLOCKS_PER_SM = 2
+
 MODES = ("none", "newton", "snap")
 # Step lengths the snap line search tries, in this order.
 SNAP_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003)
 
 _configured: Dict[str, bool] = {}
+# SM count of each CUDA device a wrapper has run on.
+_SMS: Dict[torch.device, int] = {}
 
 
 # ----------------------------------------------------------------------------
@@ -588,10 +598,29 @@ def _check_layout(gt, nb_p: int, n_ball: int, blk: int = 0):
     return bsz, nfd, m_p
 
 
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev)
+    if n is None:
+        n = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
 def _raise_on(err: int, what: str, **shapes) -> None:
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error "
                            f"{err} ({shapes})")
+
+
+def matvec_chunk(batch: int, m_p: int, sms: int) -> int:
+    """Float4 columns a block of ``gt_matvec`` covers at this batch: the
+    largest of ``MATVEC_CHUNKS`` that still gives the card ``sms`` SMs
+    ``MATVEC_BLOCKS_PER_SM`` blocks each, else the smallest."""
+    nl4 = m_p // 4
+    for chunk in MATVEC_CHUNKS:
+        if batch * -(-nl4 // chunk) >= MATVEC_BLOCKS_PER_SM * sms:
+            return chunk
+    return MATVEC_CHUNKS[-1]
 
 
 def gt_matvec(gt: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -613,10 +642,11 @@ def gt_matvec(gt: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     _check("v", v, (bsz, nfd, 1), dev)
     lib = _library("gt_matvec")
     out = torch.empty((bsz, 1, m_p), dtype=torch.float32, device=dev)
+    chunk = matvec_chunk(bsz, m_p, _sm_count(dev))
     with torch.cuda.device(dev):
         err = lib.gt_matvec_launch(
             gt.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, nfd, m_p,
-            THREADS, torch.cuda.current_stream().cuda_stream)
+            chunk, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gt_matvec", B=bsz, nfd=nfd, m_p=m_p)
     launches["gt_matvec"] += 1
     return out

@@ -75,6 +75,11 @@ from ..ops import admm_kernel, bezier, linalg, qmatrix
 from . import banded, linear
 from .structure import ProblemStructure
 
+# Device-memory bounds of the assembly: free derivatives of G^T formed at a
+# time, and scenarios whose dense Gram the "xla" band forms at a time.
+_ASSEMBLY_ROWS = 9
+_GRAM_SCENARIOS = 1024
+
 
 @dataclasses.dataclass(frozen=True)
 class ADMMConfig:
@@ -513,11 +518,24 @@ def _padded_constraint_system(structure: ProblemStructure,
     sb = torch.cat([sb_sph, sb_tube.reshape(bsz, -1)], dim=1)    # (B, n_ball)
     scl_pool = torch.cat([sb, sh, torch.zeros((bsz, 1), dtype=dt,
                                               device=dev)], dim=1)
-    e_sel_t = ecp_s.reshape(bsz, k * n, n_free).transpose(1, 2)[
-        :, :, ecp_idx]                                     # (B, n_free, m_p)
+    e_src = ecp_s.reshape(bsz, k * n, n_free).transpose(1, 2)
     w_t = (dir_pool.transpose(1, 2)[:, :, dir_idx]
            * scl_pool[:, None, scl_idx])                   # (B, 3, m_p)
-    gt = None if with_factors else admm_kernel.expand_gt(e_sel_t, w_t)
+    if with_factors:
+        e_sel_t = e_src[:, :, ecp_idx]                     # (B, n_free, m_p)
+        gt = None
+    else:
+        # expand_gt's products, written into G^T a few free derivatives at
+        # a time: the gathered factor rows never exist whole (0.57 GB at
+        # the flagship batch, beside G^T's 1.7).
+        m_p = ecp_idx.shape[0]
+        gt = torch.empty((bsz, n_free * 3, m_p), dtype=dt, device=dev)
+        g4 = gt.view(bsz, n_free, 3, m_p)
+        for p0 in range(0, n_free, _ASSEMBLY_ROWS):
+            e_c = e_src[:, p0:p0 + _ASSEMBLY_ROWS][:, :, ecp_idx]
+            torch.mul(e_c[:, :, None, :], w_t[:, None, :, :],
+                      out=g4[:, p0:p0 + _ASSEMBLY_ROWS])
+            del e_c
 
     # --- Offsets / radii (small tensors; same gather trick for b). ---------
     b_sph = ((cp0[:, :k - 1, n - 1, :] - waypoints[:, 1:k])
@@ -677,11 +695,12 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
 
     Returns (pb_d (B, m, blk, blk), pb_u (B, m-1, blk, blk)) objective
     blocks and (gd, gu) the matching blocks of the Gram G^T G.  With
-    ``band_gram="xla"`` the dense Gram is one batched product outside any
-    kernel, as in the reference's default configuration, and only its band
-    is read; "pallas" / "pallas_block" take the band from the kernel
-    ``gram_band``; "pallas_db" leaves gd and gu None: ``_kkt_band_at`` then
-    forms each stage's whole band in ``gram_band_factors``.
+    ``band_gram="xla"`` the dense Gram is a batched product outside any
+    kernel (in chunks of scenarios), as in the reference's default
+    configuration, and only its band is read; "pallas" / "pallas_block"
+    take the band from the kernel ``gram_band``; "pallas_db" leaves gd and
+    gu None: ``_kkt_band_at`` then forms each stage's whole band in
+    ``gram_band_factors``.
     """
     bsz, nfd, _ = gt.shape
     m_blk = nfd // blk
@@ -692,11 +711,21 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
         gd, gu = admm_kernel.gram_band(
             gt, blk=blk, per_block=(band_gram == "pallas_block"))
     else:
-        gtg = gt @ gt.transpose(-1, -2)                    # (B, nfd, nfd)
-        g5 = gtg.reshape(bsz, m_blk, blk, m_blk, blk)
-        gd = torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], dim=1)
-        gu = torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)],
-                         dim=1)
+        # The dense Gram of _GRAM_SCENARIOS scenarios at a time: only its
+        # band is kept (the whole is 0.45 GB at the flagship batch).
+        gd = torch.empty((bsz, m_blk, blk, blk), dtype=gt.dtype,
+                         device=gt.device)
+        gu = torch.empty((bsz, m_blk - 1, blk, blk), dtype=gt.dtype,
+                         device=gt.device)
+        for b0 in range(0, bsz, _GRAM_SCENARIOS):
+            g_c = gt[b0:b0 + _GRAM_SCENARIOS]
+            g5 = (g_c @ g_c.transpose(-1, -2)).reshape(
+                g_c.shape[0], m_blk, blk, m_blk, blk)  # (b, m, blk, m, blk)
+            torch.stack([g5[:, i, :, i, :] for i in range(m_blk)], dim=1,
+                        out=gd[b0:b0 + _GRAM_SCENARIOS])
+            torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)],
+                        dim=1, out=gu[b0:b0 + _GRAM_SCENARIOS])
+            del g5
     return pb_d, pb_u, gd, gu
 
 

@@ -270,6 +270,40 @@ def test_band_kernels_give_the_kkt_band_of_the_solver():
                                        atol=1e-12)
 
 
+@pytest.mark.parametrize("chunk", [3, 4])
+def test_xla_band_in_scenario_chunks(monkeypatch, chunk):
+    """The "xla" band formed ``_GRAM_SCENARIOS`` scenarios at a time (here
+    3 or 4 of 8, so a chunk boundary is crossed, and unevenly with 3) is the
+    band of the whole batch's dense Gram bit for bit, and the JAX package's
+    dense Gram band at float32 order noise."""
+    free, pre_np, _ = jax_pre(k=4, batch=8, seed=2, n_iters=2)
+    pre = mtt.pre_from_numpy(pre_np, device="cpu")
+    blk, m_blk = 15, pre.gt.shape[1] // 15
+    assert tqcqp._GRAM_SCENARIOS >= 8
+    whole = tqcqp._kkt_band(pre.gt, pre.p_eq, blk)
+    monkeypatch.setattr(tqcqp, "_GRAM_SCENARIOS", chunk)
+    parts = tqcqp._kkt_band(pre.gt, pre.p_eq, blk)
+    for a, b in zip(parts, whole):
+        assert torch.equal(a, b)
+    gtg = pre.gt @ pre.gt.transpose(-1, -2)
+    g5 = gtg.reshape(8, m_blk, blk, m_blk, blk)
+    assert torch.equal(parts[2], torch.stack(
+        [g5[:, i, :, i, :] for i in range(m_blk)], dim=1))
+    assert torch.equal(parts[3], torch.stack(
+        [g5[:, i, :, i + 1, :] for i in range(m_blk - 1)], dim=1))
+    gt_j = jnp.asarray(pre_np["gt"])
+    g5_j = np.asarray(gt_j @ jnp.swapaxes(gt_j, 1, 2)).reshape(
+        8, m_blk, blk, m_blk, blk)
+    for i in range(m_blk):
+        scale = float(np.abs(g5_j[:, i, :, i, :]).max())
+        np.testing.assert_allclose(to_np(parts[2][:, i]), g5_j[:, i, :, i, :],
+                                   rtol=0, atol=1e-5 * scale)
+        if i + 1 < m_blk:
+            np.testing.assert_allclose(to_np(parts[3][:, i]),
+                                       g5_j[:, i, :, i + 1, :], rtol=0,
+                                       atol=1e-5 * scale)
+
+
 # ---------------------------------------------------------------------------
 # (iv) the dense inverse from the band.
 # ---------------------------------------------------------------------------

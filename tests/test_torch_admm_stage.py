@@ -10,6 +10,17 @@ quantities (z, u, y, residuals) are equilibrated to O(1), so for them this is
 atol 5e-5; the scaled free derivatives x reach ~1e2, so for x it is ~1e-5
 relative.  The dual residual max|G^T' (z - z_prev)| amplifies the differences
 of z and z_prev by a row sum of |G^T| each.
+
+The kernel's cluster design computes the stage in another order, x = xq +
+rho W^-1 (G^T v) with the dense W^-1 formed from the factors;
+``admm_stage_fused_factored_winv_plain`` is that order in plain PyTorch.  It
+is held against the JAX kernel (K=4 at batch 8, K=10 at batch 32, the
+benchmark's 48 iterations): its stage outputs at the tolerance above, the
+solve it gives in place of the stage at the KKT routes' cost-gap limits
+(median 1e-3, 99th percentile 1e-2 relative), and, in float64, the
+reference order's plain version at 1e-9 of each output's scale (the JAX
+kernel fixes its outputs at float32, so it has no float64 run; in float64
+only rounding parts the two orders, 1e-12 measured).
 """
 
 import numpy as np
@@ -19,11 +30,14 @@ import torch
 
 from mav_tube_trajectory_generation_tpu.ops import admm_kernel as jkernel
 from mav_tube_trajectory_generation_tpu.solver import banded as jbanded
+from mav_tube_trajectory_generation_tpu.solver import linear as jlinear
+from mav_tube_trajectory_generation_tpu.solver import qcqp as jqcqp
+from mav_tube_trajectory_generation_tpu.solver import structure as jsm
 import mav_tube_trajectory_generation_tpu_torch as mtt
 from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as tkernel
 from mav_tube_trajectory_generation_tpu_torch.solver import qcqp as tqcqp
 
-from torch_port_util import BENCH_KW, jax_pre, to_np, tt
+from torch_port_util import BENCH_KW, N, jax_pre, problem, to_np, tt
 
 ATOL = 5e-5
 NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
@@ -239,3 +253,232 @@ def test_kernel_matches_plain_on_the_card(stage_inputs):
         # rsqrtf on the card is not correctly rounded; sums run in another
         # order: 2e-4 of the output's scale.
         _assert_close(to_np(a), to_np(b), name, stage_inputs, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The cluster design's order (admm_stage_fused_factored_winv_plain)
+# ---------------------------------------------------------------------------
+
+ORDER_CASES = {"K=4": (4, 8), "K=10": (10, 32)}
+COST_GAP_MEDIAN = 1e-3
+COST_GAP_P99 = 1e-2
+F64_RTOL = 1e-9
+
+
+@pytest.fixture(scope="module", params=list(ORDER_CASES))
+def order_case(request):
+    """Stage inputs of a JAX assembly (numpy-seeded scenarios, factors by the
+    port), the benchmark's 48 iterations, and the JAX kernel's outputs on
+    them in interpret mode."""
+    k, batch = ORDER_CASES[request.param]
+    kw = {n: v for n, v in BENCH_KW.items() if n != "n_iters"}
+    free, pre_np, _ = jax_pre(k=k, batch=batch, seed=0, **kw)
+    layout = tqcqp._flagship_layout(mtt.structure_from_fields(free))
+    pre = mtt.pre_from_numpy(pre_np, device="cpu")
+    band = tqcqp._kkt_band(pre.gt, pre.p_eq, 15)
+    rho = torch.full((batch, 1, 1), kw["rho"], dtype=torch.float32)
+    sinv, t_st, tt_st, xq = tqcqp._stage_factors(band, rho, 1e-8,
+                                                 pre.q_flat)
+    args = (rho, sinv, t_st, tt_st, pre.gt.contiguous(),
+            pre.b_pad.contiguous(), tqcqp._rb_pad(pre.rb, layout), xq,
+            pre.x_flat0[:, :, None].contiguous())
+    skw = dict(n_iters=BENCH_KW["n_iters"], alpha=ALPHA, nb_p=layout.nb_p,
+               n_ball=layout.n_ball)
+    ref = jkernel.admm_stage_fused_factored(
+        *(jnp.asarray(to_np(a)) for a in args), interpret=True, **skw)
+    return dict(k=k, batch=batch, args=args, kw=skw,
+                ref=[np.asarray(r) for r in ref])
+
+
+def test_winv_order_f32_against_jax_kernel(order_case):
+    """Per output, no further from the reference order run in float64 than
+    float32 runs of the reference order are -- the JAX kernel's and the
+    port's plain version's, the larger of the two -- thrice over, plus 1e-6
+    of the output's scale.  (float32 noise grows with K and the iterations:
+    at K=10 and 48 iterations the JAX kernel's prim is 1e-4 from float64,
+    and the dual, max|G^T (z - z_prev)| of a difference of close vectors,
+    2.5e-4 for the JAX kernel and 1.2e-3 for the plain version.)"""
+    args, kw = order_case["args"], order_case["kw"]
+    ours = tkernel.admm_stage_fused_factored_winv_plain(*args, **kw)
+    ref32 = tkernel.admm_stage_fused_factored_plain(*args, **kw)
+    ref64 = tkernel.admm_stage_fused_factored_plain(
+        *(a.double() for a in args), **kw)
+    for a, r, p, c, name in zip(ours, order_case["ref"], ref32, ref64, NAMES):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        c = to_np(c)
+        scale = max(1.0, float(np.abs(c[np.isfinite(c)]).max()))
+        err = np.abs(to_np(a).astype(np.float64) - c).max()
+        floor = max(np.abs(r.astype(np.float64) - c).max(),
+                    np.abs(to_np(p).astype(np.float64) - c).max())
+        assert err <= 3.0 * floor + 1e-6 * scale, (name, err, floor)
+
+
+def test_winv_order_f64_matches_reference_order(order_case):
+    args = tuple(a.double() for a in order_case["args"])
+    kw = order_case["kw"]
+    ours = tkernel.admm_stage_fused_factored_winv_plain(*args, **kw)
+    ref = tkernel.admm_stage_fused_factored_plain(*args, **kw)
+    for a, r, name in zip(ours, ref, NAMES):
+        assert a.dtype == torch.float64
+        scale = max(1.0, float(r[torch.isfinite(r)].abs().max()))
+        np.testing.assert_allclose(to_np(a), to_np(r), rtol=0,
+                                   atol=F64_RTOL * scale, err_msg=name)
+    # the order changed nothing but rounding: W^-1 from the sweeps is the
+    # inverse of the KKT matrix the factors factor
+    sinv, t_st, tt_st = args[1:4]
+    nfd = args[4].shape[1]
+    eye = torch.eye(nfd, dtype=torch.float64).expand(args[4].shape[0], -1, -1)
+    winv = tkernel.factored_solve(sinv, t_st, tt_st, eye)
+    np.testing.assert_allclose(to_np(winv), to_np(winv.transpose(1, 2)),
+                               rtol=0, atol=1e-9 * float(winv.abs().max()))
+
+
+def test_winv_order_cost_gap_against_jax(order_case, monkeypatch):
+    """The whole solve with the stage in the cluster design's order (its
+    plain version in place of the wrapper) against the JAX package's solve
+    with its Pallas kernel in interpret mode, on the same scenarios."""
+    k, batch = order_case["k"], order_case["batch"]
+    p = problem(k=k, batch=batch, seed=0)
+    jfree = jsm.make_structure(jsm.free_interior_mask(k + 1, N), 3, N)
+    vals = jnp.asarray(p["values"])
+    orig = jkernel.admm_stage_fused_factored
+    monkeypatch.setattr(jkernel, "admm_stage_fused_factored",
+                        lambda *a, **kw: orig(*a, **{**kw,
+                                                     "interpret": True}))
+    ref = jqcqp.solve_qcqp_batch(
+        jfree, jlinear.extract_fixed_values(jfree, vals),
+        jnp.asarray(p["times"]), jnp.asarray(p["waypoints"]),
+        jnp.asarray(p["radii"]),
+        config=jqcqp.ADMMConfig(use_pallas=True, n_stages=1, **BENCH_KW),
+        warmstart_values=vals, scenario_block=4)
+    monkeypatch.setattr(tkernel, "admm_stage_fused_factored",
+                        tkernel.admm_stage_fused_factored_winv_plain)
+    ts = mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N)
+    before = dict(tkernel.launches)
+    ours = mtt.solve_qcqp_batch(
+        ts, mtt.extract_fixed_values(ts, tt(p["values"])), p["times"],
+        p["waypoints"], p["radii"], config=mtt.ADMMConfig(n_stages=1,
+                                                          **BENCH_KW),
+        device="cpu", warmstart_values=p["values"])
+    assert tkernel.launches == before
+    c_ours, c_ref = to_np(ours.cost).astype(np.float64), np.asarray(ref.cost)
+    gap = np.abs(c_ours - c_ref) / np.abs(c_ref)
+    assert np.isfinite(gap).all()
+    assert np.median(gap) <= COST_GAP_MEDIAN, gap
+    assert np.quantile(gap, 0.99) <= COST_GAP_P99, gap
+
+
+@pytest.mark.parametrize("k", [2, 4, 10, None],
+                         ids=["K=2", "K=4", "K=10", "odd planes"])
+def test_cluster_lane_split(k):
+    """Every lane in exactly one block of the cluster design; each ball
+    triple and its rb[j] in one block, at local lanes (i, hb + i, 2 hb + i);
+    the final half-space plane (K=10 has one, K=2 and K=4 none) split in
+    order."""
+    if k is None:
+        nb_p, m_p = 5, 3 * 5 + 7
+    else:
+        layout = tqcqp._flagship_layout(
+            mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N))
+        nb_p, m_p = layout.nb_p, layout.m_p
+        assert (layout.nh_p > 0) == (k == 10)
+    split = tkernel.cluster_lane_split(m_p, nb_p)
+    assert len(split) == 2
+    lanes = [l for block, _ in split for l in block]
+    assert sorted(lanes) == list(range(m_p))
+    assert sorted(j for _, balls in split for j in balls) == list(range(nb_p))
+    for block, balls in split:
+        hb = len(balls)
+        for i, j in enumerate(balls):
+            assert [block[i], block[hb + i], block[2 * hb + i]] == [
+                j, nb_p + j, 2 * nb_p + j]
+        half = block[3 * hb:]
+        assert all(l >= 3 * nb_p for l in half)
+        assert not half or half == list(range(half[0], half[0] + len(half)))
+    assert split[0][1].start == 0
+    assert abs(len(split[0][0]) - len(split[1][0])) <= 4
+    final0 = split[0][0][3 * len(split[0][1]):]
+    final1 = split[1][0][3 * len(split[1][1]):]
+    assert final0 + final1 == list(range(3 * nb_p, m_p))
+
+
+@pytest.mark.gpu
+def test_cluster_design_on_the_card(stage_inputs):
+    """The factored kernel at K=4 takes the cluster design; it agrees with
+    its order's plain version on the same device tensors, in both entry
+    modes, and gives the same bits run to run.  Needs an NVIDIA card and
+    nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    lay = stage_inputs["layout"]
+    at = {k: v.cuda() for k, v in stage_inputs["torch"].items()}
+    nfd, m_p = at["gt"].shape[1:]
+    assert tkernel.factored_design(nfd, m_p, 3, 15, lay.nb_p) == "cluster"
+    kw = dict(n_iters=N_ITERS, alpha=ALPHA, nb_p=lay.nb_p, n_ball=lay.n_ball)
+    first = tkernel.admm_stage_fused_factored(*at.values(), init_z=True, **kw)
+    again = tkernel.admm_stage_fused_factored(*at.values(), init_z=True, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    carried = (first[1].contiguous(), (0.5 * first[3]).contiguous())
+    for init_z, extra in ((True, ()), (False, carried)):
+        ours = tkernel.admm_stage_fused_factored(*at.values(), *extra,
+                                                 init_z=init_z, **kw)
+        plain = tkernel.admm_stage_fused_factored_winv_plain(
+            *at.values(), *extra, init_z=init_z, **kw)
+        for a, b, name in zip(ours, plain, NAMES):
+            _assert_close(to_np(a), to_np(b), name, stage_inputs, atol=2e-4)
+
+
+def _port_stage_inputs(k, batch, seed=1):
+    """Stage inputs of the port's own assembly on the CPU (K segments,
+    numpy-seeded scenarios), as the headline path builds them."""
+    cfg = mtt.ADMMConfig(**BENCH_KW)
+    sc = mtt.make_inputs(k, batch, seed=seed, device="cpu")
+    layout = tqcqp._flagship_layout(sc.free)
+    pre = tqcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
+                     sc.radii, cfg, None, layout,
+                     warmstart_positions=sc.values[:, 1:-1, 0, :])
+    band = tqcqp._kkt_band(pre.gt, pre.p_eq, 15)
+    rho = torch.full((batch, 1, 1), cfg.rho, dtype=torch.float32)
+    sinv, t_st, tt_st, xq = tqcqp._stage_factors(band, rho, cfg.sigma,
+                                                 pre.q_flat)
+    args = (rho, sinv, t_st, tt_st, pre.gt.contiguous(),
+            pre.b_pad.contiguous(), tqcqp._rb_pad(pre.rb, layout), xq,
+            pre.x_flat0[:, :, None].contiguous())
+    return args, layout
+
+
+@pytest.mark.gpu
+def test_stream_design_on_the_card():
+    """Past the cluster design's shared-memory budget (K=12: half of G^T
+    alone is 211 KB) the factored kernel takes its stream design; it agrees
+    with the reference order's plain version on the same device tensors in
+    both entry modes, gives the same bits run to run, and the kernel with
+    alpha 1.62 for 1.6 does not agree.  Needs an NVIDIA card and nvcc;
+    skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    args, lay = _port_stage_inputs(12, 4)
+    at = tuple(a.cuda() for a in args)
+    nfd, m_p = at[4].shape[1:]
+    assert (nfd, m_p) == (165, 640)
+    assert tkernel.factored_design(nfd, m_p, 11, 15, lay.nb_p) == "stream"
+    kw = dict(n_iters=N_ITERS, alpha=ALPHA, nb_p=lay.nb_p, n_ball=lay.n_ball)
+    first = tkernel.admm_stage_fused_factored(*at, init_z=True, **kw)
+    again = tkernel.admm_stage_fused_factored(*at, init_z=True, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    si = dict(torch=dict(gt=args[4]))
+    carried = (first[1].contiguous(), (0.5 * first[3]).contiguous())
+    for init_z, extra in ((True, ()), (False, carried)):
+        plain = tkernel.admm_stage_fused_factored_plain(
+            *at, *extra, init_z=init_z, **kw)
+        ours = tkernel.admm_stage_fused_factored(*at, *extra, init_z=init_z,
+                                                 **kw)
+        for a, b, name in zip(ours, plain, NAMES):
+            _assert_close(to_np(a), to_np(b), name, si, atol=2e-4)
+        wrong = tkernel.admm_stage_fused_factored(
+            *at, *extra, init_z=init_z, **dict(kw, alpha=1.62))
+        with pytest.raises(AssertionError):
+            for a, b, name in zip(wrong, plain, NAMES):
+                _assert_close(to_np(a), to_np(b), name, si, atol=2e-4)

@@ -454,3 +454,17 @@ def test_port_solves_the_strict_path_without_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_package_exports_every_kernel_wrapper():
+    """Every public kernel wrapper of ``ops.admm_kernel`` and
+    ``ops.ipm_kernel`` (each has a launch count) is the package's own
+    name."""
+    from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
+                                                              ipm_kernel)
+    wrappers = [(m, n) for m in (admm_kernel, ipm_kernel) for n in m.launches
+                if callable(getattr(m, n, None))]
+    assert len(wrappers) == 11
+    for module, name in wrappers:
+        assert getattr(mtt, name) is getattr(module, name), name
+    assert mtt.__version__ == "0.6.0"

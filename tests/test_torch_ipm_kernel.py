@@ -183,6 +183,22 @@ def test_gt_matvec_random_against_pallas_interpret():
     _close((ours,), (ref,), ("y",))
 
 
+@pytest.mark.parametrize("batch,m_p,want", [
+    (645, 512, 32), (128, 512, 32), (40, 512, 16), (1, 512, 8), (32, 512, 8),
+    (645, 384, 32), (3, 20, 8)])
+def test_gt_matvec_chunk(batch, m_p, want):
+    """The lanes a block of the matvec kernel covers: the largest chunk that
+    still gives an H100's 132 SMs two blocks each (tier 1's 645 rows, the
+    restart's 128), else the smallest (the chain's one row: 16 blocks of 8
+    float4 columns); the chunks cover every float4 column of a row."""
+    chunk = tk.matvec_chunk(batch, m_p, 132)
+    assert chunk == want and chunk in tk.MATVEC_CHUNKS
+    blocks = -(-(m_p // 4) // chunk)
+    assert (blocks - 1) * chunk < m_p // 4 <= blocks * chunk
+    if chunk != tk.MATVEC_CHUNKS[-1]:
+        assert batch * blocks >= tk.MATVEC_BLOCKS_PER_SM * 132
+
+
 def test_eval_band_equals_band_of_the_full_gram():
     """The band-only products against the reference's own full-Gram core
     (``_eval_core`` + dense einsum, as tests/test_ipm_lanes.py:250 forms
