@@ -29,6 +29,7 @@ import argparse
 import contextlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -121,6 +122,8 @@ FUSED_OUT = ("x_fin", "y_fin", "s_fin", "lam_fin", "y_last", "best_merit",
 # that tier left 18 rows undetermined, and with it may leave no more.
 STRICT_GATE = 1e-4
 MAX_TIGHT_UNDETERMINED = 18
+# strict_path's passes timed tier by tier (about 0.35 s each at batch 6144).
+SPLIT_PASSES = 5
 # The kernels the strict path launches (the other two wrappers of
 # ops.ipm_kernel have paths of their own: fused_path, and the public
 # full-Gram evaluation driven in strict_path at tier 1's shape).
@@ -322,6 +325,21 @@ FACTORED_DESIGNS = {"flagship": (135, 512, "cluster"),
                     "K=12": (165, 640, "stream")}
 
 
+# #8 and #9 (nfd, m_p) at K=10, 4 and 12 and the design each must take
+# there: the cluster design wherever a block's share fits, the one-block
+# "stream" body past that (K=12: half of G^T alone is 211 KB).
+IPM_DESIGNS = {"flagship": (135, 512, "cluster"),
+               "K=4": (45, 384, "cluster"),
+               "K=12": (165, 640, "stream")}
+IPM_ENTRIES = {"ipm_eval": ("ipm_eval_kernel", "ipm_eval_cluster_kernel"),
+               "ipm_pipe": ("ipm_pipe_kernel", "ipm_pipe_cluster_kernel")}
+# The negative control of #8 and #9's cluster design: the same sources
+# built with rank 0's band partial left out of the sum.
+IPM_DROP_RANK0 = ("IPM_CONTROL_DROP_RANK0",)
+IPM_CONTROL_BUILDS = (("ipm_eval", IPM_DROP_RANK0),
+                      ("ipm_pipe", IPM_DROP_RANK0))
+
+
 def entry_report(log, names):
     """Registers, spill-store bytes and static shared memory per entry
     function, read from ``nvcc -Xptxas -v``'s output (mangled names are
@@ -348,15 +366,51 @@ def phase_build(state):
     t0 = time.perf_counter()
     if set(_build.SOURCES) != {"admm_stage", "gram_band", *IPM_SOURCES}:
         raise RuntimeError(f"unexpected kernel sources: {_build.SOURCES}")
-    wall = _build.prebuild()
+    wall = _build.prebuild(variants=IPM_CONTROL_BUILDS)
     smem = admm_kernel.smem_bytes(135, 512, 9, 15, 128)
     seconds = time.perf_counter() - t0
+    # #8 and #9: which design each shape takes (IPM_DESIGNS), a block's
+    # shared memory in either design (the cluster's as the library and as
+    # ops.ipm_kernel.cluster_layout compute it) and the clusters in flight
+    designs, bad = {}, []
+    for kernel, lib_name in ipm_kernel.CLUSTER_KERNELS.items():
+        for label, (nfd, m_p, want) in IPM_DESIGNS.items():
+            design = ipm_kernel.ipm_design(kernel, nfd, m_p, 15, 128)
+            lib_bytes = ipm_kernel.smem_bytes(lib_name, nfd, m_p, 15, 128,
+                                              design="cluster")
+            mirror = ipm_kernel.cluster_smem_bytes(kernel, nfd, m_p, 15, 128)
+            d = dict(design=design, expected_design=want,
+                     cluster_dynamic_smem_bytes=lib_bytes,
+                     cluster_dynamic_smem_bytes_computed_in_python=mirror,
+                     stream_dynamic_smem_bytes=ipm_kernel.smem_bytes(
+                         lib_name, nfd, m_p, 15, 128),
+                     max_active_clusters=ipm_kernel.cluster_occupancy(
+                         kernel, nfd, m_p, 15, 128)
+                     if design == "cluster" else None)
+            designs[f"{kernel} {label}"] = d
+            if (design != want or lib_bytes != mirror
+                    or (design == "cluster" and d["max_active_clusters"] < 1)):
+                bad.append(f"{kernel} {label}")
+    entries = {}
+    for src in ("ipm_eval", "ipm_pipe"):
+        entries.update(entry_report(_build.build_log(src), IPM_ENTRIES[src]))
+    state["ipm_designs"] = designs
     emit("build_ipm", parallel_wall_seconds=round(wall, 3),
          libraries=[build_report(_build, n) for n in IPM_SOURCES],
+         control_builds=[dict(source=n, defines=list(d),
+                              built_now=_build.build_info(n, d)["built"])
+                         for n, d in IPM_CONTROL_BUILDS],
          dynamic_smem_bytes_flagship={
              n: ipm_kernel.smem_bytes(n, 135, 512, 15, 128)
              for n in ("ipm_eval", "ipm_pipe", "ipm_solve")},
+         entry_functions=entries, designs=designs,
+         max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM,
          threads_per_block=ipm_kernel.THREADS)
+    if bad or len(entries) != sum(map(len, IPM_ENTRIES.values())):
+        raise RuntimeError(f"build: #8/#9 do not take the expected design "
+                           f"{IPM_DESIGNS} with the layout Python computes, "
+                           f"or entry functions are missing: {bad}, "
+                           f"{sorted(entries)}")
     info = _build.build_info("admm_stage")
     log = _build.build_log("admm_stage")
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -1165,11 +1219,11 @@ def wide_fused_report(mtt, label, k):
     return out
 
 
-def record_lanes(mtt, k, batch, seed):
+def record_lanes(mtt, k, batch, seed, fused=True):
     """Calls of the interior-point kernels recorded from real solves: an
     ADMM tier-0 solve, then pipelined polishes that reach all seven mode
-    pairs, a scan polish (eval with phr off and on, matvec) and four fused
-    polishes (the default schedule, snap-only, and two short ones)."""
+    pairs, a scan polish (eval with phr off and on, matvec) and (``fused``)
+    six fused polishes (the default schedule, snap-only, and short ones)."""
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     sc = mtt.make_inputs(k, batch, seed=seed)
     pipe_calls, eval_calls, mv_calls, fused_calls = [], [], [], []
@@ -1190,7 +1244,7 @@ def record_lanes(mtt, k, batch, seed):
         polish(n_iters=2, snap_iters=1)
     with recorded(ipm_kernel, "ipm_solve_fused", fused_calls):
         for n_iters, snap_iters in ((10, 2), (0, 2), (1, 0), (1, 1), (2, 1),
-                                    (3, 0)):
+                                    (3, 0)) if fused else ():
             polish(n_iters=n_iters, snap_iters=snap_iters, fused=True)
     pairs = {}
     for call in pipe_calls:
@@ -1844,13 +1898,104 @@ def phase_ew_path(state, mtt):
                            f"{ok3}")
 
 
+@contextlib.contextmanager
+def library_variant(name, defines):
+    """While the block runs the wrappers launch the kernels of ``name``'s
+    library built with the macros ``defines`` (a negative control; the
+    port itself never does this)."""
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    kept = _build.load(name)
+    _build._LIBS[name] = _build.variant(name, defines)
+    try:
+        yield
+    finally:
+        _build._LIBS[name] = kept
+
+
+# #8 and #9 wrong must fail the row criteria, at the flagship shape and
+# K=4 (both gated): each with rank 0's band partial left out of the cluster's
+# sum (IPM_DROP_RANK0: every entry of hd and hu is then rank 1's partial),
+# and #8's Newton step with the fraction-to-boundary factor 0.995 ->
+# IPM_WRONG_TAU (every boundary-limited step a tenth shorter; the plain
+# versions get the right inputs).  Rank 0 is the block the split loads: it
+# holds balls j < ceil(nb_p / 2), so every real ball at K=4 (n_ball 35 of
+# nb_p 128) and 64 of 89 at the flagship, and the band entries rank 0
+# finishes (the first half of [hd | hu]) hold nearly all of the band's mass;
+# a control that drops or doubles rank 1's partial changes too little to be
+# told from float32 (at K=4 nothing: rank 1's partial is zero there).
+IPM_WRONG_TAU = 0.9
+
+
+def lanes_by_rank(ipm_kernel, args, kw):
+    """The cluster split's load in one recorded call: per rank, the balls
+    j < n_ball it holds and the lanes whose G^T column is nonzero (mean
+    over the scenarios)."""
+    gt = args[0]
+    live = (gt != 0).any(dim=1).float().mean(dim=0)        # (m_p,)
+    split = ipm_kernel.cluster_band_parts(gt.shape[2], kw["nb_p"],
+                                          kw["n_ball"])
+    return [dict(rank=rank, lanes=len(lanes), balls=len(balls),
+                 lanes_with_nonzero_columns=float(live[lanes].sum()))
+            for rank, lanes, balls in split]
+
+
+def ipm_controls(ipm_kernel, pairs, eval_call):
+    """{control: {rejected, errors}} for the negative controls above on one
+    case's recorded calls."""
+    out = {}
+
+    def judge(name, fn, fn_plain, names, call, wrong_kw=None, variant=None,
+              uncapped=()):
+        args, kw, _ = call
+        with (library_variant(variant, IPM_DROP_RANK0) if variant
+              else contextlib.nullcontext()):
+            wrong = fn(*args, **dict(kw, **(wrong_kw or {})))
+        res, _, _ = check_call(fn, fn_plain, names, args, kw, ours=wrong,
+                               uncapped=uncapped)
+        out[name] = dict(
+            rejected=not res["within_tolerance"],
+            worst_output=res["worst_output"],
+            worst_scaled_err=res["worst_scaled_err"],
+            median_scaled_err_vs_plain_f64=res[
+                "median_scaled_err_vs_plain_f64"],
+            plain_f32_median_scaled_err_vs_plain_f64=res[
+                "plain_f32_median_scaled_err_vs_plain_f64"],
+            gross_rows=res["gross_rows"])
+
+    ev = (ipm_kernel.ipm_eval_step, ipm_kernel.ipm_eval_step_plain, EVAL_OUT)
+    pipe = (ipm_kernel.ipm_pipe_step, ipm_kernel.ipm_pipe_step_plain,
+            PIPE_OUT)
+    judge("eval_step without rank 0's band partial", *ev, eval_call,
+          variant="ipm_eval")
+    for upd, ev_mode in (("snap", "snap"), ("newton", "newton")):
+        judge(f"pipe_step {upd}/{ev_mode} without rank 0's band partial",
+              *pipe, pairs[(upd, ev_mode)], variant="ipm_pipe",
+              uncapped=("bm",))
+    judge(f"pipe_step newton/newton tau {IPM_WRONG_TAU}", *pipe,
+          pairs[("newton", "newton")], uncapped=("bm",),
+          wrong_kw=dict(tau=IPM_WRONG_TAU))
+    return out
+
+
+def ipm_design_of(ipm_kernel, kernel, args, kw):
+    """The design ``kernel`` takes for a recorded call's shapes."""
+    _, nfd, m_p = args[0].shape
+    blk = kw["blk"] if kernel == "ipm_pipe_step" else kw["band_block"]
+    return ipm_kernel.ipm_design(kernel, nfd, m_p, blk, kw["nb_p"])
+
+
 def phase_ipm_kernel_check(state, mtt):
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     cases, bad = [], []
-    for label, k, batch in (("flagship K=10", 10, 256), ("K=4", 4, 64)):
+    # (label, K, batch, the design #8 and #9 must take, every kernel with
+    # the controls, or #8 and #9 alone?)
+    shapes = (("flagship K=10", 10, 256, "cluster", True),
+              ("K=4", 4, 64, "cluster", True),
+              ("K=12", 12, 32, "stream", False))
+    for label, k, batch, want, full in shapes:
         pairs, eval_calls, mv_calls, fused_calls = record_lanes(
-            mtt, k, batch, seed=1)
+            mtt, k, batch, seed=1, fused=full)
         if len(pairs) != 7:
             raise RuntimeError(f"ipm_kernel_check: reached mode pairs "
                                f"{sorted(pairs)}, expected all seven")
@@ -1859,11 +2004,12 @@ def phase_ipm_kernel_check(state, mtt):
             res, ok, _ = check_call(ipm_kernel.ipm_pipe_step,
                                     ipm_kernel.ipm_pipe_step_plain, PIPE_OUT,
                                     args, kw, ours=out, uncapped=("bm",))
+            design = ipm_design_of(ipm_kernel, "ipm_pipe_step", args, kw)
             cases.append(dict(kernel="ipm_pipe_step", shapes=label,
                               gt_shape=gt_shape, upd_mode=upd, eval_mode=ev,
-                              **res))
-            if not ok:
-                bad.append(f"pipe {label} {upd}/{ev}")
+                              design=design, **res))
+            if not ok or design != want:
+                bad.append(f"pipe {label} {upd}/{ev} ({design})")
         seen = set()
         for args, kw, out in eval_calls:
             if kw["phr"] in seen:
@@ -1872,12 +2018,17 @@ def phase_ipm_kernel_check(state, mtt):
             res, ok, _ = check_call(ipm_kernel.ipm_eval_step,
                                     ipm_kernel.ipm_eval_step_plain, EVAL_OUT,
                                     args, kw, ours=out)
+            design = ipm_design_of(ipm_kernel, "ipm_eval_step", args, kw)
             cases.append(dict(kernel="ipm_eval_step", shapes=label,
-                              gt_shape=gt_shape, phr=kw["phr"], **res))
-            if not ok:
-                bad.append(f"eval {label} phr={kw['phr']}")
+                              gt_shape=gt_shape, phr=kw["phr"],
+                              design=design, **res))
+            if not ok or design != want:
+                bad.append(f"eval {label} phr={kw['phr']} ({design})")
+            if not full:
+                continue
             # the same point with the whole Gram out; its band blocks
-            # must be what the band kernel gave
+            # must be what the band kernel gave (the two sum in different
+            # orders: the value is reported)
             gkw = dict(kw, band_block=0)
             gout = ipm_kernel.ipm_eval_step(*args, **gkw)
             res, ok, _ = check_call(ipm_kernel.ipm_eval_step,
@@ -1890,6 +2041,19 @@ def phase_ipm_kernel_check(state, mtt):
                               band_vs_band_kernel_scaled_err=band_err, **res))
             if not ok or not band_err <= IPM_ROW_TOL:
                 bad.append(f"eval gram {label} phr={kw['phr']}")
+        if not full:               # the kept body: #8 and #9 only
+            del pairs, eval_calls, mv_calls
+            torch.cuda.empty_cache()
+            continue
+        eval_call = next(c for c in eval_calls if not c[1]["phr"])
+        rejected = ipm_controls(ipm_kernel, pairs, eval_call)
+        cases.append(dict(kernel="ipm_pipe_step, ipm_eval_step",
+                          shapes=label, control_gated=True,
+                          wrong_kernel_rejected=rejected,
+                          cluster_load=lanes_by_rank(ipm_kernel,
+                                                     *eval_call[:2])))
+        if not all(v["rejected"] for v in rejected.values()):
+            bad.append(f"{label}: a wrong #8 or #9 passes: {rejected}")
         for args, kw, out in fused_calls:
             res, ok, summary = check_call(
                 ipm_kernel.ipm_solve_fused, ipm_kernel.ipm_solve_fused_plain,
@@ -2008,6 +2172,10 @@ def phase_ipm_kernel_check(state, mtt):
          dist_factor=IPM_DIST_FACTOR, floor=IPM_FLOOR, gross=IPM_GROSS,
          gross_slack=IPM_GROSS_SLACK, gross_cap=IPM_GROSS_CAP,
          short_run=IPM_SHORT_RUN, reported_row_tolerance=IPM_ROW_TOL,
+         controls=f"#9 and #8 (snap/snap, newton/newton) without rank 0's "
+         f"band partial, #8 newton/newton with tau {IPM_WRONG_TAU}: each "
+         f"must be rejected at the flagship and at K=4; K=12 runs #8 and #9 "
+         f"only, in their stream body",
          cases=cases)
     if bad:
         raise RuntimeError(f"ipm_kernel_check failed for {bad}")
@@ -2377,8 +2545,11 @@ def phase_strict_path(state, mtt):
                  and res.verdict.shape == (batch,)
                  and res.tier.shape == (batch,))
 
-    # One more pass with a device synchronisation around every tier, to
-    # split the time (it is not one of the timed passes).
+    # SPLIT_PASSES more passes with a device synchronisation around every
+    # tier, to split the time (they are not among the timed passes).  Tier 0
+    # at batch 6144 swings by 10-30 ms from pass to pass with the host; to
+    # compare two commits, alternate them (this script copied into the other
+    # checkout: the phase needs only the package's public entry points).
     tiers = []
 
     def timed(fn, label):
@@ -2402,16 +2573,22 @@ def phase_strict_path(state, mtt):
     ipm_lanes.solve_qcqp_polished_batch = timed(
         keep[0], "tier 0 whole: ADMM + snap sweeps")
     ipm_lanes.solve_qcqp_ipm_lanes = timed(keep[1], "lanes IPM")
-    tier2_log = []
+    tier2_log, split_passes = [], []
     try:
         with tier2_observed(tier2_log):
-            t_all = time.perf_counter()
-            strict_call(mtt, sc)
-            torch.cuda.synchronize()
-            split_total_ms = (time.perf_counter() - t_all) * 1e3
+            for _ in range(SPLIT_PASSES):
+                tiers.clear()
+                t_all = time.perf_counter()
+                strict_call(mtt, sc)
+                torch.cuda.synchronize()
+                split_passes.append(dict(
+                    total_ms=(time.perf_counter() - t_all) * 1e3,
+                    calls=list(tiers)))
     finally:
         (ipm_lanes.solve_qcqp_polished_batch,
          ipm_lanes.solve_qcqp_ipm_lanes) = keep
+    tier0_ms = [sum(c["ms"] for c in p["calls"]
+                    if c["call"].startswith("tier 0")) for p in split_passes]
 
     # And one pass under the profiler: time the device spends in kernels,
     # against the pass time measured above without the profiler.
@@ -2436,8 +2613,12 @@ def phase_strict_path(state, mtt):
          wall_ms_per_batch=wall_ms, solves_per_s=batch / (ms * 1e-3),
          **summary, launches_in_timed_passes=launches,
          launches_per_pass={n: v / n_pass for n, v in launches.items()},
-         peak_device_memory_bytes=peak, tier_split_ms=tiers,
-         tier2=tier2_log, tier_split_total_ms=split_total_ms,
+         peak_device_memory_bytes=peak,
+         tier_split_ms=split_passes[0]["calls"],
+         tier_split_total_ms=split_passes[0]["total_ms"],
+         tier_split_passes=split_passes, tier0_split_ms=tier0_ms,
+         tier0_split_median_ms=statistics.median(tier0_ms),
+         tier2=tier2_log,
          profiler=busy if busy is not None else "not measured",
          plain_prefix=dict(n=n_pre, verdicts_agree=agree,
                            kernel=strict_summary(mtt, kern, n_pre),
@@ -2555,8 +2736,9 @@ def ipm_kernel_rows(state, mtt):
 
     def finish(name, source, replaces, fn, fn_plain, names, args, kw, flops,
                library=None, note=None, count=None, extra_check=None,
-               uncapped=()):
+               uncapped=(), design=None):
         ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
+        dev_ms = device_ms_each(lambda: fn(*args, **kw), 10)
         plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
         lib_ms = cuda_ms(library, reps=5) if library else None
         res, ok, summary = check_call(fn, fn_plain, names, args, kw,
@@ -2588,7 +2770,9 @@ def ipm_kernel_rows(state, mtt):
             gross_rows_plain_f32=res["gross_rows_plain_f32"],
             rows_beyond_2e_4=res["rows_outside"],
             tolerance="the three criteria of the ipm_kernel_check line",
-            ms=ms, plain_ms=plain_ms,
+            ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+            device_ms_is="device time of one call by torch.profiler (mean "
+            "of 10), the kernels alone", design=design,
             bound_ms=max(bytes_ms, flops_ms),
             bound_by="operations" if flops_ms >= bytes_ms else "bytes",
             library_ms=lib_ms, shapes=dict(gt=list(args[0].shape), note=note),
@@ -2620,7 +2804,8 @@ def ipm_kernel_rows(state, mtt):
            "mav_tube_trajectory_generation_tpu/ops/ipm_kernel.py:365",
            ipm_kernel.ipm_pipe_step, ipm_kernel.ipm_pipe_step_plain,
            PIPE_OUT, args, kw, flops,
-           note="tier 0, upd_mode=snap, eval_mode=snap", uncapped=("bm",))
+           note="tier 0, upd_mode=snap, eval_mode=snap", uncapped=("bm",),
+           design=ipm_design_of(ipm_kernel, "ipm_pipe_step", args, kw))
 
     args, kw = to_device(rec["ipm_eval_step"], dev)
     bsz, nfd, m_p = args[0].shape
@@ -2629,7 +2814,8 @@ def ipm_kernel_rows(state, mtt):
            ipm_kernel.ipm_eval_step, ipm_kernel.ipm_eval_step_plain,
            EVAL_OUT, args, kw,
            eval_flops(bsz, nfd, m_p, kw["band_block"], kw["n_ball"]),
-           note="tier 1 (the escalated rows), band output, phr=False")
+           note="tier 1 (the escalated rows), band output, phr=False",
+           design=ipm_design_of(ipm_kernel, "ipm_eval_step", args, kw))
 
     # the same inputs with the whole Gram out.  The Gram is symmetric: the
     # work the function needs is its upper triangle, nfd (nfd + 1) / 2
@@ -2769,6 +2955,14 @@ def ipm_kernel_rows(state, mtt):
                library_device_ms=by_rows[bsz]["bmm_device_ms"],
                device_ms_is="device time of one call by torch.profiler "
                "(mean of 20), the kernels alone")
+    # The roofline share from the CUDA-event time (torch.profiler's device
+    # times read below the events on the H100 machine, so a share from them
+    # would be overstated); a share above 1 would be a wrong bound.
+    for r in rows:
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        if not 0.0 < r["bound_share"] <= 1.0:
+            raise RuntimeError(f"kernels: {r['name']} ran in {r['ms']} ms, "
+                               f"below its bound of {r['bound_ms']} ms")
     row["by_rows"] = by_rows
     row["by_rows_is"] = (
         "rows of tier 1's call (about 650), the speculative restart's 128, "
@@ -2780,13 +2974,15 @@ def ipm_kernel_rows(state, mtt):
 
 def device_ms_each(fn, reps):
     """Device time of one ``fn()`` (the mean of ``reps`` under
-    torch.profiler, ``device_time_of``); raises where the profiler shows
-    no device time."""
+    torch.profiler, ``device_time_of``).  A trace of a few launches late in
+    a long process has come back without device events once: it is taken
+    again with four times the launches, then raises."""
     fn()
-    res = device_time_of(lambda: [fn() for _ in range(reps)])
-    if res is None:
-        raise RuntimeError("kernels: torch.profiler shows no device time")
-    return res["device_ms"] / reps
+    for n in (reps, 4 * reps):
+        res = device_time_of(lambda: [fn() for _ in range(n)])
+        if res is not None:
+            return res["device_ms"] / n
+    raise RuntimeError("kernels: torch.profiler shows no device time")
 
 
 def phase_kernels(state, mtt):

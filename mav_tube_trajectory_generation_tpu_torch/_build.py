@@ -9,6 +9,12 @@ the host-only tests import every module on machines without a CUDA toolkit.
 
 ``build_log(name)`` returns what the compiler printed (``-Xptxas -v``:
 registers, shared memory and spills per kernel) for the library in use.
+
+A variant is the same source built with preprocessor macros defined
+(``variant(name, defines)``): ``chip_smoke.py`` builds its negative
+controls and ``stage_profile.py`` its phase counters that way.  A variant is
+kept apart from the library of its name; whoever uses it hands it to the
+wrappers by putting it in ``_LIBS[name]`` for as long as it needs it.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_VARIANTS: Dict[str, ctypes.CDLL] = {}
 _INFO: Dict[str, dict] = {}
 
 
@@ -69,22 +76,25 @@ class _Job:
     """One library on its way: paths, and the running nvcc if it has to be
     built."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, defines=()):
         src = os.path.join(CSRC_DIR, name + ".cu")
         if not os.path.isfile(src):
             raise RuntimeError(f"no such kernel source: {src}")
         tag = _sources_hash()
         os.makedirs(BUILD_DIR, exist_ok=True)
         self.name = name
+        self.key = _key(name, defines)
         self.src = src
-        self.so_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
-        self.log_path = os.path.join(BUILD_DIR, f"lib{name}_{tag}.log")
+        stem = "_".join([f"lib{name}"] + list(defines) + [tag])
+        self.so_path = os.path.join(BUILD_DIR, stem + ".so")
+        self.log_path = os.path.join(BUILD_DIR, stem + ".log")
         self.tmp = f"{self.so_path}.{os.getpid()}.tmp"
         self.proc = None
         self.cmd = None
         self.t0 = 0.0
         if not os.path.isfile(self.so_path):
-            self.cmd = [find_nvcc()] + NVCC_FLAGS + ["-o", self.tmp, src]
+            self.cmd = ([find_nvcc()] + NVCC_FLAGS
+                        + [f"-D{d}" for d in defines] + ["-o", self.tmp, src])
             self.t0 = time.perf_counter()
             self.proc = subprocess.Popen(
                 self.cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -107,9 +117,16 @@ class _Job:
             os.replace(self.tmp, self.so_path)  # atomic: processes agree
             info["built"] = True
         lib = ctypes.CDLL(self.so_path)
-        _LIBS[self.name] = lib
-        _INFO[self.name] = info
+        if self.key == self.name:
+            _LIBS[self.name] = lib
+        else:
+            _VARIANTS[self.key] = lib
+        _INFO[self.key] = info
         return lib
+
+
+def _key(name: str, defines=()) -> str:
+    return "+".join((name,) + tuple(defines))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -123,13 +140,26 @@ def load(name: str) -> ctypes.CDLL:
     return _Job(name).finish()
 
 
-def prebuild(names=SOURCES) -> float:
+def variant(name: str, defines) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` built with the macros ``defines``
+    (e.g. ``("IPM_PIPE_PROFILE",)``), built if it is not there.  It does
+    not take the place of ``load(name)``'s library."""
+    lib = _VARIANTS.get(_key(name, defines))
+    if lib is not None:
+        return lib
+    return _Job(name, tuple(defines)).finish()
+
+
+def prebuild(names=SOURCES, variants=()) -> float:
     """Builds and loads several libraries (by default every one of
-    ``SOURCES``), one nvcc each, all started together.  Returns the
-    wall-clock seconds it took.  Raises RuntimeError with the compiler's
-    output if any build fails (after all have ended)."""
+    ``SOURCES``), and the variants ``variants`` ([(name, defines)]), one
+    nvcc each, all started together.  Returns the wall-clock seconds it
+    took.  Raises RuntimeError with the compiler's output if any build fails
+    (after all have ended)."""
     t0 = time.perf_counter()
-    jobs = [_Job(n) for n in names if n not in _LIBS]
+    jobs = [_Job(n) for n in dict.fromkeys(names) if n not in _LIBS]
+    wanted = {_key(n, d): (n, tuple(d)) for n, d in variants}
+    jobs += [_Job(n, d) for k, (n, d) in wanted.items() if k not in _VARIANTS]
     errors = []
     for job in jobs:
         try:
@@ -141,16 +171,16 @@ def prebuild(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def build_info(name: str) -> Optional[dict]:
-    """{"library", "built", "seconds", "log"} of a loaded library, or None
-    if ``load(name)`` has not run in this process."""
-    return _INFO.get(name)
+def build_info(name: str, defines=()) -> Optional[dict]:
+    """{"library", "built", "seconds", "log"} of a loaded library (or
+    variant), or None if it has not been loaded in this process."""
+    return _INFO.get(_key(name, defines))
 
 
-def build_log(name: str) -> str:
-    """Compiler output of the library ``load(name)`` is using ("" if the
-    log is missing)."""
-    info = _INFO.get(name)
+def build_log(name: str, defines=()) -> str:
+    """Compiler output of the library ``load(name)`` is using, or of a
+    variant ("" if the log is missing)."""
+    info = _INFO.get(_key(name, defines))
     if not info or not os.path.isfile(info["log"]):
         return ""
     with open(info["log"]) as fh:

@@ -4,28 +4,43 @@
 // (ipm_eval_step with band_block set, and with band_block = 0) of the JAX
 // package's ops/ipm_kernel.py.
 //
-// Per scenario (one thread block each): y = G x + b, the constraint values
-// c in lane layout, jtwr2 = J^T (w r2) (or J^T max(lam + rho c, 0) under
-// phr), jts = J^T (1/s), and the block-tridiagonal band of the weighted
-// Gram J^T W J + sum_i lam_i G_i^T G_i as stacked diagonal blocks hd
-// (nfd, blk) and super blocks hu (nfd - blk, blk).  The work is in
-// ipm_common.cuh (eval_point), which the pipelined step kernel shares.
+// Per scenario: y = G x + b, the constraint values c in lane layout,
+// jtwr2 = J^T (w r2) (or J^T max(lam + rho c, 0) under phr), jts = J^T (1/s),
+// and the block-tridiagonal band of the weighted Gram J^T W J + sum_i lam_i
+// G_i^T G_i as stacked diagonal blocks hd (nfd, blk) and super blocks hu
+// (nfd - blk, blk).
 //
 // What bounds it on an H100: per scenario the 2 m - 1 band blocks take
 // (2 m - 1) * 2 blk^2 * (m_p + n_ball) flops (4.6 MFLOP at the flagship
 // shape) plus three matvecs against G^T, on 0.28 MB of input: with each
 // input read once the two limits are close (about 76 ns of float32
 // arithmetic against 91 ns of memory traffic a scenario), the bytes a little
-// ahead.  One scenario's G^T does not fit a block's shared memory, so the
-// block walks it three times (y; the two J^T reductions; the Gram in 64-lane
-// tiles) and the second and third walk come from L2 or device memory.
+// ahead.
 //
-// The full Gram (ipm_eval_gram_launch) runs the same walk with every work
+// Two designs of the band entry point (ipm_eval_design names the one a shape
+// takes):
+//   cluster  one scenario a cluster of two blocks (ipm_cluster.cuh): each
+//            block copies its half of the lanes' G^T once into shared memory
+//            (TMA) and reads it there for y, the J^T products and the band,
+//            which it forms from only the lanes and Jacobian rows that reach
+//            each row block; the blocks add their partials over distributed
+//            shared memory.  G^T leaves device memory once.  At tier 1's
+//            ~650 rows the grid is ten waves of 66 clusters, each wave's
+//            copy a burst of 18 MB, then some twenty barrier-separated
+//            phases whose latencies, not bytes or arithmetic, set the time
+//            (~0.25 ms against a 0.06 ms byte bound, chip_smoke.py, on an
+//            H100 80GB HBM3 at 700 W).
+//   stream   one block a scenario (ipm_common.cuh, eval_point), for shapes
+//            whose share does not fit: the block walks G^T from L2 / device
+//            memory three times (y; the two J^T reductions; the Gram in
+//            64-lane tiles).
+// The full Gram (ipm_eval_gram_launch) runs the stream body with every work
 // item owning a row and ten of all nfd columns: nfd^2 (m_p + n_ball) multiply-
 // adds a scenario (22 MFLOP at the flagship shape, five times the band) and
 // an (nfd, nfd) output, so arithmetic bounds it; the tile walk repeats once
 // for every 512 work items (four times at nfd = 135).
 
+#include "ipm_cluster.cuh"
 #include "ipm_common.cuh"
 
 namespace {
@@ -36,6 +51,7 @@ struct EvalArgs {
   float* gram;      // not null: the whole Gram goes here, hd and hu unused
   int nfd, m_p, blk, nb_p, n_ball, groups, phr;
   float w_cap;
+  CUtensorMap gt_map;   // G^T for the cluster design's TMA boxes
 };
 
 struct Layout {
@@ -60,7 +76,7 @@ __host__ __device__ inline Layout make_layout(int nfd, int m_p, int blk,
 
 __global__ void __launch_bounds__(512, 2)
 ipm_eval_kernel(EvalArgs a) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const int sc = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nfd = a.nfd, m_p = a.m_p, blk = a.blk, nb_p = a.nb_p;
@@ -99,6 +115,68 @@ ipm_eval_kernel(EvalArgs a) {
   }
 }
 
+// The band evaluation in the cluster design: one scenario a cluster of two
+// blocks (blockIdx.x / 2).
+__global__ void __launch_bounds__(512, 1)
+ipm_eval_cluster_kernel(const __grid_constant__ EvalArgs a) {
+  extern __shared__ __align__(128) float smem[];
+  const ipmc::Ctx C = ipmc::make_ctx(smem, 0, a.nfd, a.m_p, a.blk, a.nb_p,
+                                     a.n_ball);
+  const ipmc::CLayout& L = C.L;
+  const int sc = blockIdx.x / ipmc::kCluster;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p, nb_p = a.nb_p, blk = a.blk;
+  float* b_s = C.at(L.b);
+  float* s_s = C.at(L.s);
+  float* lam_s = C.at(L.lam);
+  float* x_s = C.at(L.x);
+  // the state first (a cp.async group), then G^T's share (TMA)
+  for (int l = tid; l < 4 * C.n4; l += nt) {
+    if (l < C.q.nl) {
+      const size_t g = (size_t)sc * m_p + ipmc::lane_of(C.q, l, nb_p);
+      ipmc::cp_async4(b_s + l, a.b + g);
+      ipmc::cp_async4(s_s + l, a.s + g);
+      ipmc::cp_async4(lam_s + l, a.lam + g);
+    } else {
+      b_s[l] = 0.0f; s_s[l] = 1.0f; lam_s[l] = 0.0f;
+    }
+  }
+  for (int j = tid; j < C.q.hb; j += nt)
+    ipmc::cp_async4(C.at(L.rb) + j, a.rb + (size_t)sc * nb_p + C.q.j0 + j);
+  for (int r = tid; r < nfd; r += nt)
+    ipmc::cp_async4(x_s + r, a.x + (size_t)sc * nfd + r);
+  for (int l = tid; l < L.ldl; l += nt) C.at(L.lmask)[l] = 0.0f;
+  ipmc::cp_async_commit();
+  ipmc::start_gt_share(C, &a.gt_map, sc);
+  ipmc::cp_async_wait_all();
+  ipmc::wait_gt_share(C);
+  // Both blocks have started (the other's shared memory is written next)
+  // and this block's copies are visible to all its threads.
+  cooperative_groups::this_cluster().sync();
+
+  int xb = 0;
+  float ext[1] = {0.0f};
+  const int ext_op[1] = {ipmc::kSum};
+  ipmc::EvalIO io;
+  io.x = x_s; io.s = s_s; io.lam = lam_s; io.w_cap = a.w_cap;
+  io.phr = a.phr != 0; io.y_out = C.at(L.y); io.pe = nullptr;
+  io.reg = 0.0f;
+  io.hd = a.hd + (size_t)sc * nfd * blk;
+  io.hu = a.hu + (size_t)sc * (nfd - blk) * blk;
+  ipmc::eval_point_cluster(C, io, ext, ext_op, xb);
+
+  for (int l = tid; l < C.q.nl; l += nt) {
+    const size_t g = (size_t)sc * m_p + ipmc::lane_of(C.q, l, nb_p);
+    a.y[g] = io.y_out[l];
+    a.c[g] = C.at(L.c)[l];
+  }
+  const int r0 = C.rank == 0 ? 0 : L.rh, r1 = C.rank == 0 ? L.rh : nfd;
+  for (int r = r0 + tid; r < r1; r += nt) {
+    a.jtwr2[(size_t)sc * nfd + r] = C.at(L.jtp)[r];
+    a.jts[(size_t)sc * nfd + r] = C.at(L.jtp)[L.ldw + r];
+  }
+}
+
 }  // namespace
 
 // Dynamic shared memory, in bytes, that one block takes at these shapes.
@@ -110,11 +188,14 @@ extern "C" int ipm_eval_smem_bytes(int nfd, int m_p, int blk, int nb_p,
 
 namespace {
 
-int launch(EvalArgs a, int batch, int threads, void* stream) {
-  if (threads < 64 || threads > 512 || threads % 32 != 0 || a.m_p % 4 != 0 ||
+bool bad_shape(const EvalArgs& a, int batch, int threads) {
+  return threads < 64 || threads > 512 || threads % 32 != 0 || a.m_p % 4 != 0 ||
       a.blk < 1 || a.nfd % a.blk != 0 || a.nfd < 2 * a.blk ||
-      3 * a.nb_p > a.m_p || a.n_ball < 0 || a.n_ball > a.nb_p || batch < 1)
-    return (int)cudaErrorInvalidValue;
+      3 * a.nb_p > a.m_p || a.n_ball < 0 || a.n_ball > a.nb_p || batch < 1;
+}
+
+int launch(EvalArgs a, int batch, int threads, void* stream) {
+  if (bad_shape(a, batch, threads)) return (int)cudaErrorInvalidValue;
   a.groups = ipm::row_groups(threads, a.m_p);
   const size_t smem = (size_t)make_layout(a.nfd, a.m_p, a.blk, a.nb_p,
                                           a.groups).total * sizeof(float);
@@ -125,11 +206,64 @@ int launch(EvalArgs a, int batch, int threads, void* stream) {
   return (int)cudaGetLastError();
 }
 
+size_t cluster_smem_of(int nfd, int m_p, int blk, int nb_p) {
+  return (size_t)ipmc::make_cluster_layout(0, nfd, m_p, blk, nb_p).total *
+         sizeof(float);
+}
+
+int launch_cluster(EvalArgs a, int batch, int threads, void* stream) {
+  const size_t smem = cluster_smem_of(a.nfd, a.m_p, a.blk, a.nb_p);
+  if (!ipmc::gt_tensor_map(
+          &a.gt_map, a.gt, batch, a.nfd, a.m_p,
+          ipmc::make_cluster_layout(0, a.nfd, a.m_p, a.blk, a.nb_p).lds))
+    return (int)cudaErrorNotSupported;
+  cudaError_t e = cudaFuncSetAttribute(
+      ipm_eval_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      ipmc::cluster_config(batch, threads, smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, ipm_eval_cluster_kernel, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Launches the evaluation with band output for `batch` scenarios on `stream`.
-// Returns the CUDA error code of the launch (0 on success); does not
-// synchronise.
+// The design the band entry point takes at these shapes on the current
+// device: 1 the cluster design, 0 the stream design.
+extern "C" int ipm_eval_design(int nfd, int m_p, int blk, int nb_p,
+                               int threads) {
+  return ipmc::cluster_fits(0, nfd, m_p, blk, nb_p, threads) ? 1 : 0;
+}
+
+// Dynamic shared memory, in bytes, of one block of the cluster design.
+extern "C" int ipm_eval_cluster_smem_bytes(int nfd, int m_p, int blk,
+                                           int nb_p) {
+  return (int)cluster_smem_of(nfd, m_p, blk, nb_p);
+}
+
+// How many clusters of the cluster design the device holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
+extern "C" int ipm_eval_cluster_occupancy(int nfd, int m_p, int blk,
+                                          int nb_p, int threads) {
+  const size_t smem = cluster_smem_of(nfd, m_p, blk, nb_p);
+  cudaError_t e = cudaFuncSetAttribute(
+      ipm_eval_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      ipmc::cluster_config(1, threads, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, ipm_eval_cluster_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launches the evaluation with band output for `batch` scenarios on `stream`,
+// in the design ipm_eval_design names.  Returns the CUDA error code of the
+// launch (0 on success); does not synchronise.
 extern "C" int ipm_eval_step_launch(
     const float* gt, const float* b, const float* rb, const float* x,
     const float* s, const float* lam, float* y, float* c, float* jtwr2,
@@ -141,6 +275,9 @@ extern "C" int ipm_eval_step_launch(
   a.gram = nullptr;
   a.nfd = nfd; a.m_p = m_p; a.blk = blk; a.nb_p = nb_p; a.n_ball = n_ball;
   a.phr = phr; a.w_cap = w_cap;
+  if (bad_shape(a, batch, threads)) return (int)cudaErrorInvalidValue;
+  if (ipmc::cluster_fits(0, nfd, m_p, blk, nb_p, threads))
+    return launch_cluster(a, batch, threads, stream);
   return launch(a, batch, threads, stream);
 }
 

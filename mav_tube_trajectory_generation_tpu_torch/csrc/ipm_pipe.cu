@@ -2,28 +2,52 @@
 // Replaces the Pallas TPU kernel _pipe_kernel (ipm_pipe_step) of the JAX
 // package's ops/ipm_kernel.py.
 //
-// Per scenario (one thread block each):
+// Per scenario:
 //   update (upd_mode newton or snap): finish the previous step from the
 //     caller's equilibrated block-Thomas factors -- the column solve
-//     dx = D (I+L)^-T S^-1 (I+L)^-1 D rhs as 3 m - 2 dependent blk x blk
-//     matvecs, gdx = G dx, then
+//     dx = D (I+L)^-T S^-1 (I+L)^-1 D rhs as 3 m - 2 blk x blk matvecs, 2 m - 1
+//     of them dependent, gdx = G dx, then
 //       newton: fraction-to-boundary step on (s, lam), the update gated on a
 //         finite direction (select, never scale), merit, best iterate;
 //       snap: seven-point line search on phi = sum cw max(c, 0)^2 along gdx
 //         from the best iterate;
 //   evaluation (eval_mode newton or snap): the next point's y, c, J^T
-//     weights and weighted-Gram band (ipm_common.cuh, eval_point), written
-//     out as hd = band + pe_d + reg I, hu = band + pe_u, and the next
-//     right-hand side.  eval_mode none writes zeros.
+//     weights and weighted-Gram band, written out as hd = band + pe_d + reg I,
+//     hu = band + pe_u, and the next right-hand side.  eval_mode none writes
+//     zeros.
 //
 // What bounds it on an H100: the evaluation's band products (see
 // ipm_eval.cu), plus one more matvec against G^T for gdx; with each input
 // read once the memory traffic (0.35 MB a scenario, the factors and the
-// objective band included) is a little ahead of the float32 arithmetic.  As
-// built the block walks G^T four times (gdx, y, the J^T reductions, the Gram
-// tiles), the last three from L2 or device memory.  The column solve is a chain of 25 dependent 15 x 15 matvecs on
-// blk threads with a barrier between them: short, and latency-bound.
+// objective band included) is a little ahead of the float32 arithmetic.
+// The cluster design moves each input once, but runs at ~4x that bound:
+// a scenario takes ~52k cycles in some twenty barrier-separated phases, the
+// largest (the band products) under a fifth of it, each far from the SM's
+// instruction and shared-memory rates; the chain of phases and its
+// latencies, not bytes or arithmetic, bound it (stage_profile.py --kernel
+// ipm_pipe, on an H100 80GB HBM3 at 700 W).
+//
+// Two designs (ipm_pipe_design names the one a shape takes):
+//   cluster  one scenario a cluster of two blocks (ipm_cluster.cuh).  Each
+//            block starts the copy of its half of G^T into shared memory on
+//            entry (TMA), and runs the column solve while it lands: every
+//            thread of the solve holds one row of one factor block in
+//            registers, read from device memory once, so a step of the chain
+//            is one register-by-shared dot and a barrier (one warp passing
+//            the vector by shuffles took 14.6k cycles against 6.4k, its
+//            chain exposed: H100 80GB HBM3 at 700 W, stage_profile.py).  G
+//            dx, the update and the evaluation then read G^T from shared
+//            memory; the lane sums of the update (mu, the step-length
+//            minima, the merit, the line search's sums) and of the
+//            evaluation are combined over the cluster.  G^T leaves device
+//            memory once.
+//   stream   one block a scenario (ipm_common.cuh), for shapes whose share
+//            does not fit: the block walks G^T from L2 / device memory four
+//            times (gdx, y, the J^T reductions, the Gram tiles), and the
+//            column solve is a chain of dependent matvecs on blk threads
+//            with the factors staged in shared memory.
 
+#include "ipm_cluster.cuh"
 #include "ipm_common.cuh"
 
 namespace {
@@ -39,6 +63,7 @@ struct PipeArgs {
   float *rhs_o;
   int nfd, m_p, blk, nb_p, n_ball, mc, groups, upd_mode, eval_mode;
   float sigma_min, tau, alpha_max, w_cap, reg, snap_rho, margin;
+  CUtensorMap gt_map;   // G^T for the cluster design's TMA boxes
 };
 
 struct Layout {
@@ -82,7 +107,7 @@ using ipm::block_row_dot;
 
 __global__ void __launch_bounds__(512, 2)
 ipm_pipe_kernel(PipeArgs a) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const int sc = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nfd = a.nfd, m_p = a.m_p, blk = a.blk, nb_p = a.nb_p;
@@ -259,6 +284,381 @@ ipm_pipe_kernel(PipeArgs a) {
   }
 }
 
+// ---- the cluster design ----------------------------------------------------
+
+using ipm::pmax;
+using ipm::pmin;
+using ipmc::BMAX;
+using ipmc::Ctx;
+
+// sum_c f[c] v[c] for a factor row held in registers, c < blk, as four
+// interleaved partial sums (c mod 4) added in the order (0 + 1) + (2 + 3):
+// a short dependent chain for a step of the column solve.
+__device__ __forceinline__ float dotf(const float (&f)[BMAX], const float* v,
+                                      int blk) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < BMAX; ++c)
+    if (c < blk) acc[c & 3] = fmaf(f[c], v[c], acc[c & 3]);
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// The step's shared vectors: nfd ones (x, bx, dx) and this block's lanes.
+struct ClVecs {
+  float *x, *bx, *dx, *s, *lam, *y, *by, *gdx, *ds, *dlam, *act, *cw, *rb;
+  float *red, *xch;
+};
+
+// Newton update along (dx, gdx) on both blocks (ipm::newton_update with its
+// lane sums combined over the cluster).  Must be reached by every thread of
+// both blocks.
+__device__ void newton_update_cl(const Ctx& C, const ClVecs& V,
+                                 float sigma_min, float tau, float alpha_max,
+                                 float w_cap, float mc, float& best_merit,
+                                 int& xb) {
+  const int tid = threadIdx.x, nt = blockDim.x, nl = C.q.nl;
+  const float inf = CUDART_INF_F;
+  float mu1[1] = {0.0f};
+  const int op_sum1[1] = {ipmc::kSum};
+  for (int l = tid; l < nl; l += nt) mu1[0] += V.cw[l] * V.s[l] * V.lam[l];
+  ipmc::block_reduce_n<1>(mu1, op_sum1, V.red);
+  ipmc::cluster_combine<1>(mu1, op_sum1, V.xch, C.rank, xb);
+  const float mu = mu1[0] / mc;
+  const float sig_mu = sigma_min * mu;
+  float st[3] = {inf, inf, 1.0f};           // min_s, min_l, finite
+  const int op_min3[3] = {ipmc::kMin, ipmc::kMin, ipmc::kMin};
+  for (int l = tid; l < nl; l += nt) {
+    const float act = V.act[l], sl = V.s[l], ll = V.lam[l];
+    const float c = ipmc::c_loc(C, V.y, V.rb, l);
+    const float r2 = (c + sl) * act;
+    const float w = pmin(ll / sl, w_cap);
+    const float jdx = ipmc::jdx_loc(C, V.gdx, V.y, l);
+    const float ds = (-r2 - jdx) * act;
+    const float dlam = ((sig_mu - ll * sl) / sl - w * ds) * act;
+    V.ds[l] = ds;
+    V.dlam[l] = dlam;
+    st[0] = pmin(st[0], ds < 0.0f ? -sl / ds : inf);
+    st[1] = pmin(st[1], dlam < 0.0f ? -ll / dlam : inf);
+    if (!(fabsf(ds) < inf) || !(fabsf(dlam) < inf)) st[2] = 0.0f;
+  }
+  ipmc::block_reduce_n<3>(st, op_min3, V.red);
+  ipmc::cluster_combine<3>(st, op_min3, V.xch, C.rank, xb);
+  const float alpha =
+      pmin(pmin(pmin(1.0f, tau * st[0]), pmin(1.0f, tau * st[1])), alpha_max);
+  const bool upd = alpha > 0.0f && st[2] > 0.0f;
+  if (upd) {
+    for (int r = tid; r < C.nfd; r += nt) V.x[r] = V.x[r] + alpha * V.dx[r];
+    for (int l = tid; l < nl; l += nt) {
+      V.s[l] = V.s[l] + alpha * V.ds[l];
+      if (V.act[l] > 0.0f)
+        V.lam[l] = pmax(V.lam[l] + alpha * V.dlam[l], 1e-16f);
+      V.y[l] = V.y[l] + alpha * V.gdx[l];
+    }
+  }
+  __syncthreads();
+  float m[3] = {-inf, -inf, 0.0f};
+  const int op_merit[3] = {ipmc::kMax, ipmc::kMax, ipmc::kSum};
+  for (int l = tid; l < nl; l += nt) {
+    const float c = ipmc::c_loc(C, V.y, V.rb, l);
+    if (V.act[l] > 0.0f) {
+      m[0] = pmax(m[0], pmax(c, 0.0f));
+      m[1] = pmax(m[1], fabsf(c + V.s[l]));
+    }
+    m[2] += V.cw[l] * V.s[l] * V.lam[l];
+  }
+  ipmc::block_reduce_n<3>(m, op_merit, V.red);
+  ipmc::cluster_combine<3>(m, op_merit, V.xch, C.rank, xb);
+  const float merit = m[0] + m[1] + m[2] / mc;
+  if (merit < best_merit) {
+    best_merit = merit;
+    for (int r = tid; r < C.nfd; r += nt) V.bx[r] = V.x[r];
+    for (int l = tid; l < nl; l += nt) V.by[l] = V.y[l];
+  }
+  __syncthreads();
+}
+
+// Snap update of the best iterate along (dx, gdx) on both blocks
+// (ipm::snap_update with its eight sums combined over the cluster).
+__device__ void snap_update_cl(const Ctx& C, const ClVecs& V, int& xb) {
+  const int tid = threadIdx.x, nt = blockDim.x, nl = C.q.nl;
+  const float alphas[7] = {1.0f, 0.5f, 0.25f, 0.1f, 0.03f, 0.01f, 0.003f};
+  float p[8];
+  int ops[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    p[i] = 0.0f;
+    ops[i] = ipmc::kSum;
+  }
+  for (int l = tid; l < nl; l += nt) {
+    const float cw = V.cw[l];
+    float v = pmax(ipmc::c_loc(C, V.by, V.rb, l), 0.0f);
+    p[0] += cw * v * v;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      v = pmax(ipmc::c_loc_moved(C, V.by, V.gdx, alphas[i], V.rb, l), 0.0f);
+      p[i + 1] += cw * v * v;
+    }
+  }
+  IPM_PROF(14);
+  ipmc::block_reduce_n<8>(p, ops, V.red);
+  ipmc::cluster_combine<8>(p, ops, V.xch, C.rank, xb);
+  float best_a = 0.0f, best_p = p[0];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    if (p[i + 1] < best_p) {
+      best_a = alphas[i];
+      best_p = p[i + 1];
+    }
+  }
+  if (best_a > 0.0f) {
+    for (int r = tid; r < C.nfd; r += nt) V.bx[r] = V.bx[r] + best_a * V.dx[r];
+    for (int l = tid; l < nl; l += nt) V.by[l] = V.by[l] + best_a * V.gdx[l];
+  }
+  __syncthreads();
+}
+
+// One scenario a cluster of two blocks (blockIdx.x / 2).
+__global__ void __launch_bounds__(512, 1)
+ipm_pipe_cluster_kernel(const __grid_constant__ PipeArgs a) {
+  extern __shared__ __align__(128) float smem[];
+  IPM_PROF(-1);
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  const Ctx C = ipmc::make_ctx(smem, 1, a.nfd, a.m_p, a.blk, a.nb_p,
+                               a.n_ball);
+  const ipmc::CLayout& L = C.L;
+  const int sc = blockIdx.x / ipmc::kCluster;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p, blk = a.blk, nb_p = a.nb_p;
+  const int m_blk = nfd / blk, bb = blk * blk, nl = C.q.nl;
+  const float mc = (float)a.mc;
+
+  // ---- the factor rows of the column solve, one a thread, in registers ----
+  // threads [0, m blk): row fk of S_fi^-1; then m - 1 blocks of T; then TT.
+  // Loads in flight first: they are read first.
+  const int mb = m_blk * blk, tb = (m_blk - 1) * blk;
+  int role = 0, fi = 0, fk = 0;
+  float f[BMAX];
+  if (a.upd_mode != kNone) {
+    const float* frow = nullptr;
+    if (tid < mb) {
+      role = 1; fi = tid / blk; fk = tid - fi * blk;
+      frow = a.sinv + ((size_t)sc * m_blk + fi) * bb + fk * blk;
+    } else if (tid < mb + tb) {
+      role = 2; fi = (tid - mb) / blk; fk = tid - mb - fi * blk;
+      frow = a.t + ((size_t)sc * (m_blk - 1) + fi) * bb + fk * blk;
+    } else if (tid < mb + 2 * tb) {
+      role = 3; fi = (tid - mb - tb) / blk; fk = tid - mb - tb - fi * blk;
+      frow = a.tt + ((size_t)sc * (m_blk - 1) + fi) * bb + fk * blk;
+    }
+#pragma unroll
+    for (int c = 0; c < BMAX; ++c)
+      f[c] = (frow != nullptr && c < blk) ? __ldg(frow + c) : 0.0f;
+  }
+
+  // ---- the state (a cp.async group), then G^T's share (TMA) ---------------
+  ClVecs V;
+  V.x = C.at(L.x); V.bx = C.at(L.bx); V.dx = C.at(L.dx); V.s = C.at(L.s);
+  V.lam = C.at(L.lam); V.y = C.at(L.y); V.by = C.at(L.by);
+  V.act = C.at(L.act); V.cw = C.at(L.cw); V.rb = C.at(L.rb);
+  V.red = C.at(L.red); V.xch = C.at(L.xch);
+  // Live only during the update, which ends before the evaluation writes
+  // its lane weights: gdx, ds and dlam share the evaluation's arrays.
+  V.gdx = C.at(L.wjs); V.ds = C.at(L.wa); V.dlam = C.at(L.wj);
+  float* b_s = C.at(L.b);
+  for (int l = tid; l < 4 * C.n4; l += nt) {
+    if (l < nl) {
+      const int gl = ipmc::lane_of(C.q, l, nb_p);
+      const size_t g = (size_t)sc * m_p + gl;
+      ipmc::cp_async4(b_s + l, a.b + g);
+      ipmc::cp_async4(V.act + l, a.act + gl);
+      ipmc::cp_async4(V.cw + l, a.cw + gl);
+      ipmc::cp_async4(V.s + l, a.s + g);
+      ipmc::cp_async4(V.lam + l, a.lam + g);
+      ipmc::cp_async4(V.y + l, a.y + g);
+      ipmc::cp_async4(V.by + l, a.by + g);
+    } else {
+      b_s[l] = 0.0f; V.act[l] = 0.0f; V.cw[l] = 0.0f; V.s[l] = 1.0f;
+      V.lam[l] = 0.0f; V.y[l] = 0.0f; V.by[l] = 0.0f;
+    }
+    V.gdx[l] = 0.0f;
+  }
+  for (int l = tid; l < L.ldl; l += nt) C.at(L.lmask)[l] = 0.0f;
+  for (int j = tid; j < C.q.hb; j += nt)
+    ipmc::cp_async4(V.rb + j, a.rb + (size_t)sc * nb_p + C.q.j0 + j);
+  for (int r = tid; r < nfd; r += nt) {
+    ipmc::cp_async4(V.x + r, a.x + (size_t)sc * nfd + r);
+    ipmc::cp_async4(V.bx + r, a.bx + (size_t)sc * nfd + r);
+  }
+  // this block's half of [pe_d | pe_u], added to the band it finishes
+  const int e0 = C.rank == 0 ? 0 : L.eh, e1 = C.rank == 0 ? L.eh : L.nband;
+  const float* ped = a.pe_d + (size_t)sc * nfd * blk;
+  const float* peu = a.pe_u + (size_t)sc * (nfd - blk) * blk;
+  float* pe_s = C.at(L.pe);
+  if (a.eval_mode != kNone) {
+    for (int e = e0 + tid; e < e1; e += nt)
+      ipmc::cp_async4(pe_s + e - e0,
+                      e < nfd * blk ? ped + e : peu + (e - nfd * blk));
+  }
+  ipmc::cp_async_commit();
+  ipmc::start_gt_share(C, &a.gt_map, sc);
+  float best_merit = a.bm[sc];
+  IPM_PROF(15);
+
+  // ---- dx: block-Thomas column solve against the factors, while the state
+  // and G^T land (it reads only its registers, rhs and dsc) ----------------
+  if (a.upd_mode != kNone) {
+    float* rs = C.at(L.rs);    // D rhs, then the backward sweep's x
+    float* u = C.at(L.u);
+    float* z = C.at(L.z);
+    const float* dsc = a.dsc + (size_t)sc * nfd;
+    for (int r = tid; r < nfd; r += nt) {
+      const float v = a.rhs[(size_t)sc * nfd + r] * dsc[r];
+      rs[r] = v;
+      if (r < blk) u[r] = v;
+    }
+    __syncthreads();
+    // forward: u_i = r_i - T_{i-1} u_{i-1}
+    for (int i = 1; i < m_blk; ++i) {
+      if (role == 2 && fi == i - 1)
+        u[i * blk + fk] = rs[i * blk + fk] - dotf(f, u + (i - 1) * blk, blk);
+      __syncthreads();
+    }
+    // diagonal: z_i = S_i^-1 u_i;  x_{m-1} = z_{m-1}   (x in rs)
+    if (role == 1) {
+      const float v = dotf(f, u + fi * blk, blk);
+      z[fi * blk + fk] = v;
+      if (fi == m_blk - 1) rs[fi * blk + fk] = v;
+    }
+    __syncthreads();
+    // backward: x_i = z_i - T_i^T x_{i+1}
+    for (int i = m_blk - 2; i >= 0; --i) {
+      if (role == 3 && fi == i)
+        rs[i * blk + fk] = z[i * blk + fk] - dotf(f, rs + (i + 1) * blk, blk);
+      __syncthreads();
+    }
+    for (int r = tid; r < nfd; r += nt) V.dx[r] = rs[r] * dsc[r];
+    IPM_PROF(1);
+  }
+
+  ipmc::cp_async_wait_all();         // this thread's state has landed
+  for (int l = tid; l < nl; l += nt)
+    V.s[l] = pmax(V.s[l], 1e-14f) * V.act[l] + (1.0f - V.act[l]);
+
+  // Both blocks have started (the other's shared memory is written from
+  // now on) and the state is visible to every thread.
+  cl.sync();
+  IPM_PROF(0);
+  int xb = 0;
+
+  if (a.upd_mode != kNone) {
+    ipmc::wait_gt_share(C);
+    __syncthreads();
+    IPM_PROF(2);
+    // ---- gdx = G dx on this block's lanes -----------------------------------
+    ipmc::col_dots(C, V.dx, nullptr, V.gdx);
+    __syncthreads();
+    IPM_PROF(3);
+  } else {
+    ipmc::wait_gt_share(C);
+    __syncthreads();
+  }
+
+  if (a.upd_mode == kNewton) {
+    newton_update_cl(C, V, a.sigma_min, a.tau, a.alpha_max, a.w_cap, mc,
+                     best_merit, xb);
+  } else if (a.upd_mode == kSnap) {
+    snap_update_cl(C, V, xb);
+  }
+  IPM_PROF(4);
+
+  // ---- evaluation at the (possibly moved) point ----------------------------
+  // max lam over the lanes and (newton) sum cw s lam ride on its barrier
+  float ext[2] = {0.0f, 0.0f};
+  const int ext_op[2] = {ipmc::kMax, ipmc::kSum};
+  for (int l = tid; l < nl; l += nt) {
+    ext[0] = pmax(ext[0], V.act[l] > 0.0f ? V.lam[l] : 0.0f);
+    ext[1] += V.cw[l] * V.s[l] * V.lam[l];
+  }
+  ipmc::block_reduce_n<2>(ext, ext_op, V.red);
+  float* hd = a.hd + (size_t)sc * nfd * blk;
+  float* hu = a.hu + (size_t)sc * (nfd - blk) * blk;
+  float* rhs_o = a.rhs_o + (size_t)sc * nfd;
+  const int r0 = C.rank == 0 ? 0 : L.rh, r1 = C.rank == 0 ? L.rh : nfd;
+  const float* jt = C.at(L.jtp);
+  if (a.eval_mode != kNone) {
+    // one call site for both modes: the evaluation is the kernel's largest
+    // code, inlined once
+    const bool newton = a.eval_mode == kNewton;
+    float* le = C.at(L.le);
+    float* se = C.at(L.se);
+    if (!newton) {
+      for (int l = tid; l < 4 * C.n4; l += nt) {
+        float lam_e = 0.0f;
+        if (l < nl) {
+          const float c = ipmc::c_loc(C, V.by, V.rb, l);
+          lam_e = (c > -a.margin && V.act[l] > 0.0f) ? 1e-6f : 0.0f;
+        }
+        le[l] = lam_e;
+        se[l] = l < nl ? lam_e / a.snap_rho : 1.0f;
+      }
+      __syncthreads();
+    }
+    IPM_PROF(11);
+    ipmc::EvalIO io;
+    io.pe = pe_s; io.hd = hd; io.hu = hu;
+    io.x = newton ? V.x : V.bx;
+    io.s = newton ? V.s : se;
+    io.lam = newton ? V.lam : le;
+    io.w_cap = newton ? a.w_cap : a.snap_rho;
+    io.phr = !newton;
+    io.y_out = newton ? V.y : C.at(L.ye);
+    io.reg = newton ? a.reg : 1e-6f;
+    ipmc::eval_point_cluster(C, io, ext, ext_op, xb);
+    if (newton) {
+      const float sig_mu = a.sigma_min * (ext[1] / mc);
+      const float* q = a.q + (size_t)sc * nfd;
+      for (int r = r0 + tid; r < r1; r += nt) {
+        const float o = ipm::pe_band_mv_row(ped, peu, V.x, r, blk, m_blk);
+        rhs_o[r] = -(o + q[r] + jt[r] + sig_mu * jt[L.ldw + r]);
+      }
+    } else {
+      for (int r = r0 + tid; r < r1; r += nt) rhs_o[r] = -jt[r];
+    }
+  } else {
+    ipmc::cluster_combine<2>(ext, ext_op, V.xch, C.rank, xb);
+    for (int e = e0 + tid; e < e1; e += nt) {
+      if (e < nfd * blk) hd[e] = 0.0f;
+      else hu[e - nfd * blk] = 0.0f;
+    }
+    for (int r = r0 + tid; r < r1; r += nt) rhs_o[r] = 0.0f;
+  }
+  IPM_PROF(9);
+
+  // ---- outputs --------------------------------------------------------------
+  for (int l = tid; l < nl; l += nt) {
+    const size_t g = (size_t)sc * m_p + ipmc::lane_of(C.q, l, nb_p);
+    a.s_o[g] = V.s[l];
+    a.lam_o[g] = V.lam[l];
+    a.y_o[g] = V.y[l];
+    a.by_o[g] = V.by[l];
+  }
+  for (int r = r0 + tid; r < r1; r += nt) {
+    a.x_o[(size_t)sc * nfd + r] = V.x[r];
+    a.bx_o[(size_t)sc * nfd + r] = V.bx[r];
+  }
+  if (C.rank == 0 && tid == 0) {
+    a.bm_o[sc] = best_merit;
+    a.maxlam_o[sc] = ext[0];
+  }
+  IPM_PROF(10);
+  IPM_PROF_FLUSH();
+}
+
+size_t cluster_smem_of(int nfd, int m_p, int blk, int nb_p) {
+  return (size_t)ipmc::make_cluster_layout(1, nfd, m_p, blk, nb_p).total *
+         sizeof(float);
+}
+
 }  // namespace
 
 // Dynamic shared memory, in bytes, that one block takes at these shapes.
@@ -268,9 +668,39 @@ extern "C" int ipm_pipe_smem_bytes(int nfd, int m_p, int blk, int nb_p,
              .total * (int)sizeof(float);
 }
 
-// Launches one pipelined step for `batch` scenarios on `stream`.  Modes:
-// 0 none, 1 newton, 2 snap.  Returns the CUDA error code of the launch (0 on
-// success); does not synchronise.
+// The design the step takes at these shapes on the current device: 1 the
+// cluster design, 0 the stream design.
+extern "C" int ipm_pipe_design(int nfd, int m_p, int blk, int nb_p,
+                               int threads) {
+  return ipmc::cluster_fits(1, nfd, m_p, blk, nb_p, threads) ? 1 : 0;
+}
+
+// Dynamic shared memory, in bytes, of one block of the cluster design.
+extern "C" int ipm_pipe_cluster_smem_bytes(int nfd, int m_p, int blk,
+                                           int nb_p) {
+  return (int)cluster_smem_of(nfd, m_p, blk, nb_p);
+}
+
+// How many clusters of the cluster design the device holds at once
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
+extern "C" int ipm_pipe_cluster_occupancy(int nfd, int m_p, int blk,
+                                          int nb_p, int threads) {
+  const size_t smem = cluster_smem_of(nfd, m_p, blk, nb_p);
+  cudaError_t e = cudaFuncSetAttribute(
+      ipm_pipe_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      ipmc::cluster_config(1, threads, smem, nullptr, attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, ipm_pipe_cluster_kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Launches one pipelined step for `batch` scenarios on `stream`, in the
+// design ipm_pipe_design names.  Modes: 0 none, 1 newton, 2 snap.  Returns
+// the CUDA error code of the launch (0 on success); does not synchronise.
 extern "C" int ipm_pipe_step_launch(
     const float* gt, const float* b, const float* rb, const float* pe_d,
     const float* pe_u, const float* q, const float* x, const float* s,
@@ -301,6 +731,23 @@ extern "C" int ipm_pipe_step_launch(
   a.sigma_min = sigma_min; a.tau = tau; a.alpha_max = alpha_max;
   a.w_cap = w_cap; a.reg = reg; a.snap_rho = snap_rho;
   a.margin = (float)(3.0 / (double)snap_rho);
+  if (ipmc::cluster_fits(1, nfd, m_p, blk, nb_p, threads)) {
+    const size_t csmem = cluster_smem_of(nfd, m_p, blk, nb_p);
+    if (!ipmc::gt_tensor_map(
+            &a.gt_map, gt, batch, nfd, m_p,
+            ipmc::make_cluster_layout(1, nfd, m_p, blk, nb_p).lds))
+      return (int)cudaErrorNotSupported;
+    cudaError_t e = cudaFuncSetAttribute(
+        ipm_pipe_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)csmem);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg =
+        ipmc::cluster_config(batch, threads, csmem, stream, attr);
+    e = cudaLaunchKernelEx(&cfg, ipm_pipe_cluster_kernel, a);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
   const size_t smem =
       (size_t)make_layout(nfd, m_p, blk, nb_p, a.groups).total * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -309,3 +756,17 @@ extern "C" int ipm_pipe_step_launch(
   ipm_pipe_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+#ifdef IPM_PIPE_PROFILE
+// The phase profile's sums (2 x 32 counters: the first wave's block, then
+// the middle scenario's), and their reset.
+extern "C" int ipm_pipe_profile_read(unsigned long long* host) {
+  return (int)cudaMemcpyFromSymbol(host, ipmc::ipm_prof,
+                                   sizeof(ipmc::ipm_prof));
+}
+
+extern "C" int ipm_pipe_profile_clear() {
+  const unsigned long long zero[2][32] = {};
+  return (int)cudaMemcpyToSymbol(ipmc::ipm_prof, zero, sizeof(zero));
+}
+#endif

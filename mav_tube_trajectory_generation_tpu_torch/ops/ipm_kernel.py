@@ -28,11 +28,17 @@ J_i = sum_c y_ic G_ic.  Tensors carry a flat batch axis: ``gt (B, nfd,
 m_p)``, lane rows ``(B, 1, m_p)``, columns ``(B, nfd, 1)``.
 
 The kernels are ``csrc/gt_matvec.cu``, ``csrc/ipm_eval.cu``,
-``csrc/ipm_pipe.cu`` and ``csrc/ipm_solve.cu`` (CUDA C++, sm_90a, one thread
-block per scenario but for ``gt_matvec``, which splits a scenario's lanes
-over ``matvec_chunk`` blocks; the shared device code in
-``csrc/ipm_common.cuh``).  What bounds them on an H100 is stated at the top
-of each source.
+``csrc/ipm_pipe.cu`` and ``csrc/ipm_solve.cu`` (CUDA C++, sm_90a; the shared
+device code in ``csrc/ipm_common.cuh`` and ``csrc/ipm_cluster.cuh``).
+``gt_matvec`` splits a scenario's lanes over ``matvec_chunk`` blocks.
+``ipm_eval_step`` with band output and ``ipm_pipe_step`` have two designs,
+chosen by shape in the launcher (``ipm_design``): "cluster", one scenario a
+cluster of two blocks, each holding its half of the lanes' G^T in shared
+memory (``cluster_layout``, lanes split by ball index as
+``admm_kernel.cluster_lane_split`` says), where a block's share fits; else
+"stream", one block a scenario walking G^T from L2 / device memory.  The
+full-Gram evaluation and ``ipm_solve_fused`` are one block a scenario.  What
+bounds each kernel on an H100 is stated at the top of its source.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version only for CPU tensors; it never falls back from one to the other.
@@ -47,6 +53,7 @@ from typing import Dict
 import torch
 
 from .. import _build
+from .admm_kernel import cluster_lane_split
 
 # Number of times each wrapper has launched its CUDA kernel in this process.
 launches: Dict[str, int] = {"gt_matvec": 0, "ipm_eval_step": 0,
@@ -66,9 +73,20 @@ MODES = ("none", "newton", "snap")
 # Step lengths the snap line search tries, in this order.
 SNAP_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003)
 
-_configured: Dict[str, bool] = {}
+# The cluster design's band tile (rows, columns) and the scalars a cluster
+# combine carries (csrc/ipm_cluster.cuh: TR, TC, NXCH).
+CLUSTER_TILE = (3, 5)
+_NXCH = 8
+# The two libraries with a cluster design, by the name of their kernel.
+CLUSTER_KERNELS = {"ipm_eval_step": "ipm_eval", "ipm_pipe_step": "ipm_pipe"}
+
+# Libraries whose C signatures are declared (by id: a variant build of a
+# source may take its name's place).
+_configured: Dict[int, bool] = {}
 # SM count of each CUDA device a wrapper has run on.
 _SMS: Dict[torch.device, int] = {}
+# ipm_design's answers, by (device, kernel, shapes).
+_designs: Dict[tuple, str] = {}
 
 
 # ----------------------------------------------------------------------------
@@ -259,6 +277,87 @@ def _gram_band(gt, lam_ball, aj, w_aj, blk: int):
     return torch.cat(hd, dim=1), torch.cat(hu, dim=1)
 
 
+def cluster_layout(kernel: str, nfd: int, m_p: int, blk: int,
+                   nb_p: int) -> Dict[str, int]:
+    """Shared-memory layout of one block of the cluster design of
+    ``kernel`` ("ipm_eval_step" or "ipm_pipe_step"), in floats: the same
+    function as ``make_cluster_layout`` in ``csrc/ipm_cluster.cuh``, with
+    ``total`` the block's size, ``per`` the band tiles of one block of the
+    band, and the halves of the band ("eh" entries) and of the rows ("rh")
+    rank 0 finishes."""
+    if kernel not in CLUSTER_KERNELS:
+        raise ValueError(f"no cluster design for {kernel}")
+    pipe = kernel == "ipm_pipe_step"
+    r4 = lambda n: (n + 3) & ~3
+    nh = m_p - 3 * nb_p
+    hb, fb = (nb_p + 1) // 2, (nh + 1) // 2              # rank 0's share
+    nl = 3 * hb + fb
+    m_blk = nfd // blk
+    tr, tc = CLUSTER_TILE
+    L = dict(n4=(nl + 3) // 4, nj4=(hb + 3) // 4, ldw=r4(nfd),
+             nband=nfd * blk + (nfd - blk) * blk, rh=(nfd + 1) // 2,
+             per=(-(-blk // tr)) * (-(-blk // tc)))
+    L["ldl"] = 4 * L["n4"] + (4 if L["n4"] % 2 == 0 else 0)
+    L["ldj"] = 4 * L["nj4"] + (4 if L["nj4"] % 2 == 0 else 0)
+    L["eh"] = r4((L["nband"] + 1) // 2)
+    w4 = (max(hb, fb) + 3) // 4                  # G^T's share: segment tiles
+    L["lds"] = 4 * w4 + (4 if w4 % 2 == 0 else 0)
+    L["nseg"] = 4 if fb > 0 else 3
+    L["tile"] = (nfd * L["lds"] + 31) & ~31
+    o = L["nseg"] * L["tile"]
+    L["jr"] = r4(max(nfd * L["ldj"], L["nband"]))           # J rows, scratch
+    o += L["jr"]
+    o += (14 if pipe else 8) * L["ldl"]                     # lane vectors
+    o += 2 * 4 * L["nj4"]                                   # rb, wjb
+    o += (6 if pipe else 1) * L["ldw"]                      # nfd vectors
+    o += 4 * L["ldw"] + (2 if pipe else 1) * r4(L["eh"])    # J^T, band, pe
+    o += L["ldl"] + 4 * L["nj4"]                            # row-block masks
+    o += r4((m_blk * 4 * L["n4"] + 1) // 2)                 # lane lists
+    o += r4((m_blk * 4 * L["nj4"] + 1) // 2) + r4(2 * m_blk)
+    o += _NXCH * 32 + 2 * 2 * _NXCH + 4                     # reductions, bar
+    L["total"] = o
+    return L
+
+
+def cluster_smem_bytes(kernel: str, nfd: int, m_p: int, blk: int,
+                       nb_p: int) -> int:
+    """Dynamic shared memory one block of ``kernel``'s cluster design takes
+    at these shapes (computed here; the library's own number must agree)."""
+    return 4 * cluster_layout(kernel, nfd, m_p, blk, nb_p)["total"]
+
+
+def cluster_band_parts(m_p: int, nb_p: int, n_ball: int):
+    """The cluster design's band in its order of sums: [(rank, lanes,
+    balls)] for rank 0, then rank 1.  ``lanes``: the global lanes whose G^T
+    columns the block sums with the lane weight, in its local order;
+    ``balls``: the balls j < n_ball whose Jacobian rows it sums, after them.
+    (The kernel walks, for each row block, only the lanes and balls that
+    reach it: the terms it leaves out are exact zeros.)"""
+    return [(rank, lanes, [j for j in balls if j < n_ball])
+            for rank, (lanes, balls) in enumerate(
+                cluster_lane_split(m_p, nb_p))]
+
+
+def _gram_band_cluster(gt, lam_ball, aj, w_aj, blk: int, *, nb_p: int,
+                       n_ball: int):
+    """``_gram_band`` summed as the cluster design sums it: each block of
+    ``cluster_band_parts`` over its lanes (the curvature term on ball lanes,
+    the lane term elsewhere) and its balls' Jacobian rows, then rank 0's sum
+    plus rank 1's."""
+    m_p = gt.shape[2]
+    dev = gt.device
+    sums = [None, None]
+    for rank, lanes, balls in cluster_band_parts(m_p, nb_p, n_ball):
+        lb = [l for l in lanes if not (l < nb_p and l < n_ball)] + balls
+        la = torch.tensor(lanes, dtype=torch.long, device=dev)
+        lb = torch.tensor(lb, dtype=torch.long, device=dev)
+        part = _gram_band(gt[:, :, la], lam_ball[:, :, la], aj[:, :, lb],
+                          w_aj[:, :, lb], blk)
+        sums[rank] = part if sums[rank] is None else tuple(
+            a + b for a, b in zip(sums[rank], part))
+    return tuple(a + b for a, b in zip(*sums))
+
+
 def ipm_eval_step_plain(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
                         w_cap: float = 1e10, phr: bool = False,
                         band_block: int = 0):
@@ -270,6 +369,20 @@ def ipm_eval_step_plain(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
                 + torch.einsum('bnl,bml->bnm', aj * w_aj, aj))
         return y, c, jtwr2, jts, gram
     hd, hu = _gram_band(gt, lam_ball, aj, w_aj, band_block)
+    return y, c, jtwr2, jts, hd, hu
+
+
+def ipm_eval_step_cluster_plain(gt, b, rb, x, s, lam, *, nb_p: int,
+                                n_ball: int, w_cap: float = 1e10,
+                                phr: bool = False, band_block: int):
+    """``ipm_eval_step`` with band output in plain PyTorch, the band summed
+    in the cluster design's order (``_gram_band_cluster``): the same
+    function as ``ipm_eval_step_plain``; the wrapper's plain version stays
+    the reference order.  Any float dtype, any device."""
+    y, c, jtwr2, jts, lam_ball, aj, w_aj = _eval_core(
+        gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=w_cap, phr=phr)
+    hd, hu = _gram_band_cluster(gt, lam_ball, aj, w_aj, band_block,
+                                nb_p=nb_p, n_ball=n_ball)
     return y, c, jtwr2, jts, hd, hu
 
 
@@ -286,6 +399,36 @@ def ipm_pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
                         reg: float, snap_rho: float, blk: int,
                         upd_mode: str, eval_mode: str):
     """``ipm_pipe_step`` in plain PyTorch; any float dtype, any device."""
+    return _pipe_step_plain(
+        gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm, sinv, t, tt, dsc,
+        rhs, act, cw, nb_p=nb_p, n_ball=n_ball, mc=mc, sigma_min=sigma_min,
+        tau=tau, alpha_max=alpha_max, w_cap=w_cap, reg=reg,
+        snap_rho=snap_rho, blk=blk, upd_mode=upd_mode, eval_mode=eval_mode,
+        band=_gram_band)
+
+
+def ipm_pipe_step_cluster_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx,
+                                by, bm, sinv, t, tt, dsc, rhs, act, cw, *,
+                                nb_p: int, n_ball: int, mc: int,
+                                sigma_min: float, tau: float,
+                                alpha_max: float, w_cap: float, reg: float,
+                                snap_rho: float, blk: int, upd_mode: str,
+                                eval_mode: str):
+    """``ipm_pipe_step_plain`` with the band summed in the cluster design's
+    order (``_gram_band_cluster``).  Any float dtype, any device."""
+    band = lambda *a: _gram_band_cluster(*a, nb_p=nb_p, n_ball=n_ball)
+    return _pipe_step_plain(
+        gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm, sinv, t, tt, dsc,
+        rhs, act, cw, nb_p=nb_p, n_ball=n_ball, mc=mc, sigma_min=sigma_min,
+        tau=tau, alpha_max=alpha_max, w_cap=w_cap, reg=reg,
+        snap_rho=snap_rho, blk=blk, upd_mode=upd_mode, eval_mode=eval_mode,
+        band=band)
+
+
+def _pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
+                     sinv, t, tt, dsc, rhs, act, cw, *, nb_p, n_ball, mc,
+                     sigma_min, tau, alpha_max, w_cap, reg, snap_rho, blk,
+                     upd_mode, eval_mode, band):
     if upd_mode not in MODES or eval_mode not in MODES:
         raise ValueError(f"modes must be of {MODES}")
     dt = gt.dtype
@@ -368,7 +511,7 @@ def ipm_pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
         hu = torch.zeros((bsz, nfd - blk, blk), dtype=dt, device=gt.device)
         rhs_new = torch.zeros((bsz, nfd, 1), dtype=dt, device=gt.device)
     else:
-        gd, gu = _gram_band(gt, lam_ball, aj, w_aj, blk)
+        gd, gu = band(gt, lam_ball, aj, w_aj, blk)
         eye_b = torch.eye(blk, dtype=dt, device=gt.device)
         hd = gd + pe_d.reshape(bsz, nfd, blk) \
             + reg_e * eye_b.repeat(nfd // blk, 1)
@@ -534,7 +677,7 @@ def _library(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its C signatures
     declared."""
     lib = _build.load(name)
-    if not _configured.get(name):
+    if not _configured.get(id(lib)):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "gt_matvec":
             lib.gt_matvec_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
@@ -546,29 +689,71 @@ def _library(name: str) -> ctypes.CDLL:
             lib.ipm_eval_gram_launch.argtypes = (
                 [ptr] * 11 + [i32] * 6 + [f32, i32, i32, ptr])
             lib.ipm_eval_gram_launch.restype = i32
-            lib.ipm_eval_smem_bytes.argtypes = [i32] * 5
-            lib.ipm_eval_smem_bytes.restype = i32
+            for fn in ("ipm_eval_smem_bytes", "ipm_eval_design",
+                       "ipm_eval_cluster_occupancy"):
+                getattr(lib, fn).argtypes = [i32] * 5
+                getattr(lib, fn).restype = i32
+            lib.ipm_eval_cluster_smem_bytes.argtypes = [i32] * 4
+            lib.ipm_eval_cluster_smem_bytes.restype = i32
         elif name == "ipm_pipe":
             lib.ipm_pipe_step_launch.argtypes = (
                 [ptr] * 31 + [i32] * 7 + [f32] * 6 + [i32] * 3 + [ptr])
             lib.ipm_pipe_step_launch.restype = i32
-            lib.ipm_pipe_smem_bytes.argtypes = [i32] * 5
-            lib.ipm_pipe_smem_bytes.restype = i32
+            for fn in ("ipm_pipe_smem_bytes", "ipm_pipe_design",
+                       "ipm_pipe_cluster_occupancy"):
+                getattr(lib, fn).argtypes = [i32] * 5
+                getattr(lib, fn).restype = i32
+            lib.ipm_pipe_cluster_smem_bytes.argtypes = [i32] * 4
+            lib.ipm_pipe_cluster_smem_bytes.restype = i32
         elif name == "ipm_solve":
             lib.ipm_solve_fused_launch.argtypes = (
                 [ptr] * 20 + [i32] * 9 + [f32] * 6 + [i32, ptr])
             lib.ipm_solve_fused_launch.restype = i32
             lib.ipm_solve_smem_bytes.argtypes = [i32] * 5
             lib.ipm_solve_smem_bytes.restype = i32
-        _configured[name] = True
+        _configured[id(lib)] = True
     return lib
 
 
-def smem_bytes(name: str, nfd: int, m_p: int, blk: int, nb_p: int) -> int:
+def smem_bytes(name: str, nfd: int, m_p: int, blk: int, nb_p: int,
+               design: str = "stream") -> int:
     """Dynamic shared memory one block of ``ipm_eval``, ``ipm_pipe`` or
-    ``ipm_solve`` takes at these shapes (builds the library if needed)."""
-    fn = getattr(_library(name), f"{name}_smem_bytes")
-    return int(fn(nfd, m_p, blk, nb_p, THREADS))
+    ``ipm_solve`` takes at these shapes, in its one-block body ("stream") or
+    (``ipm_eval``, ``ipm_pipe``) its cluster design, as the library computes
+    it (builds the library if needed)."""
+    lib = _library(name)
+    if design == "cluster":
+        return int(getattr(lib, f"{name}_cluster_smem_bytes")(nfd, m_p, blk,
+                                                              nb_p))
+    return int(getattr(lib, f"{name}_smem_bytes")(nfd, m_p, blk, nb_p,
+                                                  THREADS))
+
+
+def ipm_design(kernel: str, nfd: int, m_p: int, blk: int, nb_p: int) -> str:
+    """The design ``kernel`` ("ipm_eval_step" with band output, or
+    "ipm_pipe_step") launches at these shapes on the current CUDA device:
+    "cluster" wherever a block's share fits, else "stream".  A choice by
+    shape between two kernels, made by the library; builds it if needed."""
+    key = (torch.cuda.current_device(), kernel, nfd, m_p, blk, nb_p)
+    if key not in _designs:
+        name = CLUSTER_KERNELS[kernel]
+        fit = getattr(_library(name), f"{name}_design")(nfd, m_p, blk, nb_p,
+                                                        THREADS)
+        _designs[key] = "cluster" if fit else "stream"
+    return _designs[key]
+
+
+def cluster_occupancy(kernel: str, nfd: int, m_p: int, blk: int,
+                      nb_p: int) -> int:
+    """Clusters of ``kernel``'s cluster design the current device holds at
+    once (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+    name = CLUSTER_KERNELS[kernel]
+    n = int(getattr(_library(name), f"{name}_cluster_occupancy")(
+        nfd, m_p, blk, nb_p, THREADS))
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA "
+                           f"error {-n}")
+    return n
 
 
 def _check(name: str, a: torch.Tensor, shape, device) -> None:
@@ -670,7 +855,8 @@ def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
     stacked diagonal blocks, hu (B, nfd - blk, blk) stacked super blocks),
     or with ``band_block=0`` (y, c, jtwr2, jts, gram (B, nfd, nfd)).
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
+    CUDA tensors (float32, contiguous) go through the kernel (with band
+    output in the design ``ipm_design`` names for these shapes); CPU tensors
     through the plain version.  Anything the kernel does not take raises.
     """
     if gt.device.type == "cpu":
@@ -737,8 +923,9 @@ def ipm_pipe_step(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
     hu (B, nfd - blk, blk), rhs (B, nfd, 1)); hd carries pe_d + reg I and hu
     carries pe_u; ``eval_mode="none"`` gives zeros for hd, hu and rhs.
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``ipm_design`` names for these shapes; CPU tensors through the plain
+    version.  Anything the kernel does not take raises.
     """
     if upd_mode not in MODES or eval_mode not in MODES:
         raise ValueError(f"modes must be of {MODES}")

@@ -1,17 +1,28 @@
 #!/usr/bin/env python3
-"""Phase profile of kernel 1's cluster design on one NVIDIA GPU.
+"""Phase profile of a cluster-design kernel on one NVIDIA GPU.
 
-    python3 stage_profile.py              # K=10, batch 6144, 48 iterations
+    python3 stage_profile.py              # kernel 1, K=10, batch 6144
     python3 stage_profile.py --k 4 --batch 512
+    python3 stage_profile.py --kernel ipm_pipe   # #8, the strict tier 0 call
 
-Builds ``csrc/admm_stage.cu`` with ``-DADMM_STAGE_PROFILE`` (the kernel then
-adds, in thread 0 of its first block, the clock64 cycles of each phase to a
-device counter), runs ``admm_stage_fused_factored`` through its public
-wrapper on the headline's stage inputs, and prints one JSON line: the
-cycles of one scenario by phase (the per-iteration phases as a mean over the
-iterations), the kernel's time with the counters in (CUDA events; at 0, 1
-and the config's iterations, so that set-up and iterations part), and the
-card's name, power limit and SM clock.  Exits 2 without a CUDA device.
+Builds the kernel's source with its profile macro (the kernel then adds, in
+thread 0 of its first block, the clock64 cycles of each phase to a device
+counter), runs it through its public wrapper and prints one JSON line: the
+cycles of one scenario by phase, the kernel's time with the counters in
+(CUDA events), and the card's name, power limit and SM clock.
+
+* ``admm_stage`` (kernel 1, ``-DADMM_STAGE_PROFILE``): on the headline's
+  stage inputs; the per-iteration phases as a mean over the iterations, the
+  time at 0, 1 and the config's iterations, so that set-up and iterations
+  part.
+* ``ipm_pipe`` (#8, ``-DIPM_PIPE_PROFILE``): on the call tier 0 of the
+  strict router makes at this batch (upd_mode snap, eval_mode snap),
+  recorded from one strict pass on seed 0; two blocks are profiled, rank 0
+  of the first scenario (the first wave) and of the middle one (the steady
+  state), and besides the phases, the cycle at which G^T's share has landed
+  (the first three phases).
+
+Exits 2 without a CUDA device.
 """
 
 import argparse
@@ -25,10 +36,31 @@ PHASES = ("loads", "w_inverse", "gt_wait", "init", "gt_v", "cluster_barrier",
           "combine", "w_inverse_g", "g_x", "update", "finish")
 PER_ITERATION = ("gt_v", "cluster_barrier", "combine", "w_inverse_g", "g_x",
                  "update")
+# #8's marks (csrc/ipm_pipe.cu and csrc/ipm_cluster.cuh, IPM_PROF(i)): the
+# counter of each phase, in the order the phases run (snap/snap).
+PIPE_PHASES = (
+    (15, "start_loads"), (1, "column_solve"),
+    (0, "state_wait_and_start_barrier"), (2, "gt_wait"), (3, "gdx"),
+    (14, "update_lanes"), (4, "update_combine_and_apply"),
+    (11, "snap_lane_weights"), (12, "y_pass_and_row_block_masks"),
+    (13, "lane_weights"), (5, "ball_masks_and_lane_lists"),
+    (16, "jacobian_rows"), (6, "jt"), (17, "band_products_warp0"),
+    (7, "band_wait_and_stores"), (8, "exchange_and_barrier"),
+    (18, "jt_finals"), (19, "band_finals_warp0"), (9, "sync_and_rhs"),
+    (10, "outputs"))
+
+
+def smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernel", choices=("admm_stage", "ipm_pipe"),
+                        default="admm_stage")
     parser.add_argument("--k", type=int, default=10)
     parser.add_argument("--batch", type=int, default=6144)
     parser.add_argument("--reps", type=int, default=3)
@@ -37,6 +69,8 @@ def main():
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device", file=sys.stderr)
         return 2
+    if opts.kernel == "ipm_pipe":
+        return pipe_profile(opts)
     import chip_smoke
     import mav_tube_trajectory_generation_tpu_torch as mtt
     from mav_tube_trajectory_generation_tpu_torch import _build
@@ -80,15 +114,66 @@ def main():
     for i, name in enumerate(PHASES):
         c = counts[i] / opts.reps
         cycles[name] = c / kw["n_iters"] if name in PER_ITERATION else c
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(json.dumps(dict(
-        k=opts.k, batch=opts.batch, nfd=nfd, m_p=m_p, n_iters=kw["n_iters"],
+        kernel="admm_stage_fused_factored", k=opts.k, batch=opts.batch,
+        nfd=nfd, m_p=m_p, n_iters=kw["n_iters"],
         design=design, cycles_one_scenario=sum(counts[i] for i in range(11))
         / opts.reps, cycles_by_phase=cycles,
         per_iteration_phases=list(PER_ITERATION),
-        ms_with_counters_by_n_iters=ms, nvidia_smi=smi.strip())))
+        ms_with_counters_by_n_iters=ms, nvidia_smi=smi())))
+    return 0
+
+
+def pipe_profile(opts):
+    """#8's phase profile on tier 0's recorded call (see the top)."""
+    import torch
+    import chip_smoke
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
+
+    sc = mtt.make_inputs(opts.k, opts.batch, seed=0)
+    calls = []
+    with chip_smoke.recorded(ipm_kernel, "ipm_pipe_step", calls):
+        chip_smoke.strict_call(mtt, sc)
+    args, kw, _ = next(c for c in calls if c[1]["upd_mode"] == "snap"
+                       and c[1]["eval_mode"] == "snap")
+    del calls
+    nfd, m_p = args[0].shape[1:]
+    design = chip_smoke.ipm_design_of(ipm_kernel, "ipm_pipe_step", args, kw)
+    if design != "cluster":
+        print(f"stage_profile: this shape takes the {design} design",
+              file=sys.stderr)
+        return 3
+    ms_plain_build = chip_smoke.cuda_ms(
+        lambda: ipm_kernel.ipm_pipe_step(*args, **kw), reps=opts.reps)
+    lib = _build.variant("ipm_pipe", ("IPM_PIPE_PROFILE",))
+    _build._LIBS["ipm_pipe"] = lib        # the wrapper declares its types
+    lib.ipm_pipe_profile_read.argtypes = [ctypes.c_void_p]
+    counts = (ctypes.c_ulonglong * 64)()
+    ms = chip_smoke.cuda_ms(lambda: ipm_kernel.ipm_pipe_step(*args, **kw),
+                            reps=opts.reps)
+    lib.ipm_pipe_profile_clear()
+    for _ in range(opts.reps):
+        ipm_kernel.ipm_pipe_step(*args, **kw)
+    torch.cuda.synchronize()
+    lib.ipm_pipe_profile_read(ctypes.addressof(counts))
+    by_block = {}
+    for slot, label in enumerate(("first_wave", "middle_scenario")):
+        cycles = {name: counts[32 * slot + i] / opts.reps
+                  for i, name in PIPE_PHASES}
+        by_block[label] = dict(
+            cycles_one_scenario=sum(cycles.values()), cycles_by_phase=cycles,
+            gt_landed_cycles_after_entry=sum(
+                cycles[name] for _, name in PIPE_PHASES[:4]))
+    print(json.dumps(dict(
+        kernel="ipm_pipe_step", k=opts.k, batch=opts.batch, nfd=nfd,
+        m_p=m_p, upd_mode=kw["upd_mode"], eval_mode=kw["eval_mode"],
+        design=design, profiled_blocks=by_block,
+        profiled_blocks_are="rank 0 of scenario 0 (the first wave) and of "
+        "scenario batch // 2 (a wave in the steady state)",
+        ms_with_counters=ms, ms_without_counters=ms_plain_build,
+        nvidia_smi=smi())))
     return 0
 
 

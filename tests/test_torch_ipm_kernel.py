@@ -578,6 +578,8 @@ def test_kernels_on_the_card_match_plain():
         pytest.skip("needs a CUDA device: the kernels have no host mode")
     d, kw = _random_inputs(seed=3)
     dev = mtt.lanes_state_from_numpy(d)
+    for kernel in ("ipm_pipe_step", "ipm_eval_step"):   # at this shape
+        assert tk.ipm_design(kernel, 24, 512, 6, 128) == "cluster"
     for upd, ev in MODE_PAIRS:
         before = tk.launches["ipm_pipe_step"]
         ours = tk.ipm_pipe_step(*dev, upd_mode=upd, eval_mode=ev, **kw)
