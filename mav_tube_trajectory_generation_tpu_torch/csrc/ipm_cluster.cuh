@@ -1,9 +1,9 @@
-// The cluster design of the interior-point step kernels with band output
-// (ipm_eval_step_launch, ipm_pipe_step_launch): device code shared by
-// ipm_eval.cu and ipm_pipe.cu.  The one-block bodies of ipm_common.cuh stay
-// for the shapes where a block's share does not fit (cluster_fits), and for
-// the full-Gram evaluation and the whole-polish kernel, which keep
-// ipm::eval_point as it is.
+// The cluster design of the interior-point kernels (ipm_eval_step_launch,
+// ipm_eval_gram_launch, ipm_pipe_step_launch, ipm_solve_fused_launch):
+// device code shared by ipm_eval.cu, ipm_pipe.cu and ipm_solve.cu, the four
+// kinds of layout in make_cluster_layout.  The one-block bodies of
+// ipm_common.cuh stay for the shapes where a block's share does not fit
+// (cluster_fits).
 //
 // One scenario is a cluster of two blocks on neighbouring SMs.  Each block
 // holds, in shared memory, its half of the lanes' columns of G^T (135 x 256
@@ -109,9 +109,19 @@ __host__ __device__ inline int lane_of(const Split& q, int l, int nb_p) {
   return 3 * nb_p + q.f0 + (l - 3 * q.hb);
 }
 
+// The four kernels of the cluster design, by the layout each takes.
+enum Kind {
+  kEval = 0,    // #9, ipm_eval_step with band output
+  kPipe = 1,    // #8, ipm_pipe_step: the step's state and pe besides
+  kGram = 2,    // #10, ipm_eval_step with the whole Gram: the Gram rounds'
+                // staging in place of the band's receive buffer
+  kSolve = 3    // #11, ipm_solve_fused: the polish's state, pe, and the
+                // whole band with the factors in jr
+};
+
 // Shared-memory layout of one block, in floats (ops/ipm_kernel.py,
-// cluster_layout, is the same function).  `pipe` adds the pipelined step's
-// state.  Sized by rank 0's share, the larger.
+// cluster_layout, is the same function).  Sized by rank 0's share, the
+// larger.
 struct CLayout {
   int n4, ldl, nj4, ldj, ldw, nband, eh, rh, per;
   int lds, nseg, tile;                   // G^T share: segment tiles
@@ -119,19 +129,23 @@ struct CLayout {
   int b, s, lam, y, c, wa, wj, wjs;      // lane vectors (ldl each)
   int act, cw, by, le, se, ye;           // the step's lane vectors
   int rb, wjb;                           // per ball
-  int x, bx, dx, u, z, rs;               // nfd vectors (the step: all)
+  int x, bx, dx, u, z, rs, dsc;          // nfd vectors (the steps: more)
   int jtp, jx, brecv, pe;                // J^T and band halves; pe_d | pe_u
+  int gst, grecv, gh;                    // the Gram rounds' staging
+  int lf, cf;                            // the factor's blocks (in jr)
   int lmask, bmask, llist, blist, cnt;   // row-block masks and lane lists
+  int gmask;                             // (#11) G^T's own lane masks
   int red, xch, bar;                     // bar: the share's mbarrier
   int total;
 };
 
-__host__ __device__ inline CLayout make_cluster_layout(int pipe, int nfd,
+__host__ __device__ inline CLayout make_cluster_layout(int kind, int nfd,
                                                        int m_p, int blk,
                                                        int nb_p) {
   CLayout L;
   const Split q = split_of(0, m_p, nb_p);
-  const int m_blk = nfd / blk;
+  const int m_blk = nfd / blk, bb = blk * blk;
+  const bool pipe = kind == kPipe, solve = kind == kSolve;
   // odd float4 row strides: rows read at once fall in different bank groups
   L.n4 = (q.nl + 3) / 4;
   L.ldl = 4 * L.n4 + (L.n4 % 2 == 0 ? 4 : 0);
@@ -151,9 +165,16 @@ __host__ __device__ inline CLayout make_cluster_layout(int pipe, int nfd,
   }
   L.nseg = q.fb > 0 ? 4 : 3;
   L.tile = (nfd * L.lds + 31) & ~31;
+  // the whole polish keeps the band (hd | hu) and its factors in jr, which
+  // is idle from the end of one evaluation to the next: the L_i and the C_i
+  // after the band
+  L.lf = round4(L.nband);
+  L.cf = L.lf + m_blk * bb;
+  int jr = nfd * L.ldj > L.nband ? nfd * L.ldj : L.nband;
+  if (solve && L.cf + (m_blk - 1) * bb > jr) jr = L.cf + (m_blk - 1) * bb;
   int o = 0;
   L.gts = o;  o += L.nseg * L.tile;
-  L.jr = o;   o += round4(nfd * L.ldj > L.nband ? nfd * L.ldj : L.nband);
+  L.jr = o;   o += round4(jr);
   L.b = o;    o += L.ldl;
   L.s = o;    o += L.ldl;
   L.lam = o;  o += L.ldl;
@@ -163,30 +184,47 @@ __host__ __device__ inline CLayout make_cluster_layout(int pipe, int nfd,
   L.wj = o;   o += L.ldl;
   L.wjs = o;  o += L.ldl;
   L.act = L.cw = L.by = L.le = L.se = L.ye = 0;
-  if (pipe) {
+  if (pipe || solve) {
     L.act = o; o += L.ldl;
     L.cw = o;  o += L.ldl;
     L.by = o;  o += L.ldl;
-    L.le = o;  o += L.ldl;
-    L.se = o;  o += L.ldl;
+    if (pipe) {
+      L.le = o;  o += L.ldl;
+      L.se = o;  o += L.ldl;
+    }
     L.ye = o;  o += L.ldl;
   }
   L.rb = o;   o += 4 * L.nj4;
   L.wjb = o;  o += 4 * L.nj4;
   L.x = o;    o += L.ldw;
-  L.bx = L.dx = L.u = L.z = L.rs = 0;
-  if (pipe) {
+  L.bx = L.dx = L.u = L.z = L.rs = L.dsc = 0;
+  if (pipe || solve) {
     L.bx = o; o += L.ldw;
     L.dx = o; o += L.ldw;
-    L.u = o;  o += L.ldw;
+    if (pipe)                            // the polish: the equilibration
+      L.u = o;
+    else
+      L.dsc = o;
+    o += L.ldw;
     L.z = o;  o += L.ldw;
     L.rs = o; o += L.ldw;
   }
   L.jtp = o;   o += 2 * L.ldw;
   L.jx = o;    o += 2 * L.ldw;
-  L.brecv = o; o += round4(L.eh);
+  L.brecv = L.gst = L.grecv = L.gh = 0;
+  if (kind == kGram) {
+    // a row block's partial (blk x nfd at most) and two receive buffers of
+    // the other block's half, used in turn
+    L.gh = round4((bb * m_blk + 1) / 2);
+    L.gst = o;   o += round4(bb * m_blk);
+    L.grecv = o; o += 2 * L.gh;
+  } else {
+    // (#11: also the band factor's elimination rows, blk (3 blk + 2))
+    const int w = solve ? round4(blk * (3 * blk + 2)) : 0;
+    L.brecv = o; o += round4(L.eh) > w ? round4(L.eh) : w;
+  }
   L.pe = 0;
-  if (pipe) {
+  if (pipe || solve) {
     L.pe = o;  o += round4(L.eh);
   }
   L.lmask = o; o += L.ldl;                                  // ints
@@ -194,6 +232,10 @@ __host__ __device__ inline CLayout make_cluster_layout(int pipe, int nfd,
   L.llist = o; o += round4((m_blk * 4 * L.n4 + 1) / 2);      // shorts
   L.blist = o; o += round4((m_blk * 4 * L.nj4 + 1) / 2);     // shorts
   L.cnt = o;   o += round4(2 * m_blk);                      // ints
+  L.gmask = 0;
+  if (solve) {
+    L.gmask = o; o += L.ldl;                                // ints
+  }
   L.red = o;   o += NXCH * 32;
   L.xch = o;   o += 2 * kCluster * NXCH;
   L.bar = o;   o += 4;                                      // 8-aligned
@@ -201,28 +243,29 @@ __host__ __device__ inline CLayout make_cluster_layout(int pipe, int nfd,
   return L;
 }
 
-// Whether the cluster design takes these shapes on the current device: a
-// block's shared memory within the opt-in limit, plane segments of whole
-// float4 (nb_p and the final plane's width multiples of 8) no taller than a
-// TMA box (nfd <= 256), band blocks a register row holds, a warp for each
-// row block with a thread for each tile of its two band blocks, row-block
-// masks of 32 bits, and (the step) the factor rows of the column solve one a
-// thread.
-inline bool cluster_fits(int pipe, int nfd, int m_p, int blk, int nb_p,
+// Whether the cluster design of `kind` takes these shapes on the current
+// device: a block's shared memory within the opt-in limit, plane segments of
+// whole float4 (nb_p and the final plane's width multiples of 8) no taller
+// than a TMA box (nfd <= 256), band blocks a register row holds, a warp for
+// each row block with a thread for each tile of its two band blocks,
+// row-block masks of 32 bits, (#8) the factor rows of the column solve one
+// a thread and (#11) a thread for each entry of a band block and of a row.
+inline bool cluster_fits(int kind, int nfd, int m_p, int blk, int nb_p,
                          int threads) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return false;
-  const CLayout L = make_cluster_layout(pipe, nfd, m_p, blk, nb_p);
+  const CLayout L = make_cluster_layout(kind, nfd, m_p, blk, nb_p);
   const int m_blk = nfd / blk;
   return (size_t)L.total * sizeof(float) <= (size_t)optin &&
          nb_p % 8 == 0 && (m_p - 3 * nb_p) % 8 == 0 && nfd <= 256 &&
          blk <= BMAX &&
          2 * L.per <= 32 && m_blk <= threads / 32 && m_blk <= 32 &&
          threads % 32 == 0 && threads <= 512 &&
-         (!pipe || (3 * m_blk - 2) * blk <= threads);
+         (kind != kPipe || (3 * m_blk - 2) * blk <= threads) &&
+         (kind != kSolve || blk * blk + blk <= threads);
 }
 
 // The tensor map of G^T for the share's TMA boxes: the batch's G^T as
@@ -277,14 +320,15 @@ inline cudaLaunchConfig_t cluster_config(int batch, int threads, size_t smem,
   return cfg;
 }
 
-// Phase profile of the pipelined step's cluster design (stage_profile.py
-// builds ipm_pipe.cu with -DIPM_PIPE_PROFILE): thread 0 of two blocks, the
-// grid's first (a scenario of the first wave) and rank 0 of its middle
-// scenario (a wave in the steady state), adds the clock64 cycles since its
-// last mark to a shared counter at mark i (IPM_PROF(i); -1 starts), and
-// IPM_PROF_FLUSH adds the counters to ipm_prof[slot].  Without the macro the
-// marks compile to nothing.
-#ifdef IPM_PIPE_PROFILE
+// Phase profiles of the cluster design (stage_profile.py builds ipm_pipe.cu
+// with -DIPM_PIPE_PROFILE, ipm_solve.cu with -DIPM_SOLVE_PROFILE): thread 0
+// of two blocks, the grid's first (a scenario of the first wave) and rank 0
+// of its middle scenario (a wave in the steady state), adds the clock64
+// cycles since its last mark to a shared counter at mark i (IPM_PROF(i); -1
+// starts), and IPM_PROF_FLUSH adds the counters to ipm_prof[slot].  Without
+// the macros the marks compile to nothing.
+#if defined(IPM_PIPE_PROFILE) || defined(IPM_SOLVE_PROFILE)
+#define IPM_PROFILE 1
 __device__ unsigned long long ipm_prof[2][32];
 __shared__ long long ipm_prof_s[33];
 __device__ __forceinline__ int ipm_prof_slot() {
@@ -473,14 +517,14 @@ struct Ctx {
   __device__ float* at(int off) const { return sm + off; }
 };
 
-__device__ inline Ctx make_ctx(float* smem, int pipe, int nfd, int m_p,
+__device__ inline Ctx make_ctx(float* smem, int kind, int nfd, int m_p,
                                int blk, int nb_p, int n_ball) {
   Ctx C;
   C.rank = (int)cg::this_cluster().block_rank();
   C.nfd = nfd; C.m_p = m_p; C.blk = blk; C.m_blk = nfd / blk;
   C.nb_p = nb_p; C.n_ball = n_ball;
   C.q = split_of(C.rank, m_p, nb_p);
-  C.L = make_cluster_layout(pipe, nfd, m_p, blk, nb_p);
+  C.L = make_cluster_layout(kind, nfd, m_p, blk, nb_p);
   C.n4 = (C.q.nl + 3) / 4;
   C.nj4 = (C.q.hb + 3) / 4;
   C.sm = smem;
@@ -642,7 +686,17 @@ struct EvalIO {
   float* y_out;               // shared, local lanes
   const float* pe;            // shared, this block's half of [pe_d | pe_u]
   float reg;                  // (with pe: added to hd's diagonal)
-  float *hd, *hu;             // global, this scenario's
+  float *hd, *hu;             // global, this scenario's (kOutBand)
+  float* gram;                // global, this scenario's (kOutGram)
+};
+
+// Where eval_point_cluster's weighted Gram goes.
+enum Out {
+  kOutBand = 0,     // the band, each block its half, to io.hd / io.hu
+  kOutShared = 1,   // the band (hd then hu) to jr, and J^T (w r2), J^T (1/s)
+                    // to jtp, all of them in both blocks; the lanes' row-block
+                    // masks of G^T from gmask (row_block_masks, once)
+  kOutGram = 2      // the whole Gram to io.gram (gram_rounds)
 };
 
 // The positions (in increasing order) of the n entries of mask, strided by
@@ -665,17 +719,152 @@ __device__ __forceinline__ int warp_compact(const unsigned* mask, int n,
   return count;
 }
 
+// The whole weighted Gram of the scenario to gram (global, nfd x nfd), from
+// the lane lists, masks, weights and Jacobian rows eval_point_cluster has
+// formed, one row block i at a time.  For each block pair (i, j >= i) a
+// thread forms a TR x TC tile, summing, in list order, the lanes of row
+// block i's list whose column also reaches block j, then the balls of its
+// ball list whose Jacobian row also does: every term it leaves out is an
+// exact zero, as in the band.  The row block's partial (blk rows, the
+// columns from i blk on) is staged; each block sends the other the half of
+// it the other finishes (rank 0 the first half) into one of two receive
+// buffers, used in turn; after a cluster barrier each finishes its half,
+// rank 0's partial + rank 1's, and writes block (i, j) and, for j > i, its
+// transpose as block (j, i).  Must be reached by every thread of both blocks.
+__device__ void gram_rounds(const Ctx& C, const EvalIO& io) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = C.nfd, blk = C.blk, m_blk = C.m_blk, rank = C.rank;
+  const CLayout& L = C.L;
+  const int nj = 4 * C.nj4, per = L.per, ncg = (blk + TC - 1) / TC;
+  const float* gts = C.at(L.gts);
+  const float* jr = C.at(L.jr);
+  const float* wa = C.at(L.wa);
+  const float* wjb = C.at(L.wjb);
+  const unsigned* lmask = reinterpret_cast<const unsigned*>(C.at(L.lmask));
+  const unsigned* bmask = reinterpret_cast<const unsigned*>(C.at(L.bmask));
+  const unsigned short* llist =
+      reinterpret_cast<const unsigned short*>(C.at(L.llist));
+  const unsigned short* blist =
+      reinterpret_cast<const unsigned short*>(C.at(L.blist));
+  const int* lcnt = reinterpret_cast<const int*>(C.at(L.cnt));
+  const int* bcnt = lcnt + m_blk;
+  float* gst = C.at(L.gst);
+  float* grecv = C.at(L.grecv);
+  float* grecv_r = cl.map_shared_rank(grecv, rank ^ 1);
+  for (int i = 0; i < m_blk; ++i) {
+    const int ncol = nfd - i * blk, n = blk * ncol;
+    const int h = round4((n + 1) / 2);          // rank 0 finishes [0, h)
+    const unsigned short* lst = llist + i * 4 * C.n4;
+    const unsigned short* bl = blist + i * nj;
+    const int n_l = lcnt[i], n_b = bcnt[i];
+    __syncthreads();               // the last round's finals have read gst
+    for (int t = tid; t < (m_blk - i) * per; t += nt) {
+      const int j = i + t / per, tile = t % per;
+      const int rg = tile / ncg, cg_ = tile - rg * ncg;
+      float acc[TR][TC];
+      int ro[TR], co[TC];
+#pragma unroll
+      for (int u = 0; u < TR; ++u) {
+        const int rr = TR * rg + u;
+        ro[u] = i * blk + (rr < blk ? rr : TR * rg);
+#pragma unroll
+        for (int k = 0; k < TC; ++k) acc[u][k] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < TC; ++k) {
+        const int kk = TC * cg_ + k;
+        co[k] = j * blk + (kk < blk ? kk : TC * cg_);
+      }
+      for (int p = 0; p < n_l; ++p) {
+        const int l = lst[p];
+        if (!((lmask[l] >> j) & 1u)) continue;
+        const float w = wa[l];
+        const float* col = gts + gcol(C, l);
+        float a[TR], cv[TC];
+#pragma unroll
+        for (int u = 0; u < TR; ++u) a[u] = col[(size_t)ro[u] * L.lds] * w;
+#pragma unroll
+        for (int k = 0; k < TC; ++k) cv[k] = col[(size_t)co[k] * L.lds];
+#pragma unroll
+        for (int u = 0; u < TR; ++u)
+#pragma unroll
+          for (int k = 0; k < TC; ++k) acc[u][k] = fmaf(a[u], cv[k], acc[u][k]);
+      }
+      for (int p = 0; p < n_b; ++p) {
+        const int jb = bl[p];
+        if (!((bmask[jb] >> j) & 1u)) continue;
+        const float w = wjb[jb];
+        float a[TR], cv[TC];
+#pragma unroll
+        for (int u = 0; u < TR; ++u) a[u] = jr[(size_t)ro[u] * L.ldj + jb] * w;
+#pragma unroll
+        for (int k = 0; k < TC; ++k) cv[k] = jr[(size_t)co[k] * L.ldj + jb];
+#pragma unroll
+        for (int u = 0; u < TR; ++u)
+#pragma unroll
+          for (int k = 0; k < TC; ++k) acc[u][k] = fmaf(a[u], cv[k], acc[u][k]);
+      }
+      // entry (rr, column c) of the row block's partial at rr ncol + c - i blk
+#pragma unroll
+      for (int u = 0; u < TR; ++u) {
+        const int rr = TR * rg + u;
+#pragma unroll
+        for (int k = 0; k < TC; ++k) {
+          const int kk = TC * cg_ + k;
+          if (rr < blk && kk < blk)
+            gst[rr * ncol + (j - i) * blk + kk] = acc[u][k];
+        }
+      }
+    }
+    __syncthreads();
+    // the half the other block finishes goes there in 16-byte stores
+    {
+      const int par = (i & 1) * L.gh;
+      const float* src = gst + (rank == 0 ? h : 0);
+      const int cnt = rank == 0 ? n - h : h;
+      const float4* src4 = reinterpret_cast<const float4*>(src);
+      float4* dst4 = reinterpret_cast<float4*>(grecv_r + par);
+      for (int i4 = tid; i4 < cnt / 4; i4 += nt) dst4[i4] = src4[i4];
+      for (int e = 4 * (cnt / 4) + tid; e < cnt; e += nt)
+        grecv_r[par + e] = src[e];
+    }
+    cl.sync();
+    {
+      const float* recv = grecv + (i & 1) * L.gh;
+      const int e0 = rank == 0 ? 0 : h, e1 = rank == 0 ? h : n;
+      float* g = io.gram;
+      for (int e = e0 + tid; e < e1; e += nt) {
+        const float mine = gst[e], theirs = recv[e - e0];
+#ifdef IPM_CONTROL_DROP_RANK0
+        // negative control (chip_smoke.py): rank 0's partial left out
+        const float v = rank == 0 ? theirs : mine;
+#else
+        const float v = rank == 0 ? mine + theirs : theirs + mine;
+#endif
+        const int rr = e / ncol, c = i * blk + (e - rr * ncol);
+        const int r = i * blk + rr;
+        g[(size_t)r * nfd + c] = v;
+        if (c >= (i + 1) * blk) g[(size_t)c * nfd + r] = v;
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // The evaluation at (x, s, lam) on both blocks of the cluster.  G^T's share
 // must have landed (and be visible to every thread).  Fills y_out (local
 // lanes), c (local lanes), and in jtp (ldw) / jtp + ldw the finished rows of
 // J^T (w r2) and J^T (1/s) this block writes out (rank 0 rows < rh, rank 1
-// the rest); writes this block's half of the band to hd / hu, plus pe (the
-// scenario's [pe_d | pe_u] entries of that half, in shared memory) + reg I
-// where pe is not null.  ext: block results carried over the cluster in the
-// same barrier (cluster_combine's rule); they come back combined.  The
+// the rest); with OUT kOutBand writes this block's half of the band to hd /
+// hu, plus pe (the scenario's [pe_d | pe_u] entries of that half, in shared
+// memory) + reg I where pe is not null; with kOutShared puts the same band
+// in jr and every row of J^T in jtp, in both blocks; with kOutGram writes the
+// whole Gram (gram_rounds).  ext: block results carried over the cluster in
+// the same barrier (cluster_combine's rule); they come back combined.  The
 // block's lmask must be zero (the caller zeroes it with the state).  Must be
 // reached by every thread of both blocks.
-template <int NE>
+template <int NE, int OUT = kOutBand>
 __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
                                    float (&ext)[NE], const int (&ext_op)[NE],
                                    int& xb) {
@@ -709,9 +898,14 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
   int* bcnt = lcnt + m_blk;
 
   // y = G x + b on this block's lanes, and each lane's row blocks (lmask
-  // is zero on entry)
+  // is zero on entry; kOutShared: the share's, formed once)
   col_dots(C, io.x, C.at(L.b), y);
-  row_block_masks(C, lmask);
+  if constexpr (OUT == kOutShared) {
+    const unsigned* gmask = reinterpret_cast<const unsigned*>(C.at(L.gmask));
+    for (int l = tid; l < L.ldl; l += nt) lmask[l] = gmask[l];
+  } else {
+    row_block_masks(C, lmask);
+  }
   __syncthreads();
   IPM_PROF(12);
 
@@ -775,16 +969,21 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
   IPM_PROF(5);
 
   // Jacobian rows where the band reads them (the blocks a ball reaches and
-  // the next), and this block's partials of J^T (w r2), J^T (1/s): rows it
-  // finishes to jtp, the other's rows straight into the other block's jx
+  // the next; the Gram: the blocks it reaches), and this block's partials of
+  // J^T (w r2), J^T (1/s): rows it finishes to jtp, the other's rows
+  // straight into the other block's jx
   const int jchunks = (hb + 31) / 32;
   for (int task = warp; task < m_blk * jchunks; task += nt >> 5) {
     const int ib = task / jchunks;
     const int j = (task - ib * jchunks) * 32 + lane;
     if (j < hb) {
       const unsigned m = bmask[j];
-      if (!(((m >> ib) & 1u) || (ib > 0 && ((m >> (ib - 1)) & 1u))))
-        continue;
+      if constexpr (OUT == kOutGram) {
+        if (!((m >> ib) & 1u)) continue;
+      } else {
+        if (!(((m >> ib) & 1u) || (ib > 0 && ((m >> (ib - 1)) & 1u))))
+          continue;
+      }
       const float y0 = y[j], y1 = y[hb + j], y2 = y[2 * hb + j];
       for (int r = ib * blk; r < (ib + 1) * blk; ++r) {
         const float* row = gts + (size_t)r * L.lds + j;
@@ -826,6 +1025,20 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
   }
   __syncthreads();
   IPM_PROF(6);
+
+  if constexpr (OUT == kOutGram) {
+    cluster_combine<NE>(ext, ext_op, C.at(L.xch), rank, xb);
+    const float* jx = C.at(L.jx);
+    const int r0 = rank == 0 ? 0 : L.rh, r1 = rank == 0 ? L.rh : nfd;
+    for (int r = r0 + tid; r < r1; r += nt) {
+      const float a1 = jtp[r], b1 = jx[r];
+      const float a2 = jtp[L.ldw + r], b2 = jx[L.ldw + r];
+      jtp[r] = rank == 0 ? a1 + b1 : b1 + a1;
+      jtp[L.ldw + r] = rank == 0 ? a2 + b2 : b2 + a2;
+    }
+    gram_rounds(C, io);
+    return;
+  }
 
   // the band: warp i forms the diagonal block i (threads [0, per)) and the
   // super block (i, i + 1) (threads [per, 2 per)), a TR x TC tile a thread
@@ -917,6 +1130,7 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
   IPM_PROF(8);
 
   // J^T rows and band entries this block finishes, rank 0's + rank 1's
+  // (kOutShared: into both blocks)
   const float* jx = C.at(L.jx);
   const int r0 = rank == 0 ? 0 : L.rh, r1 = rank == 0 ? L.rh : nfd;
   for (int r = r0 + tid; r < r1; r += nt) {
@@ -924,6 +1138,11 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
     const float a2 = jtp[L.ldw + r], b2 = jx[L.ldw + r];
     jtp[r] = rank == 0 ? a1 + b1 : b1 + a1;
     jtp[L.ldw + r] = rank == 0 ? a2 + b2 : b2 + a2;
+    if constexpr (OUT == kOutShared) {
+      float* jtp_r = cl.map_shared_rank(jtp, other);
+      jtp_r[r] = jtp[r];
+      jtp_r[L.ldw + r] = jtp[L.ldw + r];
+    }
   }
   IPM_PROF(18);
   const float* scratch = jr;
@@ -943,9 +1162,11 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
     // entry e4 + u of hd is row r, column kk of its block; the diagonal is
     // kk == r mod blk
     int r = e4 / blk, kk = e4 - r * blk, rb = r % blk;
+    float f_[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int e = e4 + u;
+      f_[u] = 0.0f;
       if (e < e1) {
 #ifdef IPM_CONTROL_DROP_RANK0
         // negative control (chip_smoke.py): rank 0's partial left out
@@ -956,10 +1177,11 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
         if (pe) v += p_[u];
         if (e < nhd) {
           if (pe && kk == rb) v += io.reg;
-          io.hd[e] = v;
+          if constexpr (OUT == kOutBand) io.hd[e] = v;
         } else {
-          io.hu[e - nhd] = v;
+          if constexpr (OUT == kOutBand) io.hu[e - nhd] = v;
         }
+        f_[u] = v;
       }
       if (++kk == blk) {
         kk = 0;
@@ -967,8 +1189,144 @@ __device__ void eval_point_cluster(const Ctx& C, const EvalIO& io,
         if (++rb == blk) rb = 0;
       }
     }
+    if constexpr (OUT == kOutShared) {
+      // the finished entries over their own partials (this thread read
+      // them above), and into the other block's band: past e1 a store
+      // touches only the padding before lf
+      const float4 f4 = make_float4(f_[0], f_[1], f_[2], f_[3]);
+      *reinterpret_cast<float4*>(C.at(L.jr) + e4) = f4;
+      *reinterpret_cast<float4*>(cl.map_shared_rank(C.at(L.jr), other) +
+                                 e4) = f4;
+    }
   }
   IPM_PROF(19);
+  if constexpr (OUT == kOutShared)
+    cl.sync();
+  else
+    __syncthreads();
+}
+
+// ---- the updates of a step ------------------------------------------------
+
+// The step's shared vectors: nfd ones (x, bx, dx) and this block's lanes.
+struct ClVecs {
+  float *x, *bx, *dx, *s, *lam, *y, *by, *gdx, *ds, *dlam, *act, *cw, *rb;
+  float *red, *xch;
+};
+
+// Newton update along (dx, gdx) from the point whose matvec is y_ev (the
+// running y itself, or a fresh evaluation of it) on both blocks
+// (ipm::newton_update with its lane sums combined over the cluster).
+// mu_sum: sum cw s lam over the cluster where the caller has it (the same
+// sum in the same order), else null.  Must be reached by every thread of
+// both blocks.
+__device__ void newton_update_cl(const Ctx& C, const ClVecs& V,
+                                 const float* y_ev, float sigma_min, float tau,
+                                 float alpha_max, float w_cap, float mc,
+                                 float& best_merit, int& xb,
+                                 const float* mu_sum = nullptr) {
+  const int tid = threadIdx.x, nt = blockDim.x, nl = C.q.nl;
+  const float inf = CUDART_INF_F;
+  float mu1[1] = {0.0f};
+  const int op_sum1[1] = {kSum};
+  if (mu_sum) {
+    mu1[0] = *mu_sum;
+  } else {
+    for (int l = tid; l < nl; l += nt) mu1[0] += V.cw[l] * V.s[l] * V.lam[l];
+    block_reduce_n<1>(mu1, op_sum1, V.red);
+    cluster_combine<1>(mu1, op_sum1, V.xch, C.rank, xb);
+  }
+  const float mu = mu1[0] / mc;
+  const float sig_mu = sigma_min * mu;
+  float st[3] = {inf, inf, 1.0f};           // min_s, min_l, finite
+  const int op_min3[3] = {kMin, kMin, kMin};
+  for (int l = tid; l < nl; l += nt) {
+    const float act = V.act[l], sl = V.s[l], ll = V.lam[l];
+    const float c = c_loc(C, y_ev, V.rb, l);
+    const float r2 = (c + sl) * act;
+    const float w = pmin(ll / sl, w_cap);
+    const float jdx = jdx_loc(C, V.gdx, y_ev, l);
+    const float ds = (-r2 - jdx) * act;
+    const float dlam = ((sig_mu - ll * sl) / sl - w * ds) * act;
+    V.ds[l] = ds;
+    V.dlam[l] = dlam;
+    st[0] = pmin(st[0], ds < 0.0f ? -sl / ds : inf);
+    st[1] = pmin(st[1], dlam < 0.0f ? -ll / dlam : inf);
+    if (!(fabsf(ds) < inf) || !(fabsf(dlam) < inf)) st[2] = 0.0f;
+  }
+  block_reduce_n<3>(st, op_min3, V.red);
+  cluster_combine<3>(st, op_min3, V.xch, C.rank, xb);
+  const float alpha =
+      pmin(pmin(pmin(1.0f, tau * st[0]), pmin(1.0f, tau * st[1])), alpha_max);
+  const bool upd = alpha > 0.0f && st[2] > 0.0f;
+  if (upd) {
+    for (int r = tid; r < C.nfd; r += nt) V.x[r] = V.x[r] + alpha * V.dx[r];
+    for (int l = tid; l < nl; l += nt) {
+      V.s[l] = V.s[l] + alpha * V.ds[l];
+      if (V.act[l] > 0.0f)
+        V.lam[l] = pmax(V.lam[l] + alpha * V.dlam[l], 1e-16f);
+      V.y[l] = V.y[l] + alpha * V.gdx[l];
+    }
+  }
+  __syncthreads();
+  float m[3] = {-inf, -inf, 0.0f};
+  const int op_merit[3] = {kMax, kMax, kSum};
+  for (int l = tid; l < nl; l += nt) {
+    const float c = c_loc(C, V.y, V.rb, l);
+    if (V.act[l] > 0.0f) {
+      m[0] = pmax(m[0], pmax(c, 0.0f));
+      m[1] = pmax(m[1], fabsf(c + V.s[l]));
+    }
+    m[2] += V.cw[l] * V.s[l] * V.lam[l];
+  }
+  block_reduce_n<3>(m, op_merit, V.red);
+  cluster_combine<3>(m, op_merit, V.xch, C.rank, xb);
+  const float merit = m[0] + m[1] + m[2] / mc;
+  if (merit < best_merit) {
+    best_merit = merit;
+    for (int r = tid; r < C.nfd; r += nt) V.bx[r] = V.x[r];
+    for (int l = tid; l < nl; l += nt) V.by[l] = V.y[l];
+  }
+  __syncthreads();
+}
+
+// Snap update of the best iterate along (dx, gdx) on both blocks
+// (ipm::snap_update with its eight sums combined over the cluster).
+__device__ void snap_update_cl(const Ctx& C, const ClVecs& V, int& xb) {
+  const int tid = threadIdx.x, nt = blockDim.x, nl = C.q.nl;
+  const float alphas[7] = {1.0f, 0.5f, 0.25f, 0.1f, 0.03f, 0.01f, 0.003f};
+  float p[8];
+  int ops[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    p[i] = 0.0f;
+    ops[i] = kSum;
+  }
+  for (int l = tid; l < nl; l += nt) {
+    const float cw = V.cw[l];
+    float v = pmax(c_loc(C, V.by, V.rb, l), 0.0f);
+    p[0] += cw * v * v;
+#pragma unroll
+    for (int i = 0; i < 7; ++i) {
+      v = pmax(c_loc_moved(C, V.by, V.gdx, alphas[i], V.rb, l), 0.0f);
+      p[i + 1] += cw * v * v;
+    }
+  }
+  IPM_PROF(14);
+  block_reduce_n<8>(p, ops, V.red);
+  cluster_combine<8>(p, ops, V.xch, C.rank, xb);
+  float best_a = 0.0f, best_p = p[0];
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    if (p[i + 1] < best_p) {
+      best_a = alphas[i];
+      best_p = p[i + 1];
+    }
+  }
+  if (best_a > 0.0f) {
+    for (int r = tid; r < C.nfd; r += nt) V.bx[r] = V.bx[r] + best_a * V.dx[r];
+    for (int l = tid; l < nl; l += nt) V.by[l] = V.by[l] + best_a * V.gdx[l];
+  }
   __syncthreads();
 }
 

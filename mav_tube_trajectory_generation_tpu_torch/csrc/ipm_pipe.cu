@@ -303,128 +303,14 @@ __device__ __forceinline__ float dotf(const float (&f)[BMAX], const float* v,
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-// The step's shared vectors: nfd ones (x, bx, dx) and this block's lanes.
-struct ClVecs {
-  float *x, *bx, *dx, *s, *lam, *y, *by, *gdx, *ds, *dlam, *act, *cw, *rb;
-  float *red, *xch;
-};
-
-// Newton update along (dx, gdx) on both blocks (ipm::newton_update with its
-// lane sums combined over the cluster).  Must be reached by every thread of
-// both blocks.
-__device__ void newton_update_cl(const Ctx& C, const ClVecs& V,
-                                 float sigma_min, float tau, float alpha_max,
-                                 float w_cap, float mc, float& best_merit,
-                                 int& xb) {
-  const int tid = threadIdx.x, nt = blockDim.x, nl = C.q.nl;
-  const float inf = CUDART_INF_F;
-  float mu1[1] = {0.0f};
-  const int op_sum1[1] = {ipmc::kSum};
-  for (int l = tid; l < nl; l += nt) mu1[0] += V.cw[l] * V.s[l] * V.lam[l];
-  ipmc::block_reduce_n<1>(mu1, op_sum1, V.red);
-  ipmc::cluster_combine<1>(mu1, op_sum1, V.xch, C.rank, xb);
-  const float mu = mu1[0] / mc;
-  const float sig_mu = sigma_min * mu;
-  float st[3] = {inf, inf, 1.0f};           // min_s, min_l, finite
-  const int op_min3[3] = {ipmc::kMin, ipmc::kMin, ipmc::kMin};
-  for (int l = tid; l < nl; l += nt) {
-    const float act = V.act[l], sl = V.s[l], ll = V.lam[l];
-    const float c = ipmc::c_loc(C, V.y, V.rb, l);
-    const float r2 = (c + sl) * act;
-    const float w = pmin(ll / sl, w_cap);
-    const float jdx = ipmc::jdx_loc(C, V.gdx, V.y, l);
-    const float ds = (-r2 - jdx) * act;
-    const float dlam = ((sig_mu - ll * sl) / sl - w * ds) * act;
-    V.ds[l] = ds;
-    V.dlam[l] = dlam;
-    st[0] = pmin(st[0], ds < 0.0f ? -sl / ds : inf);
-    st[1] = pmin(st[1], dlam < 0.0f ? -ll / dlam : inf);
-    if (!(fabsf(ds) < inf) || !(fabsf(dlam) < inf)) st[2] = 0.0f;
-  }
-  ipmc::block_reduce_n<3>(st, op_min3, V.red);
-  ipmc::cluster_combine<3>(st, op_min3, V.xch, C.rank, xb);
-  const float alpha =
-      pmin(pmin(pmin(1.0f, tau * st[0]), pmin(1.0f, tau * st[1])), alpha_max);
-  const bool upd = alpha > 0.0f && st[2] > 0.0f;
-  if (upd) {
-    for (int r = tid; r < C.nfd; r += nt) V.x[r] = V.x[r] + alpha * V.dx[r];
-    for (int l = tid; l < nl; l += nt) {
-      V.s[l] = V.s[l] + alpha * V.ds[l];
-      if (V.act[l] > 0.0f)
-        V.lam[l] = pmax(V.lam[l] + alpha * V.dlam[l], 1e-16f);
-      V.y[l] = V.y[l] + alpha * V.gdx[l];
-    }
-  }
-  __syncthreads();
-  float m[3] = {-inf, -inf, 0.0f};
-  const int op_merit[3] = {ipmc::kMax, ipmc::kMax, ipmc::kSum};
-  for (int l = tid; l < nl; l += nt) {
-    const float c = ipmc::c_loc(C, V.y, V.rb, l);
-    if (V.act[l] > 0.0f) {
-      m[0] = pmax(m[0], pmax(c, 0.0f));
-      m[1] = pmax(m[1], fabsf(c + V.s[l]));
-    }
-    m[2] += V.cw[l] * V.s[l] * V.lam[l];
-  }
-  ipmc::block_reduce_n<3>(m, op_merit, V.red);
-  ipmc::cluster_combine<3>(m, op_merit, V.xch, C.rank, xb);
-  const float merit = m[0] + m[1] + m[2] / mc;
-  if (merit < best_merit) {
-    best_merit = merit;
-    for (int r = tid; r < C.nfd; r += nt) V.bx[r] = V.x[r];
-    for (int l = tid; l < nl; l += nt) V.by[l] = V.y[l];
-  }
-  __syncthreads();
-}
-
-// Snap update of the best iterate along (dx, gdx) on both blocks
-// (ipm::snap_update with its eight sums combined over the cluster).
-__device__ void snap_update_cl(const Ctx& C, const ClVecs& V, int& xb) {
-  const int tid = threadIdx.x, nt = blockDim.x, nl = C.q.nl;
-  const float alphas[7] = {1.0f, 0.5f, 0.25f, 0.1f, 0.03f, 0.01f, 0.003f};
-  float p[8];
-  int ops[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    p[i] = 0.0f;
-    ops[i] = ipmc::kSum;
-  }
-  for (int l = tid; l < nl; l += nt) {
-    const float cw = V.cw[l];
-    float v = pmax(ipmc::c_loc(C, V.by, V.rb, l), 0.0f);
-    p[0] += cw * v * v;
-#pragma unroll
-    for (int i = 0; i < 7; ++i) {
-      v = pmax(ipmc::c_loc_moved(C, V.by, V.gdx, alphas[i], V.rb, l), 0.0f);
-      p[i + 1] += cw * v * v;
-    }
-  }
-  IPM_PROF(14);
-  ipmc::block_reduce_n<8>(p, ops, V.red);
-  ipmc::cluster_combine<8>(p, ops, V.xch, C.rank, xb);
-  float best_a = 0.0f, best_p = p[0];
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    if (p[i + 1] < best_p) {
-      best_a = alphas[i];
-      best_p = p[i + 1];
-    }
-  }
-  if (best_a > 0.0f) {
-    for (int r = tid; r < C.nfd; r += nt) V.bx[r] = V.bx[r] + best_a * V.dx[r];
-    for (int l = tid; l < nl; l += nt) V.by[l] = V.by[l] + best_a * V.gdx[l];
-  }
-  __syncthreads();
-}
-
 // One scenario a cluster of two blocks (blockIdx.x / 2).
 __global__ void __launch_bounds__(512, 1)
 ipm_pipe_cluster_kernel(const __grid_constant__ PipeArgs a) {
   extern __shared__ __align__(128) float smem[];
   IPM_PROF(-1);
   cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
-  const Ctx C = ipmc::make_ctx(smem, 1, a.nfd, a.m_p, a.blk, a.nb_p,
-                               a.n_ball);
+  const Ctx C = ipmc::make_ctx(smem, ipmc::kPipe, a.nfd, a.m_p, a.blk,
+                               a.nb_p, a.n_ball);
   const ipmc::CLayout& L = C.L;
   const int sc = blockIdx.x / ipmc::kCluster;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -456,7 +342,7 @@ ipm_pipe_cluster_kernel(const __grid_constant__ PipeArgs a) {
   }
 
   // ---- the state (a cp.async group), then G^T's share (TMA) ---------------
-  ClVecs V;
+  ipmc::ClVecs V;
   V.x = C.at(L.x); V.bx = C.at(L.bx); V.dx = C.at(L.dx); V.s = C.at(L.s);
   V.lam = C.at(L.lam); V.y = C.at(L.y); V.by = C.at(L.by);
   V.act = C.at(L.act); V.cw = C.at(L.cw); V.rb = C.at(L.rb);
@@ -564,10 +450,10 @@ ipm_pipe_cluster_kernel(const __grid_constant__ PipeArgs a) {
   }
 
   if (a.upd_mode == kNewton) {
-    newton_update_cl(C, V, a.sigma_min, a.tau, a.alpha_max, a.w_cap, mc,
-                     best_merit, xb);
+    ipmc::newton_update_cl(C, V, V.y, a.sigma_min, a.tau, a.alpha_max,
+                           a.w_cap, mc, best_merit, xb);
   } else if (a.upd_mode == kSnap) {
-    snap_update_cl(C, V, xb);
+    ipmc::snap_update_cl(C, V, xb);
   }
   IPM_PROF(4);
 
@@ -655,8 +541,8 @@ ipm_pipe_cluster_kernel(const __grid_constant__ PipeArgs a) {
 }
 
 size_t cluster_smem_of(int nfd, int m_p, int blk, int nb_p) {
-  return (size_t)ipmc::make_cluster_layout(1, nfd, m_p, blk, nb_p).total *
-         sizeof(float);
+  return (size_t)ipmc::make_cluster_layout(ipmc::kPipe, nfd, m_p, blk, nb_p)
+             .total * sizeof(float);
 }
 
 }  // namespace
@@ -672,7 +558,8 @@ extern "C" int ipm_pipe_smem_bytes(int nfd, int m_p, int blk, int nb_p,
 // cluster design, 0 the stream design.
 extern "C" int ipm_pipe_design(int nfd, int m_p, int blk, int nb_p,
                                int threads) {
-  return ipmc::cluster_fits(1, nfd, m_p, blk, nb_p, threads) ? 1 : 0;
+  return ipmc::cluster_fits(ipmc::kPipe, nfd, m_p, blk, nb_p, threads) ? 1
+                                                                       : 0;
 }
 
 // Dynamic shared memory, in bytes, of one block of the cluster design.
@@ -731,11 +618,12 @@ extern "C" int ipm_pipe_step_launch(
   a.sigma_min = sigma_min; a.tau = tau; a.alpha_max = alpha_max;
   a.w_cap = w_cap; a.reg = reg; a.snap_rho = snap_rho;
   a.margin = (float)(3.0 / (double)snap_rho);
-  if (ipmc::cluster_fits(1, nfd, m_p, blk, nb_p, threads)) {
+  if (ipmc::cluster_fits(ipmc::kPipe, nfd, m_p, blk, nb_p, threads)) {
     const size_t csmem = cluster_smem_of(nfd, m_p, blk, nb_p);
     if (!ipmc::gt_tensor_map(
             &a.gt_map, gt, batch, nfd, m_p,
-            ipmc::make_cluster_layout(1, nfd, m_p, blk, nb_p).lds))
+            ipmc::make_cluster_layout(ipmc::kPipe, nfd, m_p, blk, nb_p)
+                .lds))
       return (int)cudaErrorNotSupported;
     cudaError_t e = cudaFuncSetAttribute(
         ipm_pipe_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

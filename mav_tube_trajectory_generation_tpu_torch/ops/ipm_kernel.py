@@ -16,8 +16,9 @@ Replaces the Pallas TPU kernels of the JAX package's ``ops/ipm_kernel.py``:
     emit its Hessian band and right-hand side;
   * ``ipm_solve_fused`` (``_solve_kernel``): the whole polish in one launch
     -- the Newton steps with the band factored and solved inside the kernel
-    (Jacobi equilibration, block-Thomas elimination, Gauss-Jordan inverses of
-    the pivot blocks), then the snap sweeps;
+    (Jacobi equilibration, block Cholesky with floored pivots where the JAX
+    kernel takes Gauss-Jordan inverses of the pivot blocks: ``PIVOT_FLOOR``),
+    then the snap sweeps;
   * ``gt_matvec``: y = G v.
 
 All of them work on the padded component-plane lane layout of
@@ -31,14 +32,14 @@ The kernels are ``csrc/gt_matvec.cu``, ``csrc/ipm_eval.cu``,
 ``csrc/ipm_pipe.cu`` and ``csrc/ipm_solve.cu`` (CUDA C++, sm_90a; the shared
 device code in ``csrc/ipm_common.cuh`` and ``csrc/ipm_cluster.cuh``).
 ``gt_matvec`` splits a scenario's lanes over ``matvec_chunk`` blocks.
-``ipm_eval_step`` with band output and ``ipm_pipe_step`` have two designs,
-chosen by shape in the launcher (``ipm_design``): "cluster", one scenario a
-cluster of two blocks, each holding its half of the lanes' G^T in shared
-memory (``cluster_layout``, lanes split by ball index as
-``admm_kernel.cluster_lane_split`` says), where a block's share fits; else
-"stream", one block a scenario walking G^T from L2 / device memory.  The
-full-Gram evaluation and ``ipm_solve_fused`` are one block a scenario.  What
-bounds each kernel on an H100 is stated at the top of its source.
+``ipm_eval_step`` (band output and whole Gram), ``ipm_pipe_step`` and
+``ipm_solve_fused`` have two designs each, chosen by shape in the launcher
+(``ipm_design``): "cluster", one scenario a cluster of two blocks, each
+holding its half of the lanes' G^T in shared memory (``cluster_layout``,
+lanes split by ball index as ``admm_kernel.cluster_lane_split`` says), where
+a block's share fits; else "stream", one block a scenario walking G^T from
+L2 / device memory.  What bounds each kernel on an H100 is stated at the top
+of its source.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version only for CPU tensors; it never falls back from one to the other.
@@ -77,8 +78,17 @@ SNAP_ALPHAS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.003)
 # combine carries (csrc/ipm_cluster.cuh: TR, TC, NXCH).
 CLUSTER_TILE = (3, 5)
 _NXCH = 8
-# The two libraries with a cluster design, by the name of their kernel.
-CLUSTER_KERNELS = {"ipm_eval_step": "ipm_eval", "ipm_pipe_step": "ipm_pipe"}
+# The kernels with a cluster design, by the launch counter's name: the
+# prefix of their C functions (<prefix>_design, <prefix>_cluster_smem_bytes,
+# <prefix>_cluster_occupancy, <prefix>_smem_bytes) and, in the same order,
+# the layout kind of csrc/ipm_cluster.cuh (Kind).
+CLUSTER_KERNELS = {"ipm_eval_step": "ipm_eval", "ipm_pipe_step": "ipm_pipe",
+                   "ipm_eval_step_gram": "ipm_eval_gram",
+                   "ipm_solve_fused": "ipm_solve"}
+# The library of each prefix.
+_LIBRARY_OF = {"ipm_eval_gram": "ipm_eval"}
+# The largest band block a register row of the cluster design holds (BMAX).
+CLUSTER_BMAX = 16
 
 # Libraries whose C signatures are declared (by id: a variant build of a
 # source may take its name's place).
@@ -280,19 +290,23 @@ def _gram_band(gt, lam_ball, aj, w_aj, blk: int):
 def cluster_layout(kernel: str, nfd: int, m_p: int, blk: int,
                    nb_p: int) -> Dict[str, int]:
     """Shared-memory layout of one block of the cluster design of
-    ``kernel`` ("ipm_eval_step" or "ipm_pipe_step"), in floats: the same
-    function as ``make_cluster_layout`` in ``csrc/ipm_cluster.cuh``, with
-    ``total`` the block's size, ``per`` the band tiles of one block of the
-    band, and the halves of the band ("eh" entries) and of the rows ("rh")
-    rank 0 finishes."""
+    ``kernel`` (a name of ``CLUSTER_KERNELS``), in floats: the same function
+    as ``make_cluster_layout`` in ``csrc/ipm_cluster.cuh``, with ``total``
+    the block's size, ``per`` the band tiles of one block of the band, the
+    halves of the band ("eh" entries) and of the rows ("rh") rank 0
+    finishes, ``jr`` the Jacobian rows' room (the whole polish: the band and
+    its factors, the L_i from ``lf`` on, the C_i from ``cf``) and ``gh`` one
+    of the Gram rounds' receive buffers."""
     if kernel not in CLUSTER_KERNELS:
         raise ValueError(f"no cluster design for {kernel}")
-    pipe = kernel == "ipm_pipe_step"
+    pipe, solve = kernel == "ipm_pipe_step", kernel == "ipm_solve_fused"
+    gram = kernel == "ipm_eval_step_gram"
     r4 = lambda n: (n + 3) & ~3
     nh = m_p - 3 * nb_p
     hb, fb = (nb_p + 1) // 2, (nh + 1) // 2              # rank 0's share
     nl = 3 * hb + fb
     m_blk = nfd // blk
+    bb = blk * blk
     tr, tc = CLUSTER_TILE
     L = dict(n4=(nl + 3) // 4, nj4=(hb + 3) // 4, ldw=r4(nfd),
              nband=nfd * blk + (nfd - blk) * blk, rh=(nfd + 1) // 2,
@@ -304,16 +318,30 @@ def cluster_layout(kernel: str, nfd: int, m_p: int, blk: int,
     L["lds"] = 4 * w4 + (4 if w4 % 2 == 0 else 0)
     L["nseg"] = 4 if fb > 0 else 3
     L["tile"] = (nfd * L["lds"] + 31) & ~31
+    L["lf"] = r4(L["nband"])             # the polish's factors, inside jr
+    L["cf"] = L["lf"] + m_blk * bb
+    jr = max(nfd * L["ldj"], L["nband"])
+    if solve:
+        jr = max(jr, L["cf"] + (m_blk - 1) * bb)
+    L["gh"] = r4((bb * m_blk + 1) // 2) if gram else 0
     o = L["nseg"] * L["tile"]
-    L["jr"] = r4(max(nfd * L["ldj"], L["nband"]))           # J rows, scratch
+    L["jr"] = r4(jr)                                        # J rows, scratch
     o += L["jr"]
-    o += (14 if pipe else 8) * L["ldl"]                     # lane vectors
+    o += (14 if pipe else 12 if solve else 8) * L["ldl"]    # lane vectors
     o += 2 * 4 * L["nj4"]                                   # rb, wjb
-    o += (6 if pipe else 1) * L["ldw"]                      # nfd vectors
-    o += 4 * L["ldw"] + (2 if pipe else 1) * r4(L["eh"])    # J^T, band, pe
+    o += (6 if pipe or solve else 1) * L["ldw"]             # nfd vectors
+    o += 4 * L["ldw"]                                       # J^T halves
+    if gram:                                   # a row block's partial, and
+        o += r4(bb * m_blk) + 2 * L["gh"]      # two receive buffers
+    else:                                      # band (#11: or the band
+        o += max(r4(L["eh"]),                  # factor's elimination rows)
+                 r4(blk * (3 * blk + 2)) if solve else 0)
+        o += r4(L["eh"]) if pipe or solve else 0            # pe
     o += L["ldl"] + 4 * L["nj4"]                            # row-block masks
     o += r4((m_blk * 4 * L["n4"] + 1) // 2)                 # lane lists
     o += r4((m_blk * 4 * L["nj4"] + 1) // 2) + r4(2 * m_blk)
+    if solve:
+        o += L["ldl"]                          # G^T's own row-block masks
     o += _NXCH * 32 + 2 * 2 * _NXCH + 4                     # reductions, bar
     L["total"] = o
     return L
@@ -324,6 +352,16 @@ def cluster_smem_bytes(kernel: str, nfd: int, m_p: int, blk: int,
     """Dynamic shared memory one block of ``kernel``'s cluster design takes
     at these shapes (computed here; the library's own number must agree)."""
     return 4 * cluster_layout(kernel, nfd, m_p, blk, nb_p)["total"]
+
+
+def gram_row_block(nfd: int) -> int:
+    """The row blocks the whole-Gram evaluation's cluster design masks its
+    lanes by: the largest divisor of nfd that a band block of the design may
+    be (at most ``CLUSTER_BMAX``), so 15, the vertex block, for every
+    flagship-family shape (nfd = 15 (K - 1)).  Any divisor gives the same
+    Gram; a lane of G^T reaches one or two vertex blocks."""
+    return max(d for d in range(1, min(nfd, CLUSTER_BMAX) + 1)
+               if nfd % d == 0)
 
 
 def cluster_band_parts(m_p: int, nb_p: int, n_ball: int):
@@ -358,6 +396,30 @@ def _gram_band_cluster(gt, lam_ball, aj, w_aj, blk: int, *, nb_p: int,
     return tuple(a + b for a, b in zip(*sums))
 
 
+def _gram_cluster(gt, lam_ball, aj, w_aj, blk: int, *, nb_p: int,
+                  n_ball: int):
+    """The whole weighted Gram (gt * lam_ball) @ gt^T + (aj * w_aj) @ aj^T
+    summed as the cluster design sums it: each block of
+    ``cluster_band_parts`` over its lanes and its balls' Jacobian rows, then
+    rank 0's sum plus rank 1's; the blocks (i, j >= i) of blk rows as summed,
+    the blocks below the diagonal as the transposes of those above.  (The
+    kernel sums each block pair over the lanes that reach both row blocks:
+    the terms it leaves out are exact zeros.)"""
+    m_p, nfd, dev = gt.shape[2], gt.shape[1], gt.device
+    gram = None
+    for rank, lanes, balls in cluster_band_parts(m_p, nb_p, n_ball):
+        lb = [l for l in lanes if not (l < nb_p and l < n_ball)] + balls
+        la = torch.tensor(lanes, dtype=torch.long, device=dev)
+        lb = torch.tensor(lb, dtype=torch.long, device=dev)
+        g, a = gt[:, :, la], aj[:, :, lb]
+        part = ((g * lam_ball[:, :, la]) @ g.transpose(1, 2)
+                + (a * w_aj[:, :, lb]) @ a.transpose(1, 2))
+        gram = part if gram is None else gram + part
+    row_block = torch.arange(nfd, device=dev) // blk
+    upper = row_block[:, None] <= row_block[None, :]
+    return torch.where(upper, gram, gram.transpose(1, 2))
+
+
 def ipm_eval_step_plain(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
                         w_cap: float = 1e10, phr: bool = False,
                         band_block: int = 0):
@@ -374,13 +436,20 @@ def ipm_eval_step_plain(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
 
 def ipm_eval_step_cluster_plain(gt, b, rb, x, s, lam, *, nb_p: int,
                                 n_ball: int, w_cap: float = 1e10,
-                                phr: bool = False, band_block: int):
-    """``ipm_eval_step`` with band output in plain PyTorch, the band summed
-    in the cluster design's order (``_gram_band_cluster``): the same
-    function as ``ipm_eval_step_plain``; the wrapper's plain version stays
-    the reference order.  Any float dtype, any device."""
+                                phr: bool = False, band_block: int = 0):
+    """``ipm_eval_step`` in plain PyTorch with the Gram summed in the
+    cluster design's order: the band (``_gram_band_cluster``), or with
+    ``band_block=0`` the whole Gram (``_gram_cluster``, row blocks of
+    ``gram_row_block``).  The same function as ``ipm_eval_step_plain``; the
+    wrapper's plain version stays the reference order.  Any float dtype, any
+    device."""
     y, c, jtwr2, jts, lam_ball, aj, w_aj = _eval_core(
         gt, b, rb, x, s, lam, nb_p=nb_p, n_ball=n_ball, w_cap=w_cap, phr=phr)
+    if not band_block:
+        gram = _gram_cluster(gt, lam_ball, aj, w_aj,
+                             gram_row_block(gt.shape[1]), nb_p=nb_p,
+                             n_ball=n_ball)
+        return y, c, jtwr2, jts, gram
     hd, hu = _gram_band_cluster(gt, lam_ball, aj, w_aj, band_block,
                                 nb_p=nb_p, n_ball=n_ball)
     return y, c, jtwr2, jts, hd, hu
@@ -523,33 +592,62 @@ def _pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
             rhs_new)
 
 
-def _gj_inverse(m):
-    """(B, b, b) inverse by Gauss-Jordan elimination with diagonal pivots and
-    no row swaps (the callers feed equilibrated SPD pivot blocks): the row
-    operations applied to the block and to a running identity, pivot by
-    pivot, as the whole-polish kernel does it."""
-    bb = m.shape[-1]
-    row = torch.arange(bb, device=m.device)[None, :, None]
-    inv = torch.eye(bb, dtype=m.dtype, device=m.device).expand(m.shape)
-    a = m
-    for p in range(bb):
-        d = a[:, p:p + 1, p:p + 1]                          # (B, 1, 1)
-        prow_a = a[:, p:p + 1, :] / d
-        prow_i = inv[:, p:p + 1, :] / d
-        elim = torch.where(row == p, torch.zeros_like(d), a[:, :, p:p + 1])
-        a = torch.where(row == p, prow_a, a - elim * prow_a)
-        inv = torch.where(row == p, prow_i, inv - elim * prow_i)
-    return inv
+# The floor under the pivots of the whole polish's band factor, on the
+# Jacobi-equilibrated band (unit diagonal).  In float32 a Gauss-Jordan
+# inverse of each pivot block (the JAX kernel's scheme), or a Cholesky
+# without a floor, loses the snap direction where the snap Hessian's
+# condition nears 1e12: the float64 solve of the same float32 band lowers
+# phi in most rows whose sweeps stall, the float32 Gauss-Jordan factor in
+# none (chip_smoke.py, factor_alone).  With the floor the factor is that of
+# an SPD matrix H + E (E diagonal, E >= 0, nonzero only where a pivot falls
+# under the floor), so the direction descends on its model.  Where no pivot
+# falls under it the factor solves H itself, as the JAX kernel's does;
+# chip_smoke.py reports, for each whole-polish call it checks, the rows in
+# which the plain version floors a pivot in float32 and in float64.
+PIVOT_FLOOR = 1e-4
+
+
+def _floored_elimination(a, r, floor: float = PIVOT_FLOOR):
+    """L^-1 r for the lower L with L L^T = a + E, E >= 0 diagonal: Gaussian
+    elimination without row swaps on [a | r] ((B, b, b), (B, b, q)), each
+    pivot max(pivot, floor) (NaN stays NaN; the pivots of the Cholesky of a
+    + E), the eliminated rows of r over the square roots of their pivots:
+    the kernel's order (csrc/ipm_solve.cu, band_factor_solve)."""
+    n = a.shape[-1]
+    rows = torch.arange(n, device=a.device)[:, None]
+    w = torch.cat([a, r], dim=2)
+    pivots = []
+    for k in range(n):
+        pivot = w[:, k, k]
+        pivot = torch.where(pivot < floor, torch.full_like(pivot, floor),
+                            pivot)
+        pivots.append(pivot)
+        m = torch.where(rows > k, w[:, :, k:k + 1] * (1.0 / pivot)[:, None,
+                                                                   None],
+                        torch.zeros_like(w[:, :, k:k + 1]))
+        w = w - m * w[:, k:k + 1, :]
+    rd = 1.0 / torch.sqrt(torch.stack(pivots, dim=1))
+    return w[:, :, n:] * rd[:, :, None]
 
 
 def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
-    """Equilibrated block-Thomas factor and single-column solve of
+    """Equilibrated twisted block-Cholesky factor and single-column solve of
     H = blocktridiag(pe_d + gd + reg I, pe_u + gu), all blocks stacked
     (B, m, blk, blk) / (B, m-1, blk, blk); rhs (B, nfd, 1).  Returns dx.
 
-    H is Jacobi-equilibrated (D H D, D = rsqrt(max(diag H, 1e-30))), factored
-    level by level with Gauss-Jordan pivot-block inverses, and applied to
-    ``rhs``: the scheme of the whole-polish kernel, operation for operation.
+    H is Jacobi-equilibrated (D H D, D = rsqrt(max(diag H, 1e-30))) and
+    factored from both ends towards the middle block c = (m - 1) // 2: the
+    blocks 0 .. c-1 top-down, the blocks m-1 .. c+1 bottom-up (their
+    coupling to the next block the super block transposed).  A block b with
+    its neighbour p already factored: S_b = D_b - C_p^T C_p, v_b = D rhs_b -
+    C_p^T z_p, and [L_b^-1 | C_b | z_b] = L_b^-1 [I | U_b | v_b] for S_b +
+    E_b = L_b L_b^T (``_floored_elimination``; U_b couples b to the next
+    block of its sweep); the middle block subtracts both neighbours'.  Then
+    x_c = L_c^-T z_c and each half outwards, x_b = L_b^-T (z_b - C_b x_p)
+    with p the block nearer the middle: the order of the whole-polish
+    kernel, whose cluster runs the two sweeps on its two blocks.  The JAX
+    kernel factors top-down with Gauss-Jordan inverses of the pivot blocks
+    instead; see ``PIVOT_FLOOR`` for why the port does not.
     """
     m_blk = gd.shape[1]
     eye_b = torch.eye(blk, dtype=gd.dtype, device=gd.device)
@@ -558,26 +656,32 @@ def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
         torch.diagonal(h_d, dim1=-2, dim2=-1), min=1e-30))   # (B, m, blk)
     hd = h_d * dsc[:, :, :, None] * dsc[:, :, None, :]
     hu = (gu + pe_u) * dsc[:, :-1, :, None] * dsc[:, 1:, None, :]
+    mid = (m_blk - 1) // 2
+    linv, cpl, z = {}, {}, {}
 
-    sinv = [None] * m_blk
-    w_f = [None] * (m_blk - 1)
-    s_cur = hd[:, 0]
-    for i in range(m_blk):
-        sinv[i] = _gj_inverse(s_cur)
-        if i + 1 < m_blk:
-            w_f[i] = sinv[i] @ hu[:, i]                     # S_i^-1 U_i
-            s_cur = hd[:, i + 1] - hu[:, i].transpose(1, 2) @ w_f[i]
+    def block(b, prevs, coupling):
+        s_b = hd[:, b]
+        v_b = rhs[:, b * blk:(b + 1) * blk, :] * dsc[:, b, :, None]
+        for p in prevs:
+            s_b = s_b - cpl[p].transpose(1, 2) @ cpl[p]
+            v_b = v_b - cpl[p].transpose(1, 2) @ z[p]
+        parts = [eye_b.expand_as(s_b)] + ([coupling] if coupling is not None
+                                          else [])
+        out = _floored_elimination(s_b, torch.cat(parts + [v_b], dim=2))
+        linv[b], z[b] = out[:, :, :blk], out[:, :, -1:]
+        if coupling is not None:
+            cpl[b] = out[:, :, blk:2 * blk]
 
-    z = [None] * m_blk
-    for i in range(m_blk):
-        r_i = rhs[:, i * blk:(i + 1) * blk, :] * dsc[:, i, :, None]
-        if i:
-            r_i = r_i - hu[:, i - 1].transpose(1, 2) @ z[i - 1]
-        z[i] = sinv[i] @ r_i
-    x_p = [None] * m_blk
-    x_p[m_blk - 1] = z[m_blk - 1]
-    for i in range(m_blk - 2, -1, -1):
-        x_p[i] = z[i] - w_f[i] @ x_p[i + 1]
+    for b in range(mid):                                 # top-down
+        block(b, [b - 1] if b else [], hu[:, b])
+    for b in range(m_blk - 1, mid, -1):                  # bottom-up
+        block(b, [b + 1] if b + 1 < m_blk else [],
+              hu[:, b - 1].transpose(1, 2))
+    block(mid, [p for p in (mid - 1, mid + 1) if 0 <= p < m_blk], None)
+    x_p = {mid: linv[mid].transpose(1, 2) @ z[mid]}
+    for b in list(range(mid - 1, -1, -1)) + list(range(mid + 1, m_blk)):
+        p = b + 1 if b < mid else b - 1
+        x_p[b] = linv[b].transpose(1, 2) @ (z[b] - cpl[b] @ x_p[p])
     return torch.cat([x_p[i] * dsc[:, i, :, None] for i in range(m_blk)],
                      dim=1)
 
@@ -588,11 +692,38 @@ def ipm_solve_fused_plain(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw,
                           alpha_max: float, w_cap: float, reg: float,
                           snap_rho: float, blk: int):
     """``ipm_solve_fused`` in plain PyTorch; any float dtype, any device."""
+    return _solve_fused_plain(
+        gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw, nb_p=nb_p,
+        n_ball=n_ball, mc=mc, n_iters=n_iters, snap_iters=snap_iters,
+        sigma_min=sigma_min, tau=tau, alpha_max=alpha_max, w_cap=w_cap,
+        reg=reg, snap_rho=snap_rho, blk=blk, band_sum=_gram_band)
+
+
+def ipm_solve_fused_cluster_plain(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0,
+                                  act, cw, *, nb_p: int, n_ball: int,
+                                  mc: int, n_iters: int, snap_iters: int,
+                                  sigma_min: float, tau: float,
+                                  alpha_max: float, w_cap: float, reg: float,
+                                  snap_rho: float, blk: int):
+    """``ipm_solve_fused_plain`` with each step's band summed in the cluster
+    design's order (``_gram_band_cluster``).  Any float dtype, any device."""
+    band = lambda *a: _gram_band_cluster(*a, nb_p=nb_p, n_ball=n_ball)
+    return _solve_fused_plain(
+        gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw, nb_p=nb_p,
+        n_ball=n_ball, mc=mc, n_iters=n_iters, snap_iters=snap_iters,
+        sigma_min=sigma_min, tau=tau, alpha_max=alpha_max, w_cap=w_cap,
+        reg=reg, snap_rho=snap_rho, blk=blk, band_sum=band)
+
+
+def _solve_fused_plain(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw,
+                       *, nb_p, n_ball, mc, n_iters, snap_iters, sigma_min,
+                       tau, alpha_max, w_cap, reg, snap_rho, blk,
+                       band_sum):
     bsz = gt.shape[0]
     m_blk = gt.shape[1] // blk
 
     def band(lam_ball, aj, w_aj):
-        gd, gu = _gram_band(gt, lam_ball, aj, w_aj, blk)
+        gd, gu = band_sum(gt, lam_ball, aj, w_aj, blk)
         return (gd.reshape(bsz, m_blk, blk, blk),
                 gu.reshape(bsz, m_blk - 1, blk, blk))
 
@@ -690,11 +821,15 @@ def _library(name: str) -> ctypes.CDLL:
                 [ptr] * 11 + [i32] * 6 + [f32, i32, i32, ptr])
             lib.ipm_eval_gram_launch.restype = i32
             for fn in ("ipm_eval_smem_bytes", "ipm_eval_design",
-                       "ipm_eval_cluster_occupancy"):
+                       "ipm_eval_cluster_occupancy",
+                       "ipm_eval_gram_smem_bytes", "ipm_eval_gram_design",
+                       "ipm_eval_gram_cluster_occupancy"):
                 getattr(lib, fn).argtypes = [i32] * 5
                 getattr(lib, fn).restype = i32
-            lib.ipm_eval_cluster_smem_bytes.argtypes = [i32] * 4
-            lib.ipm_eval_cluster_smem_bytes.restype = i32
+            for fn in ("ipm_eval_cluster_smem_bytes",
+                       "ipm_eval_gram_cluster_smem_bytes"):
+                getattr(lib, fn).argtypes = [i32] * 4
+                getattr(lib, fn).restype = i32
         elif name == "ipm_pipe":
             lib.ipm_pipe_step_launch.argtypes = (
                 [ptr] * 31 + [i32] * 7 + [f32] * 6 + [i32] * 3 + [ptr])
@@ -709,19 +844,23 @@ def _library(name: str) -> ctypes.CDLL:
             lib.ipm_solve_fused_launch.argtypes = (
                 [ptr] * 20 + [i32] * 9 + [f32] * 6 + [i32, ptr])
             lib.ipm_solve_fused_launch.restype = i32
-            lib.ipm_solve_smem_bytes.argtypes = [i32] * 5
-            lib.ipm_solve_smem_bytes.restype = i32
+            for fn in ("ipm_solve_smem_bytes", "ipm_solve_design",
+                       "ipm_solve_cluster_occupancy"):
+                getattr(lib, fn).argtypes = [i32] * 5
+                getattr(lib, fn).restype = i32
+            lib.ipm_solve_cluster_smem_bytes.argtypes = [i32] * 4
+            lib.ipm_solve_cluster_smem_bytes.restype = i32
         _configured[id(lib)] = True
     return lib
 
 
 def smem_bytes(name: str, nfd: int, m_p: int, blk: int, nb_p: int,
                design: str = "stream") -> int:
-    """Dynamic shared memory one block of ``ipm_eval``, ``ipm_pipe`` or
-    ``ipm_solve`` takes at these shapes, in its one-block body ("stream") or
-    (``ipm_eval``, ``ipm_pipe``) its cluster design, as the library computes
-    it (builds the library if needed)."""
-    lib = _library(name)
+    """Dynamic shared memory one block of ``ipm_eval``, ``ipm_eval_gram``
+    (its whole-Gram entry point), ``ipm_pipe`` or ``ipm_solve`` takes at
+    these shapes, in its one-block body ("stream") or its cluster design, as
+    the library computes it (builds the library if needed)."""
+    lib = _library(_LIBRARY_OF.get(name, name))
     if design == "cluster":
         return int(getattr(lib, f"{name}_cluster_smem_bytes")(nfd, m_p, blk,
                                                               nb_p))
@@ -730,15 +869,17 @@ def smem_bytes(name: str, nfd: int, m_p: int, blk: int, nb_p: int,
 
 
 def ipm_design(kernel: str, nfd: int, m_p: int, blk: int, nb_p: int) -> str:
-    """The design ``kernel`` ("ipm_eval_step" with band output, or
-    "ipm_pipe_step") launches at these shapes on the current CUDA device:
-    "cluster" wherever a block's share fits, else "stream".  A choice by
-    shape between two kernels, made by the library; builds it if needed."""
+    """The design ``kernel`` (a name of ``CLUSTER_KERNELS``:
+    "ipm_eval_step" with band output, "ipm_eval_step_gram" with the whole
+    Gram and ``blk`` its row blocks, "ipm_pipe_step", "ipm_solve_fused")
+    launches at these shapes on the current CUDA device: "cluster" wherever
+    a block's share fits, else "stream".  A choice by shape between two
+    kernels, made by the library; builds it if needed."""
     key = (torch.cuda.current_device(), kernel, nfd, m_p, blk, nb_p)
     if key not in _designs:
         name = CLUSTER_KERNELS[kernel]
-        fit = getattr(_library(name), f"{name}_design")(nfd, m_p, blk, nb_p,
-                                                        THREADS)
+        fit = getattr(_library(_LIBRARY_OF.get(name, name)),
+                      f"{name}_design")(nfd, m_p, blk, nb_p, THREADS)
         _designs[key] = "cluster" if fit else "stream"
     return _designs[key]
 
@@ -748,8 +889,9 @@ def cluster_occupancy(kernel: str, nfd: int, m_p: int, blk: int,
     """Clusters of ``kernel``'s cluster design the current device holds at
     once (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
     name = CLUSTER_KERNELS[kernel]
-    n = int(getattr(_library(name), f"{name}_cluster_occupancy")(
-        nfd, m_p, blk, nb_p, THREADS))
+    n = int(getattr(_library(_LIBRARY_OF.get(name, name)),
+                    f"{name}_cluster_occupancy")(nfd, m_p, blk, nb_p,
+                                                 THREADS))
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA "
                            f"error {-n}")
@@ -855,9 +997,11 @@ def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
     stacked diagonal blocks, hu (B, nfd - blk, blk) stacked super blocks),
     or with ``band_block=0`` (y, c, jtwr2, jts, gram (B, nfd, nfd)).
 
-    CUDA tensors (float32, contiguous) go through the kernel (with band
-    output in the design ``ipm_design`` names for these shapes); CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``ipm_design`` names for these shapes ("ipm_eval_step", or with
+    ``band_block=0`` "ipm_eval_step_gram" with row blocks of
+    ``gram_row_block(nfd)``); CPU tensors through the plain version.
+    Anything the kernel does not take raises.
     """
     if gt.device.type == "cpu":
         return ipm_eval_step_plain(gt, b, rb, x, s, lam, nb_p=nb_p,
@@ -893,7 +1037,8 @@ def ipm_eval_step(gt, b, rb, x, s, lam, *, nb_p: int, n_ball: int,
             gt.data_ptr(), b.data_ptr(), rb.data_ptr(), x.data_ptr(),
             s.data_ptr(), lam.data_ptr(), y.data_ptr(), c.data_ptr(),
             jtwr2.data_ptr(), jts.data_ptr(), *(g.data_ptr() for g in grams),
-            bsz, nfd, m_p, blk or 1, nb_p, n_ball, float(w_cap),
+            bsz, nfd, m_p, blk or gram_row_block(nfd), nb_p, n_ball,
+            float(w_cap),
             int(bool(phr)), THREADS, torch.cuda.current_stream().cuda_stream)
     _raise_on(err, name, B=bsz, nfd=nfd, m_p=m_p, blk=blk)
     launches[name] += 1
@@ -1002,8 +1147,9 @@ def ipm_solve_fused(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw, *,
     snap, the last Newton state, and the largest multiplier after step
     ``n_iters // 2`` and at the end (zero and max(lam0) when ``n_iters=0``).
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``ipm_design`` names for these shapes; CPU tensors through the plain
+    version.  Anything the kernel does not take raises.
     """
     if n_iters < 0 or snap_iters < 0:
         raise ValueError("n_iters and snap_iters must not be negative")

@@ -388,8 +388,17 @@ def test_ew_kernels_on_the_card_match_plain(name):
         np.testing.assert_allclose(to_np(a), b, rtol=0, atol=rel * _scale(b))
     gt_args = args[:i] + (tkernel.expand_gt(args[i], args[i + 1]),) + \
         args[i + 2:]
+    # against the kernel of the stored G^T: the band kernels share one
+    # order of sums (the same bits); #3 keeps the stream body's order while
+    # kernel 1 sums in its cluster design's, so the stage is held to the bar
+    # it is held to against its plain version
     for a, b in zip(ours, fn_gt(*gt_args, **kw)):
-        assert torch.equal(a, b)
+        if name.startswith("band"):
+            assert torch.equal(a, b)
+        else:
+            b = to_np(b)
+            np.testing.assert_allclose(to_np(a), b, rtol=0,
+                                       atol=rel * _scale(b))
     with pytest.raises(TypeError, match="float32"):
         fn(*(a.double() for a in args), **kw)
     strided = list(args)

@@ -1,5 +1,6 @@
 """The cluster design of the interior-point kernels ``ipm_eval_step`` (band
-output) and ``ipm_pipe_step``: what of it the host can compute.
+output and the whole Gram), ``ipm_pipe_step`` and ``ipm_solve_fused``: what
+of it the host can compute.
 
 * The lane split: the two blocks of a scenario's cluster split the lanes by
   ball index; every lane lies in exactly one block, a ball's three planes
@@ -9,12 +10,16 @@ output) and ``ipm_pipe_step``: what of it the host can compute.
   ``make_cluster_layout`` in ``csrc/ipm_cluster.cuh``): the flagship shape
   and K=4 fit an H100 block, K=12 does not and keeps the one-block body.
 * The plain versions that sum the band in the design's order
-  (``ipm_eval_step_cluster_plain``, ``ipm_pipe_step_cluster_plain``) against
-  the JAX package's Pallas kernels in interpret mode, at the tolerance of
-  ``tests/test_torch_ipm_kernel.py`` (``TOL`` = 2e-5 of each output's scale:
-  the same float32 formulas summed in another order), and against the
-  reference order in float64, where the two orders agree to rounding
-  (1e-12 of scale): a lane summed twice or left out would not.
+  (``ipm_eval_step_cluster_plain``, ``ipm_pipe_step_cluster_plain``,
+  ``ipm_solve_fused_cluster_plain``) and the whole Gram in its order (rank
+  0's sum + rank 1's, the blocks under the diagonal mirrored from those
+  above) against the JAX package's Pallas kernels in interpret mode, at the
+  tolerance of ``tests/test_torch_ipm_kernel.py`` (``TOL`` = 2e-5 of each
+  output's scale: the same float32 formulas summed in another order; the
+  whole polish, a chain of steps on a well-conditioned random system, ten
+  times that), and against the reference order in float64, where the two
+  orders agree to rounding (1e-12 of scale): a lane summed twice or left
+  out, or a block mirrored from the wrong one, would not.
 
 The kernels themselves run only on the card: the ``gpu`` tests.
 """
@@ -28,7 +33,8 @@ from mav_tube_trajectory_generation_tpu.ops import ipm_kernel as jk
 import mav_tube_trajectory_generation_tpu_torch as mtt
 from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel as tk
 
-from test_torch_ipm_kernel import (EVAL_OUT, MODE_PAIRS, PIPE_OUT, _close,
+from test_torch_ipm_kernel import (EVAL_OUT, FUSED_OUT, GRAM_OUT, MODE_PAIRS,
+                                   PIPE_OUT, TOL, _close, _fused_random_case,
                                    _random_inputs)
 from torch_port_util import to_np, tt
 
@@ -44,6 +50,9 @@ FITS = {"flagship K=10": True, "K=4": True, "K=12": False, "random": True}
 # the library reads it from the device.
 H100_SMEM = 232448
 KERNELS = ("ipm_eval_step", "ipm_pipe_step")
+# The whole-Gram evaluation (#10) and the whole polish (#11), in the cluster
+# design too.
+NEW_KERNELS = ("ipm_eval_step_gram", "ipm_solve_fused")
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))
@@ -199,3 +208,166 @@ def test_stream_design_on_the_card():
     _close(tk.ipm_eval_step(*ev_args, **ekw),
            [to_np(o) for o in tk.ipm_eval_step_plain(*ev_args, **ekw)],
            EVAL_OUT)
+
+
+@pytest.mark.parametrize("kernel", NEW_KERNELS)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_gram_and_solve_layouts_fit_where_the_band_fits(shape, kernel):
+    """#10's layout (the band's receive buffer replaced by a row block's
+    partial and two receive buffers of its half) and #11's (#8's less the
+    snap's two lane vectors, with the band and its factors in the Jacobian
+    rows' room, the equilibration scale in place of #8's u and the share's
+    row-block masks besides) against the H100's 232,448 B: the flagship
+    shape and K=4 fit, K=12 does not."""
+    nfd, m_p, blk, nb_p, _ = SHAPES[shape]
+    if kernel == "ipm_eval_step_gram":
+        blk = tk.gram_row_block(nfd)
+    lay = tk.cluster_layout(kernel, nfd, m_p, blk, nb_p)
+    total = 4 * lay["total"]
+    assert total == tk.cluster_smem_bytes(kernel, nfd, m_p, blk, nb_p)
+    assert (total <= H100_SMEM) == FITS[shape]
+    band = tk.cluster_layout("ipm_eval_step", nfd, m_p, blk, nb_p)
+    bb, m_blk = blk * blk, nfd // blk
+    if kernel == "ipm_solve_fused":
+        # the band, then the L_i and the C_i of its factor, in jr
+        assert lay["lf"] >= lay["nband"] and lay["lf"] % 4 == 0
+        assert lay["cf"] == lay["lf"] + m_blk * bb
+        assert lay["cf"] + (m_blk - 1) * bb <= lay["jr"]
+        assert lay["jr"] >= band["jr"]
+        assert total <= tk.cluster_smem_bytes("ipm_pipe_step", nfd, m_p,
+                                              blk, nb_p)
+    else:
+        # a row block's partial is blk x nfd, each half at most gh
+        assert 2 * lay["gh"] >= bb * m_blk and lay["gh"] % 4 == 0
+    if shape == "flagship K=10":
+        assert total == {"ipm_eval_step_gram": 219760,
+                         "ipm_solve_fused": 226768}[kernel]
+
+
+@pytest.mark.parametrize("nfd,want", [(135, 15), (45, 15), (165, 15),
+                                      (24, 12), (16, 16), (17, 1), (64, 16)])
+def test_gram_row_block(nfd, want):
+    """The whole Gram's row blocks: the largest divisor of nfd a band block
+    may be, so the vertex block at every flagship-family shape."""
+    assert tk.gram_row_block(nfd) == want
+    assert nfd % want == 0 and want <= tk.CLUSTER_BMAX
+
+
+@pytest.mark.parametrize("phr", [False, True])
+def test_gram_cluster_order_against_pallas_interpret(phr):
+    d, kw = _random_inputs(seed=4)
+    if phr:      # as the snap feeds it: lam on some lanes, s = lam / rho
+        rng = np.random.RandomState(5)
+        d["lam"] = np.where(rng.rand(*d["lam"].shape) < 0.3, 1e-6,
+                            0.0).astype(np.float32)
+        d["s"] = (d["lam"] / 1e4).astype(np.float32)
+    args = [d[n] for n in ("gt", "b", "rb", "x", "s", "lam")]
+    ekw = dict(nb_p=kw["nb_p"], n_ball=kw["n_ball"],
+               w_cap=1e4 if phr else 1e6, phr=phr, band_block=0)
+    ref = jk.ipm_eval_step(*(jnp.asarray(a) for a in args), interpret=True,
+                           **ekw)
+    ours = tk.ipm_eval_step_cluster_plain(*(tt(a) for a in args), **ekw)
+    assert ours[4].shape == (2, 24, 24)
+    _close(ours, ref, GRAM_OUT)
+    # the blocks under the diagonal are those above, transposed, bit for bit
+    g, blk = to_np(ours[4]), tk.gram_row_block(24)
+    np.testing.assert_array_equal(g[:, blk:, :blk],
+                                  g[:, :blk, blk:].transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("shape", ["flagship K=10", "K=4", "random"])
+def test_pair_list_gram_is_the_dense_gram_in_float64(shape):
+    """On a random G^T every lane reaches every row block, so every block
+    pair is summed over every lane: the cluster order's whole Gram is the
+    dense one to rounding."""
+    nfd, m_p, blk, nb_p, n_ball = SHAPES[shape]
+    d, _ = _random_inputs(seed=12, s_blk=2, nfd=nfd, nb_p=nb_p,
+                          nh_p=m_p - 3 * nb_p, n_ball=n_ball, blk=blk)
+    args = [tt(d[n], torch.float64)
+            for n in ("gt", "b", "rb", "x", "s", "lam")]
+    ekw = dict(nb_p=nb_p, n_ball=n_ball, w_cap=1e6, band_block=0)
+    ref = tk.ipm_eval_step_plain(*args, **ekw)
+    ours = tk.ipm_eval_step_cluster_plain(*args, **ekw)
+    for name, a, b in zip(GRAM_OUT, ours, ref):
+        assert a.dtype == torch.float64
+        assert float((a - b).abs().max()) <= 1e-12 * float(b.abs().max()), \
+            name
+
+
+@pytest.mark.parametrize("n_iters,snap_iters", [(2, 0), (0, 1), (2, 1)])
+def test_solve_cluster_order_against_pallas_interpret(n_iters, snap_iters):
+    """The whole polish with each band summed in the cluster order, against
+    the Pallas kernel (random arrays, four scenarios, handed to the Pallas
+    kernel as two blocks of two; a positive semidefinite objective band, as
+    in test_torch_ipm_kernel.py, so every scenario is held to it)."""
+    kw, ref, args = _fused_random_case(n_iters, snap_iters)
+    ours = tk.ipm_solve_fused_cluster_plain(*args, **kw)
+    _close(ours, ref, FUSED_OUT, tol=10 * TOL)
+
+
+@pytest.mark.gpu
+def test_gram_and_solve_cluster_design_on_the_card():
+    """At the random shape #10 and #11 take the cluster design, agree with
+    their plain versions in both orders and give the same bits run to run.
+    Needs an NVIDIA card and nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no host mode")
+    d, kw = _random_inputs(seed=3, s_blk=4)
+    dev = mtt.lanes_state_from_numpy(d)
+    nfd, m_p = d["gt"].shape[1:]
+    assert tk.ipm_design("ipm_eval_step_gram", nfd, m_p,
+                         tk.gram_row_block(nfd), kw["nb_p"]) == "cluster"
+    assert tk.ipm_design("ipm_solve_fused", nfd, m_p, kw["blk"],
+                         kw["nb_p"]) == "cluster"
+    for kernel in NEW_KERNELS:
+        blk = (tk.gram_row_block(nfd) if kernel == "ipm_eval_step_gram"
+               else kw["blk"])
+        assert tk.smem_bytes(tk.CLUSTER_KERNELS[kernel], nfd, m_p, blk,
+                             kw["nb_p"], design="cluster") == \
+            tk.cluster_smem_bytes(kernel, nfd, m_p, blk, kw["nb_p"])
+    ev_args = [dev[i] for i in (0, 1, 2, 6, 7, 8)]
+    for phr in (False, True):
+        ekw = dict(nb_p=128, n_ball=17, phr=phr, w_cap=1e6, band_block=0)
+        ours = tk.ipm_eval_step(*ev_args, **ekw)
+        again = tk.ipm_eval_step(*ev_args, **ekw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ours, again))
+        for plain in (tk.ipm_eval_step_plain, tk.ipm_eval_step_cluster_plain):
+            _close(ours, [to_np(o) for o in plain(*ev_args, **ekw)],
+                   GRAM_OUT)
+    skw = dict(kw, n_iters=2, snap_iters=1)
+    sargs = [dev[i] for i in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 18, 19)]
+    sargs[9] = tk.gt_matvec_plain(dev[0], dev[6]) + dev[1]     # y0 = G x0 + b
+    ours = tk.ipm_solve_fused(*sargs, **skw)
+    again = tk.ipm_solve_fused(*sargs, **skw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ours, again))
+    for plain in (tk.ipm_solve_fused_plain, tk.ipm_solve_fused_cluster_plain):
+        _close(ours, [to_np(o) for o in plain(*sargs, **skw)], FUSED_OUT,
+               tol=10 * TOL)
+
+
+@pytest.mark.gpu
+def test_gram_and_solve_stream_design_on_the_card():
+    """At K=12's layout #10 and #11 keep their one-block bodies and agree
+    with their plain versions.  Needs an NVIDIA card and nvcc."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no host mode")
+    nfd, m_p, blk, nb_p, n_ball = SHAPES["K=12"]
+    d, kw = _random_inputs(seed=13, nfd=nfd, nb_p=nb_p, nh_p=m_p - 3 * nb_p,
+                           n_ball=n_ball, blk=blk)
+    dev = mtt.lanes_state_from_numpy(d)
+    assert tk.ipm_design("ipm_eval_step_gram", nfd, m_p,
+                         tk.gram_row_block(nfd), nb_p) == "stream"
+    assert tk.ipm_design("ipm_solve_fused", nfd, m_p, blk, nb_p) == "stream"
+    ev_args = [dev[i] for i in (0, 1, 2, 6, 7, 8)]
+    ekw = dict(nb_p=nb_p, n_ball=n_ball, w_cap=1e6, band_block=0)
+    _close(tk.ipm_eval_step(*ev_args, **ekw),
+           [to_np(o) for o in tk.ipm_eval_step_plain(*ev_args, **ekw)],
+           GRAM_OUT)
+    skw = dict(kw, n_iters=2, snap_iters=1)
+    sargs = [dev[i] for i in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 18, 19)]
+    sargs[9] = tk.gt_matvec_plain(dev[0], dev[6]) + dev[1]     # y0 = G x0 + b
+    _close(tk.ipm_solve_fused(*sargs, **skw),
+           [to_np(o) for o in tk.ipm_solve_fused_plain(*sargs, **skw)],
+           FUSED_OUT, tol=10 * TOL)

@@ -135,6 +135,79 @@ def _random_inputs(seed=0, s_blk=2, nfd=24, nb_p=128, nh_p=128, n_ball=17,
     return d, kw
 
 
+def _rows_flooring_in_float64(args, kw):
+    """The scenarios in which the plain whole polish, run in float64 on
+    ``args``, floors a pivot of its band factor (``tk.PIVOT_FLOOR``): there
+    the Newton matrix is indefinite or too near singular for any float32
+    factor, and the port's floored Cholesky deliberately gives another
+    direction than the JAX kernel's Gauss-Jordan inverses."""
+    seen = []
+    keep = tk._floored_elimination
+
+    def spy(a, r, floor=tk.PIVOT_FLOOR):
+        # the unfloored pivots are the squared diagonal of L: 1 / L^-1's
+        low_inv = keep(a, torch.eye(a.shape[-1], dtype=a.dtype).expand_as(
+            a).clone(), -float("inf"))
+        pivots = torch.diagonal(low_inv, dim1=-2, dim2=-1) ** -2
+        seen.append(((pivots < floor) | torch.isnan(pivots)).any(-1))
+        return keep(a, r, floor)
+
+    tk._floored_elimination = spy
+    try:
+        tk.ipm_solve_fused_plain(*(a.double() for a in args), **kw)
+    finally:
+        tk._floored_elimination = keep
+    if not seen:
+        return []
+    return torch.stack(seen).any(0).nonzero().flatten().tolist()
+
+
+def _fused_random_case(n_iters, snap_iters, seed=10):
+    """Random whole-polish inputs for four scenarios (``_random_inputs``)
+    with the structure of a real polish, where the Newton matrix is the
+    band and positive definite.  Each constraint reaches two neighbouring
+    row blocks k, k + 1 of G^T (a ball's three lanes the same two, k its
+    index modulo m - 1), so the weighted Gram is block-tridiagonal and its
+    band is all of it, as every real assembly's is (the band of a dense
+    random Gram can be indefinite).  The objective band is positive
+    semidefinite, as a minimum-snap objective's is: P = L L^T for a block
+    lower-bidiagonal L (diagonal blocks D_i, sub-diagonal S_i), so pe_d_i =
+    D_i D_i^T + S_(i-1) S_(i-1)^T and pe_u_i = D_i S_i^T.  Returns (kw, the
+    JAX kernel's outputs on the scenarios as two blocks of two, the port's
+    arguments as a flat batch of four)."""
+    d, kw = _random_inputs(seed=seed, s_blk=4)
+    rng = np.random.RandomState(seed + 100)
+    f = np.float32
+    s_blk, m_blk, blk = 4, d["pe_d"].shape[1], kw["blk"]
+    nb_p, m_p = kw["nb_p"], d["gt"].shape[2]
+    lane = np.arange(m_p)
+    k = np.where(lane < 3 * nb_p, lane % nb_p, lane - 3 * nb_p) % (m_blk - 1)
+    row_block = np.arange(m_blk * blk)[:, None] // blk
+    d["gt"] = d["gt"] * ((row_block == k) | (row_block == k + 1))
+    dg = rng.randn(s_blk, m_blk, blk, blk) / np.sqrt(blk)
+    sub = rng.randn(s_blk, m_blk - 1, blk, blk) * 0.3 / np.sqrt(blk)
+    pe_d = dg @ dg.transpose(0, 1, 3, 2)
+    pe_d[:, 1:] += sub @ sub.transpose(0, 1, 3, 2)
+    pe_u = dg[:, :-1] @ sub.transpose(0, 1, 3, 2)
+    state = {n: d[n] for n in ("gt", "b", "rb", "q", "act", "cw")}
+    state.update(pe_d=pe_d.astype(f), pe_u=pe_u.astype(f), x0=d["x"],
+                 s0=d["s"], lam0=d["lam"])
+    state["y0"] = (np.einsum('snm,sno->som', d["gt"], d["x"])
+                   + d["b"]).astype(f)
+    kw = dict(kw, n_iters=n_iters, snap_iters=snap_iters)
+    names = mtt.convert.FUSED_SOLVE_INPUTS
+    blocked = {n: (state[n] if n in ("act", "cw") else
+                   state[n].reshape((2, 2) + state[n].shape[1:]))
+               for n in names}
+    import jax
+    ref = jax.vmap(lambda *a: jk.ipm_solve_fused(
+        *a, jnp.asarray(state["act"]), jnp.asarray(state["cw"]),
+        interpret=True, **kw))(*(jnp.asarray(blocked[n]) for n in names[:10]))
+    ref = [np.asarray(r).reshape((4,) + r.shape[2:]) for r in ref]
+    args = mtt.fused_state_from_numpy(blocked, device="cpu")
+    return kw, ref, args
+
+
 def _pipe_both(d, kw, upd, ev):
     names = mtt.convert.PIPE_STEP_INPUTS
     ref = jk.ipm_pipe_step(*(jnp.asarray(d[n]) for n in names),
@@ -351,30 +424,19 @@ def test_full_gram_real_system_against_pallas_interpret(real_calls, phr):
 def test_solve_fused_random_against_pallas_interpret(n_iters, snap_iters):
     """Random arrays with the final half-space plane present, four scenarios
     handed to the Pallas kernel as two blocks of two (its scenario blocking)
-    and to the port as a flat batch of four."""
-    d, kw = _random_inputs(seed=10, s_blk=4)
-    state = {n: d[n] for n in ("gt", "b", "rb", "pe_d", "pe_u", "q", "act",
-                               "cw")}
-    state.update(x0=d["x"], s0=d["s"], lam0=d["lam"])
-    state["y0"] = (np.einsum('snm,sno->som', d["gt"], d["x"])
-                   + d["b"]).astype(np.float32)
-    kw = dict(kw, n_iters=n_iters, snap_iters=snap_iters)
-    names = mtt.convert.FUSED_SOLVE_INPUTS
-    blocked = {n: (state[n] if n in ("act", "cw") else
-                   state[n].reshape((2, 2) + state[n].shape[1:]))
-               for n in names}
-    import jax
-    ref = jax.vmap(lambda *a: jk.ipm_solve_fused(
-        *a, jnp.asarray(state["act"]), jnp.asarray(state["cw"]),
-        interpret=True, **kw))(*(jnp.asarray(blocked[n]) for n in names[:10]))
-    ref = [np.asarray(r).reshape((4,) + r.shape[2:]) for r in ref]
-    args = mtt.fused_state_from_numpy(blocked, device="cpu")
+    and to the port as a flat batch of four, every scenario held to the
+    JAX kernel.  The objective band is positive semidefinite, as a real
+    one is, so no pivot of the float64 polish is floored and the floored
+    factor computes the JAX kernel's function (an indefinite system, where
+    the two part by design: test_floored_elimination_*)."""
+    kw, ref, args = _fused_random_case(n_iters, snap_iters)
     assert args[0].shape == (4, 24, 512) and args[10].shape == (1, 1, 512)
+    assert _rows_flooring_in_float64(args, kw) == []
     ours = tk.ipm_solve_fused(*args, **kw)
     # random systems are well conditioned: a margin of ten on the eval's
     # tolerance for the chain of steps
     _close(ours, ref, FUSED_OUT, tol=10 * TOL)
-    assert (np.abs(to_np(ours[0]) - d["x"]).max() > 0)
+    assert (np.abs(to_np(ours[0]) - to_np(args[6])).max() > 0)
 
 
 def _scaled_residual(y_fin, a, k):
@@ -461,23 +523,14 @@ def test_solve_fused_nan_row_stays_frozen(real_calls):
         np.testing.assert_array_equal(to_np(o)[others], to_np(c)[others])
 
 
-def test_gauss_jordan_band_factor_against_reference():
-    """The plain in-kernel factor, piece by piece, against the JAX kernel's
-    own helpers on the same blocks (float32, order of sums differs)."""
-    rng = np.random.RandomState(12)
-    f = np.float32
+def _spd_band_system(seed=12, f=np.float32):
+    """A block-tridiagonal SPD system with a wide diagonal spread (the
+    equilibration's case): (gram (B, nfd, nfd), its blocks gd, gu, zero
+    objective blocks pe_d, pe_u, rhs, blk)."""
+    rng = np.random.RandomState(seed)
     bsz, m_blk, blk = 3, 4, 5
     nfd = m_blk * blk
-    r = rng.randn(bsz, blk, blk)
-    spd = (r @ r.transpose(0, 2, 1) / blk + np.eye(blk)).astype(f)
-    inv_o = to_np(tk._gj_inverse(tt(spd)))
-    inv_r = np.asarray(jk._gj_inverse(jnp.asarray(spd)))
-    np.testing.assert_allclose(inv_o, inv_r, rtol=0,
-                               atol=TOL * np.abs(inv_r).max())
-    np.testing.assert_allclose(inv_o @ spd, np.broadcast_to(
-        np.eye(blk, dtype=f), spd.shape), rtol=0, atol=1e-5)
-    # a block-tridiagonal SPD system with a wide diagonal spread (the
-    # equilibration's case)
+    rng.randn(bsz, blk, blk)       # the draw this test's system came after
     l = rng.randn(bsz, nfd, nfd) * (np.abs(np.subtract.outer(
         np.arange(nfd) // blk, np.arange(nfd) // blk)) <= 0)[None]
     dense = l @ l.transpose(0, 2, 1) + 0.5 * np.eye(nfd)
@@ -495,12 +548,21 @@ def test_gauss_jordan_band_factor_against_reference():
     pe_d = np.zeros((bsz, m_blk, blk, blk), f)
     pe_u = np.zeros((bsz, m_blk - 1, blk, blk), f)
     rhs = rng.randn(bsz, nfd, 1).astype(f)
-    ref = np.asarray(jk._band_factor_solve(
-        jnp.asarray(gram), jnp.asarray(pe_d), jnp.asarray(pe_u), 1e-9,
-        jnp.asarray(rhs), blk))
     g5 = gram.reshape(bsz, m_blk, blk, m_blk, blk)
     gd = np.stack([g5[:, i, :, i, :] for i in range(m_blk)], axis=1)
     gu = np.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)], axis=1)
+    return gram, gd, gu, pe_d, pe_u, rhs, blk
+
+
+def test_gauss_jordan_band_factor_against_reference():
+    """The plain in-kernel factor (the floored block Cholesky, where the JAX
+    kernel takes Gauss-Jordan inverses) against the JAX kernel's
+    own band factor on an SPD system, where no pivot is floored: float32,
+    the two factors' roundings apart."""
+    gram, gd, gu, pe_d, pe_u, rhs, blk = _spd_band_system()
+    ref = np.asarray(jk._band_factor_solve(
+        jnp.asarray(gram), jnp.asarray(pe_d), jnp.asarray(pe_u), 1e-9,
+        jnp.asarray(rhs), blk))
     ours = to_np(tk._band_factor_solve(tt(gd), tt(gu), tt(pe_d), tt(pe_u),
                                        1e-9, tt(rhs), blk))
     np.testing.assert_allclose(ours, ref, rtol=0,
@@ -508,6 +570,81 @@ def test_gauss_jordan_band_factor_against_reference():
     # and it solves the system: residual against float64
     res = gram.astype(np.float64) @ ours.astype(np.float64) - rhs
     assert np.abs(res).max() <= 1e-3 * np.abs(rhs).max()
+
+
+def test_floored_band_factor_against_reference_in_float64():
+    """In float64 on an SPD system no pivot is floored: the floored block
+    Cholesky is the exact solve to rounding (1e-10 of scale, against a dense
+    float64 solve), and the JAX kernel's Gauss-Jordan factor given float64
+    arrays lands within float32 rounding of it (its products are formed in
+    float32: preferred_element_type)."""
+    gram, gd, gu, pe_d, pe_u, rhs, blk = _spd_band_system(f=np.float64)
+    h = gram + 1e-9 * np.eye(gram.shape[1])
+    exact = np.linalg.solve(h, rhs)
+    ours = to_np(tk._band_factor_solve(
+        *(tt(a) for a in (gd, gu, pe_d, pe_u)), 1e-9, tt(rhs), blk))
+    assert ours.dtype == np.float64
+    np.testing.assert_allclose(ours, exact, rtol=0,
+                               atol=1e-10 * np.abs(exact).max())
+    ref = np.asarray(jk._band_factor_solve(
+        jnp.asarray(gram), jnp.asarray(pe_d), jnp.asarray(pe_u), 1e-9,
+        jnp.asarray(rhs), blk))
+    np.testing.assert_allclose(ours, ref, rtol=0,
+                               atol=TOL * np.abs(ref).max())
+
+
+def _floored_cholesky_np(a, floor):
+    """The floored Cholesky written out in NumPy for one matrix: L lower with
+    L L^T = a + E, each pivot max(pivot, floor)."""
+    n = a.shape[0]
+    w, low = a.copy(), np.zeros_like(a)
+    for k in range(n):
+        low[k, k] = np.sqrt(max(w[k, k], floor))
+        low[k + 1:, k] = w[k + 1:, k] / low[k, k]
+        w[k + 1:, k + 1:] -= np.outer(low[k + 1:, k], low[k + 1:, k])
+    return low
+
+
+@pytest.mark.parametrize("case", ["spd", "indefinite"])
+def test_floored_elimination_inverts_a_plus_a_nonnegative_diagonal(case):
+    """``_floored_elimination(a, I)`` is L^-1 for the floored Cholesky L of
+    a (L L^T = a + E, E >= 0 diagonal), against that Cholesky written out in
+    NumPy, float64: E = 0 where every pivot clears the floor, and where one
+    does not (here the last pivot of a unit-diagonal SPD matrix pushed to
+    -0.01, as float32's noise leaves a near-singular pivot block a little
+    indefinite), a + E is SPD, so a direction solved through it descends
+    (rhs^T dx = |L^-1 rhs|^2 > 0) where the unfloored solve of the
+    indefinite system ascends."""
+    rng = np.random.RandomState(21)
+    n = 6
+    lam = np.array([1.6, 1.3, 1.0, 0.8, 0.5, 0.3])
+    q = np.linalg.qr(rng.randn(2, n, n))[0]
+    a = q @ (lam[None, :, None] * q.transpose(0, 2, 1))
+    d = np.sqrt(np.diagonal(a, axis1=1, axis2=2))
+    a = a / d[:, :, None] / d[:, None, :]               # unit diagonal
+    if case == "indefinite":
+        last = np.linalg.cholesky(a)[:, -1, -1] ** 2    # the last pivot
+        a[:, -1, -1] -= last + 0.01
+    linv = to_np(tk._floored_elimination(tt(a), tt(np.broadcast_to(
+        np.eye(n), a.shape).copy())))
+    assert (np.triu(linv, 1) == 0).all()
+    low = np.stack([_floored_cholesky_np(m, tk.PIVOT_FLOOR) for m in a])
+    np.testing.assert_allclose(linv @ low, np.broadcast_to(np.eye(n),
+                                                           a.shape),
+                               rtol=0, atol=1e-10)
+    e = low @ low.transpose(0, 2, 1) - a
+    diag = np.diagonal(e, axis1=1, axis2=2)
+    assert np.abs(e - np.stack([np.diag(x) for x in diag])).max() <= 1e-12
+    assert (diag >= -1e-12).all()
+    if case == "spd":
+        assert np.abs(diag).max() <= 1e-12
+        return
+    assert (diag.max(axis=1) > tk.PIVOT_FLOOR).all()     # the floor bound
+    rhs = np.linalg.eigh(a)[1][:, :, :1]   # along the negative curvature
+    dx = linv.transpose(0, 2, 1) @ (linv @ rhs)
+    assert (np.einsum("bni,bni->b", rhs, dx) > 0).all()
+    exact = np.linalg.solve(a, rhs)
+    assert (np.einsum("bni,bni->b", rhs, exact) < 0).all()
 
 
 def test_nan_direction_freezes_its_own_row_only():
