@@ -65,7 +65,8 @@ MIN_FEASIBLE = 6080
 MAX_MEDIAN_VIOLATION = 3e-4
 OUT_NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
 ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
-              "multi_stage", "dense_path", "band_gram", "ipm_bits",
+              "multi_stage", "dense_path", "band_gram", "stage_bits",
+              "ipm_bits",
               "ipm_kernel_check", "fused_path", "strict_path",
               "strict_tight", "ew_path", "kernels")
 
@@ -318,16 +319,31 @@ ADMM_ENTRIES = {"admm_stage": ("admm_stage_fused_factored_kernel",
                                "admm_stage_fused_factored_ew_kernel",
                                "admm_stage_fused_kernel",
                                "admm_stage_iter_kernel",
-                               "admm_stage_cluster_kernel"),
+                               "admm_stage_cluster_kernel",
+                               "admm_stage_fused_cluster_kernel",
+                               "admm_stage_ew_cluster_kernel"),
                 "gram_band": ("gram_band_kernel", "gram_band_ew_kernel")}
 # A block's dynamic shared memory may not exceed this on an H100.
 MAX_DYNAMIC_SMEM = 232448
-# Kernel 1 (nfd, m_p) at K=10, 4 and 12 and the design it must take there:
-# the cluster design wherever a block's share of G^T and W^-1 fits, the
-# stream design past that (K=12: half of G^T alone is 211 KB).
-FACTORED_DESIGNS = {"flagship": (135, 512, "cluster"),
-                    "K=4": (45, 384, "cluster"),
-                    "K=12": (165, 640, "stream")}
+# The stage entry points with a cluster design, each with (nfd, m_p, nb_p)
+# at its shapes and the design it must take there: the cluster design
+# wherever a block's share fits, the stream design past that: kernel 1 and
+# #2 from K=11 (at K=12 half of G^T alone is 211 KB), #3 from K=14 (its
+# share of e and w is a third of G^T's).  Where the cluster design is taken,
+# the block size its launcher must take too (512 threads an SM over as many
+# blocks as the SM's shared memory holds, at least 64).
+STAGE_DESIGNS = {
+    "admm_stage_fused_factored": {"flagship": (135, 512, "cluster", 512),
+                                  "K=4": (45, 384, "cluster", 128),
+                                  "K=12": (165, 640, "stream", None)},
+    "admm_stage_fused": {"K=2": (15, 384, "cluster", 64),
+                         "K=4": (45, 384, "cluster", 128),
+                         "flagship": (135, 512, "cluster", 512),
+                         "K=12": (165, 640, "stream", None)},
+    "admm_stage_fused_factored_ew": {"K=4": (45, 384, "cluster", 64),
+                                     "flagship": (135, 512, "cluster", 512),
+                                     "K=12": (165, 640, "cluster", 512),
+                                     "K=14": (195, 640, "stream", None)}}
 
 
 # #8-#11 (nfd, m_p) at K=10, 4 and 12 and the design each must take there:
@@ -450,27 +466,44 @@ def phase_build(state):
         smem[label] = {kind: admm_kernel.smem_bytes(nfd, m_p, nfd // 15, 15,
                                                     128, kind=kind)
                        for kind in admm_kernel.launches}
-    # Kernel 1's two designs: which one each shape takes (FACTORED_DESIGNS),
-    # either design's shared memory a block and, where the cluster design is
-    # taken, the clusters the card holds at once.
-    designs = {}
-    for label, (k_nfd, k_mp, _) in FACTORED_DESIGNS.items():
-        design = admm_kernel.factored_design(k_nfd, k_mp, k_nfd // 15, 15,
-                                             128)
-        designs[label] = dict(
-            design=design,
-            cluster_dynamic_smem_bytes=admm_kernel.smem_bytes(
-                k_nfd, k_mp, k_nfd // 15, 15, 128, kind="cluster"),
-            stream_dynamic_smem_bytes=admm_kernel.smem_bytes(
-                k_nfd, k_mp, k_nfd // 15, 15, 128, kind="stream"),
-            max_active_clusters=admm_kernel.cluster_occupancy(
-                k_nfd, k_mp, k_nfd // 15, 15, 128)
-            if design == "cluster" else None)
-    state["factored_designs"] = designs
+    # The stage entry points' two designs: which one each shape takes
+    # (STAGE_DESIGNS) and at what block size, a block's shared memory in
+    # either design (the cluster's as the library and as
+    # ops.admm_kernel.cluster_smem_bytes compute it) and, where the cluster
+    # design is taken, the clusters the card holds at once.
+    designs, bad = {}, []
+    for kind, shapes in STAGE_DESIGNS.items():
+        for label, (k_nfd, k_mp, want, want_threads) in shapes.items():
+            k_blk = k_nfd // 15
+            nb_p = 128
+            design = admm_kernel.stage_design(kind, k_nfd, k_mp, k_blk, 15,
+                                              nb_p)
+            d = dict(
+                design=design, expected_design=want,
+                cluster_dynamic_smem_bytes=admm_kernel.smem_bytes(
+                    k_nfd, k_mp, k_blk, 15, nb_p, kind, design="cluster"),
+                cluster_dynamic_smem_bytes_computed_in_python=admm_kernel.
+                cluster_smem_bytes(kind, k_nfd, k_mp, k_blk, 15, nb_p),
+                stream_dynamic_smem_bytes=admm_kernel.smem_bytes(
+                    k_nfd, k_mp, k_blk, 15, nb_p, kind, design="stream"),
+                max_active_clusters=admm_kernel.cluster_occupancy(
+                    k_nfd, k_mp, k_blk, 15, nb_p, kind)
+                if design == "cluster" else None,
+                cluster_block_threads=admm_kernel.block_threads(
+                    k_nfd, k_mp, k_blk, 15, nb_p, kind),
+                expected_block_threads=want_threads)
+            designs[f"{kind} {label}"] = d
+            if (design != want
+                    or d["cluster_dynamic_smem_bytes"]
+                    != d["cluster_dynamic_smem_bytes_computed_in_python"]
+                    or (design == "cluster"
+                        and (d["cluster_block_threads"] != want_threads
+                             or d["max_active_clusters"] < 1))):
+                bad.append(f"{kind} {label}")
+    state["stage_designs"] = designs
     emit("build_admm_routes", libraries=[build_report(_build, "gram_band")],
          entry_functions=entries, dynamic_smem_bytes=smem,
-         max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM,
-         admm_stage_fused_factored_designs=designs,
+         max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM, stage_designs=designs,
          threads_per_block=dict(stage=admm_kernel.THREADS,
                                 gram_band=admm_kernel.GRAM_THREADS))
     over = {f"{label} {k}": v for label, d in smem.items()
@@ -478,12 +511,10 @@ def phase_build(state):
     if over or len(entries) != sum(map(len, ADMM_ENTRIES.values())):
         raise RuntimeError(f"build: entry functions {sorted(entries)}, "
                            f"shared memory over the limit: {over}")
-    if any(d["design"] != FACTORED_DESIGNS[label][2]
-           or (d["design"] == "cluster" and d["max_active_clusters"] < 1)
-           for label, d in designs.items()):
-        raise RuntimeError(f"build: kernel 1 does not take the expected "
-                           f"design at each shape {FACTORED_DESIGNS}: "
-                           f"{designs}")
+    if bad:
+        raise RuntimeError(f"build: stage entry points not taking the "
+                           f"expected design and block size {STAGE_DESIGNS} "
+                           f"with the layout Python computes: {bad}")
 
 
 def phase_kernel_check(state, mtt):
@@ -553,19 +584,30 @@ def phase_kernel_check(state, mtt):
 
 
 # The kernels of the other KKT routes.  The stage kernels #2 and #7 are held
-# to kernel 1's two criteria (KERNEL_TOL, compare_outputs).  The band kernels
+# to kernel 1's two criteria (KERNEL_TOL, compare_outputs): #2 in its
+# cluster design against the plain version in that design's order
+# (admm_stage_fused_winv_plain), in its stream design and #7 against the
+# reference order; criterion 2 always against the reference order in float64
+# with the reference order's float32 error as the floor.  The band kernels
 # #5 and #6 to: per output, max|kernel - plain f64| <= BAND_FACTOR * max|plain
 # f32 - plain f64| + BAND_FLOOR * max(1, max|plain f64|).  Each check has a
 # negative control that must fail it: #2 and #7 with alpha WRONG_ALPHA for
 # the config's 1.6, #5 with rho times WRONG_RHO_FACTOR, #6 with the last row
 # of G^T set to zero (the plain versions get the right inputs).  The controls
 # run at every shape and must be rejected at the flagship shape, the main
-# path's; at K=2 and K=4 the result is reported.
+# path's, and for #2 at K=12, past its cluster design's budget; at K=2 and
+# K=4 the result is reported.  Each stage check records the design its
+# kernel took and fails where that is not the shape's (ROUTE_SHAPES).
 BAND_FACTOR = 2.0
 BAND_FLOOR = 1e-6
 WRONG_ALPHA = 1.62
 WRONG_RHO_FACTOR = 1.001
-ROUTE_SHAPES = (("K=2", 2, 256), ("K=4", 4, 64), ("flagship K=10", 10, 256))
+# (label, K, batch, the design #2 must take, controls gated, the other
+# kernels checked too)
+ROUTE_SHAPES = (("K=2", 2, 256, "cluster", False, True),
+                ("K=4", 4, 64, "cluster", False, True),
+                ("flagship K=10", 10, 256, "cluster", True, True),
+                ("K=12", 12, 32, "stream", True, False))
 BAND_BLOCK = 15
 
 
@@ -641,7 +683,8 @@ def band_compare(names, ours, plain, plain64):
 
 def triple(fn, fn_plain, args, kw, wrong_args=None, wrong_kw=None):
     """(kernel, kernel again, plain float32, plain float64) on the same
-    inputs; with ``wrong_*`` the kernel runs on those instead (a control)."""
+    inputs (``fn_plain`` the reference order); with ``wrong_*`` the kernel
+    runs on those instead (a control)."""
     import torch
     k_args = args if wrong_args is None else wrong_args
     k_kw = kw if wrong_kw is None else wrong_kw
@@ -652,6 +695,19 @@ def triple(fn, fn_plain, args, kw, wrong_args=None, wrong_kw=None):
     plain64 = as_tuple(fn_plain(*(to64(a) for a in args), **kw))
     same = all(torch.equal(a, b) for a, b in zip(ours, again))
     return ours, plain, plain64, same
+
+
+def check(kernel, variant, fn, plain, args, kw, kind, *controls, twin=None,
+          design=None):
+    """One entry of ``run_checks``: the kernel ``fn`` against its plain
+    version ``plain`` (the reference order) on ``args`` / ``kw`` by the
+    criterion of ``kind`` ("stage" or "band"), and its negative controls,
+    each (args, kw).  For a stage kernel in a design that sums in another
+    order, ``twin`` is the plain version in that order (criterion 1's
+    yardstick) and ``design`` the design it took."""
+    return dict(kernel=kernel, variant=variant, fn=fn, plain=plain,
+                args=args, kw=kw, kind=kind, controls=controls, twin=twin,
+                design=design)
 
 
 def band_checks(ak, inp):
@@ -666,30 +722,43 @@ def band_checks(ak, inp):
     out = []
     for per_block in (False, True):
         gkw = dict(blk=BAND_BLOCK, per_block=per_block)
-        out.append(("gram_band", f"per_block={per_block}", ak.gram_band,
-                    ak.gram_band_plain, (gt,), gkw, "band",
-                    ((gt_cut,), gkw)))
-    out.append(("gram_band_factors", "", ak.gram_band_factors,
-                ak.gram_band_factors_plain, band_args, band_kw, "band",
-                ((gt,) + band_args[1:3] + (rho_off,), band_kw)))
+        out.append(check("gram_band", f"per_block={per_block}", ak.gram_band,
+                         ak.gram_band_plain, (gt,), gkw, "band",
+                         ((gt_cut,), gkw)))
+    out.append(check("gram_band_factors", "", ak.gram_band_factors,
+                     ak.gram_band_factors_plain, band_args, band_kw, "band",
+                     ((gt,) + band_args[1:3] + (rho_off,), band_kw)))
     return out
 
 
-def route_checks(ak, inp):
-    """[(kernel, variant, fn, fn_plain, args, kw, kind, control)] for one
-    shape; ``control`` = (args, kw) of the negative control."""
+def fused_check_design(ak, gt, nb_p):
+    """(design #2 takes for ``gt``'s shapes, the plain version in its
+    order, or None for the reference order)."""
+    design = ak.fused_design(gt.shape[1], gt.shape[2], nb_p)
+    return design, (ak.admm_stage_fused_winv_plain if design == "cluster"
+                    else None)
+
+
+def route_checks(ak, inp, others=True):
+    """The ``check`` entries for one shape: #2 (init_z True and False) and,
+    with ``others``, #7 and the band kernels."""
     kw = inp["kw"]
+    design, twin = fused_check_design(ak, inp["gt"], kw["nb_p"])
     out = []
     for init_z in (True, False):
         # a later stage: x, z, u carried in from one plain stage
         args = inp["fused"] if init_z else inp["fused"][:6] + inp["carried"]
         fkw = dict(kw, init_z=init_z)
-        out.append(("admm_stage_fused", f"init_z={init_z}",
-                    ak.admm_stage_fused, ak.admm_stage_fused_plain, args,
-                    fkw, "stage", (args, dict(fkw, alpha=WRONG_ALPHA))))
-    out.append(("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
-                inp["stage"], kw, "stage",
-                (inp["stage"], dict(kw, alpha=WRONG_ALPHA))))
+        out.append(check("admm_stage_fused", f"init_z={init_z}",
+                         ak.admm_stage_fused, ak.admm_stage_fused_plain,
+                         args, fkw, "stage",
+                         (args, dict(fkw, alpha=WRONG_ALPHA)), twin=twin,
+                         design=design))
+    if not others:
+        return out
+    out.append(check("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
+                     inp["stage"], kw, "stage",
+                     (inp["stage"], dict(kw, alpha=WRONG_ALPHA))))
     return out + band_checks(ak, inp)
 
 
@@ -711,28 +780,45 @@ def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3):
                 rho=(0.01 + rnd(batch, 1, 1).abs()).contiguous(), sigma=1e-6)
 
 
-def run_checks(label, shape, checks, controls_gate, cases, bad):
-    """Each check of ``checks`` ([(kernel, variant, fn, fn_plain, args, kw,
-    kind, control)]): kernel against plain float32 and float64 by its
-    kind's criterion, run to run, and the negative control; appends a
-    summary to ``cases`` and what failed to ``bad``."""
-    for (name, variant, fn, fn_plain, args, kw, kind, control) in checks:
-        ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
-        wrong = triple(fn, fn_plain, args, kw, *control)
+def run_checks(label, shape, checks, controls_gate, cases, bad,
+               want_design=None):
+    """Each check of ``checks`` (``check`` entries): kernel against plain
+    float32 (in the kernel's order) and the reference order in float64 by
+    its kind's criterion, run to run, and the negative control; appends a
+    summary to ``cases`` and what failed to ``bad``.  ``want_design``: the
+    design each stage kernel with a cluster design must take here."""
+    for c in checks:
+        name, variant, kind = c["kernel"], c["variant"], c["kind"]
+        ours, ref32, plain64, same = triple(c["fn"], c["plain"], c["args"],
+                                            c["kw"])
         if kind == "stage":
-            res, ok = compare_outputs(ours, plain, plain64)
-            _, ctl_ok = compare_outputs(wrong[0], plain, plain64)
+            plain = (ref32 if c["twin"] is None
+                     else c["twin"](*c["args"], **c["kw"]))
+            res, ok = compare_outputs(ours, plain, plain64, ref32)
+            judge = lambda out: compare_outputs(out, plain, plain64, ref32)
         else:
             names = ("db", "ub") if "factors" in name else ("gd", "gu")
-            res, ok = band_compare(names, ours, plain, plain64)
-            _, ctl_ok = band_compare(names, wrong[0], plain, plain64)
-        rejected = not ctl_ok
-        cases.append(dict(kernel=name, variant=variant, shapes=label,
-                          gt_shape=list(shape), within_tolerance=ok,
-                          bit_identical=same, control_rejected=rejected,
-                          errors=res))
+            res, ok = band_compare(names, ours, ref32, plain64)
+            judge = lambda out: band_compare(names, out, ref32, plain64)
+        rejected = all(not judge(as_tuple(c["fn"](*a, **k)))[1]
+                       for a, k in c["controls"])
+        entry = dict(kernel=name, variant=variant, shapes=label,
+                     gt_shape=list(shape), within_tolerance=ok,
+                     bit_identical=same, control_rejected=rejected,
+                     errors=res)
+        if c["design"] is not None:
+            entry.update(design=c["design"],
+                         plain_order="the design's (twin)"
+                         if c["twin"] is not None else "reference")
+        checked = want_design is not None and c["design"] is not None
+        if checked:
+            entry["expected_design"] = want_design
+        cases.append(entry)
         if not (ok and same):
             bad.append(f"{name} {variant} {label}")
+        if checked and c["design"] != want_design:
+            bad.append(f"{name} {variant} {label}: takes the {c['design']} "
+                       f"design, expected {want_design}")
         if controls_gate and not rejected:
             bad.append(f"{name} {variant} {label}: the control passes")
 
@@ -740,27 +826,30 @@ def run_checks(label, shape, checks, controls_gate, cases, bad):
 def route_kernel_check(mtt):
     """#2 (init_z True and False), #7, #6 (both per_block values) and #5
     against their plain versions in float32 and float64 at K=2, K=4 and
-    K=10, with the negative controls; the band kernels also on a random
-    G^T of the flagship shape."""
+    K=10, and #2 at K=12, with the negative controls and #2's designs; the
+    band kernels also on a random G^T of the flagship shape."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     cases, bad = [], []
-    for label, k, batch in ROUTE_SHAPES:
+    for label, k, batch, want, gated, others in ROUTE_SHAPES:
         inp = route_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
-        run_checks(label, inp["gt"].shape, route_checks(admm_kernel, inp),
-                   label.startswith("flagship"), cases, bad)
+        run_checks(label, inp["gt"].shape,
+                   route_checks(admm_kernel, inp, others), gated, cases,
+                   bad, want_design=want)
         del inp
     inp = random_band_inputs()
     run_checks("random G^T, flagship shape", inp["gt"].shape,
                band_checks(admm_kernel, inp), True, cases, bad)
     del inp
     emit("kernel_check_routes", tolerance_is=dict(
-        stage="as kernel_check (KERNEL_TOL, both criteria)",
+        stage="as kernel_check (KERNEL_TOL, both criteria; #2's cluster "
+        "design against admm_stage_fused_winv_plain)",
         band=f"per output max|kernel - plain f64| <= {BAND_FACTOR} * "
         f"max|plain f32 - plain f64| + {BAND_FLOOR} * max(1, max|plain "
         f"f64|)"), controls=dict(
         stage_alpha=WRONG_ALPHA, gram_band_factors_rho_factor=
-        WRONG_RHO_FACTOR, gram_band="last row of G^T zero"), cases=cases)
+        WRONG_RHO_FACTOR, gram_band="last row of G^T zero"),
+        controls_gated_at=[r[0] for r in ROUTE_SHAPES if r[4]], cases=cases)
     torch.cuda.empty_cache()
     if bad:
         raise RuntimeError(f"kernel_check (routes) failed for {bad}")
@@ -791,7 +880,9 @@ def compare_paths(mtt, sc, cfg, n, kernels=("admm_stage_fused_factored",)):
     """Solve the first ``n`` scenarios through the kernels ``kernels``,
     through their plain versions in float32 and through their plain
     versions in float64; returns the error summary and whether the kernel
-    path is within the stated bounds."""
+    path is within the stated bounds.  Reported beside, not gated: the plain
+    versions in float32 in each kernel's own order (the twin of the design
+    it takes, ``kernel_order_plain``), which sums as the kernel does."""
     kern = solve(mtt, sc, cfg, n)
     with plain_kernels(only=kernels):
         p32 = solve(mtt, sc, cfg, n)
@@ -799,13 +890,16 @@ def compare_paths(mtt, sc, cfg, n, kernels=("admm_stage_fused_factored",)):
             "d_fixed_std", "d_fixed_free", "times", "waypoints", "radii",
             "values")})
         p64 = solve(mtt, sc64, cfg, n)
+    with plain_kernels(only=kernels, kernel_order=True):
+        order32 = solve(mtt, sc, cfg, n)
 
     def errs(a, b):
         cost = (a.cost.double() - b.cost).abs() / b.cost.abs()
         viol = (a.max_violation.double() - b.max_violation).abs()
         return dict(cost=float(cost.max()), violation=float(viol.max()),
                     median_cost=float(cost.median()),
-                    median_violation=float(viol.median()))
+                    median_violation=float(viol.median()),
+                    worst_violation_row=int(viol.argmax()))
 
     out = dict(
         n=n,
@@ -813,7 +907,8 @@ def compare_paths(mtt, sc, cfg, n, kernels=("admm_stage_fused_factored",)):
                                  / p32.cost.abs()).max()),
         max_abs_violation_diff=float((kern.max_violation
                                       - p32.max_violation).abs().max()),
-        kernel_vs_f64=errs(kern, p64), plain_f32_vs_f64=errs(p32, p64))
+        kernel_vs_f64=errs(kern, p64), plain_f32_vs_f64=errs(p32, p64),
+        kernel_order_f32_vs_f64=errs(order32, p64))
     ek, ep = out["kernel_vs_f64"], out["plain_f32_vs_f64"]
     ok = (ek["cost"] <= 3.0 * ep["cost"] + 1e-6
           and ek["violation"] <= 3.0 * ep["violation"] + 1e-7
@@ -980,18 +1075,49 @@ IPM_WRAPPERS = ("gt_matvec", "ipm_eval_step", "ipm_pipe_step",
                 "ipm_solve_fused")
 
 
+def kernel_order_plain(ak, name):
+    """The plain version of stage wrapper ``name`` that sums, call by call,
+    in the order of the design the kernel takes for the call's shapes: the
+    twin of a cluster design, the reference order otherwise."""
+    twins = {"admm_stage_fused_factored":
+             ak.admm_stage_fused_factored_winv_plain,
+             "admm_stage_fused": ak.admm_stage_fused_winv_plain,
+             "admm_stage_fused_factored_ew":
+             ak.admm_stage_fused_factored_ew_winv_plain}
+    reference = getattr(ak, name + "_plain")
+    if name not in twins:
+        return reference
+
+    def plain(*args, **kw):
+        if name == "admm_stage_fused":
+            design = fused_check_design(ak, args[2], kw["nb_p"])[0]
+        elif name == "admm_stage_fused_factored_ew":
+            design = ew_stage_design(ak, args, kw["nb_p"])[0]
+        else:
+            gt, sinv = args[4], args[1]
+            design = ak.factored_design(gt.shape[1], gt.shape[2],
+                                        sinv.shape[1], sinv.shape[-1],
+                                        kw["nb_p"])
+        return (twins[name] if design == "cluster" else reference)(*args,
+                                                                  **kw)
+    return plain
+
+
 @contextlib.contextmanager
-def plain_kernels(only=None):
+def plain_kernels(only=None, kernel_order=False):
     """Route every kernel wrapper of the port to its plain PyTorch version,
     or with ``only`` just the wrappers so named (used only to compare; the
-    port itself never does this)."""
+    port itself never does this): the reference order, or with
+    ``kernel_order`` each stage kernel's own (``kernel_order_plain``)."""
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
                                                               ipm_kernel)
     names = only or ADMM_WRAPPERS + IPM_WRAPPERS
     mods = [admm_kernel if n in ADMM_WRAPPERS else ipm_kernel for n in names]
     kept = [getattr(m, n) for m, n in zip(mods, names)]
     for m, n in zip(mods, names):
-        setattr(m, n, getattr(m, n + "_plain"))
+        plain = (kernel_order_plain(m, n) if kernel_order and m is admm_kernel
+                 else getattr(m, n + "_plain"))
+        setattr(m, n, plain)
     try:
         yield
     finally:
@@ -1651,6 +1777,7 @@ def phase_dense_path(state, mtt):
             del ref
         entry["phase_ms"] = route_pieces(mtt, sc, cfg, to_device(
             stage_call, "cuda"))
+        entry["memory_bytes_by_piece"] = memory_pieces(mtt, sc, cfg)
         entry["ok"] = bool(ok)
         if not ok:
             bad.append(label)
@@ -1822,16 +1949,25 @@ def second_seed_gap(mtt, batch, ref_cfg, cfg):
 
 # The gt_assembly="kernel" route (G^T kept as its rank-1 row factors e, w):
 # kernels #3 and #4, each against its plain version by the rules of #1
-# (compare_outputs) and #5 (band_compare), on real factors at K=4 and K=10
-# and, for #4, on random ones (a real assembly's super-diagonal band is
-# exactly zero).  The negative control of both hands the kernel w with its
-# rows in the wrong order: G^T row p*3 + d then reads w[(d + 1) % 3], what a
-# wrong row interleave would do.  The path is gated as the KKT routes are
-# (ROUTE_*), against the "pallas_db" route on the same inputs (kernels #5 and
-# #1 on the assembled G^T, which the factors expand to), and at the
-# headline's bars.
+# (compare_outputs; #3's cluster design against
+# admm_stage_fused_factored_ew_winv_plain, its stream design against the
+# reference order) and #5 (band_compare), on real factors at K=4 and K=10,
+# #3 also at K=12 (past kernel 1's budget, within its own: a block holds
+# 198,928 B) and K=14 (past its own: the stream design), and #4 on random
+# factors (a real assembly's super-diagonal band is exactly zero).  The
+# negative control of both hands the kernel w with its rows in the wrong
+# order: G^T row p*3 + d then reads w[(d + 1) % 3], what a wrong row
+# interleave would do; #3 has a second, alpha WRONG_ALPHA for the config's
+# 1.6.  The controls must be rejected at the flagship shape and at K=14.
+# The path is gated as the KKT routes are (ROUTE_*), against the "pallas_db"
+# route on the same inputs (kernels #5 and #1 on the assembled G^T, which the
+# factors expand to), and at the headline's bars.
 EW_KERNELS = ("admm_stage_fused_factored_ew", "gram_band_factors_ew")
-EW_SHAPES = (("K=4", 4, 64), ("flagship K=10", 10, 256))
+# (label, K, batch, the design #3 must take, controls gated, #4 checked too)
+EW_SHAPES = (("K=4", 4, 64, "cluster", False, True),
+             ("flagship K=10", 10, 256, "cluster", True, True),
+             ("K=12", 12, 32, "cluster", False, False),
+             ("K=14", 14, 32, "stream", True, False))
 EW_STAGES = 3
 
 
@@ -1886,25 +2022,40 @@ def random_ew_band_inputs(batch=256, nf=45, m_p=512, seed=4):
                 rho=(0.01 + rnd(batch, 1, 1).abs()).contiguous(), sigma=1e-6)
 
 
-def ew_checks(ak, inp):
-    """The entries of ``run_checks`` for kernels #3 (init_z True and False,
-    where ``inp`` has stage inputs) and #4, each with the control stated
-    above EW_KERNELS."""
+def ew_stage_design(ak, args, nb_p):
+    """(design #3 takes for its stage arguments ``args``, the plain version
+    in its order, or None for the reference order)."""
+    sinv, e = args[1], args[4]
+    design = ak.ew_design(ak.DIMS * e.shape[1], e.shape[2], sinv.shape[1],
+                          sinv.shape[-1], nb_p)
+    return design, (ak.admm_stage_fused_factored_ew_winv_plain
+                    if design == "cluster" else None)
+
+
+def ew_checks(ak, inp, band=True):
+    """The ``check`` entries for kernels #3 (init_z True and False, where
+    ``inp`` has stage inputs) and, with ``band``, #4, each with the controls
+    stated above EW_KERNELS."""
     w_bad = inp["w"][:, [1, 2, 0]].contiguous()
     out = []
     if "stage" in inp:
+        design, twin = ew_stage_design(ak, inp["stage"], inp["kw"]["nb_p"])
         for init_z in (True, False):
             args = inp["stage"] + ((inp["x0"],) if init_z else inp["carried"])
             kw = dict(inp["kw"], init_z=init_z)
-            out.append((EW_KERNELS[0], f"init_z={init_z}",
-                        ak.admm_stage_fused_factored_ew,
-                        ak.admm_stage_fused_factored_ew_plain, args, kw,
-                        "stage", (args[:5] + (w_bad,) + args[6:], kw)))
+            out.append(check(EW_KERNELS[0], f"init_z={init_z}",
+                             ak.admm_stage_fused_factored_ew,
+                             ak.admm_stage_fused_factored_ew_plain, args, kw,
+                             "stage", (args[:5] + (w_bad,) + args[6:], kw),
+                             (args, dict(kw, alpha=WRONG_ALPHA)), twin=twin,
+                             design=design))
+    if not band:
+        return out
     band_args = (inp["e"], inp["w"], inp["pb_d"], inp["pb_u"], inp["rho"])
     band_kw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
-    out.append((EW_KERNELS[1], "", ak.gram_band_factors_ew,
-                ak.gram_band_factors_ew_plain, band_args, band_kw, "band",
-                ((inp["e"], w_bad) + band_args[2:], band_kw)))
+    out.append(check(EW_KERNELS[1], "", ak.gram_band_factors_ew,
+                     ak.gram_band_factors_ew_plain, band_args, band_kw,
+                     "band", ((inp["e"], w_bad) + band_args[2:], band_kw)))
     return out
 
 
@@ -1932,11 +2083,12 @@ def ew_kernel_check(mtt):
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     cases, bad, bits = [], [], {}
-    for label, k, batch in EW_SHAPES:
+    for label, k, batch, want, gated, band in EW_SHAPES:
         inp = ew_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
-        run_checks(label, inp["e"].shape, ew_checks(admm_kernel, inp),
-                   label.startswith("flagship"), cases, bad)
-        bits[label] = same_bits_as_gt_kernels(admm_kernel, inp)
+        run_checks(label, inp["e"].shape, ew_checks(admm_kernel, inp, band),
+                   gated, cases, bad, want_design=want)
+        if band:
+            bits[label] = same_bits_as_gt_kernels(admm_kernel, inp)
         del inp
     inp = random_ew_band_inputs()
     run_checks("random e, w, flagship shape", inp["e"].shape,
@@ -1944,9 +2096,12 @@ def ew_kernel_check(mtt):
     del inp
     torch.cuda.empty_cache()
     emit("kernel_check_ew", tolerance_is=dict(
-        stage="as kernel_check (KERNEL_TOL, both criteria)",
+        stage="as kernel_check (KERNEL_TOL, both criteria; the cluster "
+        "design against admm_stage_fused_factored_ew_winv_plain)",
         band="as kernel_check_routes' band criterion"),
-        control="w's rows in the order (1, 2, 0)", cases=cases,
+        control=f"w's rows in the order (1, 2, 0); #3 also alpha "
+        f"{WRONG_ALPHA}", controls_gated_at=[r[0] for r in EW_SHAPES
+                                              if r[4]], cases=cases,
         same_bits_as_gt_kernels_on_the_expanded_gt=bits)
     if bad:
         raise RuntimeError(f"kernel_check (ew) failed for {bad}")
@@ -2062,18 +2217,21 @@ def phase_ew_path(state, mtt):
     torch.cuda.synchronize()
     launched = {n: ak.launches[n] - before[n] for n in EW_KERNELS}
     s_args, s_kw = stage_calls[1][:2]
-    ours, plain, plain64, same = triple(
+    ours, ref32, plain64, same = triple(
         ak.admm_stage_fused_factored_ew, ak.admm_stage_fused_factored_ew_plain,
         s_args, s_kw)
-    later, later_ok = compare_outputs(ours, plain, plain64)
+    design, twin = ew_stage_design(ak, s_args, s_kw["nb_p"])
+    plain = ref32 if twin is None else twin(*s_args, **s_kw)
+    later, later_ok = compare_outputs(ours, plain, plain64, ref32)
     multi = dict(n_stages=EW_STAGES, batch=512, kernel_launches=launched,
                  feasible_at_1e_2=int((kern.max_violation < 1e-2).sum()),
-                 stage_1_entry=dict(init_z=s_kw["init_z"], ok=later_ok,
-                                    bit_identical=same, errors=later), **cmp)
+                 stage_1_entry=dict(init_z=s_kw["init_z"], design=design,
+                                    ok=later_ok, bit_identical=same,
+                                    errors=later), **cmp)
     ok3 = (ok3 and later_ok and same and not s_kw["init_z"]
            and all(v == EW_STAGES for v in launched.values())
            and bool(torch.isfinite(kern.cost).all()))
-    del stage_calls, s_args, ours, plain, plain64, kern
+    del stage_calls, s_args, ours, plain, ref32, plain64, kern
     torch.cuda.empty_cache()
 
     emit("ew_path", config="headline ADMMConfig (K=10, 1 stage x 48 "
@@ -2199,6 +2357,72 @@ def ipm_design_of(ipm_kernel, kernel, args, kw):
     return ipm_kernel.ipm_design(kernel, nfd, m_p, blk, kw["nb_p"])
 
 
+# stage_bits: kernel 1's and #7's outputs on fixed inputs (seed 1; kernel 1
+# on the headline's stage inputs at the flagship (batch 256) and K=4 (64) in
+# its cluster design and K=12 (32) in its stream design, entered with init_z
+# and again with its own z, u carried in; #7 on route (a)'s stage inputs at
+# the flagship and K=4), one SHA-256 digest of their bytes per kernel and
+# shape.  Their arithmetic is not to change when the stage body they share
+# with #2 and #3 does: with --bits-of-parent (a file holding this phase's
+# line run on another checkout, this script copied there; the phase uses
+# only the public entry points) it fails unless every digest is the same.
+STAGE_BITS_SHAPES = (("flagship K=10", 10, 256), ("K=4", 4, 64),
+                     ("K=12", 12, 32))
+
+
+def sha256_of(*outputs):
+    """One SHA-256 digest of the bytes of every tensor of ``outputs`` (each
+    a tuple of tensors), in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for out in outputs:
+        for o in as_tuple(out):
+            h.update(o.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parent_line(parent_file, phase):
+    """The ``digests`` of ``phase``'s line in ``parent_file``, or None."""
+    if not parent_file:
+        return None
+    with open(parent_file) as fh:
+        for line in fh:
+            if line.startswith("{") and f'"{phase}"' in line:
+                return json.loads(line)["digests"]
+    return None
+
+
+def phase_stage_bits(state, mtt, parent_file=None):
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
+    digests = {}
+    for label, k, batch in STAGE_BITS_SHAPES:
+        cfg = bench_config(mtt)
+        args, kw = stage_inputs(mtt, k, batch, seed=1, config=cfg)
+        first = ak.admm_stage_fused_factored(*args, init_z=True, **kw)
+        carried = ak.admm_stage_fused_factored(
+            *args[:8], first[0].contiguous(), first[1].contiguous(),
+            (0.5 * first[3]).contiguous(), init_z=False, **kw)
+        torch.cuda.synchronize()
+        digests[f"admm_stage_fused_factored {label}"] = sha256_of(first,
+                                                                  carried)
+        del args, first, carried
+        if k != 12:
+            inp = route_inputs(mtt, k, batch, seed=1, config=cfg)
+            out = ak.admm_stage(*inp["stage"], **inp["kw"])
+            torch.cuda.synchronize()
+            digests[f"admm_stage {label}"] = sha256_of(out)
+            del inp, out
+        torch.cuda.empty_cache()
+    parent = parent_line(parent_file, "stage_bits")
+    same = None if parent_file is None else parent == digests
+    emit("stage_bits", digests=digests, parent_file=parent_file,
+         same_bits_as_parent=same)
+    if parent_file and not same:
+        raise RuntimeError(f"stage_bits: kernel 1's / #7's outputs differ "
+                           f"from the parent's ({parent_file}): {parent}")
+
+
 # ipm_bits: #8's and #9's outputs on the calls real polishes make (seed 1,
 # batch 256 at the flagship shape and 64 at K=4, every mode pair and both
 # phr), as one SHA-256 digest of their bytes per kernel and shape.  The calls
@@ -2210,7 +2434,6 @@ IPM_BITS_SHAPES = (("flagship K=10", 10, 256), ("K=4", 4, 64))
 
 
 def phase_ipm_bits(state, mtt, parent_file=None):
-    import hashlib
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     digests = {}
@@ -2221,20 +2444,11 @@ def phase_ipm_bits(state, mtt, parent_file=None):
         for name, calls in (("ipm_pipe_step", [pairs[p]
                                                for p in sorted(pairs)]),
                             ("ipm_eval_step", eval_calls)):
-            h = hashlib.sha256()
-            for _, _, out in calls:
-                for o in as_tuple(out):
-                    h.update(o.detach().cpu().contiguous().numpy().tobytes())
-            digests[f"{name} {label}"] = dict(calls=len(calls),
-                                              sha256=h.hexdigest())
+            digests[f"{name} {label}"] = dict(
+                calls=len(calls), sha256=sha256_of(*(c[2] for c in calls)))
         del pairs, eval_calls
-    parent = None
-    if parent_file:
-        with open(parent_file) as fh:
-            for line in fh:
-                if line.startswith("{") and '"ipm_bits"' in line:
-                    parent = json.loads(line)["digests"]
-    same = None if parent is None else parent == digests
+    parent = parent_line(parent_file, "ipm_bits")
+    same = None if parent_file is None else parent == digests
     emit("ipm_bits", digests=digests, parent_file=parent_file,
          same_bits_as_parent=same, launches=dict(ipm_kernel.launches))
     if parent_file and not same:
@@ -3389,20 +3603,40 @@ def nbytes(tensors):
 
 
 def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
-             kind, shape_arg, names=None, library=None, note=None, **extra):
+             kind, shape_arg, names=None, library=None, note=None,
+             twin=None, design=None, **extra):
     """A row of the `kernels` line for a kernel of ops.admm_kernel, timed on
-    ``args`` and held there to its check (``kind`` "stage": compare_outputs;
-    "band": band_compare with output ``names``)."""
+    ``args`` and held there to its check (``kind`` "stage": compare_outputs,
+    criterion 1 against ``twin`` where the kernel's ``design`` sums in
+    another order than the reference ``fn_plain``; "band": band_compare
+    with output ``names``).  A stage kernel in its cluster design may take
+    no device memory beyond its outputs (no m1 scratch)."""
     import torch
     ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
     plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
     lib_ms = cuda_ms(library, reps=5) if library else None
-    ours, plain, plain64, same = triple(fn, fn_plain, args, kw)
+    ours, ref32, plain64, same = triple(fn, fn_plain, args, kw)
     if kind == "stage":
-        res, ok = compare_outputs(ours, plain, plain64)
+        plain = ref32 if twin is None else twin(*args, **kw)
+        res, ok = compare_outputs(ours, plain, plain64, ref32)
         err = max(res["kernel_vs_plain"].values())
+        del plain
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs = fn(*args, **kw)
+        torch.cuda.synchronize()
+        extra["wrapper_scratch_bytes"] = (torch.cuda.max_memory_allocated()
+                                          - base - nbytes(outs))
+        del outs
+        if design == "cluster" and extra["wrapper_scratch_bytes"] > 0:
+            raise RuntimeError(f"kernels: {name} took scratch in its cluster "
+                               f"design: {extra['wrapper_scratch_bytes']} B")
+        if twin is not None:
+            extra["twin_plain_ms"] = cuda_ms(lambda: twin(*args, **kw),
+                                             reps=2)
     else:
-        res, ok = band_compare(names, ours, plain, plain64)
+        res, ok = band_compare(names, ours, ref32, plain64)
         err = max(v.get("kernel_vs_plain", 0.0) for v in res.values())
     if not (ok and same):
         raise RuntimeError(f"kernels: {name} disagrees with its plain "
@@ -3410,13 +3644,16 @@ def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
     total = nbytes(args) + nbytes(ours)
     bytes_ms = total / PEAK_BYTES_PER_S * 1e3
     flops_ms = flops / PEAK_F32_FLOPS * 1e3
-    del ours, plain, plain64
+    del ours, ref32, plain64
     torch.cuda.empty_cache()
+    if design is not None:
+        extra.update(design=design, cluster=2 if design == "cluster" else 1)
     return dict(
         name=name, route="cuda", source=f"{PKG}/csrc/{source}",
         replaces=f"mav_tube_trajectory_generation_tpu/ops/admm_kernel.py:"
         f"{line}", launches=launches, max_abs_err=err,
-        max_abs_err_is="largest |kernel - plain float32| over the outputs",
+        max_abs_err_is="largest |kernel - plain float32 in the kernel's "
+        "order| over the outputs",
         errors=res, tolerance="kernel_check_routes' criteria", ms=ms,
         plain_ms=plain_ms, bound_ms=max(bytes_ms, flops_ms),
         bound_by="operations" if flops_ms >= bytes_ms else "bytes",
@@ -3512,14 +3749,16 @@ def admm_route_rows(state):
         # m1 = winv gt, then y0, n_iters x (x, y) and the dual matvec
         flops = bsz * (2 * nfd * nfd * m_p
                        + (2 * kw["n_iters"] + 2) * 2 * nfd * m_p)
+        design, twin = fused_check_design(ak, gt, kw["nb_p"])
         rows.append(admm_row(
             f"admm_stage_fused ({'K=10' if label == 'a' else 'K=2'})",
             "admm_stage.cu", 549, ak.admm_stage_fused,
             ak.admm_stage_fused_plain, args, kw, flops,
             state["route_launches"][label], "stage", 2, note=note,
+            twin=twin, design=design,
             m1_bmm_ms=cuda_ms(lambda: torch.bmm(winv, gt), reps=5),
-            m1_bmm_is="torch.bmm(winv, gt): the kernel's m1 phase alone, "
-            "as a library product"))
+            m1_bmm_is="torch.bmm(winv, gt): the stream design's m1 phase "
+            "alone, as a library product"))
         del args, winv, gt
         torch.cuda.empty_cache()
 
@@ -3578,12 +3817,13 @@ def ew_rows(state):
     # kernel 1's work, and forming G^T from its factors once
     flops = (stage_flops(bsz, nfd, m_p, sinv.shape[1], sinv.shape[-1],
                          kw["n_iters"]) + bsz * nfd * m_p)
+    design, twin = ew_stage_design(ak, args, kw["nb_p"])
     rows = [admm_row(
         EW_KERNELS[0], "admm_stage.cu", 317, ak.admm_stage_fused_factored_ew,
         ak.admm_stage_fused_factored_ew_plain, args, kw, flops,
         launches.get(EW_KERNELS[0], 0), "stage", 4,
         note="ew_path (gt_assembly='kernel'), stage 0; no single PyTorch "
-        "call computes a stage")]
+        "call computes a stage", twin=twin, design=design)]
     del args, sinv, e
     torch.cuda.empty_cache()
     args, kw = to_device(rec[EW_KERNELS[1]], dev)
@@ -3611,9 +3851,10 @@ def main():
     parser.add_argument("--out", default=None, help="also append every "
                         "line to this file (its directory is created)")
     parser.add_argument("--bits-of-parent", default=None,
-                        help="the --out file of the ipm_bits phase run on "
-                        "the parent's checkout: ipm_bits then fails unless "
-                        "#8's and #9's outputs are the same bits")
+                        help="the --out file of the stage_bits and ipm_bits "
+                        "phases run on the parent's checkout: each then "
+                        "fails unless its kernels' outputs (kernel 1's and "
+                        "#7's; #8's and #9's) are the same bits")
     opts = parser.parse_args()
     if opts.out:
         global LOG_PATH
@@ -3646,6 +3887,8 @@ def main():
         "multi_stage": lambda: phase_multi_stage(state, mtt),
         "dense_path": lambda: phase_dense_path(state, mtt),
         "band_gram": lambda: phase_band_gram(state, mtt),
+        "stage_bits": lambda: phase_stage_bits(state, mtt,
+                                               opts.bits_of_parent),
         "ipm_bits": lambda: phase_ipm_bits(state, mtt, opts.bits_of_parent),
         "ipm_kernel_check": lambda: phase_ipm_kernel_check(state, mtt),
         "fused_path": lambda: phase_fused_path(state, mtt),

@@ -1,18 +1,21 @@
 // The ADMM stage of the tube-constrained QCQP, per scenario, for Hopper
-// (sm_90a): four entry points over one iteration phase, and a second design
-// of the factored one (the cluster design, below).
+// (sm_90a): four entry points over one iteration phase ("stream", one block
+// a scenario), and for three of them a second design ("cluster", two blocks
+// a scenario, below) that each takes wherever a block's share fits.
 //
 //   admm_stage_fused_factored_launch  replaces the Pallas TPU kernel
 //       _kernel_fused_factored + _stage_core of the JAX package's
 //       ops/admm_kernel.py (admm_stage_fused_factored);
 //   admm_stage_fused_factored_ew_launch  replaces
 //       _kernel_fused_factored_ew (admm_stage_fused_factored_ew): the same
-//       stage with G^T read from its rank-1 row factors (below);
+//       stage with G^T given as its rank-1 row factors (below);
 //   admm_stage_fused_launch           replaces _kernel_fused + _stage_core
-//       (admm_stage_fused);
-//   admm_stage_launch                 replaces _kernel (admm_stage).
+//       (admm_stage_fused): the stage from a dense KKT inverse;
+//   admm_stage_launch                 replaces _kernel (admm_stage); stream
+//       design only.
 //
-// Per scenario (one thread block each; the grid runs over the batch):
+// The stream design, per scenario (one thread block each; the grid runs
+// over the batch):
 //   1. m1 = W^-1 G^T, written to a scratch tensor the caller allocates:
 //      - factored: block-Thomas sweeps over the block-LDL^T factors of the
 //        KKT matrix W: forward y_i = gt_i - T_i y_{i-1}, diagonal
@@ -35,43 +38,56 @@
 //   4. prim = max|y - z| (inf when n_iters == 0); the fused entry points
 //      also give dual = max|G^T' (z - z_prev)| and y.
 //
-// Memory plan.  One scenario's G^T and m1 are nfd x m_p floats each (2 x
-// 270 KB at the flagship shape 135 x 512): more than one block's shared
-// memory.  m1 therefore lives in device memory, and both matrices are
-// re-read from L2 / device memory in every iteration; the vectors (b, z, u,
-// v, y, x, xq) and the factors or the dense inverse stay in shared memory.
-// The iteration phase is bound by those bytes, not by arithmetic.
+// Memory plan of the stream design.  One scenario's G^T and m1 are nfd x m_p
+// floats each (2 x 270 KB at the flagship shape 135 x 512): more than one
+// block's shared memory.  m1 therefore lives in device memory, and both
+// matrices are re-read from L2 / device memory in every iteration; the
+// vectors (b, z, u, v, y, x, xq) and the factors or the dense inverse stay in
+// shared memory.  The iteration phase is bound by those bytes, not by
+// arithmetic.
 //
 // G^T from its factors (the "ew" entry point).  Every constraint row of G^T
 // is an outer product, gt[p*3 + d, l] = e[p, l] * w[d, l] for the nf = nfd/3
-// free derivatives p and the three dimensions d (row order p-major).  That
-// entry point reads each G^T entry as the float32 product of the two factor
-// entries, rounded once (__fmul_rn, never contracted into an FMA), where the
-// others read the stored entry: every device function below takes its G^T
-// through a source type (GtStored or GtFactors) and does the same
-// arithmetic, in the same order, on what it reads.  So on the same inputs
-// the ew entry point gives the bits of the factored one on the expanded
-// G^T.  It re-forms a product at every read: two loads and a multiply for
-// each G^T entry, the factors (0.10 MB a scenario at the flagship shape)
-// coming from L1 / L2 / device memory as G^T does in the others, so it is
-// bound by the same re-reads.  Keeping them in shared memory, or applying
-// G^T in its factored form, is left for later.
+// free derivatives p and the three dimensions d (row order p-major).  In the
+// stream design that entry point reads each G^T entry as the float32 product
+// of the two factor entries, rounded once (__fmul_rn, never contracted into
+// an FMA), where the others read the stored entry: every device function of
+// that design takes its G^T through a source type (GtStored or GtFactors)
+// and does the same arithmetic, in the same order, on what it reads, so it
+// gives the bits of the factored entry point's stream design on the
+// expanded G^T.  The cluster design keeps the factors on chip and forms each
+// entry there, rounded the same way (below).
 //
-// The factored entry point in a two-block cluster ("cluster" design, the
-// one admm_stage_fused_factored_launch takes wherever a block's share fits;
-// the body above, "stream", takes every other shape).  The same function in
-// another order:
+// The cluster design (admm_stage_fused_factored_launch,
+// admm_stage_fused_launch and admm_stage_fused_factored_ew_launch, wherever
+// a block's share fits; the stream design takes every other shape).  The
+// same function in another order:
 //   x = xq + rho W^-1 (G^T v)     in place of     xq + rho (W^-1 G^T) v,
-// with the dense W^-1 (nfd x nfd, 73 KB at nfd 135) formed once a scenario
-// by the block-Thomas sweeps above run on the nfd unit columns (not the m_p
-// lanes), so there is no m1 at all.  Each scenario is a cluster of two
-// blocks on neighbouring SMs; each block keeps, for all iterations, its half
-// of the lanes' columns of G^T (135 x 256 floats, 138 KB) in shared memory,
-// loaded once with cp.async, beside the whole W^-1 and its lanes' vectors.
-// The lanes split so that a ball triple stays in one block: block 0 holds
-// lanes j < ceil(nb_p / 2) of each of the three ball planes (and their rb[j])
-// and the first half of the final half-space plane, block 1 the rest
-// (cluster_lane_split in ops/admm_kernel.py is the same map).  An iteration:
+// with the dense W^-1 (nfd x nfd, 73 KB at nfd 135) in shared memory, so
+// there is no m1 at all.  One body, cluster_stage, generic over where W^-1
+// comes from and over how G^T is held:
+//   factored, ew  W^-1 formed once a scenario by the block-Thomas sweeps
+//                 above run on the nfd unit columns (not the m_p lanes);
+//   fused         W^-1 given: the caller's dense inverse copied in, its rows
+//                 as given (4-byte cp.async: rows of 135 floats are not
+//                 16-byte aligned), overlapping the first rows of G^T;
+//   factored, fused  G^T's stored rows: each block keeps its half of the
+//                 lanes' columns (135 x 256 floats, 138 KB at the flagship);
+//   ew            G^T's row factors: each block keeps its lanes' share of e
+//                 (nfd / 3 rows) and w (3 rows), 50 KB at the flagship, and
+//                 forms each G^T entry in registers as the reference rounds
+//                 it, fl(e[p, l] w[d, l]), one shared load of e feeding the
+//                 three rows 3p .. 3p + 2: the arithmetic of the stored rows
+//                 (G^T applied in factored form, w v first, read 3.3x the
+//                 reference order's float32 error in x at the flagship on an
+//                 H100, past the 3x its checks allow).
+// Each scenario is a cluster of two blocks on neighbouring SMs; each keeps,
+// for all iterations, its share of G^T beside the whole W^-1 and its lanes'
+// vectors, loaded once with cp.async.  The lanes split so that a ball triple
+// stays in one block: block 0 holds lanes j < ceil(nb_p / 2) of each of the
+// three ball planes (and their rb[j]) and the first half of the final
+// half-space plane, block 1 the rest (cluster_lane_split in
+// ops/admm_kernel.py is the same map).  An iteration:
 //   each block  g_c = G^T_c v_c  (its lanes' partial, nfd floats);
 //   cluster barrier; each block reads the other's partial through
 //   distributed shared memory and forms g = g_0 + g_1, so both hold the same
@@ -83,15 +99,16 @@
 // suffices: a block writes buffer it & 1 only after the barrier of iteration
 // it - 1, which the other block passes only once it has read that buffer in
 // iteration it - 2.  prim and the dual matvec are combined the same way at
-// the end.  Each block forms half of W^-1's columns (four columns a thread,
-// the factor row broadcast) and stores them to both blocks' shared memory.
-// Device memory sees each input once (G^T's share with 16-byte cp.async
-// where its segments are aligned).  What bounds it: not the bytes, and not
-// shared-memory bandwidth (an iteration reads about 350 KB a block, some
-// 2.8k cycles at 128 B a cycle): measured with clock64 on an H100, an
-// iteration takes about 9k cycles, each of the three products about 2k
-// (instruction issue and latency at 16 warps an SM) and the cluster barrier
-// about 1.2k; forming W^-1 about 45k cycles a scenario.
+// the end.  Where W^-1 is formed, each block forms half of its columns (four
+// columns a thread, the factor row broadcast) and stores them to both
+// blocks' shared memory.  Device memory sees each input once (G^T's share
+// with 16-byte cp.async where its segments are aligned).  What bounds it:
+// not the bytes, and not shared-memory bandwidth (an iteration of the
+// factored entry point reads about 350 KB a block, some 2.8k cycles at 128 B
+// a cycle): measured with clock64 on an H100, an iteration takes about 9k
+// cycles, each of the three products about 2k (instruction issue and latency
+// at 16 warps an SM) and the cluster barrier about 1.2k; forming W^-1 about
+// 45k cycles a scenario.
 //
 // Determinism.  Every reduction has a fixed order (warp butterfly, then a
 // serial sum over a fixed number of partials; m1 = winv gt sums over the
@@ -107,6 +124,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stddef.h>
+
+#include <atomic>
 
 namespace cg = cooperative_groups;
 
@@ -711,7 +730,8 @@ admm_stage_iter_kernel(StageArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// The cluster design of the factored entry point (see the top of the file).
+// The cluster design of the factored, fused and ew entry points (see the
+// top of the file).
 // ---------------------------------------------------------------------------
 
 constexpr int kCluster = 2;
@@ -753,18 +773,34 @@ __device__ __forceinline__ int lane_of(const Split& q, int l, int nb_p) {
   return 3 * nb_p + q.f0 + (l - 3 * q.hb);
 }
 
-// Shared-memory layout of one block of the cluster design, in floats.  The
-// G^T region doubles, before G^T is complete, as the scratch of the W^-1
-// sweeps (the factors and two panels), placed at its end so that the rows
-// of G^T before it (r_pre of them) load while W^-1 forms.
+// The entry points of the cluster design, and for each where W^-1 comes from
+// and how many rows (of ldl lanes) a block keeps of G^T's source: the
+// factored one forms W^-1 and keeps G^T's nfd stored rows, the fused one is
+// given W^-1 and keeps the same rows, the ew one forms W^-1 and keeps the nf
+// = nfd / 3 rows of e, then the 3 of w.
+enum Entry { kEntryFactored = 0, kEntryFused = 1, kEntryEw = 2 };
+
+__host__ __device__ inline bool winv_given(int entry) {
+  return entry == kEntryFused;
+}
+
+__host__ __device__ inline int source_rows(int entry, int nfd) {
+  return entry == kEntryEw ? nfd / kDims + kDims : nfd;
+}
+
+// Shared-memory layout of one block of the cluster design, in floats.  Where
+// W^-1 is formed, the region of G^T's source doubles, before it is complete,
+// as the scratch of the W^-1 sweeps (the factors and two panels), placed at
+// its end so that the rows before it (r_pre of them) load while W^-1 forms;
+// where W^-1 is given there is no scratch and every row loads at once.
 struct CLayout {
-  int winv, ldw, gts, ldl, scr, ncl, r_pre;
+  int winv, ldw, gts, ldl, rows, scr, ncl, r_pre;
   int b, z, zp, u, v, y, rb, xq, x, g, gpart, red, xch, total;
 };
 
-__host__ __device__ inline CLayout make_cluster_layout(int nfd, int m_p,
-                                                       int m_blk, int bsz,
-                                                       int nb_p) {
+__host__ __device__ inline CLayout make_cluster_layout(int entry, int nfd,
+                                                       int m_p, int m_blk,
+                                                       int bsz, int nb_p) {
   CLayout L;
   const int bb = bsz * bsz;
   const int nl = split_of(0, m_p, nb_p).nl;  // rank 0's share is the larger
@@ -773,16 +809,19 @@ __host__ __device__ inline CLayout make_cluster_layout(int nfd, int m_p,
   // fall in eight different bank groups.
   L.ldl = round4(nl);
   if ((L.ldl / 4) % 2 == 0) L.ldl += 4;
+  L.rows = source_rows(entry, nfd);
   L.ncl = round4((nfd + 1) / 2);
-  const int scr = round4(m_blk * bb) + 2 * round4((m_blk - 1) * bb) +
-                  2 * bsz * L.ncl;
+  const int scr = winv_given(entry)
+                      ? 0
+                      : round4(m_blk * bb) + 2 * round4((m_blk - 1) * bb) +
+                            2 * bsz * L.ncl;
   int o = 0;
   L.winv = o; o += nfd * L.ldw;
   L.gts = o;
-  const int region = nfd * L.ldl > scr ? nfd * L.ldl : scr;
+  const int region = L.rows * L.ldl > scr ? L.rows * L.ldl : scr;
   L.scr = o + region - scr;
   L.r_pre = (L.scr - L.gts) / L.ldl;
-  if (L.r_pre > nfd) L.r_pre = nfd;
+  if (L.r_pre > L.rows) L.r_pre = L.rows;
   o += region;
   L.b = o;     o += L.ldl;
   L.z = o;     o += L.ldl;
@@ -831,35 +870,36 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
-// Rows r0 .. r1-1 of this block's share of G^T, from global gt (nfd, m_p)
-// to shared gts (nfd, ldl), left in flight: 16 bytes a copy where the
-// share's four segments (three ball planes and the final plane) start and
-// end on 16-byte boundaries (nb_p and the halves multiples of 4), else 4.
-__device__ __forceinline__ void load_gt_rows(const float* gt, float* gts,
+// Rows r0 .. r1-1 of this block's share of G^T's source (src.row(r): the
+// global row, m_p lanes) to shared gts (rows, ldl), left in flight: 16 bytes
+// a copy where the share's four segments (three ball planes and the final
+// plane) start and end on 16-byte boundaries (nb_p and the halves multiples
+// of 4), else 4.
+template <class Src>
+__device__ __forceinline__ void load_gt_rows(const Src& src, float* gts,
                                              const Split& q, int r0, int r1,
-                                             int m_p, int nb_p, int ldl) {
+                                             int nb_p, int ldl) {
   if (nb_p % 4 == 0 && q.hb % 4 == 0 && q.j0 % 4 == 0 && q.fb % 4 == 0 &&
       q.f0 % 4 == 0) {
     const int hb4 = q.hb / 4, nl4 = q.nl / 4;
     const int n = (r1 - r0) * nl4;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int r = r0 + i / nl4, l4 = i % nl4;
-      int src;
+      int lane;
       if (l4 < 3 * hb4) {
         const int d = l4 / hb4;
-        src = d * nb_p + q.j0 + 4 * (l4 - d * hb4);
+        lane = d * nb_p + q.j0 + 4 * (l4 - d * hb4);
       } else {
-        src = 3 * nb_p + q.f0 + 4 * (l4 - 3 * hb4);
+        lane = 3 * nb_p + q.f0 + 4 * (l4 - 3 * hb4);
       }
-      cp_async16(gts + (size_t)r * ldl + 4 * l4, gt + (size_t)r * m_p + src);
+      cp_async16(gts + (size_t)r * ldl + 4 * l4, src.row(r) + lane);
     }
     return;
   }
   const int n = (r1 - r0) * q.nl;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = r0 + i / q.nl, l = i % q.nl;
-    cp_async4(gts + (size_t)r * ldl + l,
-              gt + (size_t)r * m_p + lane_of(q, l, nb_p));
+    cp_async4(gts + (size_t)r * ldl + l, src.row(r) + lane_of(q, l, nb_p));
   }
 }
 
@@ -996,6 +1036,249 @@ __device__ void col_dots(const float* M, int ld, const float* x, int n4,
     }
   }
 }
+
+// Sums each of the first N values of a (V of them) over the 32 lanes of a
+// warp by halving: at the step of lane bit O each lane keeps half of its
+// values and adds its partner's copy of that half, so that after the five
+// steps every value's sum sits in one lane, in V + 5 shuffles or so in place
+// of V log2(32).  Returns which value this lane holds at a[0] (its index,
+// or -1 for none); the order of the sums is fixed.
+template <int V, int N, int O>
+struct WarpHalve {
+  __device__ __forceinline__ static int run(float (&a)[V], int lane) {
+    constexpr int H = (N + 1) / 2;
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float lo = a[i];
+      const float hi = i + H < N ? a[i + H < N ? i + H : 0] : 0.0f;
+      const float give = up ? lo : hi;
+      const float keep = up ? hi : lo;
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, give, O);
+    }
+    // this lane's a[0] after the later steps, as an index of this step's
+    // N values (at or past N: the padding of an odd N)
+    const int rest = WarpHalve<V, H, O / 2>::run(a, lane);
+    const int at = (up ? H : 0) + rest;
+    return rest < 0 || at >= N ? -1 : at;
+  }
+};
+
+template <int V, int N>
+struct WarpHalve<V, N, 0> {
+  __device__ __forceinline__ static int run(float (&)[V], int) { return 0; }
+};
+
+// Rows of E each warp of row_dots_ew sums at once.
+constexpr int PE = 3;
+
+// dst[3 p + d] = sum_c fl(E[p, c] Wf[d, c]) v[c] for p < nf, d < 3, stored
+// also to dst_r (the other block's copy): G^T v with G^T's rows 3p .. 3p + 2
+// formed from one row of E, each entry rounded once as the reference forms
+// G^T (__fmul_rn, never contracted).  E (nf, ld), Wf (3, ld) and v (n4 <=
+// 32 * NV float4, zero past the row's end) in shared memory.  A warp a row
+// of E, PE rows at once (p = warp, warp + nw, ...); each lane keeps Wf's
+// three rows and v at its NV float4 in registers, so that one load of E
+// feeds three rows and the vectors are read once a warp, not once a row:
+// what bounds this product is shared memory's bytes.  The PE * 3 sums of a
+// lane, each in the order j = 0, 1, ... of its float4, are summed over the
+// warp by WarpHalve.
+template <int NV>
+__device__ __forceinline__ void row_dots_ew_nv(const float* E,
+                                               const float* Wf, int ld,
+                                               const float* v, int n4,
+                                               int nf, float* dst,
+                                               float* dst_r) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const float4* v4 = reinterpret_cast<const float4*>(v);
+  const float4* E4 = reinterpret_cast<const float4*>(E);
+  const float4* W4 = reinterpret_cast<const float4*>(Wf);
+  const int ld4 = ld >> 2;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  constexpr int kSums = PE * kDims;
+  float4 vr[NV], wr[kDims][NV];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c4 = lane + 32 * j;
+    vr[j] = c4 < n4 ? v4[c4] : zero;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d)
+      wr[d][j] = c4 < n4 ? W4[d * ld4 + c4] : zero;
+  }
+  for (int p0 = warp; p0 < nf; p0 += PE * nw) {
+    float acc[kSums];
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) acc[q] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int c4 = lane + 32 * j;
+      float4 a[PE];
+#pragma unroll
+      for (int i = 0; i < PE; ++i) {
+        const int p = p0 + i * nw;
+        a[i] = (p < nf && c4 < n4) ? E4[(size_t)p * ld4 + c4] : zero;
+      }
+#pragma unroll
+      for (int i = 0; i < PE; ++i)
+#pragma unroll
+        for (int d = 0; d < kDims; ++d) {
+          const float4 g = mul4(a[i], wr[d][j]);
+          float& s = acc[i * kDims + d];
+          s = fmaf(g.x, vr[j].x, s);
+          s = fmaf(g.y, vr[j].y, s);
+          s = fmaf(g.z, vr[j].z, s);
+          s = fmaf(g.w, vr[j].w, s);
+        }
+    }
+    const int q = WarpHalve<kSums, kSums, 16>::run(acc, lane);
+    if (q >= 0 && q < kSums) {
+      const int p = p0 + (q / kDims) * nw;
+      if (p < nf) {
+        dst[kDims * p + q % kDims] = acc[0];
+        dst_r[kDims * p + q % kDims] = acc[0];
+      }
+    }
+  }
+}
+
+// row_dots_ew_nv with the fewest float4 a lane that cover n4 (<= KL *
+// VMAX <= 32 * 3).
+__device__ __forceinline__ void row_dots_ew(const float* E, const float* Wf,
+                                            int ld, const float* v, int n4,
+                                            int nf, float* dst,
+                                            float* dst_r) {
+  static_assert(KL * VMAX <= 32 * 3, "row_dots_ew covers 96 float4");
+  if (n4 <= 32)
+    row_dots_ew_nv<1>(E, Wf, ld, v, n4, nf, dst, dst_r);
+  else if (n4 <= 64)
+    row_dots_ew_nv<2>(E, Wf, ld, v, n4, nf, dst, dst_r);
+  else
+    row_dots_ew_nv<3>(E, Wf, ld, v, n4, nf, dst, dst_r);
+}
+
+// y[l] = b[l] + sum_{p, d} fl(E[p, l] Wf[d, l]) x[3 p + d] for the n4 float4
+// columns: G x with G^T's entries formed from its row factors as row_dots_ew
+// forms them, E (nf, ld) and Wf (3, ld) in shared memory.  RG row groups of
+// E (p = g, g + RG, ...), one lane each of an aligned group of RG lanes,
+// four neighbouring columns a thread with Wf's three rows there in
+// registers, one load of E feeding three rows (3p, 3p + 1, 3p + 2, in that
+// order); butterfly over the group.
+__device__ void col_dots_ew(const float* E, const float* Wf, int ld,
+                            const float* x, int n4, int nf, const float* b,
+                            float* y) {
+  const int ld4 = ld >> 2;
+  const float4* E4 = reinterpret_cast<const float4*>(E);
+  const float4* W4 = reinterpret_cast<const float4*>(Wf);
+  const int total = n4 * RG;
+  for (int b0 = 0; b0 < total; b0 += blockDim.x) {
+    const int idx = b0 + threadIdx.x;
+    const int l4 = idx / RG, g = idx % RG;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (l4 < n4) {
+      float4 wr[kDims];
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) wr[d] = W4[d * ld4 + l4];
+      int p = g;
+      for (; p + (CU - 1) * RG < nf; p += CU * RG) {
+        float4 a[CU];
+        float xr[CU][kDims];
+#pragma unroll
+        for (int i = 0; i < CU; ++i) {
+          a[i] = E4[(size_t)(p + i * RG) * ld4 + l4];
+#pragma unroll
+          for (int d = 0; d < kDims; ++d)
+            xr[i][d] = x[kDims * (p + i * RG) + d];
+        }
+#pragma unroll
+        for (int i = 0; i < CU; ++i)
+#pragma unroll
+          for (int d = 0; d < kDims; ++d) {
+            const float4 gr = mul4(a[i], wr[d]);
+            acc.x = fmaf(gr.x, xr[i][d], acc.x);
+            acc.y = fmaf(gr.y, xr[i][d], acc.y);
+            acc.z = fmaf(gr.z, xr[i][d], acc.z);
+            acc.w = fmaf(gr.w, xr[i][d], acc.w);
+          }
+      }
+      for (; p < nf; p += RG) {
+        const float4 a = E4[(size_t)p * ld4 + l4];
+#pragma unroll
+        for (int d = 0; d < kDims; ++d) {
+          const float4 gr = mul4(a, wr[d]);
+          const float xr = x[kDims * p + d];
+          acc.x = fmaf(gr.x, xr, acc.x);
+          acc.y = fmaf(gr.y, xr, acc.y);
+          acc.z = fmaf(gr.z, xr, acc.z);
+          acc.w = fmaf(gr.w, xr, acc.w);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = RG / 2; o > 0; o >>= 1) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+    }
+    if (l4 < n4 && g == 0) {
+      const float4 bb = reinterpret_cast<const float4*>(b)[l4];
+      reinterpret_cast<float4*>(y)[l4] = make_float4(
+          acc.x + bb.x, acc.y + bb.y, acc.z + bb.z, acc.w + bb.w);
+    }
+  }
+}
+
+// How a block of the cluster design holds G^T: its share of the rows of a
+// source, rows(nfd) of them, loaded once from row(r) (m_p lanes in device
+// memory), and the two products on what it holds (ld = the layout's ldl,
+// n4 = float4 of the block's lanes).
+//   gt_v: dst[r] = sum_c G^T[r, c] v[c] over the block's lanes (its partial
+//         of G^T v), stored also to dst_r;
+//   g_x:  y[c] = b[c] + sum_r G^T[r, c] x[r] on the block's lanes.
+// G^T's stored rows (the factored and fused entry points).
+struct GtRowsOnChip {
+  const float* gt;  // this scenario's (nfd, m_p)
+  int m_p;
+  __device__ __forceinline__ const float* row(int r) const {
+    return gt + (size_t)r * m_p;
+  }
+  __device__ __forceinline__ static void gt_v(const float* G, int ld,
+                                              const float* v, int n4,
+                                              int nfd, float* dst,
+                                              float* dst_r) {
+    row_dots(G, ld, v, n4, nfd, dst, dst_r, nullptr, 0.0f);
+  }
+  __device__ __forceinline__ static void g_x(const float* G, int ld,
+                                             const float* x, int n4, int nfd,
+                                             const float* b, float* y) {
+    col_dots(G, ld, x, n4, nfd, b, y);
+  }
+};
+
+// G^T's row factors (the ew entry point): the nf = nfd / 3 rows of e, then
+// the 3 rows of w; each G^T entry formed in registers, rounded once.
+struct GtFactorsOnChip {
+  const float* e;  // this scenario's (nf, m_p)
+  const float* w;  // this scenario's (3, m_p)
+  int m_p, nf;
+  __device__ __forceinline__ const float* row(int r) const {
+    return r < nf ? e + (size_t)r * m_p : w + (size_t)(r - nf) * m_p;
+  }
+  __device__ __forceinline__ static void gt_v(const float* G, int ld,
+                                              const float* v, int n4,
+                                              int nfd, float* dst,
+                                              float* dst_r) {
+    const int nf = nfd / kDims;
+    row_dots_ew(G, G + (size_t)nf * ld, ld, v, n4, nf, dst, dst_r);
+  }
+  __device__ __forceinline__ static void g_x(const float* G, int ld,
+                                             const float* x, int n4, int nfd,
+                                             const float* b, float* y) {
+    const int nf = nfd / kDims;
+    col_dots_ew(G, G + (size_t)nf * ld, ld, x, n4, nf, b, y);
+  }
+};
 
 __device__ __forceinline__ void put2(float* mine, float* theirs, int i,
                                      float v) {
@@ -1209,9 +1492,11 @@ __device__ unsigned long long stage_prof[16];
 #define PROF(i) do {} while (0)
 #endif
 
-// One scenario a cluster of kCluster blocks (blockIdx.x / 2), G^T stored.
-__global__ void __launch_bounds__(512, 1)
-admm_stage_cluster_kernel(StageArgs a) {
+// One scenario a cluster of kCluster blocks (blockIdx.x / 2): the stage of
+// entry point kEntry (Entry), G^T held as the source type G says.
+template <int kEntry, class G>
+__device__ __forceinline__ void cluster_stage(const StageArgs& a,
+                                              const G& src) {
   extern __shared__ __align__(16) float smem[];
   PROF_START;
   cg::cluster_group cluster = cg::this_cluster();
@@ -1221,9 +1506,10 @@ admm_stage_cluster_kernel(StageArgs a) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nfd = a.nfd, m_p = a.m_p, nb_p = a.nb_p;
   const int m_blk = a.m_blk, bsz = a.bsz, bb = bsz * bsz;
-  const CLayout L = make_cluster_layout(nfd, m_p, m_blk, bsz, nb_p);
+  const CLayout L = make_cluster_layout(kEntry, nfd, m_p, m_blk, bsz, nb_p);
   const Split q = split_of(rank, m_p, nb_p);
   const int nl = q.nl, ldl = L.ldl, ldw = L.ldw, n4 = (nl + 3) / 4;
+  const int rows = L.rows;
   Vecs S;
   S.b = smem + L.b;   S.rb = smem + L.rb; S.z = smem + L.z;
   S.zp = smem + L.zp; S.u = smem + L.u;   S.v = smem + L.v;
@@ -1232,25 +1518,35 @@ admm_stage_cluster_kernel(StageArgs a) {
   float* winv = smem + L.winv;
   float* gts = smem + L.gts;
   float* xch = smem + L.xch;
-  const float* gt = a.gt + (size_t)s * nfd * m_p;
 
-  // ---- copies in flight: the factors and vectors (group 1), then the rows
-  // of G^T before the scratch (group 2) --------------------------------------
+  // ---- copies in flight: W^-1 or the factors it is formed from, and the
+  // vectors (group 1), then the rows of G^T's source before the scratch
+  // (group 2; every row where W^-1 is given) ---------------------------------
   float* sinv_s = smem + L.scr;
   float* t_s = sinv_s + round4(m_blk * bb);
   float* tt_s = t_s + round4((m_blk - 1) * bb);
   float* P = tt_s + round4((m_blk - 1) * bb);
   float* Q = P + bsz * L.ncl;
-  load_async(sinv_s, a.sinv + (size_t)s * m_blk * bb, m_blk * bb);
-  load_async(t_s, a.t + (size_t)s * (m_blk - 1) * bb, (m_blk - 1) * bb);
-  load_async(tt_s, a.tt + (size_t)s * (m_blk - 1) * bb, (m_blk - 1) * bb);
+  if (winv_given(kEntry)) {
+    // the caller's rows as given, 4 bytes a copy (a row of nfd floats need
+    // not start on a 16-byte boundary)
+    const float* wg = a.winv + (size_t)s * nfd * nfd;
+    for (int i = tid; i < nfd * nfd; i += nt) {
+      const int r = i / nfd;
+      cp_async4(winv + r * ldw + (i - r * nfd), wg + i);
+    }
+  } else {
+    load_async(sinv_s, a.sinv + (size_t)s * m_blk * bb, m_blk * bb);
+    load_async(t_s, a.t + (size_t)s * (m_blk - 1) * bb, (m_blk - 1) * bb);
+    load_async(tt_s, a.tt + (size_t)s * (m_blk - 1) * bb, (m_blk - 1) * bb);
+  }
   load_async(S.xq, a.xq + (size_t)s * nfd, nfd);
   load_async(S.x, a.x0 + (size_t)s * nfd, nfd);
   load_async(S.rb, a.rb + (size_t)s * nb_p + q.j0, q.hb);
   for (int l = tid; l < nl; l += nt)
     cp_async4(S.b + l, a.b + (size_t)s * m_p + lane_of(q, l, nb_p));
   cp_async_commit();
-  load_gt_rows(gt, gts, q, 0, L.r_pre, m_p, nb_p, ldl);
+  load_gt_rows(src, gts, q, 0, L.r_pre, nb_p, ldl);
   cp_async_commit();
 
   // ---- zero padding ---------------------------------------------------------
@@ -1274,18 +1570,21 @@ admm_stage_cluster_kernel(StageArgs a) {
   cluster.sync();
   PROF(0);
 
-  // ---- W^-1: half of its columns here, stored to both blocks --------------
-  const int half = (nfd + 1) / 2;
-  winv_columns(winv, cluster.map_shared_rank(winv, other), ldw,
-               rank == 0 ? 0 : half, rank == 0 ? half : nfd - half, L.ncl,
-               sinv_s, t_s, tt_s, P, Q, m_blk, bsz);
-  cluster.sync();
+  // ---- W^-1 where it is formed: half of its columns here, stored to both
+  // blocks --------------------------------------------------------------------
+  if (!winv_given(kEntry)) {
+    const int half = (nfd + 1) / 2;
+    winv_columns(winv, cluster.map_shared_rank(winv, other), ldw,
+                 rank == 0 ? 0 : half, rank == 0 ? half : nfd - half, L.ncl,
+                 sinv_s, t_s, tt_s, P, Q, m_blk, bsz);
+    cluster.sync();
+  }
   PROF(1);
 
-  // ---- the rest of G^T over the scratch -------------------------------------
-  load_gt_rows(gt, gts, q, L.r_pre, nfd, m_p, nb_p, ldl);
+  // ---- the rest of G^T's source over the scratch ---------------------------
+  load_gt_rows(src, gts, q, L.r_pre, rows, nb_p, ldl);
   cp_async_commit();
-  for (int i = tid; i < nfd * (4 * n4 - nl); i += nt) {
+  for (int i = tid; i < rows * (4 * n4 - nl); i += nt) {
     const int r = i / (4 * n4 - nl);
     gts[(size_t)r * ldl + nl + (i - r * (4 * n4 - nl))] = 0.0f;
   }
@@ -1294,7 +1593,7 @@ admm_stage_cluster_kernel(StageArgs a) {
   PROF(2);
 
   // ---- y = G x0 + b; z, u ---------------------------------------------------
-  col_dots(gts, ldl, S.x, n4, nfd, S.b, S.y);
+  G::g_x(gts, ldl, S.x, n4, nfd, S.b, S.y);
   __syncthreads();
   cluster_init(a, s, q, S);
   __syncthreads();
@@ -1307,8 +1606,8 @@ admm_stage_cluster_kernel(StageArgs a) {
   float* part_r = cluster.map_shared_rank(S.part, other);
   for (int it = 0; it < a.n_iters; ++it) {
     const int buf = (it & 1) * kCluster * ldw;
-    row_dots(gts, ldl, S.v, n4, nfd, S.part + buf + rank * ldw,
-             part_r + buf + rank * ldw, nullptr, 0.0f);
+    G::gt_v(gts, ldl, S.v, n4, nfd, S.part + buf + rank * ldw,
+            part_r + buf + rank * ldw);
     PROF(4);
     cluster.sync();
     PROF(5);
@@ -1319,7 +1618,7 @@ admm_stage_cluster_kernel(StageArgs a) {
     row_dots(winv, ldw, S.tmp, ldw / 4, nfd, S.x, nullptr, S.xq, rho);
     __syncthreads();
     PROF(7);
-    col_dots(gts, ldl, S.x, n4, nfd, S.b, S.y);
+    G::g_x(gts, ldl, S.x, n4, nfd, S.b, S.y);
     __syncthreads();
     PROF(8);
     cluster_update(a, q, S);
@@ -1336,8 +1635,8 @@ admm_stage_cluster_kernel(StageArgs a) {
   __syncthreads();
   // the other buffer than the last iteration's: see the top of the file
   const int dbuf = (a.n_iters & 1) * kCluster * ldw;
-  row_dots(gts, ldl, S.v, n4, nfd, S.part + dbuf + rank * ldw,
-           part_r + dbuf + rank * ldw, nullptr, 0.0f);
+  G::gt_v(gts, ldl, S.v, n4, nfd, S.part + dbuf + rank * ldw,
+          part_r + dbuf + rank * ldw);
   pmax = block_max(pmax, S.red);
   if (tid == 0) {
     xch[rank] = pmax;
@@ -1367,25 +1666,133 @@ admm_stage_cluster_kernel(StageArgs a) {
   PROF(10);
 }
 
-size_t cluster_smem_of(int nfd, int m_p, int m_blk, int bsz, int nb_p) {
-  return (size_t)make_cluster_layout(nfd, m_p, m_blk, bsz, nb_p).total *
+// The three entry functions of the cluster design.
+__global__ void __launch_bounds__(512, 1)
+admm_stage_cluster_kernel(StageArgs a) {
+  const size_t s = blockIdx.x / kCluster;
+  cluster_stage<kEntryFactored>(
+      a, GtRowsOnChip{a.gt + s * a.nfd * a.m_p, a.m_p});
+}
+
+__global__ void __launch_bounds__(512, 1)
+admm_stage_fused_cluster_kernel(StageArgs a) {
+  const size_t s = blockIdx.x / kCluster;
+  cluster_stage<kEntryFused>(
+      a, GtRowsOnChip{a.gt + s * a.nfd * a.m_p, a.m_p});
+}
+
+__global__ void __launch_bounds__(512, 1)
+admm_stage_ew_cluster_kernel(StageArgs a) {
+  const size_t s = blockIdx.x / kCluster;
+  const int nf = a.nfd / kDims;
+  cluster_stage<kEntryEw>(
+      a, GtFactorsOnChip{a.e + s * nf * a.m_p, a.w + s * kDims * a.m_p,
+                         a.m_p, nf});
+}
+
+void (*cluster_kernel_of(int entry))(StageArgs) {
+  return entry == kEntryFused ? admm_stage_fused_cluster_kernel
+         : entry == kEntryEw  ? admm_stage_ew_cluster_kernel
+                              : admm_stage_cluster_kernel;
+}
+
+size_t cluster_smem_of(int entry, int nfd, int m_p, int m_blk, int bsz,
+                       int nb_p) {
+  return (size_t)make_cluster_layout(entry, nfd, m_p, m_blk, bsz, nb_p)
+             .total *
          sizeof(float);
 }
 
-// Whether a block's share of the factored stage fits the cluster design on
-// the current device: its shared memory, and rows of G^T's share and of W^-1
-// short enough for row_dots' registers.
-bool cluster_fits(int nfd, int m_p, int m_blk, int bsz, int nb_p,
-                  int threads) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
+// The current device's shared memory as the runtime reports it: what a
+// block may take, what an SM holds, what the card keeps for each block.
+struct SmemLimits {
+  int optin, per_sm, reserved;
+};
+
+constexpr int kMaxDevices = 64;
+
+// Read once a device and kept (a launch asks for them every time): the
+// three limits, published by `known` after they are stored.
+std::atomic<int> limits_optin[kMaxDevices], limits_per_sm[kMaxDevices],
+    limits_reserved[kMaxDevices];
+std::atomic<bool> limits_known[kMaxDevices];
+
+bool smem_limits(SmemLimits* out) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
     return false;
+  if (!limits_known[dev].load(std::memory_order_acquire)) {
+    int optin = 0, per_sm = 0, reserved = 0;
+    if (cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&per_sm,
+                               cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&reserved,
+                               cudaDevAttrReservedSharedMemoryPerBlock,
+                               dev) != cudaSuccess)
+      return false;
+    limits_optin[dev].store(optin, std::memory_order_relaxed);
+    limits_per_sm[dev].store(per_sm, std::memory_order_relaxed);
+    limits_reserved[dev].store(reserved, std::memory_order_relaxed);
+    limits_known[dev].store(true, std::memory_order_release);
+  }
+  out->optin = limits_optin[dev].load(std::memory_order_relaxed);
+  out->per_sm = limits_per_sm[dev].load(std::memory_order_relaxed);
+  out->reserved = limits_reserved[dev].load(std::memory_order_relaxed);
+  return true;
+}
+
+// Whether a block's share of entry point `entry`'s stage fits the cluster
+// design on the current device: its shared memory, and rows of G^T's share
+// (or of its factors) and of W^-1 short enough for the row products'
+// registers.
+bool cluster_fits(int entry, int nfd, int m_p, int m_blk, int bsz, int nb_p,
+                  int threads) {
+#ifdef ADMM_STAGE_STREAM
+  // every shape takes the stream design (stage_profile.py --designs times
+  // the two designs on the same call)
+  return false;
+#endif
+  SmemLimits lim;
+  if (!smem_limits(&lim)) return false;
   const int n4 = (split_of(0, m_p, nb_p).nl + 3) / 4;
-  return cluster_smem_of(nfd, m_p, m_blk, bsz, nb_p) <= (size_t)optin &&
+  return cluster_smem_of(entry, nfd, m_p, m_blk, bsz, nb_p) <=
+             (size_t)lim.optin &&
          n4 <= KL * VMAX && round4(nfd) / 4 <= KL * VMAX && threads <= 512 &&
          threads % KL == 0;
+}
+
+// Fewest threads a block of the cluster design takes.
+constexpr int kMinClusterThreads = 64;
+
+// Threads a block of the cluster design takes, given at most max_threads:
+// max_threads an SM, spread over as many blocks as the SM's shared memory
+// holds at once at this entry point's share (halving the block while its
+// half stays a multiple of 32 and at least kMinClusterThreads).  Every sum
+// keeps its order whatever the block size (a row's sum runs over KL threads,
+// a lane group's over RG), so the bits do not depend on it.  Measured on an
+// H100: the flagship's share takes a whole SM's shared memory (512
+// threads), K=4's a fifth (128) and the fused entry point's K=2 an eighth
+// (64), where 512 threads a block left an iteration's fixed cost (the
+// barriers, the short phases) to 66 clusters in flight and ran 5x slower.
+int cluster_threads_of(int entry, int nfd, int m_p, int m_blk, int bsz,
+                       int nb_p, int max_threads) {
+#ifdef ADMM_STAGE_CLUSTER_THREADS
+  // one block size at every shape (stage_profile.py --designs times each)
+  return ADMM_STAGE_CLUSTER_THREADS;
+#endif
+  SmemLimits lim;
+  if (!smem_limits(&lim)) return max_threads;
+  const size_t blocks =
+      (size_t)lim.per_sm / (cluster_smem_of(entry, nfd, m_p, m_blk, bsz, nb_p) +
+                            (size_t)lim.reserved);
+  int t = max_threads;
+  while (t / 2 >= kMinClusterThreads && (t / 2) % 32 == 0 &&
+         (size_t)t * blocks > (size_t)max_threads)
+    t /= 2;
+  return t;
 }
 
 cudaLaunchConfig_t cluster_config(int batch, int threads, size_t smem,
@@ -1404,18 +1811,46 @@ cudaLaunchConfig_t cluster_config(int batch, int threads, size_t smem,
   return cfg;
 }
 
-cudaError_t launch_cluster(const StageArgs& a, int batch, int threads,
-                           void* stream) {
+// The most dynamic shared memory each entry point's cluster kernel has been
+// allowed on each device, so that a launch sets the attribute only when it
+// needs more.
+std::atomic<int> cluster_smem_allowed[3][kMaxDevices];
+
+cudaError_t allow_cluster_smem(int entry, size_t smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached && cluster_smem_allowed[entry][dev].load(
+                    std::memory_order_acquire) >= (int)smem)
+    return cudaSuccess;
+  e = cudaFuncSetAttribute(cluster_kernel_of(entry),
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && cached) {
+    int seen = cluster_smem_allowed[entry][dev].load();
+    while (seen < (int)smem &&
+           !cluster_smem_allowed[entry][dev].compare_exchange_weak(
+               seen, (int)smem)) {
+    }
+  }
+  return e;
+}
+
+cudaError_t launch_cluster(int entry, const StageArgs& a, int batch,
+                           int threads, void* stream) {
   const size_t smem =
-      cluster_smem_of(a.nfd, a.m_p, a.m_blk, a.bsz, a.nb_p);
-  cudaError_t e = cudaFuncSetAttribute(
-      admm_stage_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      cluster_smem_of(entry, a.nfd, a.m_p, a.m_blk, a.bsz, a.nb_p);
+  void (*kernel)(StageArgs) = cluster_kernel_of(entry);
+  cudaError_t e = allow_cluster_smem(entry, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(batch, threads, smem, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, admm_stage_cluster_kernel, a);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      batch,
+      cluster_threads_of(entry, a.nfd, a.m_p, a.m_blk, a.bsz, a.nb_p,
+                         threads),
+      smem, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -1471,33 +1906,61 @@ extern "C" int admm_stage_iter_smem_bytes(int nfd, int m_p, int nb_p,
   return (int)smem_of(kGiven, nfd, m_p, 0, 0, nb_p, threads);
 }
 
-// The design the factored entry point takes at these shapes on the current
-// device: 1 the cluster design (no m1), 0 the stream design (m1 scratch).
+// The design each entry point takes at these shapes on the current device:
+// 1 the cluster design (no m1), 0 the stream design (m1 scratch).
 extern "C" int admm_stage_factored_design(int nfd, int m_p, int m_blk,
                                           int bsz, int nb_p, int threads) {
-  return cluster_fits(nfd, m_p, m_blk, bsz, nb_p, threads) ? 1 : 0;
+  return cluster_fits(kEntryFactored, nfd, m_p, m_blk, bsz, nb_p, threads)
+             ? 1
+             : 0;
 }
 
-// Dynamic shared memory, in bytes, of one block of the cluster design.
-extern "C" int admm_stage_cluster_smem_bytes(int nfd, int m_p, int m_blk,
-                                             int bsz, int nb_p) {
-  return (int)cluster_smem_of(nfd, m_p, m_blk, bsz, nb_p);
+extern "C" int admm_stage_fused_design(int nfd, int m_p, int nb_p,
+                                       int threads) {
+  return cluster_fits(kEntryFused, nfd, m_p, 0, 0, nb_p, threads) ? 1 : 0;
 }
 
-// How many clusters of the cluster design the device holds at once
-// (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
-extern "C" int admm_stage_cluster_occupancy(int nfd, int m_p, int m_blk,
-                                            int bsz, int nb_p, int threads) {
-  const size_t smem = cluster_smem_of(nfd, m_p, m_blk, bsz, nb_p);
-  cudaError_t e = cudaFuncSetAttribute(
-      admm_stage_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+extern "C" int admm_stage_fused_factored_ew_design(int nfd, int m_p,
+                                                   int m_blk, int bsz,
+                                                   int nb_p, int threads) {
+  return nfd % kDims == 0 &&
+                 cluster_fits(kEntryEw, nfd, m_p, m_blk, bsz, nb_p, threads)
+             ? 1
+             : 0;
+}
+
+// Dynamic shared memory, in bytes, of one block of the cluster design of
+// entry point `entry` (0 factored, 1 fused, 2 ew; m_blk and bsz are read
+// where W^-1 is formed).
+extern "C" int admm_stage_cluster_smem_bytes(int entry, int nfd, int m_p,
+                                             int m_blk, int bsz, int nb_p) {
+  return (int)cluster_smem_of(entry, nfd, m_p, m_blk, bsz, nb_p);
+}
+
+// Threads a block of entry point `entry`'s cluster design takes at these
+// shapes on the current device, given at most `threads`.
+extern "C" int admm_stage_cluster_threads(int entry, int nfd, int m_p,
+                                          int m_blk, int bsz, int nb_p,
+                                          int threads) {
+  return cluster_threads_of(entry, nfd, m_p, m_blk, bsz, nb_p, threads);
+}
+
+// How many clusters of entry point `entry`'s cluster design the device
+// holds at once (cudaOccupancyMaxActiveClusters) at the block size it takes
+// given at most `threads`, or minus the CUDA error code.
+extern "C" int admm_stage_cluster_occupancy(int entry, int nfd, int m_p,
+                                            int m_blk, int bsz, int nb_p,
+                                            int threads) {
+  const size_t smem = cluster_smem_of(entry, nfd, m_p, m_blk, bsz, nb_p);
+  void (*kernel)(StageArgs) = cluster_kernel_of(entry);
+  cudaError_t e = allow_cluster_smem(entry, smem);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      cluster_config(1, threads, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      1, cluster_threads_of(entry, nfd, m_p, m_blk, bsz, nb_p, threads),
+      smem, nullptr, attr);
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, admm_stage_cluster_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 
@@ -1524,8 +1987,8 @@ extern "C" int admm_stage_fused_factored_launch(
   a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
-  if (cluster_fits(nfd, m_p, m_blk, bsz, nb_p, threads))
-    return (int)launch_cluster(a, batch, threads, stream);
+  if (cluster_fits(kEntryFactored, nfd, m_p, m_blk, bsz, nb_p, threads))
+    return (int)launch_cluster(kEntryFactored, a, batch, threads, stream);
   if (m1 == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch(admm_stage_fused_factored_kernel, a, batch, threads,
                      smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads),
@@ -1533,8 +1996,10 @@ extern "C" int admm_stage_fused_factored_launch(
 }
 
 // The factored stage with G^T given as its rank-1 row factors e
-// (B, nfd / 3, m_p) and w (B, 3, m_p): gt[p*3 + d, l] = e[p, l] * w[d, l].
-// Same shared memory as the factored entry point (admm_stage_smem_bytes).
+// (B, nfd / 3, m_p) and w (B, 3, m_p): gt[p*3 + d, l] = e[p, l] * w[d, l],
+// in the design admm_stage_fused_factored_ew_design names (m1 as in the
+// factored entry point).  The stream design takes the factored entry
+// point's shared memory (admm_stage_smem_bytes).
 extern "C" int admm_stage_fused_factored_ew_launch(
     const float* rho, const float* sinv, const float* t, const float* tt,
     const float* e, const float* w, const float* b, const float* rb,
@@ -1555,13 +2020,18 @@ extern "C" int admm_stage_fused_factored_ew_launch(
   a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
+  if (cluster_fits(kEntryEw, nfd, m_p, m_blk, bsz, nb_p, threads))
+    return (int)launch_cluster(kEntryEw, a, batch, threads, stream);
+  if (m1 == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch(admm_stage_fused_factored_ew_kernel, a, batch, threads,
                      smem_of(kFactored, nfd, m_p, m_blk, bsz, nb_p, threads),
                      stream);
 }
 
-// One stage from the dense KKT inverse winv (B, nfd, nfd): m1 = winv gt in
-// the kernel, then the same phases 2-4.
+// One stage from the dense KKT inverse winv (B, nfd, nfd), in the design
+// admm_stage_fused_design names: the cluster design (winv's rows as given,
+// no m1; m1 may be null), or the stream one (m1 = winv gt in the kernel,
+// then the same phases 2-4).
 extern "C" int admm_stage_fused_launch(
     const float* rho, const float* winv, const float* gt, const float* b,
     const float* rb, const float* xq, const float* x0, const float* z0,
@@ -1580,6 +2050,9 @@ extern "C" int admm_stage_fused_launch(
   a.n_ball = n_ball; a.n_iters = n_iters; a.init_z = init_z;
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
+  if (cluster_fits(kEntryFused, nfd, m_p, 0, 0, nb_p, threads))
+    return (int)launch_cluster(kEntryFused, a, batch, threads, stream);
+  if (m1 == nullptr) return (int)cudaErrorInvalidValue;
   return (int)launch(admm_stage_fused_kernel, a, batch, threads,
                      smem_of(kInverse, nfd, m_p, 0, 0, nb_p, threads),
                      stream);

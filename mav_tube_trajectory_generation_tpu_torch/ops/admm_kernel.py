@@ -35,31 +35,40 @@ half-space rows follow in a final plane, which may be absent
 (``solver.qcqp._PadLayout``).
 
 The kernels are ``csrc/admm_stage.cu`` (four entry points over one
-iteration phase, and a second design of the factored one) and
+iteration phase, and a second design of three of them) and
 ``csrc/gram_band.cu`` (three entry points), CUDA C++ for sm_90a.  What
 bounds the stage on an H100: per scenario it does 2 * n_iters matvecs
 against (nfd, m_p) matrices plus the m1 formation -- about 19 MFLOP at
 n_iters = 48 with the factors, 32 with the dense inverse -- on 0.29-0.36 MB
 of inputs, so by each input read once it is bound by float32 arithmetic.
 
-* ``admm_stage_fused_factored`` runs, wherever a block's share fits
-  (``factored_design``, the flagship and the K=4 shapes among them), in a
-  cluster of two thread blocks a scenario: x = xq + rho W^-1 (G^T v) with
-  the dense W^-1 formed once from the factors, no m1, each block keeping its
-  half of the lanes' G^T columns (``cluster_lane_split``) and W^-1 in shared
-  memory for all iterations and exchanging one nfd-vector an iteration
-  through distributed shared memory.  It reads each input from device
+* ``admm_stage_fused_factored``, ``admm_stage_fused`` and
+  ``admm_stage_fused_factored_ew`` run, wherever a block's share fits
+  (``factored_design``, ``fused_design``, ``ew_design``: the flagship and
+  the K=4 shapes among them, K=2 for the dense inverse), in a cluster of two
+  thread blocks a scenario, one body for the three: x = xq + rho W^-1 (G^T
+  v) with the dense W^-1 in shared memory (formed once from the factors, or
+  the caller's copied in), no m1, each block keeping its half of the lanes'
+  G^T columns (``cluster_lane_split``) -- as stored, or for the ew entry
+  point as its row factors e and w, each entry formed in registers as
+  ``expand_gt`` rounds it -- for all iterations and exchanging one
+  nfd-vector an iteration through distributed shared memory, in blocks of
+  64-512 threads (``block_threads``).  It reads each input from device
   memory once; what bounds it is stated in its source.
-  ``admm_stage_fused_factored_winv_plain`` is the same order in plain
-  PyTorch.
-* Its other shapes, and the other stage entry points, run one block a
-  scenario ("stream"): G^T and m1 together are 0.54 MB a scenario, more than
-  a block's 227 KB of shared memory, so m1 is written once to a scratch
+  ``admm_stage_fused_factored_winv_plain``, ``admm_stage_fused_winv_plain``
+  and ``admm_stage_fused_factored_ew_winv_plain`` are the three in that
+  order in plain PyTorch; ``cluster_smem_bytes`` mirrors a block's shared
+  memory.  The library alone chooses the design and the block size, from
+  what it reads of the device.
+* Their other shapes, and ``admm_stage``, run one block a scenario
+  ("stream"): G^T and m1 together are 0.54 MB a scenario, more than a
+  block's 227 KB of shared memory, so m1 is written once to a scratch
   tensor and both are re-read from L2 / device memory in every iteration
   (about 26 MB a scenario), which bounds them.  The ew entry points read
-  each G^T entry as the rounded float32 product of its two factor entries
-  and do the arithmetic of the stream design on it, so they give the bits of
-  ``gram_band_factors`` and of the stream design on the expanded G^T.
+  each G^T entry there as the rounded float32 product of its two factor
+  entries and do the arithmetic of the stream design on it, so they give
+  the bits of ``gram_band_factors`` and of the stream design on the
+  expanded G^T.
 
 The Gram band reads G^T once; what bounds it is stated in its source.
 
@@ -92,9 +101,15 @@ DIMS = 3
 THREADS = 512
 GRAM_THREADS = 256
 
-_configured = set()
-# factored_design's answers, by (device, shapes).
+# The libraries whose C signatures are declared, by id (a variant of a
+# source, put in _build._LIBS, is declared at its first use).
+_configured: Dict[int, bool] = {}
+# The design each stage entry point takes, by (entry, device, shapes).
 _designs: Dict[tuple, str] = {}
+# The entry points of the cluster design as csrc/admm_stage.cu numbers them
+# (its Entry).
+CLUSTER_ENTRIES = {"admm_stage_fused_factored": 0, "admm_stage_fused": 1,
+                   "admm_stage_fused_factored_ew": 2}
 
 StageOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor, torch.Tensor]
@@ -282,6 +297,26 @@ def admm_stage_fused_factored_ew_plain(
         init_z=init_z)
 
 
+def admm_stage_fused_factored_ew_winv_plain(
+        rho: torch.Tensor, sinv: torch.Tensor, t: torch.Tensor,
+        tt: torch.Tensor, e: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        rb: torch.Tensor, xq: torch.Tensor, x0: torch.Tensor,
+        z0: Optional[torch.Tensor] = None, u0: Optional[torch.Tensor] = None,
+        *, n_iters: int, alpha: float, nb_p: int, n_ball: int = -1,
+        init_z: bool = True) -> StageOut:
+    """``admm_stage_fused_factored_ew`` in plain PyTorch in the order of its
+    cluster design, which forms each G^T entry from the factors rounded as
+    ``expand_gt`` does and then does kernel 1's cluster arithmetic on it:
+    ``admm_stage_fused_factored_winv_plain`` on the expanded G^T.  The same
+    function; any float dtype, any device.  The wrapper's plain version
+    stays the reference order (``admm_stage_fused_factored_ew_plain``); this
+    one is the float32 yardstick of the cluster design's rounding."""
+    return admm_stage_fused_factored_winv_plain(
+        rho, sinv, t, tt, expand_gt(e, w), b, rb, xq, x0, z0, u0,
+        n_iters=n_iters, alpha=alpha, nb_p=nb_p, n_ball=n_ball,
+        init_z=init_z)
+
+
 def admm_stage_fused_plain(
         rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
         b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
@@ -294,6 +329,26 @@ def admm_stage_fused_plain(
     return _stage_core_plain(rho, _with_m1(winv @ gt), gt, b, rb, xq, x0, z0,
                              u0, n_iters=n_iters, alpha=alpha, nb_p=nb_p,
                              n_ball=n_ball, init_z=init_z)
+
+
+def admm_stage_fused_winv_plain(
+        rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
+        b: torch.Tensor, rb: torch.Tensor, xq: torch.Tensor,
+        x0: torch.Tensor, z0: Optional[torch.Tensor] = None,
+        u0: Optional[torch.Tensor] = None, *, n_iters: int, alpha: float,
+        nb_p: int, n_ball: int = -1, init_z: bool = True) -> StageOut:
+    """``admm_stage_fused`` in plain PyTorch in the order of its cluster
+    design: x = xq + rho winv (G^T v) each iteration, winv's rows as given,
+    in place of xq + rho (winv G^T) v.  The same function; any float dtype,
+    any device.  The wrapper's plain version stays the reference order
+    (``admm_stage_fused_plain``); this one is the float32 yardstick of the
+    cluster design's rounding."""
+    if n_ball < 0:
+        n_ball = nb_p
+    return _stage_core_plain(
+        rho, lambda v: winv @ (gt @ v.transpose(1, 2)), gt, b, rb, xq, x0,
+        z0, u0, n_iters=n_iters, alpha=alpha, nb_p=nb_p, n_ball=n_ball,
+        init_z=init_z)
 
 
 def admm_stage_plain(rho: torch.Tensor, m1: torch.Tensor, gt: torch.Tensor,
@@ -348,7 +403,7 @@ def gram_band_factors_ew_plain(e: torch.Tensor, w: torch.Tensor,
 def _library(name: str) -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load(name)
-    if name in _configured:
+    if _configured.get(id(lib)):
         return lib
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "admm_stage":
@@ -364,15 +419,21 @@ def _library(name: str) -> ctypes.CDLL:
         lib.admm_stage_fused_smem_bytes.argtypes = [i32] * 4
         lib.admm_stage_iter_smem_bytes.argtypes = [i32] * 4
         lib.admm_stage_factored_design.argtypes = [i32] * 6
-        lib.admm_stage_cluster_smem_bytes.argtypes = [i32] * 5
-        lib.admm_stage_cluster_occupancy.argtypes = [i32] * 6
+        lib.admm_stage_fused_design.argtypes = [i32] * 4
+        lib.admm_stage_fused_factored_ew_design.argtypes = [i32] * 6
+        lib.admm_stage_cluster_smem_bytes.argtypes = [i32] * 6
+        lib.admm_stage_cluster_occupancy.argtypes = [i32] * 7
+        lib.admm_stage_cluster_threads.argtypes = [i32] * 7
         for fn in ("admm_stage_fused_factored_launch",
                    "admm_stage_fused_factored_ew_launch",
                    "admm_stage_fused_launch", "admm_stage_launch",
                    "admm_stage_smem_bytes", "admm_stage_fused_smem_bytes",
                    "admm_stage_iter_smem_bytes", "admm_stage_factored_design",
+                   "admm_stage_fused_design",
+                   "admm_stage_fused_factored_ew_design",
                    "admm_stage_cluster_smem_bytes",
-                   "admm_stage_cluster_occupancy"):
+                   "admm_stage_cluster_occupancy",
+                   "admm_stage_cluster_threads"):
             getattr(lib, fn).restype = i32
     else:
         lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
@@ -384,59 +445,125 @@ def _library(name: str) -> ctypes.CDLL:
         for fn in ("gram_band_launch", "gram_band_factors_launch",
                    "gram_band_factors_ew_launch", "gram_band_smem_bytes"):
             getattr(lib, fn).restype = i32
-    _configured.add(name)
+    _configured[id(lib)] = True
     return lib
+
+
+def cluster_smem_bytes(kind: str, nfd: int, m_p: int, m_blk: int, bsz: int,
+                       nb_p: int) -> int:
+    """Dynamic shared memory of one block of the cluster design of stage
+    entry point ``kind`` (a key of ``CLUSTER_ENTRIES``), in bytes: the
+    Python mirror of ``make_cluster_layout`` in ``csrc/admm_stage.cu``
+    (``chip_smoke.py``'s build phase holds the two equal).  W^-1 (nfd rows
+    of round4(nfd)); the rows of G^T's source a block keeps -- nfd stored
+    rows, or for the ew entry point nf = nfd / 3 rows of e and 3 of w -- of
+    ldl lanes, over which the W^-1 sweeps' scratch lies where W^-1 is
+    formed; the block's lane vectors; x, xq, the partials of G^T v."""
+    nl = len(cluster_lane_split(m_p, nb_p)[0][0])
+    ldw = round_up(nfd, 4)
+    ldl = round_up(nl, 4)
+    if (ldl // 4) % 2 == 0:
+        ldl += 4
+    rows = (nfd // DIMS + DIMS if kind == "admm_stage_fused_factored_ew"
+            else nfd)
+    bb = bsz * bsz
+    scr = 0 if kind == "admm_stage_fused" else (
+        round_up(m_blk * bb, 4) + 2 * round_up((m_blk - 1) * bb, 4)
+        + 2 * bsz * round_up((nfd + 1) // 2, 4))
+    floats = (nfd * ldw + max(rows * ldl, scr) + 6 * ldl
+              + round_up((nb_p + 1) // 2, 4) + 3 * ldw + 4 * ldw + 32 + 4)
+    return 4 * floats
+
+
+def stage_design(kind: str, nfd: int, m_p: int, m_blk: int, bsz: int,
+                 nb_p: int) -> str:
+    """The design stage entry point ``kind`` (a key of ``CLUSTER_ENTRIES``)
+    launches at these shapes on the current CUDA device, as its launcher
+    chooses it: "cluster" (two blocks a scenario, G^T's halves -- or their
+    row factors -- and W^-1 in their shared memory, no m1) wherever a
+    block's share fits, else "stream" (one block a scenario, m1 in a scratch
+    tensor).  A choice by shape between two kernels; builds the library if
+    needed.  ``m_blk`` and ``bsz`` are read where W^-1 is formed."""
+    key = (kind, torch.cuda.current_device(), nfd, m_p, m_blk, bsz, nb_p)
+    if key not in _designs:
+        lib = _library("admm_stage")
+        if kind == "admm_stage_fused":
+            fits = lib.admm_stage_fused_design(nfd, m_p, nb_p, THREADS)
+        elif kind == "admm_stage_fused_factored_ew":
+            fits = lib.admm_stage_fused_factored_ew_design(
+                nfd, m_p, m_blk, bsz, nb_p, THREADS)
+        else:
+            fits = lib.admm_stage_factored_design(nfd, m_p, m_blk, bsz, nb_p,
+                                                  THREADS)
+        _designs[key] = "cluster" if fits else "stream"
+    return _designs[key]
 
 
 def factored_design(nfd: int, m_p: int, m_blk: int, bsz: int,
                     nb_p: int) -> str:
-    """The design ``admm_stage_fused_factored`` launches at these shapes on
-    the current CUDA device: "cluster" (two blocks a scenario, G^T's halves
-    and W^-1 in their shared memory, no m1) wherever a block's share fits,
-    else "stream" (one block a scenario, m1 in a scratch tensor).  A choice
-    by shape between two kernels; builds the library if needed."""
-    key = (torch.cuda.current_device(), nfd, m_p, m_blk, bsz, nb_p)
-    if key not in _designs:
-        lib = _library("admm_stage")
-        _designs[key] = ("cluster" if lib.admm_stage_factored_design(
-            nfd, m_p, m_blk, bsz, nb_p, THREADS) else "stream")
-    return _designs[key]
+    """The design ``admm_stage_fused_factored`` launches (``stage_design``)."""
+    return stage_design("admm_stage_fused_factored", nfd, m_p, m_blk, bsz,
+                        nb_p)
 
 
-def cluster_occupancy(nfd: int, m_p: int, m_blk: int, bsz: int,
-                      nb_p: int) -> int:
-    """Clusters of the cluster design the current device holds at once
-    (``cudaOccupancyMaxActiveClusters``); raises on a CUDA error."""
+def fused_design(nfd: int, m_p: int, nb_p: int) -> str:
+    """The design ``admm_stage_fused`` launches (``stage_design``)."""
+    return stage_design("admm_stage_fused", nfd, m_p, 0, 0, nb_p)
+
+
+def ew_design(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int) -> str:
+    """The design ``admm_stage_fused_factored_ew`` launches
+    (``stage_design``)."""
+    return stage_design("admm_stage_fused_factored_ew", nfd, m_p, m_blk, bsz,
+                        nb_p)
+
+
+def cluster_occupancy(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
+                      kind: str = "admm_stage_fused_factored") -> int:
+    """Clusters of ``kind``'s cluster design the current device holds at
+    once at the block size it takes there (``cudaOccupancyMaxActive-
+    Clusters``); raises on a CUDA error."""
     n = int(_library("admm_stage").admm_stage_cluster_occupancy(
-        nfd, m_p, m_blk, bsz, nb_p, THREADS))
+        CLUSTER_ENTRIES[kind], nfd, m_p, m_blk, bsz, nb_p, THREADS))
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA "
                            f"error {-n}")
     return n
 
 
+def block_threads(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
+                  kind: str = "admm_stage_fused_factored") -> int:
+    """Threads a block of ``kind``'s cluster design takes at these shapes on
+    the current device, as its launcher chooses them (builds the library if
+    needed)."""
+    return int(_library("admm_stage").admm_stage_cluster_threads(
+        CLUSTER_ENTRIES[kind], nfd, m_p, m_blk, bsz, nb_p, THREADS))
+
+
 def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
-               kind: str = "admm_stage_fused_factored") -> int:
+               kind: str = "admm_stage_fused_factored",
+               design: Optional[str] = None) -> int:
     """Dynamic shared memory one block of a kernel of this module takes at
-    these shapes (builds the library if needed).  ``kind``: a key of
-    ``launches`` (``admm_stage_fused_factored``: of the design it takes
-    there, ``factored_design``) or "cluster" / "stream" for either design
-    of it; ``m_blk`` and ``bsz`` are read by the factored stages only,
-    ``bsz`` (the band block) by the Gram-band kernels."""
+    these shapes, as the library computes it (builds it if needed).
+    ``kind``: a key of ``launches``; for a stage entry point with a cluster
+    design, ``design`` "cluster" or "stream" names either, None the one it
+    takes there (``stage_design``).  ``m_blk`` and ``bsz`` are read by the
+    factored stages only, ``bsz`` (the band block) by the Gram-band
+    kernels."""
     if kind.startswith("gram_band"):
         return int(_library("gram_band").gram_band_smem_bytes(m_p, bsz))
     lib = _library("admm_stage")
-    if kind == "admm_stage_fused_factored":
-        kind = factored_design(nfd, m_p, m_blk, bsz, nb_p)
-    if kind == "cluster":
-        return int(lib.admm_stage_cluster_smem_bytes(nfd, m_p, m_blk, bsz,
-                                                     nb_p))
-    if kind in ("stream", "admm_stage_fused_factored_ew"):
-        return int(lib.admm_stage_smem_bytes(nfd, m_p, m_blk, bsz, nb_p,
-                                             THREADS))
-    fn = (lib.admm_stage_fused_smem_bytes if kind == "admm_stage_fused"
-          else lib.admm_stage_iter_smem_bytes)
-    return int(fn(nfd, m_p, nb_p, THREADS))
+    if kind in CLUSTER_ENTRIES:
+        design = design or stage_design(kind, nfd, m_p, m_blk, bsz, nb_p)
+        if design == "cluster":
+            return int(lib.admm_stage_cluster_smem_bytes(
+                CLUSTER_ENTRIES[kind], nfd, m_p, m_blk, bsz, nb_p))
+    if kind == "admm_stage":
+        return int(lib.admm_stage_iter_smem_bytes(nfd, m_p, nb_p, THREADS))
+    if kind == "admm_stage_fused":
+        return int(lib.admm_stage_fused_smem_bytes(nfd, m_p, nb_p, THREADS))
+    return int(lib.admm_stage_smem_bytes(nfd, m_p, m_blk, bsz, nb_p,
+                                         THREADS))
 
 
 def _check(name: str, a: torch.Tensor, shape, device) -> None:
@@ -608,8 +735,10 @@ def admm_stage_fused_factored_ew(
     e (B, nf, m_p) and w (B, 3, m_p), ``gt[:, p*3 + d] = e[:, p] * w[:, d]``
     (``expand_gt``); the other arguments and the seven outputs as there.
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``ew_design`` names for these shapes; CPU tensors through the plain
+    version (the reference order).  Anything the kernel does not take
+    raises.
     """
     if n_ball < 0:
         n_ball = nb_p
@@ -637,11 +766,14 @@ def admm_stage_fused_factored_ew(
                          nb_p, dev)
 
     lib = _library("admm_stage")
-    # Scratch for W^-1 G^T, as in the factored wrapper.
-    m1 = torch.empty((bsz_b, nfd, m_p), dtype=torch.float32, device=dev)
     x, (z, zp, u, y), (prim, dual) = _stage_outputs(bsz_b, nfd, m_p, dev,
                                                     True)
     with torch.cuda.device(dev):
+        # Scratch for W^-1 G^T on the stream design only, as in the factored
+        # wrapper.
+        m1 = (None if ew_design(nfd, m_p, m_blk, bsz, nb_p) == "cluster"
+              else torch.empty((bsz_b, nfd, m_p), dtype=torch.float32,
+                               device=dev))
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.admm_stage_fused_factored_ew_launch(
             rho.data_ptr(), sinv.data_ptr(), t.data_ptr(), tt.data_ptr(),
@@ -649,7 +781,8 @@ def admm_stage_fused_factored_ew(
             xq.data_ptr(), x0.data_ptr(),
             None if init_z else z0.data_ptr(),
             None if init_z else u0.data_ptr(),
-            m1.data_ptr(), x.data_ptr(), z.data_ptr(), zp.data_ptr(),
+            None if m1 is None else m1.data_ptr(), x.data_ptr(),
+            z.data_ptr(), zp.data_ptr(),
             u.data_ptr(), prim.data_ptr(), dual.data_ptr(), y.data_ptr(),
             bsz_b, nfd, m_p, m_blk, bsz, nb_p, n_ball, int(n_iters),
             float(alpha), int(bool(init_z)), THREADS, stream)
@@ -665,9 +798,9 @@ def admm_stage_fused(rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
                      u0: Optional[torch.Tensor] = None, *, n_iters: int,
                      alpha: float, nb_p: int, n_ball: int = -1,
                      init_z: bool = True) -> StageOut:
-    """One fused ADMM stage from a dense KKT inverse, for a flat batch: m1 =
-    winv G^T is formed in the kernel, then the phases of
-    ``admm_stage_fused_factored``.
+    """One fused ADMM stage from a dense KKT inverse, for a flat batch: the
+    phases of ``admm_stage_fused_factored`` with W^-1 = winv given (its rows
+    as given; it need not be symmetric).
 
     Args:
       rho: (B, 1, 1).  winv: (B, nfd, nfd) KKT inverse.  gt: (B, nfd, m_p).
@@ -676,8 +809,10 @@ def admm_stage_fused(rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
 
     Returns the seven outputs of ``admm_stage_fused_factored``.
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``fused_design`` names for these shapes (the stream one forms m1 = winv
+    G^T in the kernel); CPU tensors through the plain version (the
+    reference order).  Anything the kernel does not take raises.
     """
     if n_ball < 0:
         n_ball = nb_p
@@ -697,17 +832,21 @@ def admm_stage_fused(rho: torch.Tensor, winv: torch.Tensor, gt: torch.Tensor,
                          nb_p, dev)
 
     lib = _library("admm_stage")
-    m1 = torch.empty_like(gt)          # scratch, as in the factored wrapper
     x, (z, zp, u, y), (prim, dual) = _stage_outputs(bsz_b, nfd, m_p, dev,
                                                     True)
     with torch.cuda.device(dev):
+        # scratch for winv G^T on the stream design only, as in the
+        # factored wrapper
+        m1 = (None if fused_design(nfd, m_p, nb_p) == "cluster"
+              else torch.empty_like(gt))
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.admm_stage_fused_launch(
             rho.data_ptr(), winv.data_ptr(), gt.data_ptr(), b.data_ptr(),
             rb.data_ptr(), xq.data_ptr(), x0.data_ptr(),
             None if init_z else z0.data_ptr(),
             None if init_z else u0.data_ptr(),
-            m1.data_ptr(), x.data_ptr(), z.data_ptr(), zp.data_ptr(),
+            None if m1 is None else m1.data_ptr(), x.data_ptr(),
+            z.data_ptr(), zp.data_ptr(),
             u.data_ptr(), prim.data_ptr(), dual.data_ptr(), y.data_ptr(),
             bsz_b, nfd, m_p, nb_p, n_ball, int(n_iters), float(alpha),
             int(bool(init_z)), THREADS, stream)

@@ -133,14 +133,24 @@ def spd_block_tridiag_solve_factored_rows(
         s_inv: Sequence[torch.Tensor], t: Sequence[Optional[torch.Tensor]],
         r: Sequence[torch.Tensor]) -> torch.Tensor:
     """``spd_block_tridiag_solve_factored`` with the right-hand side given
-    as its m block rows r[i] (..., b, R)."""
+    as its m block rows r[i] (..., b, R).  Z is written into the result (each
+    block row by its product, no copy) and X formed over it in place, so
+    that besides the result only one block row of Y is held (a dense inverse
+    is 448 MB at 6144 scenarios of n = 135)."""
     m = len(s_inv)
-    y = [r[0]]
-    for i in range(1, m):
-        y.append(r[i] - t[i] @ y[i - 1])
-    z = [s_inv[i] @ y[i] for i in range(m)]
-    x: List[Optional[torch.Tensor]] = [None] * m
-    x[m - 1] = z[m - 1]
+    bsz = s_inv[0].shape[-1]
+    batch = torch.broadcast_shapes(s_inv[0].shape[:-2], r[0].shape[:-2])
+    x = torch.empty(batch + (m * bsz, r[0].shape[-1]),
+                    dtype=torch.promote_types(s_inv[0].dtype, r[0].dtype),
+                    device=s_inv[0].device)
+    y = r[0]
+    for i in range(m):
+        if i:
+            y = r[i] - t[i] @ y
+        torch.matmul(s_inv[i], y.expand(batch + y.shape[-2:]),
+                     out=x[..., i * bsz:(i + 1) * bsz, :])
     for i in range(m - 2, -1, -1):
-        x[i] = z[i] - t[i + 1].transpose(-1, -2) @ x[i + 1]
-    return torch.cat(x, dim=-2)
+        x[..., i * bsz:(i + 1) * bsz, :] -= (
+            t[i + 1].transpose(-1, -2)
+            @ x[..., (i + 1) * bsz:(i + 2) * bsz, :])
+    return x

@@ -3,8 +3,12 @@
 
     python3 stage_profile.py              # kernel 1, K=10, batch 6144
     python3 stage_profile.py --k 4 --batch 512
+    python3 stage_profile.py --kernel admm_stage_fused   # #2, route (a)
+    python3 stage_profile.py --kernel admm_stage_ew      # #3, the ew route
+    python3 stage_profile.py --kernel admm_stage_fused --k 2 --designs
     python3 stage_profile.py --kernel ipm_pipe   # #8, the strict tier 0 call
     python3 stage_profile.py --kernel ipm_solve  # #11, the fused polish
+    python3 stage_profile.py --paths --root _parent   # paths, another tree
 
 Builds the kernel's source with its profile macro (the kernel then adds, in
 thread 0 of its first block, the clock64 cycles of each phase to a device
@@ -15,7 +19,17 @@ cycles of one scenario by phase, the kernel's time with the counters in
 * ``admm_stage`` (kernel 1, ``-DADMM_STAGE_PROFILE``): on the headline's
   stage inputs; the per-iteration phases as a mean over the iterations, the
   time at 0, 1 and the config's iterations, so that set-up and iterations
-  part.
+  part.  ``admm_stage_fused`` (#2) and ``admm_stage_ew`` (#3) run the same
+  cluster body, so the same marks: #2 on the stage inputs of the dense
+  route (a) (``kkt_apply="inverse"``; W^-1 is given, so its ``w_inverse``
+  phase is empty), #3 on those of the ``gt_assembly="kernel"`` route.
+  With ``--designs`` no profile: the call timed in the cluster design at
+  the block size its launcher takes (512 threads an SM over as many blocks
+  as the shared memory holds) and at each of 512, 256, 128 and 64 threads
+  (``-DADMM_STAGE_CLUSTER_THREADS=n``, which every shape then takes), each
+  one's outputs against the launcher's bits, and in the stream design
+  (``-DADMM_STAGE_STREAM``, which every shape then takes), alternated:
+  stream, the launcher's, 512 .. 64, 64 .. 512, the launcher's, stream.
 * ``ipm_pipe`` (#8, ``-DIPM_PIPE_PROFILE``): on the call tier 0 of the
   strict router makes at this batch (upd_mode snap, eval_mode snap),
   recorded from one strict pass on seed 0; two blocks are profiled, rank 0
@@ -33,12 +47,24 @@ cycles of one scenario by phase, the kernel's time with the counters in
   with the counters compiled out, the same call timed in the cluster design
   and in the one-block body (``-DIPM_SOLVE_STREAM``, which every shape then
   takes), alternated: cluster, one-block, one-block, cluster.
+* ``--paths`` (no profile, no kernel build of its own): the paths the stage
+  kernels sit on, through the public entry points of the package found
+  under ``--root`` (default: this checkout; an unpacked copy of another
+  commit times that commit's package, so that one machine alternates two
+  trees process by process): the headline (K=10), the dense route (a)
+  (K=10, ``kkt_apply="inverse"``), the dense route (c) (K=2) and the strict
+  router with its defaults, seed 0, each ``--reps`` passes after a warm-up,
+  by CUDA events and on the host's clock; and the host time of one call of
+  each stage wrapper those paths make (kernel 1 on the headline, #2 on
+  route (c)), the mean of 20 calls queued with no synchronisation between
+  them, so that the card's time is not in it.
 
 Exits 2 without a CUDA device.
 """
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import statistics
@@ -96,16 +122,29 @@ def smi():
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel",
-                        choices=("admm_stage", "ipm_pipe", "ipm_solve"),
+                        choices=("admm_stage", "admm_stage_fused",
+                                 "admm_stage_ew", "ipm_pipe", "ipm_solve"),
                         default="admm_stage")
     parser.add_argument("--k", type=int, default=10)
     parser.add_argument("--batch", type=int, default=6144)
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--designs", action="store_true",
+                        help="time the stage entry point's cluster design "
+                        "at each block size and its stream design instead "
+                        "of profiling it")
+    parser.add_argument("--paths", action="store_true",
+                        help="time the paths the stage kernels sit on and "
+                        "their wrappers' host time instead (see the top)")
+    parser.add_argument("--root", default=None,
+                        help="with --paths: the tree whose package is "
+                        "timed (default: this checkout)")
     opts = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("stage_profile: no CUDA device", file=sys.stderr)
         return 2
+    if opts.paths:
+        return paths_timing(opts)
     if opts.kernel == "ipm_pipe":
         return pipe_profile(opts)
     if opts.kernel == "ipm_solve":
@@ -115,6 +154,42 @@ def main():
     from mav_tube_trajectory_generation_tpu_torch import _build
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
 
+    cfg = chip_smoke.bench_config(mtt)
+    if opts.kernel == "admm_stage_fused":
+        kind = "admm_stage_fused"
+        inp = chip_smoke.route_inputs(mtt, opts.k, opts.batch, seed=0,
+                                      config=cfg)
+        args, kw = inp["fused"], inp["kw"]
+        del inp
+        nfd, m_p = args[2].shape[1:]
+        m_blk = bsz = 0
+    elif opts.kernel == "admm_stage_ew":
+        kind = "admm_stage_fused_factored_ew"
+        inp = chip_smoke.ew_inputs(mtt, opts.k, opts.batch, seed=0,
+                                   config=cfg)
+        args, kw = inp["stage"] + (inp["x0"],), inp["kw"]
+        del inp
+        nfd, m_p = 3 * args[4].shape[1], args[4].shape[2]
+        m_blk, bsz = args[1].shape[1], args[1].shape[-1]
+    else:
+        kind = "admm_stage_fused_factored"
+        args, kw = chip_smoke.stage_inputs(mtt, opts.k, opts.batch, seed=0,
+                                           config=cfg)
+        nfd, m_p = args[4].shape[1:]
+        m_blk, bsz = args[1].shape[1], args[1].shape[-1]
+    design = admm_kernel.stage_design(kind, nfd, m_p, m_blk, bsz, kw["nb_p"])
+    if design != "cluster":
+        print(f"stage_profile: this shape takes the {design} design",
+              file=sys.stderr)
+        return 3
+    wrapper = getattr(admm_kernel, kind)
+
+    def run(n_iters):
+        return wrapper(*args, init_z=True, **dict(kw, n_iters=n_iters))
+
+    if opts.designs:
+        return designs_timing(opts, kind, lambda: run(kw["n_iters"]),
+                              (nfd, m_p, m_blk, bsz, kw["nb_p"]))
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     so = os.path.join(_build.BUILD_DIR, "libadmm_stage_profile.so")
     cmd = ([_build.find_nvcc()] + _build.NVCC_FLAGS
@@ -122,25 +197,12 @@ def main():
               os.path.join(_build.CSRC_DIR, "admm_stage.cu")])
     subprocess.run(cmd, check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    # The wrapper declares its signatures on whatever library the name holds.
+    # The wrapper declares its signatures on whatever library the name
+    # holds; the design it took is asked of that library again.
     _build._LIBS["admm_stage"] = lib
+    admm_kernel._designs.clear()
     lib.admm_stage_profile_read.argtypes = [ctypes.c_void_p]
     counts = (ctypes.c_ulonglong * 16)()
-
-    cfg = chip_smoke.bench_config(mtt)
-    args, kw = chip_smoke.stage_inputs(mtt, opts.k, opts.batch, seed=0,
-                                       config=cfg)
-    nfd, m_p = args[4].shape[1:]
-    design = admm_kernel.factored_design(nfd, m_p, args[1].shape[1],
-                                         args[1].shape[-1], kw["nb_p"])
-    if design != "cluster":
-        print(f"stage_profile: this shape takes the {design} design",
-              file=sys.stderr)
-        return 3
-
-    def run(n_iters):
-        return admm_kernel.admm_stage_fused_factored(
-            *args, init_z=True, **dict(kw, n_iters=n_iters))
 
     ms = {n: chip_smoke.cuda_ms(lambda: run(n), reps=opts.reps)
           for n in sorted({0, 1, kw["n_iters"]})}
@@ -154,12 +216,148 @@ def main():
         c = counts[i] / opts.reps
         cycles[name] = c / kw["n_iters"] if name in PER_ITERATION else c
     print(json.dumps(dict(
-        kernel="admm_stage_fused_factored", k=opts.k, batch=opts.batch,
+        kernel=kind, k=opts.k, batch=opts.batch,
         nfd=nfd, m_p=m_p, n_iters=kw["n_iters"],
         design=design, cycles_one_scenario=sum(counts[i] for i in range(11))
         / opts.reps, cycles_by_phase=cycles,
         per_iteration_phases=list(PER_ITERATION),
         ms_with_counters_by_n_iters=ms, nvidia_smi=smi())))
+    return 0
+
+
+BLOCK_THREADS = (512, 256, 128, 64)
+# The host-time measure of --paths: calls queued without synchronising.
+HOST_CALLS = 20
+
+
+def paths_timing(opts):
+    """The --paths report (see the top)."""
+    import time
+    import torch
+    root = os.path.abspath(opts.root or os.path.dirname(__file__))
+    sys.path.insert(0, root)
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    if not os.path.dirname(mtt.__file__).startswith(root):
+        raise RuntimeError(f"stage_profile: the package came from "
+                           f"{mtt.__file__}, not from {root}")
+    build_s = _build.prebuild()
+    config = mtt.ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
+                            rho_tube_factor=0.125, rho_half_factor=0.125)
+    inputs = {k: mtt.make_inputs(k, opts.batch, seed=0) for k in (2, 10)}
+
+    def batch_solve(k, **over):
+        sc, cfg = inputs[k], dataclasses.replace(config, **over)
+        return lambda: mtt.solve_qcqp_batch(
+            sc.free, sc.d_fixed_free, sc.times, sc.waypoints, sc.radii,
+            config=cfg, warmstart_values=sc.values)
+
+    sc10 = inputs[10]
+    paths = {
+        "headline_k10": batch_solve(10),
+        "dense_route_a_k10": batch_solve(10, kkt_apply="inverse"),
+        "dense_route_c_k2": batch_solve(2),
+        "strict_k10": lambda: mtt.solve_qcqp_strict(
+            sc10.free, sc10.d_fixed_free, sc10.times, sc10.waypoints,
+            sc10.radii, warmstart_values=sc10.values)}
+    # one call of each stage wrapper as its path makes it
+    calls = {}
+    for name, path in (("admm_stage_fused_factored", "headline_k10"),
+                       ("admm_stage_fused", "dense_route_c_k2")):
+        wrapper = getattr(admm_kernel, name)
+
+        def record(*a, _name=name, _wrapper=wrapper, **kw):
+            calls.setdefault(_name, (a, kw))
+            return _wrapper(*a, **kw)
+        setattr(admm_kernel, name, record)
+        try:
+            paths[path]()
+        finally:
+            setattr(admm_kernel, name, wrapper)
+    torch.cuda.synchronize()
+    out = dict(root=root, batch=opts.batch, reps=opts.reps,
+               build_seconds=build_s)
+    for name, run in paths.items():
+        run()                                             # warm-up
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(opts.reps + 1)]
+        wall = []
+        marks[0].record()
+        for i in range(opts.reps):
+            t0 = time.perf_counter()
+            run()
+            marks[i + 1].record()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict(
+            ms=[marks[i].elapsed_time(marks[i + 1])
+                for i in range(opts.reps)], wall_ms=wall)
+    host = {}
+    for name, (a, kw) in calls.items():
+        fn = getattr(admm_kernel, name)
+        fn(*a, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn(*a, **kw)
+        host[name] = (time.perf_counter() - t0) * 1e6 / HOST_CALLS
+        torch.cuda.synchronize()
+    out.update(wrapper_host_us_a_call=host, nvidia_smi=smi())
+    print(json.dumps(out))
+    return 0
+
+
+def designs_timing(opts, kind, run, shapes):
+    """The --designs report of a stage entry point (see the top)."""
+    import torch
+    import chip_smoke
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+
+    shipped = _build.load("admm_stage")
+    builds = {t: ("admm_stage", (f"ADMM_STAGE_CLUSTER_THREADS={t}",))
+              for t in BLOCK_THREADS}
+    builds["stream"] = ("admm_stage", ("ADMM_STAGE_STREAM",))
+    _build.prebuild(names=(), variants=builds.values())
+    libs = {k: _build.variant(*v) for k, v in builds.items()}
+    libs["launcher"] = shipped
+
+    def timed(name):
+        # the design is asked of the library in use
+        _build._LIBS["admm_stage"] = libs[name]
+        admm_kernel._designs.clear()
+        try:
+            ms = chip_smoke.cuda_ms(run, reps=opts.reps)
+            out = run()
+            torch.cuda.synchronize()
+            return ms, out
+        finally:
+            _build._LIBS["admm_stage"] = shipped
+            admm_kernel._designs.clear()
+
+    order = (("stream", "launcher") + BLOCK_THREADS + BLOCK_THREADS[::-1]
+             + ("launcher", "stream"))
+    ms = {name: [] for name in libs}
+    ref = timed("launcher")[1]
+    same_bits = {}
+    for name in order:
+        t, out = timed(name)
+        ms[name].append(t)
+        if name != "stream":
+            same_bits[name] = all(torch.equal(a, b)
+                                  for a, b in zip(out, ref))
+    nfd, m_p, m_blk, bsz, nb_p = shapes
+    print(json.dumps(dict(
+        kernel=kind, k=opts.k, batch=opts.batch, nfd=nfd, m_p=m_p,
+        design=admm_kernel.stage_design(kind, *shapes),
+        launcher_block_threads=admm_kernel.block_threads(*shapes, kind),
+        cluster_ms_launcher=ms.pop("launcher"), stream_ms=ms.pop("stream"),
+        cluster_ms_by_block_threads=ms, same_bits_as_launcher=same_bits,
+        order="stream, launcher's block size, 512 .. 64 threads, 64 .. 512, "
+        "launcher's, stream; CUDA events, mean of --reps launches each",
+        nvidia_smi=smi())))
     return 0
 
 

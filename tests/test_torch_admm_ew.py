@@ -22,7 +22,17 @@ Tolerances, and why:
 * on the card, each kernel against its plain version: 2e-4 of scale for the
   stage (rsqrtf is not correctly rounded there; sums run in another order),
   1e-5 for the band, as the other kernels' card tests; against its G^T
-  kernel on the expanded G^T: equal.
+  kernel on the expanded G^T: equal for the band, the stage's 2e-4 for the
+  stage;
+* #3's cluster design keeps e and w on chip, forms each G^T entry from them
+  rounded as ``expand_gt`` rounds it and sums x = xq + rho W^-1 (G^T v):
+  ``admm_stage_fused_factored_ew_winv_plain`` is that order in plain
+  PyTorch (kernel 1's cluster order on the expanded G^T, the same bits),
+  held against the Pallas kernel and in float64 as
+  ``test_torch_admm_routes.py`` holds #2's (the reference order in float64,
+  no further than thrice the float32 runs of the reference order plus 1e-6
+  of scale; 1e-9 of scale in float64), and the solve it gives in place of
+  the stage to the JAX ew route at the KKT routes' cost-gap limits.
 """
 
 import functools
@@ -42,7 +52,8 @@ from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as tkernel
 from mav_tube_trajectory_generation_tpu_torch.solver import banded as tbanded
 from mav_tube_trajectory_generation_tpu_torch.solver import qcqp as tqcqp
 
-from torch_port_util import BENCH_KW, N, problem, to_np, tt
+from torch_port_util import (BENCH_KW, H100_SMEM_OPTIN, N, blocks_an_sm,
+                             problem, to_np, tt)
 
 B = 8
 K = 4
@@ -62,15 +73,21 @@ def _structure(k=K):
     return mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N)
 
 
+def _layout_args(k):
+    """(nfd, m_p, m_blk, nb_p) of the K-segment headline structure."""
+    lay = tqcqp._flagship_layout(_structure(k))
+    return 15 * (k - 1), lay.m_p, k - 1, lay.nb_p
+
+
 def _args(p, k=K):
     ts = _structure(k)
     d_fixed = mtt.extract_fixed_values(ts, tt(p["values"]))
     return ts, (ts, d_fixed, p["times"], p["waypoints"], p["radii"])
 
 
-def _port_pre(p, cfg):
+def _port_pre(p, cfg, k=K):
     """The port's pre-stage bundle of problem ``p`` on ``cfg``'s route."""
-    ts = _structure()
+    ts = _structure(k)
     return tqcqp._pre(ts, mtt.extract_fixed_values(ts, tt(p["values"])),
                       tt(p["times"]), tt(p["waypoints"]), tt(p["radii"]), cfg,
                       None, tqcqp._flagship_layout(ts),
@@ -78,16 +95,16 @@ def _port_pre(p, cfg):
 
 
 @functools.lru_cache(maxsize=None)
-def _ew_inputs():
+def _ew_inputs(k=K):
     """The stage and band inputs of the ew route as the port assembles them
     (float32, at the headline's rho), as NumPy, with z/u carried from one
     JAX ew stage (u halved, as a rebalancing of rho would) for the
     later-stage case."""
-    p = problem(k=K, batch=B, seed=0)
-    ts = _structure()
+    p = problem(k=k, batch=B, seed=0)
+    ts = _structure(k)
     cfg = mtt.ADMMConfig(**BENCH_KW, **EW)
     layout = tqcqp._flagship_layout(ts)
-    pre = _port_pre(p, cfg)
+    pre = _port_pre(p, cfg, k)
     kkt = tqcqp._kkt_setup(cfg, pre, tbanded.kkt_tridiag_block(ts))
     rho = torch.full((B, 1, 1), cfg.rho)
     sinv, t_st, tt_st, xq = tqcqp._stage_factors(
@@ -126,8 +143,8 @@ def _band_inputs(source):
     return _ew_inputs()[0] if source == "real" else _random_band_inputs()
 
 
-def _stage_call(init_z):
-    inp, kw, _, _ = _ew_inputs()
+def _stage_call(init_z, k=K):
+    inp, kw, _, _ = _ew_inputs(k)
     names = STAGE_ARGS + (("x0",) if init_z else ("x1", "z1", "u1"))
     return [inp[n] for n in names], dict(kw, init_z=init_z)
 
@@ -346,6 +363,147 @@ def test_wrappers_take_cpu_and_cuda_tensors_only():
 
 
 # ---------------------------------------------------------------------------
+# #3's cluster design: its order, its shared memory, its choice.
+# ---------------------------------------------------------------------------
+
+F64_RTOL = 1e-9
+COST_GAP_MEDIAN = 1e-3
+COST_GAP_P99 = 1e-2
+
+
+@pytest.mark.parametrize("k", [4, 10])
+def test_ew_winv_order_f32_against_pallas(k):
+    """Per output, no further from the reference order run in float64 than
+    float32 runs of the reference order are (the Pallas ew kernel's and the
+    port's plain version's, the larger) thrice over, plus 1e-6 of the
+    output's scale."""
+    args, kw = _stage_call(True, k)
+    ref = jkernel.admm_stage_fused_factored_ew(
+        *(jnp.asarray(a) for a in args), interpret=True, **kw)
+    ours = tkernel.admm_stage_fused_factored_ew_winv_plain(
+        *(tt(a) for a in args), **kw)
+    ref32 = tkernel.admm_stage_fused_factored_ew_plain(
+        *(tt(a) for a in args), **kw)
+    ref64 = tkernel.admm_stage_fused_factored_ew_plain(
+        *(tt(a, torch.float64) for a in args), **kw)
+    for a, r, p, c, name in zip(ours, ref, ref32, ref64, STAGE_NAMES):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        c = to_np(c)
+        scale = _scale(c)
+        err = np.abs(to_np(a).astype(np.float64) - c).max()
+        floor = max(np.abs(np.asarray(r, np.float64) - c).max(),
+                    np.abs(to_np(p).astype(np.float64) - c).max())
+        assert err <= 3.0 * floor + 1e-6 * scale, (name, err, floor)
+
+
+@pytest.mark.parametrize("k", [4, 10])
+def test_ew_winv_order_f64_matches_reference_order(k):
+    """In float64 only rounding parts the two orders; in float32 the twin
+    is kernel 1's cluster order on the expanded G^T, bit for bit."""
+    for init_z in (True, False):
+        args, kw = _stage_call(init_z, k)
+        args = [tt(a, torch.float64) for a in args]
+        ours = tkernel.admm_stage_fused_factored_ew_winv_plain(*args, **kw)
+        ref = tkernel.admm_stage_fused_factored_ew_plain(*args, **kw)
+        for a, r, name in zip(ours, ref, STAGE_NAMES):
+            assert a.dtype == torch.float64
+            r = to_np(r)
+            np.testing.assert_allclose(to_np(a), r, rtol=0,
+                                       atol=F64_RTOL * _scale(r),
+                                       err_msg=name)
+    args, kw = _stage_call(False, k)
+    args = [tt(a) for a in args]
+    ours = tkernel.admm_stage_fused_factored_ew_winv_plain(*args, **kw)
+    ref = tkernel.admm_stage_fused_factored_winv_plain(
+        *args[:4], tkernel.expand_gt(args[4], args[5]), *args[6:], **kw)
+    for a, r, name in zip(ours, ref, STAGE_NAMES):
+        np.testing.assert_array_equal(to_np(a), to_np(r), err_msg=name)
+
+
+def test_ew_winv_order_cost_gap_against_jax(monkeypatch):
+    """The whole solve on the ew route with the stage in its cluster
+    design's order (its plain version in place of the wrapper) against the
+    JAX package's ew route with its Pallas kernels in interpret mode, on the
+    same scenarios, at the benchmark's 48 iterations and one stage."""
+    p = problem(k=K, batch=B, seed=0)
+    jfree = jsm.make_structure(jsm.free_interior_mask(K + 1, N), 3, N)
+    vals = jnp.asarray(p["values"])
+    names = ("admm_stage_fused_factored_ew", "gram_band_factors_ew")
+    for n in names:
+        monkeypatch.setattr(jkernel, n, functools.partial(
+            getattr(jkernel, n), interpret=True))
+    ref = jqcqp.solve_qcqp_batch(
+        jfree, jlinear.extract_fixed_values(jfree, vals),
+        jnp.asarray(p["times"]), jnp.asarray(p["waypoints"]),
+        jnp.asarray(p["radii"]), config=jqcqp.ADMMConfig(
+            use_pallas=True, n_stages=1, **BENCH_KW, **EW),
+        warmstart_values=vals, scenario_block=4)
+    calls = []
+
+    def twin(*a, **kw):
+        calls.append(1)
+        return tkernel.admm_stage_fused_factored_ew_winv_plain(*a, **kw)
+    monkeypatch.setattr(tkernel, "admm_stage_fused_factored_ew", twin)
+    _, args = _args(p)
+    ours = mtt.solve_qcqp_batch(
+        *args, config=mtt.ADMMConfig(n_stages=1, **BENCH_KW, **EW),
+        device="cpu", warmstart_values=p["values"])
+    assert calls == [1]
+    c_ours = to_np(ours.cost).astype(np.float64)
+    c_ref = np.asarray(ref.cost, np.float64)
+    gap = np.abs(c_ours - c_ref) / np.abs(c_ref)
+    assert np.isfinite(gap).all()
+    assert np.median(gap) <= COST_GAP_MEDIAN, gap
+    assert np.quantile(gap, 0.99) <= COST_GAP_P99, gap
+
+
+@pytest.mark.parametrize("k,fits,threads", [
+    (4, True, 64), (6, True, 128), (10, True, 512), (12, True, 512),
+    (13, True, 512), (14, False, None)])
+def test_ew_cluster_layout_within_the_h100_budget(k, fits, threads):
+    """A block of #3's cluster design holds W^-1 and its lanes' share of e
+    (nfd / 3 rows) and w (3 rows) -- a third of G^T's share -- within the
+    232,448 B an H100 block may take up to K=13 (kernel 1's and #2's
+    layouts only to K=10) and not at K=14 (its launcher's choice on the
+    card: ``test_ew_cluster_layout_on_the_card``); the block size the card
+    takes keeps an SM at 512 threads over the blocks its shared memory
+    holds, or is the fewest, 64."""
+    nfd, m_p, m_blk, nb_p = _layout_args(k)
+    kind = "admm_stage_fused_factored_ew"
+    got = tkernel.cluster_smem_bytes(kind, nfd, m_p, m_blk, 15, nb_p)
+    assert (got <= H100_SMEM_OPTIN) == fits
+    assert got < tkernel.cluster_smem_bytes("admm_stage_fused_factored", nfd,
+                                            m_p, m_blk, 15, nb_p)
+    if fits:
+        assert threads * blocks_an_sm(got) <= 512 or threads == 64
+    if k == 10:
+        assert got == 133808
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,fits,threads", [
+    (4, True, 64), (6, True, 128), (10, True, 512), (12, True, 512),
+    (13, True, 512), (14, False, None)])
+def test_ew_cluster_layout_on_the_card(k, fits, threads):
+    """#3's launcher, asked on the card, takes the cluster design exactly
+    where its layout fits, at the block size stated, with the layout's
+    bytes as ``cluster_smem_bytes`` computes them.  Needs an NVIDIA card and
+    nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    nfd, m_p, m_blk, nb_p = _layout_args(k)
+    kind = "admm_stage_fused_factored_ew"
+    assert tkernel.ew_design(nfd, m_p, m_blk, 15, nb_p) == \
+        ("cluster" if fits else "stream")
+    assert tkernel.smem_bytes(nfd, m_p, m_blk, 15, nb_p, kind,
+                              design="cluster") == \
+        tkernel.cluster_smem_bytes(kind, nfd, m_p, m_blk, 15, nb_p)
+    if fits:
+        assert tkernel.block_threads(nfd, m_p, m_blk, 15, nb_p, kind) == \
+            threads
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version.
 # ---------------------------------------------------------------------------
 
@@ -362,8 +520,11 @@ def _card_case(name):
                 tkernel.gram_band_factors, args, dict(blk=15, sigma=SIGMA),
                 1e-5, 0)
     args, kw = _stage_call(name == "stage")
+    # K=4 takes the cluster design: held to the plain version in its order
+    assert tkernel.ew_design(*_layout_args(K)[:3], 15,
+                             _layout_args(K)[3]) == "cluster"
     return (tkernel.admm_stage_fused_factored_ew,
-            tkernel.admm_stage_fused_factored_ew_plain,
+            tkernel.admm_stage_fused_factored_ew_winv_plain,
             tkernel.admm_stage_fused_factored,
             tuple(tt(a).contiguous().to(dev) for a in args), kw, 2e-4,
             STAGE_ARGS.index("e"))
@@ -389,9 +550,9 @@ def test_ew_kernels_on_the_card_match_plain(name):
     gt_args = args[:i] + (tkernel.expand_gt(args[i], args[i + 1]),) + \
         args[i + 2:]
     # against the kernel of the stored G^T: the band kernels share one
-    # order of sums (the same bits); #3 keeps the stream body's order while
-    # kernel 1 sums in its cluster design's, so the stage is held to the bar
-    # it is held to against its plain version
+    # order of sums (the same bits); #3's cluster design forms the same
+    # G^T entries but sums them in other groups than kernel 1's, so the
+    # stage is held to the bar it is held to against its plain version
     for a, b in zip(ours, fn_gt(*gt_args, **kw)):
         if name.startswith("band"):
             assert torch.equal(a, b)
@@ -405,3 +566,45 @@ def test_ew_kernels_on_the_card_match_plain(name):
     strided[i] = args[i].mT.contiguous().mT
     with pytest.raises(ValueError, match="contiguous"):
         fn(*strided, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4, 10, 14])
+def test_ew_designs_on_the_card(k):
+    """#3 takes the design its shapes name (K=4 and K=10 cluster, in blocks
+    of 64 and 512 threads; K=14 stream), agrees with the plain version in
+    that design's order at 2e-4 of each output's scale in both entry modes,
+    gives the same bits run to run, and with alpha 1.62 for 1.6 does not
+    agree.  Needs an NVIDIA card and nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    nfd, m_p, m_blk, nb_p = _layout_args(k)
+    design = tkernel.ew_design(nfd, m_p, m_blk, 15, nb_p)
+    assert design == ("stream" if k == 14 else "cluster")
+    if design == "cluster":
+        assert tkernel.block_threads(nfd, m_p, m_blk, 15, nb_p,
+                                     "admm_stage_fused_factored_ew") == \
+            {4: 64, 10: 512}[k]
+    plain = (tkernel.admm_stage_fused_factored_ew_winv_plain
+             if design == "cluster"
+             else tkernel.admm_stage_fused_factored_ew_plain)
+    for init_z in (True, False):
+        args, kw = _stage_call(init_z, k)
+        args = [tt(a).contiguous().cuda() for a in args]
+        first = tkernel.admm_stage_fused_factored_ew(*args, **kw)
+        again = tkernel.admm_stage_fused_factored_ew(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        ref = [to_np(r) for r in plain(*args, **kw)]
+        # the dual, max|G^T (z - z_prev)|, scaled as
+        # test_stage_ew_plain_matches_pallas scales it: a row sum of |G^T|
+        # for each of z and z_prev
+        gt = to_np(tkernel.expand_gt(args[4], args[5]))
+        scales = [_scale(r) for r in ref]
+        scales[5] = max(scales[5], 2.0 * float(np.abs(gt).sum(-1).max()))
+        for a, r, sc in zip(first, ref, scales):
+            np.testing.assert_allclose(to_np(a), r, rtol=0, atol=2e-4 * sc)
+        wrong = tkernel.admm_stage_fused_factored_ew(
+            *args, **dict(kw, alpha=1.62))
+        assert any(np.abs(to_np(a) - r).max() > 2e-4 * sc
+                   for a, r, sc in zip(wrong, ref, scales))

@@ -24,7 +24,16 @@ Tolerances, and why:
 * whole solves in float64 through the plain versions against the reference
   layout path (``solve_qcqp``, ``use_pallas=False``): 1e-6 of each output's
   scale, only rounding differs;
-* the dense inverse from the band in float64: 1e-10 relative.
+* the dense inverse from the band in float64: 1e-10 relative;
+* #2's cluster design sums x = xq + rho W^-1 (G^T v) in place of xq + rho
+  (W^-1 G^T) v; ``admm_stage_fused_winv_plain`` is that order in plain
+  PyTorch, held, as ``test_torch_admm_stage.py`` holds kernel 1's, to the
+  reference order run in float64 no further than thrice the float32 runs of
+  the reference order (the Pallas kernel's and the port's, the larger) plus
+  1e-6 of scale; in float64 to the reference order at 1e-9 of scale (only
+  rounding parts the two orders); the solve it gives in place of the stage
+  to the JAX solve at the KKT routes' cost-gap limits (median 1e-3, 99th
+  percentile 1e-2 relative).
 """
 
 import contextlib
@@ -48,7 +57,8 @@ from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as tkernel
 from mav_tube_trajectory_generation_tpu_torch.solver import banded as tbanded
 from mav_tube_trajectory_generation_tpu_torch.solver import qcqp as tqcqp
 
-from torch_port_util import BENCH_KW, N, jax_pre, problem, to_np, tt
+from torch_port_util import (BENCH_KW, H100_SMEM_OPTIN, N, blocks_an_sm,
+                             jax_pre, problem, to_np, tt)
 
 B = 8
 ALPHA = 1.6
@@ -525,6 +535,148 @@ def test_wrappers_take_cpu_and_cuda_tensors_only():
 
 
 # ---------------------------------------------------------------------------
+# (v b) #2's cluster design: its order, its shared memory, its choice.
+# ---------------------------------------------------------------------------
+
+COST_GAP_MEDIAN = 1e-3
+COST_GAP_P99 = 1e-2
+F64_RTOL = 1e-9
+# #2's routes by K: K=2 has only the dense KKT; from K=3 the dense inverse
+# is kkt_apply="inverse" (dense_path (a) of chip_smoke.py)
+FUSED_ROUTE = {2: {}, 4: dict(kkt_apply="inverse"),
+               10: dict(kkt_apply="inverse")}
+
+
+def _fused_args(inp, init_z=True):
+    names = ("rho", "winv", "gt", "b", "rb", "xq") + (
+        ("x0",) if init_z else ("x1", "z1", "u1"))
+    return [inp[n] for n in names], dict(_stage_kw(inp), init_z=init_z)
+
+
+@pytest.mark.parametrize("k", [2, 4, 10])
+def test_fused_winv_order_f32_against_pallas(k):
+    """Per output, no further from the reference order run in float64 than
+    float32 runs of the reference order are (the JAX kernel's and the
+    port's plain version's, the larger) thrice over, plus 1e-6 of the
+    output's scale."""
+    args, kw = _fused_args(_stage_inputs(k))
+    ref = jkernel.admm_stage_fused(*(jnp.asarray(a) for a in args),
+                                   interpret=True, **kw)
+    ours = tkernel.admm_stage_fused_winv_plain(*(tt(a) for a in args), **kw)
+    ref32 = tkernel.admm_stage_fused_plain(*(tt(a) for a in args), **kw)
+    ref64 = tkernel.admm_stage_fused_plain(
+        *(tt(a, torch.float64) for a in args), **kw)
+    for a, r, p, c, name in zip(ours, ref, ref32, ref64, STAGE_NAMES):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        c = to_np(c)
+        scale = _scale(c)
+        err = np.abs(to_np(a).astype(np.float64) - c).max()
+        floor = max(np.abs(np.asarray(r, np.float64) - c).max(),
+                    np.abs(to_np(p).astype(np.float64) - c).max())
+        assert err <= 3.0 * floor + 1e-6 * scale, (name, err, floor)
+
+
+@pytest.mark.parametrize("k", [2, 4, 10])
+def test_fused_winv_order_f64_matches_reference_order(k):
+    inp = _stage_inputs(k)
+    for init_z in (True, False):
+        args, kw = _fused_args(inp, init_z)
+        args = [tt(a, torch.float64) for a in args]
+        ours = tkernel.admm_stage_fused_winv_plain(*args, **kw)
+        ref = tkernel.admm_stage_fused_plain(*args, **kw)
+        for a, r, name in zip(ours, ref, STAGE_NAMES):
+            assert a.dtype == torch.float64
+            np.testing.assert_allclose(to_np(a), to_np(r), rtol=0,
+                                       atol=F64_RTOL * _scale(to_np(r)),
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_fused_winv_order_cost_gap_against_jax(k, monkeypatch):
+    """The whole solve on #2's route with the stage in its cluster design's
+    order (its plain version in place of the wrapper) against the JAX
+    package's solve on the same route with its Pallas kernels in interpret
+    mode, on the same scenarios, at the benchmark's 48 iterations."""
+    over = FUSED_ROUTE[k]
+    p = problem(k=k, batch=B, seed=0)
+    ref = _solve_jax_pallas(p, k, over, 1, BENCH_KW["n_iters"])
+    calls = []
+
+    def twin(*a, **kw):
+        calls.append(1)
+        return tkernel.admm_stage_fused_winv_plain(*a, **kw)
+    monkeypatch.setattr(tkernel, "admm_stage_fused", twin)
+    ours = _solve_port(p, k, over, 1, BENCH_KW["n_iters"])
+    assert calls == [1]
+    c_ours = to_np(ours.cost).astype(np.float64)
+    c_ref = np.asarray(ref.cost, np.float64)
+    gap = np.abs(c_ours - c_ref) / np.abs(c_ref)
+    assert np.isfinite(gap).all()
+    assert np.median(gap) <= COST_GAP_MEDIAN, gap
+    assert np.quantile(gap, 0.99) <= COST_GAP_P99, gap
+
+
+def _layout(k):
+    ts = mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N)
+    lay = tqcqp._flagship_layout(ts)
+    return 15 * (k - 1), lay.m_p, k - 1, lay.nb_p
+
+
+@pytest.mark.parametrize("k,fits", [(2, True), (4, True), (10, True),
+                                    (12, False)])
+def test_fused_cluster_layout_within_the_h100_budget(k, fits):
+    """A block of #2's cluster design (W^-1 given: no sweep scratch; G^T's
+    share as kernel 1's) holds its share within the 232,448 B an H100 block
+    may take at K=2, K=4 and K=10 and not at K=12; the same bytes as kernel
+    1's layout, which forms W^-1 over the tail of G^T's share."""
+    nfd, m_p, m_blk, nb_p = _layout(k)
+    got = tkernel.cluster_smem_bytes("admm_stage_fused", nfd, m_p, m_blk, 15,
+                                     nb_p)
+    assert (got <= H100_SMEM_OPTIN) == fits
+    assert got == tkernel.cluster_smem_bytes(
+        "admm_stage_fused_factored", nfd, m_p, m_blk, 15, nb_p)
+    if k == 10:
+        assert got == 224288
+
+
+@pytest.mark.parametrize("k,design,threads", [
+    (2, "cluster", 64), (3, "cluster", 64), (4, "cluster", 128),
+    (6, "cluster", 256), (10, "cluster", 512), (11, "stream", None),
+    (12, "stream", None)])
+def test_fused_design_by_shape(k, design, threads):
+    """The design #2 takes at each shape on an H100: the cluster design
+    where its layout fits a block's 232,448 B, the stream design past it
+    (the launcher's choice on the card: ``test_fused_design_by_shape_on_the_
+    card``); the block size the card takes keeps an SM at 512 threads over
+    the blocks its shared memory holds (K=2: eight blocks of 64), or is the
+    fewest, 64."""
+    nfd, m_p, m_blk, nb_p = _layout(k)
+    got = tkernel.cluster_smem_bytes("admm_stage_fused", nfd, m_p, m_blk, 15,
+                                     nb_p)
+    assert ("cluster" if got <= H100_SMEM_OPTIN else "stream") == design
+    if design == "cluster":
+        assert threads * blocks_an_sm(got) <= 512 or threads == 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,design,threads", [
+    (2, "cluster", 64), (3, "cluster", 64), (4, "cluster", 128),
+    (6, "cluster", 256), (10, "cluster", 512), (11, "stream", None),
+    (12, "stream", None)])
+def test_fused_design_by_shape_on_the_card(k, design, threads):
+    """#2's launcher, asked on the card, takes the design and the block size
+    stated at each shape.  Needs an NVIDIA card and nvcc; skipped on hosts
+    without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    nfd, m_p, m_blk, nb_p = _layout(k)
+    assert tkernel.fused_design(nfd, m_p, nb_p) == design
+    if design == "cluster":
+        assert tkernel.block_threads(nfd, m_p, 0, 0, nb_p,
+                                     "admm_stage_fused") == threads
+
+
+# ---------------------------------------------------------------------------
 # (vi) on the card: each new kernel against its plain version.
 # ---------------------------------------------------------------------------
 
@@ -552,7 +704,9 @@ def _card_case(name):
     init_z = name == "admm_stage_fused"
     names = ("rho", "winv", "gt", "b", "rb", "xq") + (
         ("x0",) if init_z else ("x1", "z1", "u1"))
-    return (tkernel.admm_stage_fused, tkernel.admm_stage_fused_plain,
+    # K=4 takes the cluster design: held to the plain version in its order
+    assert tkernel.fused_design(*inp["gt"].shape[1:], kw["nb_p"]) == "cluster"
+    return (tkernel.admm_stage_fused, tkernel.admm_stage_fused_winv_plain,
             tuple(tt(inp[n]).to(dev) for n in names),
             dict(kw, init_z=init_z), 2e-4)
 
@@ -585,3 +739,39 @@ def test_new_kernels_on_the_card_match_plain(name):
     strided[i] = args[i].mT.contiguous().mT
     with pytest.raises(ValueError, match="contiguous"):
         fn(*strided, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 10])
+def test_fused_designs_on_the_card(k):
+    """#2 takes its cluster design (K=2 in blocks of 64 threads, K=4 of
+    128, K=10 of 512), agrees with the plain version in that design's order
+    at 2e-4 of each output's scale in both entry modes, gives the same bits
+    run to run, and with alpha 1.62 for 1.6 does not agree.  Needs an
+    NVIDIA card and nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    inp = _stage_inputs(k)
+    nfd, m_p = inp["gt"].shape[1:]
+    nb_p = inp["layout"].nb_p
+    assert tkernel.fused_design(nfd, m_p, nb_p) == "cluster"
+    assert tkernel.block_threads(nfd, m_p, 0, 0, nb_p, "admm_stage_fused") \
+        == {2: 64, 4: 128, 10: 512}[k]
+    plain = tkernel.admm_stage_fused_winv_plain
+    for init_z in (True, False):
+        args, kw = _fused_args(inp, init_z)
+        args = [tt(a).contiguous().cuda() for a in args]
+        first = tkernel.admm_stage_fused(*args, **kw)
+        again = tkernel.admm_stage_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        ref = [to_np(r) for r in plain(*args, **kw)]
+        # the dual, max|G^T (z - z_prev)|, scaled as _assert_stage_close
+        # scales it: a row sum of |G^T| for each of z and z_prev
+        scales = [_scale(r) for r in ref]
+        scales[5] = max(scales[5], 2.0 * float(np.abs(inp["gt"]).sum(-1).max()))
+        for a, r, sc in zip(first, ref, scales):
+            np.testing.assert_allclose(to_np(a), r, rtol=0, atol=2e-4 * sc)
+        wrong = tkernel.admm_stage_fused(*args, **dict(kw, alpha=1.62))
+        assert any(np.abs(to_np(a) - r).max() > 2e-4 * sc
+                   for a, r, sc in zip(wrong, ref, scales))

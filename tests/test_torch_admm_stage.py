@@ -37,7 +37,8 @@ import mav_tube_trajectory_generation_tpu_torch as mtt
 from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as tkernel
 from mav_tube_trajectory_generation_tpu_torch.solver import qcqp as tqcqp
 
-from torch_port_util import BENCH_KW, N, jax_pre, problem, to_np, tt
+from torch_port_util import (BENCH_KW, H100_SMEM_OPTIN, N, blocks_an_sm,
+                             jax_pre, problem, to_np, tt)
 
 ATOL = 5e-5
 NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
@@ -482,3 +483,52 @@ def test_stream_design_on_the_card():
         with pytest.raises(AssertionError):
             for a, b, name in zip(wrong, plain, NAMES):
                 _assert_close(to_np(a), to_np(b), name, si, atol=2e-4)
+
+
+@pytest.mark.parametrize("k,fits,threads", [(4, True, 128), (10, True, 512),
+                                            (11, False, None),
+                                            (12, False, None)])
+def test_cluster_layout_within_the_h100_budget(k, fits, threads):
+    """Kernel 1's cluster layout (the mirror ``cluster_smem_bytes`` of the
+    source's ``make_cluster_layout``: W^-1, G^T's share with the W^-1 sweeps'
+    scratch over its tail, the lane vectors) holds a block's share within
+    the 232,448 B an H100 block may take at K=4 and K=10 and not from K=11,
+    where the launcher takes the stream design
+    (``test_cluster_layout_on_the_card``); the block size the card takes
+    there keeps an SM at 512 threads over the blocks its shared memory
+    holds."""
+    shapes = _cluster_shapes(k)
+    got = tkernel.cluster_smem_bytes("admm_stage_fused_factored", *shapes)
+    assert (got <= H100_SMEM_OPTIN) == fits
+    if fits:
+        assert threads * blocks_an_sm(got) <= 512
+    if k == 10:
+        assert got == 224288
+
+
+def _cluster_shapes(k):
+    """(nfd, m_p, m_blk, bsz, nb_p) of the K-segment headline structure."""
+    layout = tqcqp._flagship_layout(
+        mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N))
+    return (15 * (k - 1), layout.m_p, k - 1, 15, layout.nb_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,fits,threads", [(4, True, 128), (10, True, 512),
+                                            (11, False, None),
+                                            (12, False, None)])
+def test_cluster_layout_on_the_card(k, fits, threads):
+    """Kernel 1's launcher, asked on the card, takes the cluster design
+    exactly where its layout fits, at the block size stated, with the
+    layout's bytes as ``cluster_smem_bytes`` computes them.  Needs an NVIDIA
+    card and nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    shapes = _cluster_shapes(k)
+    kind = "admm_stage_fused_factored"
+    design = tkernel.stage_design(kind, *shapes)
+    assert design == ("cluster" if fits else "stream")
+    assert tkernel.smem_bytes(*shapes, kind=kind, design="cluster") == \
+        tkernel.cluster_smem_bytes(kind, *shapes)
+    if fits:
+        assert tkernel.block_threads(*shapes, kind) == threads

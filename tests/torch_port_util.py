@@ -8,8 +8,22 @@ import torch
 torch.set_num_threads(1)
 
 N = 10
+# An H100's shared memory as its CUDA runtime reports it: what a block may
+# take (cudaDevAttrMaxSharedMemoryPerBlockOptin), what an SM holds
+# (cudaDevAttrMaxSharedMemoryPerMultiprocessor) and what the card keeps for
+# each block (cudaDevAttrReservedSharedMemoryPerBlock).  The kernels read
+# these from the device; the tests hold the layouts' bytes against them.
+H100_SMEM_OPTIN = 232448
+H100_SMEM_PER_SM = 233472
+H100_SMEM_RESERVED = 1024
 BENCH_KW = dict(rho=0.005, n_iters=48, rho_tube_factor=0.125,
                 rho_half_factor=0.125)
+
+
+def blocks_an_sm(smem_bytes):
+    """Blocks of ``smem_bytes`` of dynamic shared memory an H100 SM holds at
+    once."""
+    return H100_SMEM_PER_SM // (smem_bytes + H100_SMEM_RESERVED)
 
 
 def to_np(a):
