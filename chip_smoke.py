@@ -66,7 +66,7 @@ MAX_MEDIAN_VIOLATION = 3e-4
 OUT_NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
 ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
               "multi_stage", "dense_path", "band_gram", "stage_bits",
-              "ipm_bits",
+              "ipm_bits", "band_bits",
               "ipm_kernel_check", "fused_path", "strict_path",
               "strict_tight", "ew_path", "kernels")
 
@@ -322,7 +322,8 @@ ADMM_ENTRIES = {"admm_stage": ("admm_stage_fused_factored_kernel",
                                "admm_stage_cluster_kernel",
                                "admm_stage_fused_cluster_kernel",
                                "admm_stage_ew_cluster_kernel"),
-                "gram_band": ("gram_band_kernel", "gram_band_ew_kernel")}
+                "gram_band": ("gram_band_kernel", "gram_band_ew_kernel",
+                              "gram_band_ring_kernel")}
 # A block's dynamic shared memory may not exceed this on an H100.
 MAX_DYNAMIC_SMEM = 232448
 # The stage entry points with a cluster design, each with (nfd, m_p, nb_p)
@@ -344,6 +345,22 @@ STAGE_DESIGNS = {
                                      "flagship": (135, 512, "cluster", 512),
                                      "K=12": (165, 640, "cluster", 512),
                                      "K=14": (195, 640, "stream", None)}}
+
+
+# #5 and #6 (nfd, m_p, blk) at the solver's shapes and one other band block,
+# the design each must take there (ops.admm_kernel.band_design: the ring at
+# the band block of every assembly, 15, the window body at any other), and
+# where the ring is taken the blocks an SM must hold (two at K=2 to K=10:
+# the ring and the partials take 77,784-100,824 B).
+BAND_DESIGN_SHAPES = {"K=2": (15, 384, 15, "ring", 2),
+                      "K=4": (45, 384, 15, "ring", 2),
+                      "flagship": (135, 512, 15, "ring", 2),
+                      "K=12": (165, 640, 15, "ring", 1),
+                      "flagship blk 9": (135, 512, 9, "window", None)}
+# The ring's negative control: the same source built with the last warp's
+# partial left out of every entry.
+BAND_SKIP_COMBINE = ("GRAM_BAND_CONTROL_SKIP_COMBINE",)
+BAND_CONTROL_BUILDS = (("gram_band", BAND_SKIP_COMBINE),)
 
 
 # #8-#11 (nfd, m_p) at K=10, 4 and 12 and the design each must take there:
@@ -389,6 +406,47 @@ def entry_report(log, names):
     return out
 
 
+def ring_entries(log):
+    """``entry_report`` of the ring's kernels, one a tile shape
+    (``gram_band_ring_kernel<TR,TC>``, matched by their template
+    arguments in the mangled name)."""
+    out = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        tile = re.search(r"21gram_band_ring_kernelILi(\d+)ELi(\d+)E", mangled)
+        if tile:
+            name = f"gram_band_ring_kernel<{tile.group(1)},{tile.group(2)}>"
+            out.update({name: entry_report(
+                "Compiling entry function '" + chunk,
+                ["gram_band_ring_kernel"])["gram_band_ring_kernel"]})
+    return out
+
+
+def band_design_report(admm_kernel):
+    """#5's and #6's design at each shape of BAND_DESIGN_SHAPES, with a
+    block's shared memory as the library and as ops.admm_kernel compute it
+    and, for the ring, the blocks an SM holds and the grid at MAIN_BATCH;
+    the labels of the shapes that do not take what they must."""
+    designs, bad = {}, []
+    for label, (nfd, m_p, blk, want, per_sm) in BAND_DESIGN_SHAPES.items():
+        d = admm_kernel.band_design(nfd, m_p, blk)
+        entry = dict(d._asdict(), expected_design=want,
+                     smem_bytes_of_the_library=admm_kernel.smem_bytes(
+                         nfd, m_p, nfd // blk, blk, 0, kind="gram_band"))
+        if d.design == "ring":
+            entry.update(
+                blocks_per_sm=admm_kernel.ring_blocks_per_sm(m_p, d),
+                expected_blocks_per_sm=per_sm,
+                grid_at_main_batch=admm_kernel.ring_grid(MAIN_BATCH, m_p, d))
+        designs[label] = entry
+        if (d.design != want
+                or entry["smem_bytes_of_the_library"] != d.smem_bytes
+                or d.smem_bytes > MAX_DYNAMIC_SMEM
+                or entry.get("blocks_per_sm") != per_sm):
+            bad.append(label)
+    return designs, bad
+
+
 def phase_build(state):
     from mav_tube_trajectory_generation_tpu_torch import _build
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
@@ -396,7 +454,8 @@ def phase_build(state):
     t0 = time.perf_counter()
     if set(_build.SOURCES) != {"admm_stage", "gram_band", *IPM_SOURCES}:
         raise RuntimeError(f"unexpected kernel sources: {_build.SOURCES}")
-    wall = _build.prebuild(variants=IPM_CONTROL_BUILDS)
+    wall = _build.prebuild(variants=IPM_CONTROL_BUILDS
+                           + BAND_CONTROL_BUILDS)
     smem = admm_kernel.smem_bytes(135, 512, 9, 15, 128)
     seconds = time.perf_counter() - t0
     # #8-#11: which design each shape takes (IPM_DESIGNS), a block's
@@ -461,6 +520,7 @@ def phase_build(state):
     entries = {}
     for src, names in ADMM_ENTRIES.items():
         entries.update(entry_report(_build.build_log(src), names))
+    ring = ring_entries(_build.build_log("gram_band"))
     smem = {}
     for label, nfd, m_p in (("flagship", 135, 512), ("K=2", 15, 384)):
         smem[label] = {kind: admm_kernel.smem_bytes(nfd, m_p, nfd // 15, 15,
@@ -501,11 +561,19 @@ def phase_build(state):
                              or d["max_active_clusters"] < 1))):
                 bad.append(f"{kind} {label}")
     state["stage_designs"] = designs
+    band_designs, band_bad = band_design_report(admm_kernel)
     emit("build_admm_routes", libraries=[build_report(_build, "gram_band")],
-         entry_functions=entries, dynamic_smem_bytes=smem,
+         entry_functions=entries, ring_entry_functions=ring,
+         dynamic_smem_bytes=smem,
          max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM, stage_designs=designs,
-         threads_per_block=dict(stage=admm_kernel.THREADS,
-                                gram_band=admm_kernel.GRAM_THREADS))
+         band_designs=band_designs, control_builds=[
+             dict(source=n, defines=list(d),
+                  built_now=_build.build_info(n, d)["built"])
+             for n, d in BAND_CONTROL_BUILDS],
+         threads_per_block=dict(
+             stage=admm_kernel.THREADS,
+             gram_band={k: v["threads"] for k, v in band_designs.items()},
+             gram_band_factors_ew=admm_kernel.WINDOW_THREADS))
     over = {f"{label} {k}": v for label, d in smem.items()
             for k, v in d.items() if v > MAX_DYNAMIC_SMEM}
     if over or len(entries) != sum(map(len, ADMM_ENTRIES.values())):
@@ -515,6 +583,11 @@ def phase_build(state):
         raise RuntimeError(f"build: stage entry points not taking the "
                            f"expected design and block size {STAGE_DESIGNS} "
                            f"with the layout Python computes: {bad}")
+    if band_bad or len(ring) != len(admm_kernel.RING_TILES):
+        raise RuntimeError(f"build: #5 / #6 not taking the expected design "
+                           f"{BAND_DESIGN_SHAPES} with the shared memory "
+                           f"Python computes ({band_bad}), or ring kernels "
+                           f"missing: {sorted(ring)}")
 
 
 def phase_kernel_check(state, mtt):
@@ -593,22 +666,29 @@ def phase_kernel_check(state, mtt):
 # f32 - plain f64| + BAND_FLOOR * max(1, max|plain f64|).  Each check has a
 # negative control that must fail it: #2 and #7 with alpha WRONG_ALPHA for
 # the config's 1.6, #5 with rho times WRONG_RHO_FACTOR, #6 with the last row
-# of G^T set to zero (the plain versions get the right inputs).  The controls
-# run at every shape and must be rejected at the flagship shape, the main
-# path's, and for #2 at K=12, past its cluster design's budget; at K=2 and
-# K=4 the result is reported.  Each stage check records the design its
-# kernel took and fails where that is not the shape's (ROUTE_SHAPES).
+# of G^T set to zero (the plain versions get the right inputs), and where
+# they take the ring design both with its partials' combine short of the
+# last warp (BAND_SKIP_COMBINE, a build variant).  The controls run at every
+# shape and must be rejected at the flagship shape, the main path's, and at
+# K=12 (#2 past its cluster design's budget); at K=2 and K=4 the result is
+# reported.  Each check of a kernel with two designs records the design its
+# kernel took and fails where that is not the shape's (ROUTE_SHAPES; the
+# band kernels': band_design's, held in the build phase).  The band kernels
+# run at every shape and on a random G^T of the flagship shape, at its band
+# block (the ring) and at a block of 9 rows (the window body).
 BAND_FACTOR = 2.0
 BAND_FLOOR = 1e-6
 WRONG_ALPHA = 1.62
 WRONG_RHO_FACTOR = 1.001
-# (label, K, batch, the design #2 must take, controls gated, the other
-# kernels checked too)
+# (label, K, batch, the design #2 must take, controls gated, #7 checked
+# too)
 ROUTE_SHAPES = (("K=2", 2, 256, "cluster", False, True),
                 ("K=4", 4, 64, "cluster", False, True),
                 ("flagship K=10", 10, 256, "cluster", True, True),
                 ("K=12", 12, 32, "stream", True, False))
 BAND_BLOCK = 15
+# The band block of the random G^T's window case.
+WINDOW_BLOCK = 9
 
 
 def route_inputs(mtt, k, batch, seed, config):
@@ -698,36 +778,47 @@ def triple(fn, fn_plain, args, kw, wrong_args=None, wrong_kw=None):
 
 
 def check(kernel, variant, fn, plain, args, kw, kind, *controls, twin=None,
-          design=None):
+          design=None, want=None):
     """One entry of ``run_checks``: the kernel ``fn`` against its plain
     version ``plain`` (the reference order) on ``args`` / ``kw`` by the
     criterion of ``kind`` ("stage" or "band"), and its negative controls,
-    each (args, kw).  For a stage kernel in a design that sums in another
+    each (args, kw) or (args, kw, defines): the kernel built with the
+    macros ``defines``.  For a stage kernel in a design that sums in another
     order, ``twin`` is the plain version in that order (criterion 1's
-    yardstick) and ``design`` the design it took."""
+    yardstick); ``design`` the design the kernel took and ``want`` the one
+    it must take (None: the shape's, ``run_checks``' ``want_design``)."""
     return dict(kernel=kernel, variant=variant, fn=fn, plain=plain,
                 args=args, kw=kw, kind=kind, controls=controls, twin=twin,
-                design=design)
+                design=design, want=want)
 
 
-def band_checks(ak, inp):
+def band_checks(ak, inp, blk=BAND_BLOCK):
     """The entries of ``route_checks`` for the band kernels #6 (both
-    per_block values) and #5."""
+    per_block values) and #5 at band block ``blk``, each with its design,
+    the one ``band_design`` names (held to BAND_DESIGN_SHAPES in the build
+    phase)."""
     gt = inp["gt"]
     gt_cut = gt.clone()
     gt_cut[:, -1, :] = 0.0
     rho_off = (inp["rho"] * WRONG_RHO_FACTOR).contiguous()
     band_args = (gt, inp["pb_d"], inp["pb_u"], inp["rho"])
-    band_kw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
+    band_kw = dict(blk=blk, sigma=inp["sigma"])
+    design = ak.band_design(gt.shape[1], gt.shape[2], blk).design
+    want = "ring" if blk == BAND_BLOCK else "window"
+    ring = ((band_args, band_kw, BAND_SKIP_COMBINE),) if design == "ring" \
+        else ()
     out = []
     for per_block in (False, True):
-        gkw = dict(blk=BAND_BLOCK, per_block=per_block)
+        gkw = dict(blk=blk, per_block=per_block)
+        ring_g = (((gt,), gkw, BAND_SKIP_COMBINE),) if ring else ()
         out.append(check("gram_band", f"per_block={per_block}", ak.gram_band,
                          ak.gram_band_plain, (gt,), gkw, "band",
-                         ((gt_cut,), gkw)))
+                         ((gt_cut,), gkw), *ring_g, design=design,
+                         want=want))
     out.append(check("gram_band_factors", "", ak.gram_band_factors,
                      ak.gram_band_factors_plain, band_args, band_kw, "band",
-                     ((gt,) + band_args[1:3] + (rho_off,), band_kw)))
+                     ((gt,) + band_args[1:3] + (rho_off,), band_kw), *ring,
+                     design=design, want=want))
     return out
 
 
@@ -739,9 +830,9 @@ def fused_check_design(ak, gt, nb_p):
                     else None)
 
 
-def route_checks(ak, inp, others=True):
-    """The ``check`` entries for one shape: #2 (init_z True and False) and,
-    with ``others``, #7 and the band kernels."""
+def route_checks(ak, inp, with_7=True):
+    """The ``check`` entries for one shape: #2 (init_z True and False), the
+    band kernels and, with ``with_7``, #7."""
     kw = inp["kw"]
     design, twin = fused_check_design(ak, inp["gt"], kw["nb_p"])
     out = []
@@ -754,15 +845,14 @@ def route_checks(ak, inp, others=True):
                          args, fkw, "stage",
                          (args, dict(fkw, alpha=WRONG_ALPHA)), twin=twin,
                          design=design))
-    if not others:
-        return out
-    out.append(check("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
-                     inp["stage"], kw, "stage",
-                     (inp["stage"], dict(kw, alpha=WRONG_ALPHA))))
+    if with_7:
+        out.append(check("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
+                         inp["stage"], kw, "stage",
+                         (inp["stage"], dict(kw, alpha=WRONG_ALPHA))))
     return out + band_checks(ak, inp)
 
 
-def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3):
+def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3, blk=BAND_BLOCK):
     """Band-kernel inputs of the flagship shape with random entries.  In the
     real assemblies (K=2, 4, 10) every constraint row of G^T touches one
     free vertex, so their super-diagonal Gram band is exactly zero; these
@@ -773,11 +863,20 @@ def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3):
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda")
 
-    m_blk = nfd // BAND_BLOCK
-    return dict(gt=rnd(batch, nfd, m_p),
-                pb_d=rnd(batch, m_blk, BAND_BLOCK, BAND_BLOCK),
-                pb_u=rnd(batch, m_blk - 1, BAND_BLOCK, BAND_BLOCK),
+    m_blk = nfd // blk
+    return dict(gt=rnd(batch, nfd, m_p), pb_d=rnd(batch, m_blk, blk, blk),
+                pb_u=rnd(batch, m_blk - 1, blk, blk),
                 rho=(0.01 + rnd(batch, 1, 1).abs()).contiguous(), sigma=1e-6)
+
+
+def run_control(c, control):
+    """The kernel of check ``c`` on a control's inputs, with the library
+    built with the control's macros where it names any."""
+    args, kw = control[:2]
+    if len(control) == 2:
+        return as_tuple(c["fn"](*args, **kw))
+    with library_variant("gram_band", control[2]):
+        return as_tuple(c["fn"](*args, **kw))
 
 
 def run_checks(label, shape, checks, controls_gate, cases, bad,
@@ -800,47 +899,57 @@ def run_checks(label, shape, checks, controls_gate, cases, bad,
             names = ("db", "ub") if "factors" in name else ("gd", "gu")
             res, ok = band_compare(names, ours, ref32, plain64)
             judge = lambda out: band_compare(names, out, ref32, plain64)
-        rejected = all(not judge(as_tuple(c["fn"](*a, **k)))[1]
-                       for a, k in c["controls"])
+        each = [not judge(run_control(c, ctl))[1] for ctl in c["controls"]]
+        rejected = all(each)
         entry = dict(kernel=name, variant=variant, shapes=label,
                      gt_shape=list(shape), within_tolerance=ok,
                      bit_identical=same, control_rejected=rejected,
+                     controls_rejected=[
+                         dict(rejected=r, build=list(ctl[2])
+                              if len(ctl) > 2 else None)
+                         for r, ctl in zip(each, c["controls"])],
                      errors=res)
+        want = c["want"] or want_design
         if c["design"] is not None:
-            entry.update(design=c["design"],
-                         plain_order="the design's (twin)"
-                         if c["twin"] is not None else "reference")
-        checked = want_design is not None and c["design"] is not None
+            entry.update(design=c["design"])
+            if kind == "stage":
+                entry["plain_order"] = ("the design's (twin)"
+                                        if c["twin"] is not None
+                                        else "reference")
+        checked = want is not None and c["design"] is not None
         if checked:
-            entry["expected_design"] = want_design
+            entry["expected_design"] = want
         cases.append(entry)
         if not (ok and same):
             bad.append(f"{name} {variant} {label}")
-        if checked and c["design"] != want_design:
+        if checked and c["design"] != want:
             bad.append(f"{name} {variant} {label}: takes the {c['design']} "
-                       f"design, expected {want_design}")
+                       f"design, expected {want}")
         if controls_gate and not rejected:
             bad.append(f"{name} {variant} {label}: the control passes")
 
 
 def route_kernel_check(mtt):
-    """#2 (init_z True and False), #7, #6 (both per_block values) and #5
-    against their plain versions in float32 and float64 at K=2, K=4 and
-    K=10, and #2 at K=12, with the negative controls and #2's designs; the
-    band kernels also on a random G^T of the flagship shape."""
+    """#2 (init_z True and False), #6 (both per_block values) and #5
+    against their plain versions in float32 and float64 at K=2, K=4, K=10
+    and K=12, and #7 at the first three, with the negative controls and the
+    designs of #2, #5 and #6; the band kernels also on a random G^T of the
+    flagship shape, in the ring and (band block 9) in the window body."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     cases, bad = [], []
-    for label, k, batch, want, gated, others in ROUTE_SHAPES:
+    for label, k, batch, want, gated, with_7 in ROUTE_SHAPES:
         inp = route_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
         run_checks(label, inp["gt"].shape,
-                   route_checks(admm_kernel, inp, others), gated, cases,
+                   route_checks(admm_kernel, inp, with_7), gated, cases,
                    bad, want_design=want)
         del inp
-    inp = random_band_inputs()
-    run_checks("random G^T, flagship shape", inp["gt"].shape,
-               band_checks(admm_kernel, inp), True, cases, bad)
-    del inp
+    for blk in (BAND_BLOCK, WINDOW_BLOCK):
+        inp = random_band_inputs(blk=blk)
+        run_checks(f"random G^T, flagship shape, blk {blk}",
+                   inp["gt"].shape, band_checks(admm_kernel, inp, blk), True,
+                   cases, bad)
+        del inp
     emit("kernel_check_routes", tolerance_is=dict(
         stage="as kernel_check (KERNEL_TOL, both criteria; #2's cluster "
         "design against admm_stage_fused_winv_plain)",
@@ -848,7 +957,9 @@ def route_kernel_check(mtt):
         f"max|plain f32 - plain f64| + {BAND_FLOOR} * max(1, max|plain "
         f"f64|)"), controls=dict(
         stage_alpha=WRONG_ALPHA, gram_band_factors_rho_factor=
-        WRONG_RHO_FACTOR, gram_band="last row of G^T zero"),
+        WRONG_RHO_FACTOR, gram_band="last row of G^T zero",
+        band_ring=f"both band kernels built with {BAND_SKIP_COMBINE}: the "
+        "last warp's partial left out of every entry"),
         controls_gated_at=[r[0] for r in ROUTE_SHAPES if r[4]], cases=cases)
     torch.cuda.empty_cache()
     if bad:
@@ -2061,7 +2172,10 @@ def ew_checks(ak, inp, band=True):
 
 def same_bits_as_gt_kernels(ak, inp):
     """Whether #3 and #4 give the bits of #1 and #5 on the G^T their factors
-    expand to (reported: the route's bit-identity rests on it)."""
+    expand to (reported).  Neither does: #3's cluster design sums in
+    another order than kernel 1's, and #4 keeps the window body while #5
+    takes the ring, so the ew route is not bit-identical to "pallas_db" in
+    its band either."""
     import torch
     gt = ak.expand_gt(inp["e"], inp["w"])
     st = inp["stage"]
@@ -2102,7 +2216,10 @@ def ew_kernel_check(mtt):
         control=f"w's rows in the order (1, 2, 0); #3 also alpha "
         f"{WRONG_ALPHA}", controls_gated_at=[r[0] for r in EW_SHAPES
                                               if r[4]], cases=cases,
-        same_bits_as_gt_kernels_on_the_expanded_gt=bits)
+        same_bits_as_gt_kernels_on_the_expanded_gt=bits,
+        same_bits_note="reported, expected False for both: #3's cluster "
+        "design and kernel 1's sum in different orders, and #4 (the window "
+        "body) and #5 (the ring) too")
     if bad:
         raise RuntimeError(f"kernel_check (ew) failed for {bad}")
 
@@ -2453,6 +2570,47 @@ def phase_ipm_bits(state, mtt, parent_file=None):
          same_bits_as_parent=same, launches=dict(ipm_kernel.launches))
     if parent_file and not same:
         raise RuntimeError(f"ipm_bits: #8 / #9 outputs differ from the "
+                           f"parent's ({parent_file}): {parent}")
+
+
+# band_bits: #4's outputs (the window body, which this slice leaves as it
+# was) on the ew route's inputs (seed 1: the flagship at batch 256 and K=4 at
+# 64) and on random factors of the flagship shape, as one SHA-256 digest per
+# case; with --bits-of-parent (the --out file of this phase run on another
+# checkout, this script copied there; the phase uses only the public entry
+# points) it fails unless every digest is the same.  #5's and #6's digests on
+# the same G^T are reported beside them, ungated.
+BAND_BITS_SHAPES = (("flagship K=10", 10, 256), ("K=4", 4, 64))
+
+
+def phase_band_bits(state, mtt, parent_file=None):
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
+    digests, others = {}, {}
+    cases = [(label, ew_inputs(mtt, k, batch, seed=1,
+                               config=bench_config(mtt)))
+             for label, k, batch in BAND_BITS_SHAPES]
+    cases.append(("random e, w, flagship shape", random_ew_band_inputs()))
+    for label, inp in cases:
+        bkw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
+        band = (inp["pb_d"], inp["pb_u"], inp["rho"])
+        digests[f"gram_band_factors_ew {label}"] = sha256_of(
+            ak.gram_band_factors_ew(inp["e"], inp["w"], *band, **bkw))
+        gt = ak.expand_gt(inp["e"], inp["w"])
+        others[f"gram_band_factors {label}"] = sha256_of(
+            ak.gram_band_factors(gt, *band, **bkw))
+        others[f"gram_band {label}"] = sha256_of(
+            ak.gram_band(gt, blk=BAND_BLOCK))
+        torch.cuda.synchronize()
+        del gt
+    del cases
+    torch.cuda.empty_cache()
+    parent = parent_line(parent_file, "band_bits")
+    same = None if parent_file is None else parent == digests
+    emit("band_bits", digests=digests, parent_file=parent_file,
+         same_bits_as_parent=same, ungated_digests=others)
+    if parent_file and not same:
+        raise RuntimeError(f"band_bits: #4's outputs differ from the "
                            f"parent's ({parent_file}): {parent}")
 
 
@@ -3590,6 +3748,8 @@ def phase_kernels(state, mtt):
         bound_flops_ms=flops_ms, bound_bytes_ms=bytes_ms)
     rows = ([row] + ew_rows(state) + admm_route_rows(state)
             + ipm_kernel_rows(state, mtt))
+    for r in rows:
+        r.setdefault("bound_share", r["bound_ms"] / r["ms"])
     # twelve kernels; #2 has a row at K=10 and one at K=2
     if not state.get("partial") and len(rows) != 13:
         raise RuntimeError(f"kernels: {len(rows)} rows, expected 13")
@@ -3638,6 +3798,9 @@ def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
     else:
         res, ok = band_compare(names, ours, ref32, plain64)
         err = max(v.get("kernel_vs_plain", 0.0) for v in res.values())
+        extra.update(device_ms=device_ms_each(lambda: fn(*args, **kw), 10),
+                     device_ms_is="device time of one call by "
+                     "torch.profiler (mean of 10), the kernel alone")
     if not (ok and same):
         raise RuntimeError(f"kernels: {name} disagrees with its plain "
                            f"version at its path's shapes: {res}")
@@ -3646,8 +3809,10 @@ def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
     flops_ms = flops / PEAK_F32_FLOPS * 1e3
     del ours, ref32, plain64
     torch.cuda.empty_cache()
-    if design is not None:
+    if design in ("cluster", "stream"):
         extra.update(design=design, cluster=2 if design == "cluster" else 1)
+    elif design is not None:
+        extra["design"] = design
     return dict(
         name=name, route="cuda", source=f"{PKG}/csrc/{source}",
         replaces=f"mav_tube_trajectory_generation_tpu/ops/admm_kernel.py:"
@@ -3662,6 +3827,19 @@ def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
                list(args[shape_arg].shape)}, note=note),
         flops=flops, bytes=total, bound_flops_ms=flops_ms,
         bound_bytes_ms=bytes_ms, **extra)
+
+
+def band_row_design(ak, gt, blk):
+    """The `kernels` row fields of a band kernel's design at ``gt``'s
+    shapes: ``band_design``'s, and for the ring its grid and blocks an SM
+    on this card."""
+    bsz, nfd, m_p = gt.shape
+    d = ak.band_design(nfd, m_p, blk)
+    out = dict(design=d.design, band_design=d._asdict())
+    if d.design == "ring":
+        out.update(grid=ak.ring_grid(bsz, m_p, d),
+                   blocks_per_sm=ak.ring_blocks_per_sm(m_p, d))
+    return out
 
 
 def band_library(gt_fn, pb=None, rho=None, sigma=0.0):
@@ -3781,7 +3959,8 @@ def admm_route_rows(state):
         state["band_launches"]["pallas"]["gram_band"], "band", 0,
         names=("gd", "gu"), library=band_library(lambda: gt),
         note="band_gram='pallas', once a solve; library call: torch.bmm(gt, "
-        "gt.mT) and the band gather; bound: the 2m-1 band blocks only"))
+        "gt.mT) and the band gather; bound: the 2m-1 band blocks only",
+        **band_row_design(ak, gt, kw["blk"])))
     del args, gt
     args, kw = to_device(rec["gram_band_factors"], dev)
     gt, pb_d, pb_u, rho = args
@@ -3793,7 +3972,7 @@ def admm_route_rows(state):
         names=("db", "ub"), library=band_library(
             lambda: gt, (pb_d, pb_u), rho, kw["sigma"]),
         note="band_gram='pallas_db', once a stage; library call: as "
-        "gram_band's, then the adds"))
+        "gram_band's, then the adds", **band_row_design(ak, gt, kw["blk"])))
     del args, gt, pb_d, pb_u, rho
     torch.cuda.empty_cache()
     return rows
@@ -3837,7 +4016,8 @@ def ew_rows(state):
         names=("db", "ub"), library=band_library(
             lambda: ak.expand_gt(e, w), (pb_d, pb_u), rho, kw["sigma"]),
         note="ew_path, once a stage; library call: e*w expanded, then as "
-        "gram_band_factors'; bound: the 17 band blocks and the expansion"))
+        "gram_band_factors'; bound: the 17 band blocks and the expansion",
+        design="window"))
     del args, e, w, pb_d, pb_u, rho
     torch.cuda.empty_cache()
     return rows
@@ -3851,10 +4031,10 @@ def main():
     parser.add_argument("--out", default=None, help="also append every "
                         "line to this file (its directory is created)")
     parser.add_argument("--bits-of-parent", default=None,
-                        help="the --out file of the stage_bits and ipm_bits "
-                        "phases run on the parent's checkout: each then "
-                        "fails unless its kernels' outputs (kernel 1's and "
-                        "#7's; #8's and #9's) are the same bits")
+                        help="the --out file of the stage_bits, ipm_bits and "
+                        "band_bits phases run on the parent's checkout: each "
+                        "then fails unless its kernels' outputs (kernel 1's "
+                        "and #7's; #8's and #9's; #4's) are the same bits")
     opts = parser.parse_args()
     if opts.out:
         global LOG_PATH
@@ -3890,6 +4070,7 @@ def main():
         "stage_bits": lambda: phase_stage_bits(state, mtt,
                                                opts.bits_of_parent),
         "ipm_bits": lambda: phase_ipm_bits(state, mtt, opts.bits_of_parent),
+        "band_bits": lambda: phase_band_bits(state, mtt, opts.bits_of_parent),
         "ipm_kernel_check": lambda: phase_ipm_kernel_check(state, mtt),
         "fused_path": lambda: phase_fused_path(state, mtt),
         "strict_path": lambda: phase_strict_path(state, mtt),

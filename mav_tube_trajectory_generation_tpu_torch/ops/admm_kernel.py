@@ -70,7 +70,13 @@ of inputs, so by each input read once it is bound by float32 arithmetic.
   the bits of ``gram_band_factors`` and of the stream design on the
   expanded G^T.
 
-The Gram band reads G^T once; what bounds it is stated in its source.
+The Gram band reads G^T once, so it is bound by bytes (its source says
+how each design meets that).  ``gram_band`` and ``gram_band_factors`` run
+the "ring" design at the band block of every assembly (blk 15): a ring of
+G^T slabs in shared memory fed by bulk copies, register tiles over a split
+of the lanes; other blocks keep the "window" body, which ``gram_band_
+factors_ew`` runs at every shape.  ``band_design`` names the design and
+launch parameters a shape takes; the launchers take them from it.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version only for CPU tensors; it never falls back from one to the other.
@@ -80,7 +86,7 @@ version only for CPU tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -96,10 +102,8 @@ launches: Dict[str, int] = {"admm_stage_fused_factored": 0,
 # Rows of w, the G^T factor the ew kernels take (the problem's dimension).
 DIMS = 3
 
-# Threads per block of the stage kernels and of the Gram-band kernel (one
-# block per scenario).
+# Threads per block of the stage kernels' stream design.
 THREADS = 512
-GRAM_THREADS = 256
 
 # The libraries whose C signatures are declared, by id (a variant of a
 # source, put in _build._LIBS, is declared at its first use).
@@ -110,6 +114,35 @@ _designs: Dict[tuple, str] = {}
 # (its Entry).
 CLUSTER_ENTRIES = {"admm_stage_fused_factored": 0, "admm_stage_fused": 1,
                    "admm_stage_fused_factored_ew": 2}
+
+
+class BandDesign(NamedTuple):
+    """The design a Gram-band launch takes (``band_design``)."""
+    design: str      # "ring" or "window"
+    threads: int     # a block's threads (the ring: its computing warps
+                     # and one producer warp)
+    slots: int       # G^T slabs in the ring (window: its two slabs)
+    per_block: int   # scenarios a block; 0: as many blocks as the card
+                     # holds at once, each walking the scenarios
+    tile: str        # a thread's tile of gd and of gu, rows x columns
+    smem_bytes: int  # a block's dynamic shared memory
+
+
+# The band kernels' designs as csrc/gram_band.cu numbers them, and the
+# ring's tile shapes by its launcher's code.
+BAND_DESIGNS = {"window": 0, "ring": 1}
+RING_TILES = {"5x3": 0, "3x5": 1}
+# The ring's band block, and its launch parameters (chosen by measurement
+# on an H100: stage_profile.py --kernel gram_band --designs, PERF.md).
+RING_BLOCK = 15
+RING_THREADS = 160
+RING_SLOTS = 3
+RING_PER_BLOCK = 0
+RING_TILE = "3x5"
+# The window body's threads (one block a scenario).
+WINDOW_THREADS = 256
+# Dynamic shared memory a block may take on an H100.
+MAX_BLOCK_SMEM = 232448
 
 StageOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor, torch.Tensor]
@@ -436,14 +469,17 @@ def _library(name: str) -> ctypes.CDLL:
                    "admm_stage_cluster_threads"):
             getattr(lib, fn).restype = i32
     else:
-        lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
         lib.gram_band_factors_launch.argtypes = (
-            [ptr] * 6 + [i32] * 4 + [f32, i32, ptr])
+            [ptr] * 6 + [i32] * 4 + [f32] + [i32] * 5 + [ptr])
         lib.gram_band_factors_ew_launch.argtypes = (
             [ptr] * 7 + [i32] * 4 + [f32, i32, ptr])
-        lib.gram_band_smem_bytes.argtypes = [i32] * 2
+        lib.gram_band_smem_bytes.argtypes = [i32] * 5
+        lib.gram_band_ring_blocks_per_sm.argtypes = [i32] * 4
+        lib.gram_band_ring_grid.argtypes = [i32] * 6
         for fn in ("gram_band_launch", "gram_band_factors_launch",
-                   "gram_band_factors_ew_launch", "gram_band_smem_bytes"):
+                   "gram_band_factors_ew_launch", "gram_band_smem_bytes",
+                   "gram_band_ring_blocks_per_sm", "gram_band_ring_grid"):
             getattr(lib, fn).restype = i32
     _configured[id(lib)] = True
     return lib
@@ -473,6 +509,78 @@ def cluster_smem_bytes(kind: str, nfd: int, m_p: int, m_blk: int, bsz: int,
     floats = (nfd * ldw + max(rows * ldl, scr) + 6 * ldl
               + round_up((nb_p + 1) // 2, 4) + 3 * ldw + 4 * ldw + 32 + 4)
     return 4 * floats
+
+
+def ring_ld(m_p: int) -> int:
+    """Floats between two rows of a ring slab: ``round_up(m_p, 32) + 8``, a
+    multiple of 8 that is 2 mod 8 in 16-byte units (csrc/gram_band.cu)."""
+    return round_up(m_p, 32) + 8
+
+
+def ring_smem_bytes(m_p: int, threads: int = RING_THREADS,
+                    slots: int = RING_SLOTS) -> int:
+    """Dynamic shared memory of a ring block: ``slots`` slabs of RING_BLOCK
+    padded rows, each computing warp's partials of gd and gu (every warp but
+    the producer), an mbarrier a slot."""
+    bb = RING_BLOCK * RING_BLOCK
+    return (4 * (slots * RING_BLOCK * ring_ld(m_p)
+                 + (threads // 32 - 1) * 2 * bb) + 8 * slots)
+
+
+def window_smem_bytes(m_p: int, blk: int) -> int:
+    """Dynamic shared memory of a window block: two slabs of blk rows of
+    m_p + 1 floats."""
+    return 4 * 2 * blk * (m_p + 1)
+
+
+def window_design(m_p: int, blk: int) -> BandDesign:
+    """The window body's launch: one block of WINDOW_THREADS a scenario."""
+    return BandDesign("window", WINDOW_THREADS, 2, 1, "1x1",
+                      window_smem_bytes(m_p, blk))
+
+
+def band_design(nfd: int, m_p: int, blk: int) -> BandDesign:
+    """The design ``gram_band`` and ``gram_band_factors`` launch at these
+    shapes: the ring wherever its tiles cover the band block (blk ==
+    RING_BLOCK) and its shared memory fits a block, else the window body.
+    Pure Python: the launchers take their parameters from it."""
+    if nfd % blk:
+        raise ValueError(f"gram band: nfd={nfd} is not a multiple of "
+                         f"blk={blk}")
+    ring = ring_smem_bytes(m_p)
+    if blk == RING_BLOCK and ring <= MAX_BLOCK_SMEM:
+        return BandDesign("ring", RING_THREADS, RING_SLOTS, RING_PER_BLOCK,
+                          RING_TILE, ring)
+    return window_design(m_p, blk)
+
+
+def _band_params(d: BandDesign) -> Tuple[int, int, int, int, int]:
+    """(design, threads, slots, per_block, tile) as the launchers take
+    them."""
+    return (BAND_DESIGNS[d.design], d.threads, d.slots, d.per_block,
+            RING_TILES.get(d.tile, 0))
+
+
+def ring_blocks_per_sm(m_p: int, d: BandDesign) -> int:
+    """Blocks of the ring design ``d`` an SM of the current device holds at
+    once; raises on a CUDA error."""
+    n = int(_library("gram_band").gram_band_ring_blocks_per_sm(
+        m_p, d.threads, d.slots, RING_TILES[d.tile]))
+    if n <= 0:
+        raise RuntimeError(f"gram band ring occupancy failed with CUDA "
+                           f"error {-n}")
+    return n
+
+
+def ring_grid(batch: int, m_p: int, d: BandDesign) -> int:
+    """Blocks a ring launch of ``batch`` scenarios in design ``d`` takes on
+    the current device; raises on a CUDA error."""
+    n = int(_library("gram_band").gram_band_ring_grid(
+        batch, m_p, d.threads, d.slots, d.per_block, RING_TILES[d.tile]))
+    if n <= 0:
+        raise RuntimeError(f"gram band ring grid failed with CUDA error "
+                           f"{-n}")
+    return n
 
 
 def stage_design(kind: str, nfd: int, m_p: int, m_blk: int, bsz: int,
@@ -549,9 +657,13 @@ def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
     design, ``design`` "cluster" or "stream" names either, None the one it
     takes there (``stage_design``).  ``m_blk`` and ``bsz`` are read by the
     factored stages only, ``bsz`` (the band block) by the Gram-band
-    kernels."""
+    kernels, which take ``band_design``'s design (``gram_band_factors_ew``:
+    the window's)."""
     if kind.startswith("gram_band"):
-        return int(_library("gram_band").gram_band_smem_bytes(m_p, bsz))
+        d = (window_design(m_p, bsz) if kind == "gram_band_factors_ew"
+             else band_design(nfd, m_p, bsz))
+        return int(_library("gram_band").gram_band_smem_bytes(
+            BAND_DESIGNS[d.design], m_p, bsz, d.threads, d.slots))
     lib = _library("admm_stage")
     if kind in CLUSTER_ENTRIES:
         design = design or stage_design(kind, nfd, m_p, m_blk, bsz, nb_p)
@@ -923,8 +1035,9 @@ def gram_band(gt: torch.Tensor, *, blk: int, per_block: bool = False
     TPU kernel that compute the same band; it is accepted here, and both
     values launch the same kernel.
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``band_design`` names for these shapes; CPU tensors through the plain
+    version.  Anything the kernel does not take raises.
     """
     dev = _device_of(gt)
     if dev is None:
@@ -939,7 +1052,8 @@ def gram_band(gt: torch.Tensor, *, blk: int, per_block: bool = False
     with torch.cuda.device(dev):
         err = lib.gram_band_launch(
             gt.data_ptr(), gd.data_ptr(), gu.data_ptr(), bsz_b, nfd, m_p, blk,
-            GRAM_THREADS, torch.cuda.current_stream().cuda_stream)
+            *_band_params(band_design(nfd, m_p, blk)),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gram_band", B=bsz_b, nfd=nfd, m_p=m_p, blk=blk)
     launches["gram_band"] += 1
     return gd, gu
@@ -954,8 +1068,9 @@ def gram_band_factors(gt: torch.Tensor, pb_d: torch.Tensor,
     gt: (B, nfd, m_p).  pb_d: (B, m, blk, blk), pb_u: (B, m-1, blk, blk)
     objective band.  rho: (B, 1, 1).  Returns (db, ub) of the same shapes.
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``band_design`` names for these shapes; CPU tensors through the plain
+    version.  Anything the kernel does not take raises.
     """
     dev = _device_of(gt)
     if dev is None:
@@ -972,7 +1087,8 @@ def gram_band_factors(gt: torch.Tensor, pb_d: torch.Tensor,
         err = lib.gram_band_factors_launch(
             gt.data_ptr(), pb_d.data_ptr(), pb_u.data_ptr(), rho.data_ptr(),
             db.data_ptr(), ub.data_ptr(), bsz_b, nfd, m_p, blk, float(sigma),
-            GRAM_THREADS, torch.cuda.current_stream().cuda_stream)
+            *_band_params(band_design(nfd, m_p, blk)),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gram_band_factors", B=bsz_b, nfd=nfd, m_p=m_p, blk=blk)
     launches["gram_band_factors"] += 1
     return db, ub
@@ -985,8 +1101,9 @@ def gram_band_factors_ew(e: torch.Tensor, w: torch.Tensor,
     """``gram_band_factors`` with G^T given as its rank-1 row factors e
     (B, nf, m_p) and w (B, 3, m_p) (``expand_gt``).
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the window
+    design at every shape (``window_design``); CPU tensors through the plain
+    version.  Anything the kernel does not take raises.
     """
     dev = _device_of(e)
     if dev is None:
@@ -1008,7 +1125,7 @@ def gram_band_factors_ew(e: torch.Tensor, w: torch.Tensor,
         err = lib.gram_band_factors_ew_launch(
             e.data_ptr(), w.data_ptr(), pb_d.data_ptr(), pb_u.data_ptr(),
             rho.data_ptr(), db.data_ptr(), ub.data_ptr(), bsz_b, nfd, m_p,
-            blk, float(sigma), GRAM_THREADS,
+            blk, float(sigma), WINDOW_THREADS,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gram_band_factors_ew", B=bsz_b, nfd=nfd, m_p=m_p,
               blk=blk)

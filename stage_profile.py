@@ -8,6 +8,8 @@
     python3 stage_profile.py --kernel admm_stage_fused --k 2 --designs
     python3 stage_profile.py --kernel ipm_pipe   # #8, the strict tier 0 call
     python3 stage_profile.py --kernel ipm_solve  # #11, the fused polish
+    python3 stage_profile.py --kernel gram_band_factors  # #5, "pallas_db"
+    python3 stage_profile.py --kernel gram_band --designs  # #6, "pallas"
     python3 stage_profile.py --paths --root _parent   # paths, another tree
 
 Builds the kernel's source with its profile macro (the kernel then adds, in
@@ -47,12 +49,28 @@ cycles of one scenario by phase, the kernel's time with the counters in
   with the counters compiled out, the same call timed in the cluster design
   and in the one-block body (``-DIPM_SOLVE_STREAM``, which every shape then
   takes), alternated: cluster, one-block, one-block, cluster.
+* ``gram_band_factors`` (#5) and ``gram_band`` (#6),
+  ``-DGRAM_BAND_PROFILE``: on the call the band route makes at this batch
+  (``band_gram="pallas_db"``: #5 once a stage; ``"pallas"``: #6 once a
+  solve), recorded from one solve on seed 0; the cycles a scenario (the
+  mean over the scenarios block 0 walks) of thread 0, a computing thread,
+  by phase of the ring: start (the mbarriers and the first copies),
+  slab_wait (waiting on a slab's mbarrier, with the loads of the KKT
+  band's objective part), products, combine (the warps' groups and the
+  partials' barrier) and epilogue (the warps' sum, the stores and the
+  barrier), and of its producer issuing the copies; the time with the
+  counters in and out.  With ``--designs`` no
+  profile: the call timed in the design the launcher takes
+  (``band_design``) and in each variant of it (slots, scenarios a block,
+  tile shape, threads, and the window body), each one's outputs against
+  the launcher's bits, alternated: the list, then the list backwards.
 * ``--paths`` (no profile, no kernel build of its own): the paths the stage
-  kernels sit on, through the public entry points of the package found
+  and band kernels sit on, through the public entry points of the package found
   under ``--root`` (default: this checkout; an unpacked copy of another
   commit times that commit's package, so that one machine alternates two
   trees process by process): the headline (K=10), the dense route (a)
-  (K=10, ``kkt_apply="inverse"``), the dense route (c) (K=2) and the strict
+  (K=10, ``kkt_apply="inverse"``), the dense route (c) (K=2), the band
+  routes "pallas_db" (#5) and "pallas" (#6) at K=10 and the strict
   router with its defaults, seed 0, each ``--reps`` passes after a warm-up,
   by CUDA events and on the host's clock; and the host time of one call of
   each stage wrapper those paths make (kernel 1 on the headline, #2 on
@@ -123,15 +141,17 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel",
                         choices=("admm_stage", "admm_stage_fused",
-                                 "admm_stage_ew", "ipm_pipe", "ipm_solve"),
+                                 "admm_stage_ew", "ipm_pipe", "ipm_solve",
+                                 "gram_band", "gram_band_factors"),
                         default="admm_stage")
     parser.add_argument("--k", type=int, default=10)
     parser.add_argument("--batch", type=int, default=6144)
     parser.add_argument("--reps", type=int, default=3)
     parser.add_argument("--designs", action="store_true",
                         help="time the stage entry point's cluster design "
-                        "at each block size and its stream design instead "
-                        "of profiling it")
+                        "at each block size and its stream design (the "
+                        "band kernels: each variant of the ring, and the "
+                        "window body) instead of profiling it")
     parser.add_argument("--paths", action="store_true",
                         help="time the paths the stage kernels sit on and "
                         "their wrappers' host time instead (see the top)")
@@ -149,6 +169,8 @@ def main():
         return pipe_profile(opts)
     if opts.kernel == "ipm_solve":
         return solve_profile(opts)
+    if opts.kernel.startswith("gram_band"):
+        return band_profile(opts)
     import chip_smoke
     import mav_tube_trajectory_generation_tpu_torch as mtt
     from mav_tube_trajectory_generation_tpu_torch import _build
@@ -258,6 +280,8 @@ def paths_timing(opts):
         "headline_k10": batch_solve(10),
         "dense_route_a_k10": batch_solve(10, kkt_apply="inverse"),
         "dense_route_c_k2": batch_solve(2),
+        "band_pallas_db_k10": batch_solve(10, band_gram="pallas_db"),
+        "band_pallas_k10": batch_solve(10, band_gram="pallas"),
         "strict_k10": lambda: mtt.solve_qcqp_strict(
             sc10.free, sc10.d_fixed_free, sc10.times, sc10.waypoints,
             sc10.radii, warmstart_values=sc10.values)}
@@ -358,6 +382,132 @@ def designs_timing(opts, kind, run, shapes):
         order="stream, launcher's block size, 512 .. 64 threads, 64 .. 512, "
         "launcher's, stream; CUDA events, mean of --reps launches each",
         nvidia_smi=smi())))
+    return 0
+
+
+# The ring's phases as csrc/gram_band.cu counts them (GRAM_BAND_PROFILE).
+BAND_PHASES = ("start", "slab_wait", "products", "combine", "epilogue")
+# --designs for the band kernels: each variant of the launcher's design.
+BAND_VARIANTS = (("slots_2", dict(slots=2)), ("slots_4", dict(slots=4)),
+                 ("per_block_1", dict(per_block=1)),
+                 ("per_block_2", dict(per_block=2)),
+                 ("tile_5x3", dict(tile="5x3")),
+                 ("threads_96", dict(threads=96)),
+                 ("threads_192", dict(threads=192)),
+                 ("threads_224", dict(threads=224)),
+                 ("threads_288", dict(threads=288)), ("window", None))
+
+
+def band_call(opts, name):
+    """(args, kwargs) of the call the band route of ``name`` makes at
+    --k and --batch (seed 0), recorded from one solve."""
+    import torch
+    import chip_smoke
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+    mode = "pallas_db" if name == "gram_band_factors" else "pallas"
+    sc = mtt.make_inputs(opts.k, opts.batch, seed=0)
+    calls = []
+    with chip_smoke.recorded(admm_kernel, name, calls):
+        chip_smoke.solve(mtt, sc, chip_smoke.route_config(mtt,
+                                                          band_gram=mode))
+    torch.cuda.synchronize()
+    args, kw, _ = calls[0]
+    del calls
+    return args, kw
+
+
+def band_profile(opts):
+    """#5's or #6's phase profile, or with --designs its variants' times
+    (see the top)."""
+    import torch
+    import chip_smoke
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+
+    name = opts.kernel
+    args, kw = band_call(opts, name)
+    bsz, nfd, m_p = args[0].shape
+    launcher = admm_kernel.band_design(nfd, m_p, kw["blk"])
+    wrapper = getattr(admm_kernel, name)
+    run = lambda: wrapper(*args, **kw)
+    shapes = dict(kernel=name, k=opts.k, batch=opts.batch, nfd=nfd, m_p=m_p,
+                  blk=kw["blk"], design=launcher._asdict())
+    if opts.designs:
+        return band_designs_timing(opts, run, launcher, shapes)
+    if launcher.design != "ring":
+        print(f"stage_profile: this shape takes the {launcher.design} "
+              f"design", file=sys.stderr)
+        return 3
+    ms_plain_build = chip_smoke.cuda_ms(run, reps=opts.reps)
+    lib = _build.variant("gram_band", ("GRAM_BAND_PROFILE",))
+    _build._LIBS["gram_band"] = lib       # the wrapper declares its types
+    lib.gram_band_profile_read.argtypes = [ctypes.c_void_p]
+    counts = (ctypes.c_ulonglong * 8)()
+    ms = chip_smoke.cuda_ms(run, reps=opts.reps)
+    lib.gram_band_profile_clear()
+    for _ in range(opts.reps):
+        run()
+    torch.cuda.synchronize()
+    lib.gram_band_profile_read(ctypes.addressof(counts))
+    scenarios = counts[5]
+    cycles = {p: counts[i] / scenarios for i, p in enumerate(BAND_PHASES)}
+    print(json.dumps(dict(
+        **shapes, grid=admm_kernel.ring_grid(bsz, m_p, launcher),
+        blocks_per_sm=admm_kernel.ring_blocks_per_sm(m_p, launcher),
+        profiled_block="block 0: the mean over the scenarios it walks in "
+        "--reps launches", scenarios_profiled=scenarios,
+        cycles_one_scenario=sum(cycles.values()), cycles_by_phase=cycles,
+        cycles_by_phase_are="thread 0 of block 0 (a computing thread)",
+        block_cycles_a_scenario=counts[6] / scenarios,
+        producer_issue_cycles_a_scenario=counts[7] / scenarios,
+        ms_with_counters=ms, ms_without_counters=ms_plain_build,
+        nvidia_smi=smi())))
+    return 0
+
+
+def band_designs_timing(opts, run, launcher, shapes):
+    """The --designs report of a band kernel (see the top)."""
+    import torch
+    import chip_smoke
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+
+    m_p, blk = shapes["m_p"], shapes["blk"]
+    designs = {"launcher": launcher}
+    for label, over in BAND_VARIANTS:
+        if over is None:
+            designs[label] = admm_kernel.window_design(m_p, blk)
+            continue
+        d = launcher._replace(**over)
+        designs[label] = d._replace(smem_bytes=admm_kernel.ring_smem_bytes(
+            m_p, d.threads, d.slots))
+    chosen = admm_kernel.band_design
+
+    def timed(label):
+        admm_kernel.band_design = lambda *_: designs[label]
+        try:
+            ms = chip_smoke.cuda_ms(run, reps=opts.reps)
+            out = run()
+            torch.cuda.synchronize()
+            return ms, out
+        finally:
+            admm_kernel.band_design = chosen
+
+    labels = list(designs)
+    ms = {label: [] for label in labels}
+    ref = timed("launcher")[1]
+    same_bits = {}
+    for label in labels + labels[::-1]:
+        t, out = timed(label)
+        ms[label].append(t)
+        same_bits[label] = all(torch.equal(a, b) for a, b in zip(out, ref))
+    print(json.dumps(dict(
+        **shapes, ms_by_design={k: v for k, v in ms.items()},
+        mean_ms_by_design={k: statistics.mean(v) for k, v in ms.items()},
+        same_bits_as_launcher=same_bits,
+        designs={k: d._asdict() for k, d in designs.items()},
+        order="the launcher's, then each variant, then back; CUDA events, "
+        "mean of --reps launches each", nvidia_smi=smi())))
     return 0
 
 

@@ -658,6 +658,57 @@ def test_fused_design_by_shape(k, design, threads):
         assert threads * blocks_an_sm(got) <= 512 or threads == 64
 
 
+# ---------------------------------------------------------------------------
+# (v c) the band kernels' designs: the ring at the solver's band block, the
+# window body elsewhere.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,m_blk,smem,per_sm", [
+    (2, 1, 77784, 2), (4, 3, 77784, 2), (10, 9, 100824, 2),
+    (12, 11, 123864, 1)])
+def test_band_design_by_shape(k, m_blk, smem, per_sm):
+    """#5 and #6 take the ring at every assembly's band block (15 rows),
+    K=2's single block (no gu) included: ``threads`` a block of whole warps,
+    computing warps of lane groups of 15 tile-owning threads and one
+    producer warp, at least three slabs (slab r + 2 lands while step r reads
+    r and r + 1), and a block's shared memory -- the slabs in rows padded to
+    ``ring_ld``, each computing warp's partials of gd and gu, an mbarrier a
+    slot -- within the 232,448 B an H100 block may take, two blocks an SM
+    from K=2 to K=10."""
+    nfd, m_p, got_m_blk, _ = _layout(k)
+    assert got_m_blk == m_blk and nfd == 15 * m_blk
+    d = tkernel.band_design(nfd, m_p, 15)
+    assert d.design == "ring"
+    assert d.threads % 32 == 0 and 96 <= d.threads <= 288
+    assert 3 <= d.slots <= 4 and d.per_block >= 0
+    assert d.tile in tkernel.RING_TILES
+    ld = tkernel.ring_ld(m_p)
+    assert ld % 8 == 0 and (ld // 4) % 8 == 2 and ld >= m_p
+    assert d.smem_bytes == smem == tkernel.ring_smem_bytes(m_p, d.threads,
+                                                            d.slots)
+    assert d.smem_bytes == (4 * (d.slots * 15 * ld
+                                 + (d.threads // 32 - 1) * 450)
+                            + 8 * d.slots)
+    assert d.smem_bytes <= H100_SMEM_OPTIN
+    assert blocks_an_sm(d.smem_bytes) == per_sm
+
+
+@pytest.mark.parametrize("blk", [1, 5, 9, 45, 135])
+def test_band_design_window_elsewhere(blk):
+    """Band blocks other than 15 keep the window body: one block of
+    ``WINDOW_THREADS`` a scenario, two slabs of m_p + 1 floats a row; a
+    ring that does not fit a block would take it too."""
+    nfd, m_p = 135, 512
+    d = tkernel.band_design(nfd, m_p, blk)
+    assert d.design == "window" and d.threads == tkernel.WINDOW_THREADS
+    assert d.smem_bytes == tkernel.window_smem_bytes(m_p, blk) \
+        == 8 * blk * (m_p + 1)
+    assert tkernel.band_design(15, 8192, 15).design == "window"
+    assert tkernel.ring_smem_bytes(8192) > H100_SMEM_OPTIN
+    with pytest.raises(ValueError, match="multiple"):
+        tkernel.band_design(nfd, m_p, 8)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,design,threads", [
     (2, "cluster", 64), (3, "cluster", 64), (4, "cluster", 128),
@@ -680,19 +731,31 @@ def test_fused_design_by_shape_on_the_card(k, design, threads):
 # (vi) on the card: each new kernel against its plain version.
 # ---------------------------------------------------------------------------
 
+# (m_blk, blk, m_p) of the band kernels' cases on the card: the ring at K=2
+# (one block, no gu), K=4, K=10 and K=12's widths, the window body at a
+# band block of 9 rows.
+BAND_CARD_SHAPES = {"": (3, 15, 384), "k2": (1, 15, 384),
+                    "k10": (9, 15, 512), "k12": (11, 15, 640),
+                    "window": (15, 9, 512)}
+
+
 def _card_case(name):
     """(kernel, plain version, args on the card, kwargs, relative bar)."""
     dev = torch.device("cuda")
-    if name in ("gram_band", "gram_band_factors"):
-        inp = _random_band_inputs()
+    if name.startswith("gram_band"):
+        kernel, _, shape = name.partition(" ")
+        m_blk, blk, m_p = BAND_CARD_SHAPES[shape]
+        inp = _random_band_inputs(m_blk=m_blk, blk=blk, m_p=m_p)
         gt = tt(inp["gt"]).to(dev)
-        if name == "gram_band":
+        assert tkernel.band_design(m_blk * blk, m_p, blk).design == (
+            "window" if shape == "window" else "ring")
+        if kernel == "gram_band":
             return (tkernel.gram_band, tkernel.gram_band_plain, (gt,),
-                    dict(blk=15), 1e-5)
+                    dict(blk=blk), 1e-5)
         args = tuple(tt(inp[n]).to(dev) for n in ("gt", "pb_d", "pb_u",
                                                   "rho"))
         return (tkernel.gram_band_factors, tkernel.gram_band_factors_plain,
-                args, dict(blk=15, sigma=SIGMA), 1e-5)
+                args, dict(blk=blk, sigma=SIGMA), 1e-5)
     inp = _stage_inputs(4)
     kw = _stage_kw(inp)
     if name == "admm_stage":
@@ -712,18 +775,22 @@ def _card_case(name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["admm_stage_fused", "admm_stage_fused_carried",
-                                  "admm_stage", "gram_band",
-                                  "gram_band_factors"])
+@pytest.mark.parametrize("name", [
+    "admm_stage_fused", "admm_stage_fused_carried", "admm_stage",
+    "gram_band", "gram_band_factors", "gram_band k2", "gram_band_factors k2",
+    "gram_band k10", "gram_band_factors k10", "gram_band k12",
+    "gram_band_factors k12", "gram_band window", "gram_band_factors window"])
 def test_new_kernels_on_the_card_match_plain(name):
     """Needs an NVIDIA card and nvcc; skipped on hosts without them.  The
     stage kernels at 2e-4 of each output's scale (rsqrtf is not correctly
     rounded on the card; sums run in another order), the band kernels at
-    1e-5."""
+    1e-5, in the ring (K=2, K=4, K=10, K=12's widths: same bits run to run,
+    gd exactly symmetric) and in the window body (a band block of 9)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no host mode")
     fn, fn_plain, args, kw, rel = _card_case(name)
-    key = "admm_stage_fused" if name.startswith("admm_stage_fused") else name
+    key = "admm_stage_fused" if name.startswith("admm_stage_fused") \
+        else name.split()[0]
     before = tkernel.launches[key]
     ours = fn(*args, **kw)
     torch.cuda.synchronize()
@@ -732,6 +799,11 @@ def test_new_kernels_on_the_card_match_plain(name):
     for a, b in zip(ours, plain):
         b = to_np(b)
         np.testing.assert_allclose(to_np(a), b, rtol=0, atol=rel * _scale(b))
+    if name.startswith("gram_band"):
+        again = fn(*args, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(ours, again))
+        if key == "gram_band":
+            assert torch.equal(ours[0], ours[0].transpose(-1, -2))
     with pytest.raises(TypeError, match="float32"):
         fn(*(a.double() for a in args), **kw)
     i = 0 if name.startswith("gram") else 2       # G^T
