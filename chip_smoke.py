@@ -321,7 +321,8 @@ ADMM_ENTRIES = {"admm_stage": ("admm_stage_fused_factored_kernel",
                                "admm_stage_iter_kernel",
                                "admm_stage_cluster_kernel",
                                "admm_stage_fused_cluster_kernel",
-                               "admm_stage_ew_cluster_kernel"),
+                               "admm_stage_ew_cluster_kernel",
+                               "admm_stage_given_cluster_kernel"),
                 "gram_band": ("gram_band_kernel", "gram_band_ew_kernel",
                               "gram_band_ring_kernel")}
 # A block's dynamic shared memory may not exceed this on an H100.
@@ -330,9 +331,10 @@ MAX_DYNAMIC_SMEM = 232448
 # at its shapes and the design it must take there: the cluster design
 # wherever a block's share fits, the stream design past that: kernel 1 and
 # #2 from K=11 (at K=12 half of G^T alone is 211 KB), #3 from K=14 (its
-# share of e and w is a third of G^T's).  Where the cluster design is taken,
-# the block size its launcher must take too (512 threads an SM over as many
-# blocks as the SM's shared memory holds, at least 64).
+# share of e and w is a third of G^T's), #7 (a cluster of four, a quarter of
+# m1's and G^T's lanes a block) from K=13.  Where the cluster design is
+# taken, the block size its launcher must take too (512 threads an SM over
+# as many blocks as the SM's shared memory holds, at least 64).
 STAGE_DESIGNS = {
     "admm_stage_fused_factored": {"flagship": (135, 512, "cluster", 512),
                                   "K=4": (45, 384, "cluster", 128),
@@ -344,19 +346,31 @@ STAGE_DESIGNS = {
     "admm_stage_fused_factored_ew": {"K=4": (45, 384, "cluster", 64),
                                      "flagship": (135, 512, "cluster", 512),
                                      "K=12": (165, 640, "cluster", 512),
-                                     "K=14": (195, 640, "stream", None)}}
+                                     "K=14": (195, 640, "stream", None)},
+    "admm_stage": {"K=2": (15, 384, "cluster", 64),
+                   "K=4": (45, 384, "cluster", 64),
+                   "flagship": (135, 512, "cluster", 512),
+                   "K=12": (165, 640, "cluster", 512),
+                   "K=14": (195, 640, "stream", None)}}
+# #7's negative control: its cluster design built with rank 3's partial of
+# m1 v left out of g.
+STAGE_DROP_RANK3 = ("ADMM_STAGE_CONTROL_DROP_RANK3",)
+STAGE_CONTROL_BUILDS = (("admm_stage", STAGE_DROP_RANK3),)
 
 
 # #5 and #6 (nfd, m_p, blk) at the solver's shapes and one other band block,
 # the design each must take there (ops.admm_kernel.band_design: the ring at
 # the band block of every assembly, 15, the window body at any other), and
 # where the ring is taken the blocks an SM must hold (two at K=2 to K=10:
-# the ring and the partials take 77,784-100,824 B).
+# the ring and the partials take 77,784-100,824 B).  #4 (G^T as its row
+# factors) takes the same designs at the same shapes, with w's buffer and
+# one more mbarrier: 87,008-113,120 B, two blocks an SM to K=10.
 BAND_DESIGN_SHAPES = {"K=2": (15, 384, 15, "ring", 2),
                       "K=4": (45, 384, 15, "ring", 2),
                       "flagship": (135, 512, 15, "ring", 2),
                       "K=12": (165, 640, 15, "ring", 1),
                       "flagship blk 9": (135, 512, 9, "window", None)}
+BAND_SOURCES = {"stored": "gram_band", "factors": "gram_band_factors_ew"}
 # The ring's negative control: the same source built with the last warp's
 # partial left out of every entry.
 BAND_SKIP_COMBINE = ("GRAM_BAND_CONTROL_SKIP_COMBINE",)
@@ -407,15 +421,17 @@ def entry_report(log, names):
 
 
 def ring_entries(log):
-    """``entry_report`` of the ring's kernels, one a tile shape
-    (``gram_band_ring_kernel<TR,TC>``, matched by their template
-    arguments in the mangled name)."""
+    """``entry_report`` of the ring's kernels, one a tile shape and G^T
+    source (``gram_band_ring_kernel<TR,TC,SRC>``, SRC 0 stored, 1 factors,
+    matched by their template arguments in the mangled name)."""
     out = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
-        tile = re.search(r"21gram_band_ring_kernelILi(\d+)ELi(\d+)E", mangled)
+        tile = re.search(r"21gram_band_ring_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                         mangled)
         if tile:
-            name = f"gram_band_ring_kernel<{tile.group(1)},{tile.group(2)}>"
+            name = (f"gram_band_ring_kernel<{tile.group(1)},{tile.group(2)},"
+                    f"{tile.group(3)}>")
             out.update({name: entry_report(
                 "Compiling entry function '" + chunk,
                 ["gram_band_ring_kernel"])["gram_band_ring_kernel"]})
@@ -423,16 +439,20 @@ def ring_entries(log):
 
 
 def band_design_report(admm_kernel):
-    """#5's and #6's design at each shape of BAND_DESIGN_SHAPES, with a
-    block's shared memory as the library and as ops.admm_kernel compute it
-    and, for the ring, the blocks an SM holds and the grid at MAIN_BATCH;
-    the labels of the shapes that do not take what they must."""
+    """The band kernels' design at each shape of BAND_DESIGN_SHAPES, for G^T
+    stored (#5, #6) and as its row factors (#4), with a block's shared
+    memory as the library and as ops.admm_kernel compute it and, for the
+    ring, the blocks an SM holds and the grid at MAIN_BATCH; the labels of
+    the shapes that do not take what they must."""
     designs, bad = {}, []
-    for label, (nfd, m_p, blk, want, per_sm) in BAND_DESIGN_SHAPES.items():
-        d = admm_kernel.band_design(nfd, m_p, blk)
+    for (label, (nfd, m_p, blk, want, per_sm)), (source, kind) in (
+            (shape, src) for src in BAND_SOURCES.items()
+            for shape in BAND_DESIGN_SHAPES.items()):
+        label = f"{kind} {label}"
+        d = admm_kernel.band_design(nfd, m_p, blk, source)
         entry = dict(d._asdict(), expected_design=want,
                      smem_bytes_of_the_library=admm_kernel.smem_bytes(
-                         nfd, m_p, nfd // blk, blk, 0, kind="gram_band"))
+                         nfd, m_p, nfd // blk, blk, 0, kind=kind))
         if d.design == "ring":
             entry.update(
                 blocks_per_sm=admm_kernel.ring_blocks_per_sm(m_p, d),
@@ -455,7 +475,7 @@ def phase_build(state):
     if set(_build.SOURCES) != {"admm_stage", "gram_band", *IPM_SOURCES}:
         raise RuntimeError(f"unexpected kernel sources: {_build.SOURCES}")
     wall = _build.prebuild(variants=IPM_CONTROL_BUILDS
-                           + BAND_CONTROL_BUILDS)
+                           + BAND_CONTROL_BUILDS + STAGE_CONTROL_BUILDS)
     smem = admm_kernel.smem_bytes(135, 512, 9, 15, 128)
     seconds = time.perf_counter() - t0
     # #8-#11: which design each shape takes (IPM_DESIGNS), a block's
@@ -551,7 +571,8 @@ def phase_build(state):
                 if design == "cluster" else None,
                 cluster_block_threads=admm_kernel.block_threads(
                     k_nfd, k_mp, k_blk, 15, nb_p, kind),
-                expected_block_threads=want_threads)
+                expected_block_threads=want_threads,
+                cluster_ranks=admm_kernel.cluster_ranks(kind))
             designs[f"{kind} {label}"] = d
             if (design != want
                     or d["cluster_dynamic_smem_bytes"]
@@ -569,11 +590,10 @@ def phase_build(state):
          band_designs=band_designs, control_builds=[
              dict(source=n, defines=list(d),
                   built_now=_build.build_info(n, d)["built"])
-             for n, d in BAND_CONTROL_BUILDS],
+             for n, d in BAND_CONTROL_BUILDS + STAGE_CONTROL_BUILDS],
          threads_per_block=dict(
              stage=admm_kernel.THREADS,
-             gram_band={k: v["threads"] for k, v in band_designs.items()},
-             gram_band_factors_ew=admm_kernel.WINDOW_THREADS))
+             gram_band={k: v["threads"] for k, v in band_designs.items()}))
     over = {f"{label} {k}": v for label, d in smem.items()
             for k, v in d.items() if v > MAX_DYNAMIC_SMEM}
     if over or len(entries) != sum(map(len, ADMM_ENTRIES.values())):
@@ -583,8 +603,10 @@ def phase_build(state):
         raise RuntimeError(f"build: stage entry points not taking the "
                            f"expected design and block size {STAGE_DESIGNS} "
                            f"with the layout Python computes: {bad}")
-    if band_bad or len(ring) != len(admm_kernel.RING_TILES):
-        raise RuntimeError(f"build: #5 / #6 not taking the expected design "
+    if band_bad or len(ring) != len(admm_kernel.RING_TILES) * len(
+            BAND_SOURCES):
+        raise RuntimeError(f"build: #4 / #5 / #6 not taking the expected "
+                           f"design "
                            f"{BAND_DESIGN_SHAPES} with the shared memory "
                            f"Python computes ({band_bad}), or ring kernels "
                            f"missing: {sorted(ring)}")
@@ -657,35 +679,42 @@ def phase_kernel_check(state, mtt):
 
 
 # The kernels of the other KKT routes.  The stage kernels #2 and #7 are held
-# to kernel 1's two criteria (KERNEL_TOL, compare_outputs): #2 in its
-# cluster design against the plain version in that design's order
-# (admm_stage_fused_winv_plain), in its stream design and #7 against the
-# reference order; criterion 2 always against the reference order in float64
-# with the reference order's float32 error as the floor.  The band kernels
+# to kernel 1's two criteria (KERNEL_TOL, compare_outputs): in their cluster
+# designs against the plain version in that design's order
+# (admm_stage_fused_winv_plain; #7's cluster of four: admm_stage_given_plain,
+# m1 v summed as the blocks' partials in rank order), in their stream
+# designs against the reference order; criterion 2 always against the
+# reference order in float64 with the reference order's float32 error as the
+# floor.  The band kernels
 # #5 and #6 to: per output, max|kernel - plain f64| <= BAND_FACTOR * max|plain
 # f32 - plain f64| + BAND_FLOOR * max(1, max|plain f64|).  Each check has a
 # negative control that must fail it: #2 and #7 with alpha WRONG_ALPHA for
 # the config's 1.6, #5 with rho times WRONG_RHO_FACTOR, #6 with the last row
 # of G^T set to zero (the plain versions get the right inputs), and where
 # they take the ring design both with its partials' combine short of the
-# last warp (BAND_SKIP_COMBINE, a build variant).  The controls run at every
-# shape and must be rejected at the flagship shape, the main path's, and at
-# K=12 (#2 past its cluster design's budget); at K=2 and K=4 the result is
-# reported.  Each check of a kernel with two designs records the design its
-# kernel took and fails where that is not the shape's (ROUTE_SHAPES; the
-# band kernels': band_design's, held in the build phase).  The band kernels
-# run at every shape and on a random G^T of the flagship shape, at its band
-# block (the ring) and at a block of 9 rows (the window body).
+# last warp (BAND_SKIP_COMBINE, a build variant); #7 in its cluster design
+# also built with rank 3's partial left out of g (STAGE_DROP_RANK3).  The
+# controls run at every shape and must be rejected at the flagship shape,
+# the main path's, and at K=12 (#2 past its cluster design's budget); at K=2
+# and K=4 the result is reported.  Each check of a kernel with two designs
+# records the design its kernel took and fails where that is not the
+# shape's (ROUTE_SHAPES; the band kernels': band_design's, held in the build
+# phase).  #7 runs at every shape and at K=14 (GIVEN_STREAM_SHAPE), where it
+# takes the stream design.  The band kernels run at every shape and on a
+# random G^T of the flagship shape, at its band block (the ring) and at a
+# block of 9 rows (the window body).
 BAND_FACTOR = 2.0
 BAND_FLOOR = 1e-6
 WRONG_ALPHA = 1.62
 WRONG_RHO_FACTOR = 1.001
-# (label, K, batch, the design #2 must take, controls gated, #7 checked
-# too)
-ROUTE_SHAPES = (("K=2", 2, 256, "cluster", False, True),
-                ("K=4", 4, 64, "cluster", False, True),
-                ("flagship K=10", 10, 256, "cluster", True, True),
-                ("K=12", 12, 32, "stream", True, False))
+# (label, K, batch, the design #2 must take, controls gated, the design #7
+# must take)
+ROUTE_SHAPES = (("K=2", 2, 256, "cluster", False, "cluster"),
+                ("K=4", 4, 64, "cluster", False, "cluster"),
+                ("flagship K=10", 10, 256, "cluster", True, "cluster"),
+                ("K=12", 12, 32, "stream", True, "cluster"))
+# #7 alone past its cluster design's budget, its control gated.
+GIVEN_STREAM_SHAPE = ("K=14", 14, 32, "stream")
 BAND_BLOCK = 15
 # The band block of the random G^T's window case.
 WINDOW_BLOCK = 9
@@ -830,9 +859,26 @@ def fused_check_design(ak, gt, nb_p):
                     else None)
 
 
-def route_checks(ak, inp, with_7=True):
-    """The ``check`` entries for one shape: #2 (init_z True and False), the
-    band kernels and, with ``with_7``, #7."""
+def given_checks(ak, inp, want):
+    """The ``check`` entry of #7 for one shape: the design it takes (it
+    must take ``want``), criterion 1 against the plain version in that
+    design's order, the alpha control and, in the cluster design, the build
+    without rank 3's partial."""
+    kw = inp["kw"]
+    _, nfd, m_p = inp["gt"].shape
+    design = ak.given_design(nfd, m_p, kw["nb_p"])
+    controls = [(inp["stage"], dict(kw, alpha=WRONG_ALPHA))]
+    if design == "cluster":
+        controls.append((inp["stage"], kw, STAGE_DROP_RANK3, "admm_stage"))
+    return [check("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
+                  inp["stage"], kw, "stage", *controls,
+                  twin=ak.admm_stage_given_plain if design == "cluster"
+                  else None, design=design, want=want)]
+
+
+def route_checks(ak, inp, want_7):
+    """The ``check`` entries for one shape: #2 (init_z True and False), #7
+    (which must take the design ``want_7``) and the band kernels."""
     kw = inp["kw"]
     design, twin = fused_check_design(ak, inp["gt"], kw["nb_p"])
     out = []
@@ -845,11 +891,7 @@ def route_checks(ak, inp, with_7=True):
                          args, fkw, "stage",
                          (args, dict(fkw, alpha=WRONG_ALPHA)), twin=twin,
                          design=design))
-    if with_7:
-        out.append(check("admm_stage", "", ak.admm_stage, ak.admm_stage_plain,
-                         inp["stage"], kw, "stage",
-                         (inp["stage"], dict(kw, alpha=WRONG_ALPHA))))
-    return out + band_checks(ak, inp)
+    return out + given_checks(ak, inp, want_7) + band_checks(ak, inp)
 
 
 def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3, blk=BAND_BLOCK):
@@ -871,11 +913,13 @@ def random_band_inputs(batch=256, nfd=135, m_p=512, seed=3, blk=BAND_BLOCK):
 
 def run_control(c, control):
     """The kernel of check ``c`` on a control's inputs, with the library
-    built with the control's macros where it names any."""
+    (``control[3]``, default gram_band) built with the control's macros
+    where it names any."""
     args, kw = control[:2]
     if len(control) == 2:
         return as_tuple(c["fn"](*args, **kw))
-    with library_variant("gram_band", control[2]):
+    name = control[3] if len(control) > 3 else "gram_band"
+    with library_variant(name, control[2]):
         return as_tuple(c["fn"](*args, **kw))
 
 
@@ -930,20 +974,25 @@ def run_checks(label, shape, checks, controls_gate, cases, bad,
 
 
 def route_kernel_check(mtt):
-    """#2 (init_z True and False), #6 (both per_block values) and #5
+    """#2 (init_z True and False), #7, #6 (both per_block values) and #5
     against their plain versions in float32 and float64 at K=2, K=4, K=10
-    and K=12, and #7 at the first three, with the negative controls and the
-    designs of #2, #5 and #6; the band kernels also on a random G^T of the
+    and K=12, and #7 at K=14 too, with the negative controls and the designs
+    of #2, #7, #5 and #6; the band kernels also on a random G^T of the
     flagship shape, in the ring and (band block 9) in the window body."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     cases, bad = [], []
-    for label, k, batch, want, gated, with_7 in ROUTE_SHAPES:
+    for label, k, batch, want, gated, want_7 in ROUTE_SHAPES:
         inp = route_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
         run_checks(label, inp["gt"].shape,
-                   route_checks(admm_kernel, inp, with_7), gated, cases,
+                   route_checks(admm_kernel, inp, want_7), gated, cases,
                    bad, want_design=want)
         del inp
+    label, k, batch, want_7 = GIVEN_STREAM_SHAPE
+    inp = route_inputs(mtt, k, batch, seed=1, config=bench_config(mtt))
+    run_checks(label, inp["gt"].shape, given_checks(admm_kernel, inp, want_7),
+               True, cases, bad)
+    del inp
     for blk in (BAND_BLOCK, WINDOW_BLOCK):
         inp = random_band_inputs(blk=blk)
         run_checks(f"random G^T, flagship shape, blk {blk}",
@@ -952,15 +1001,18 @@ def route_kernel_check(mtt):
         del inp
     emit("kernel_check_routes", tolerance_is=dict(
         stage="as kernel_check (KERNEL_TOL, both criteria; #2's cluster "
-        "design against admm_stage_fused_winv_plain)",
+        "design against admm_stage_fused_winv_plain, #7's against "
+        "admm_stage_given_plain)",
         band=f"per output max|kernel - plain f64| <= {BAND_FACTOR} * "
         f"max|plain f32 - plain f64| + {BAND_FLOOR} * max(1, max|plain "
         f"f64|)"), controls=dict(
         stage_alpha=WRONG_ALPHA, gram_band_factors_rho_factor=
         WRONG_RHO_FACTOR, gram_band="last row of G^T zero",
         band_ring=f"both band kernels built with {BAND_SKIP_COMBINE}: the "
-        "last warp's partial left out of every entry"),
-        controls_gated_at=[r[0] for r in ROUTE_SHAPES if r[4]], cases=cases)
+        "last warp's partial left out of every entry", admm_stage_cluster=
+        f"#7 built with {STAGE_DROP_RANK3}: rank 3's partial of m1 v left "
+        "out of g"), controls_gated_at=[r[0] for r in ROUTE_SHAPES if r[4]]
+        + [GIVEN_STREAM_SHAPE[0]], cases=cases)
     torch.cuda.empty_cache()
     if bad:
         raise RuntimeError(f"kernel_check (routes) failed for {bad}")
@@ -1924,6 +1976,7 @@ def phase_dense_path(state, mtt):
     stage_args = (rho, torch.bmm(winv, gt), gt, b, rb, xq, z1.contiguous(),
                   (0.5 * u1).contiguous())
     del args, z1, u1
+    design7 = admm_kernel.given_design(*gt.shape[1:], skw["nb_p"])
     reset_launches()
     out7 = admm_kernel.admm_stage(*stage_args, **skw)
     torch.cuda.synchronize()
@@ -1932,15 +1985,16 @@ def phase_dense_path(state, mtt):
     rec["admm_stage"] = to_device((stage_args, skw), "cpu")
     del stage_args, out7
     torch.cuda.empty_cache()
-    if state["stage_launches"] != 1 or not finite7:
-        bad.append("admm_stage through its wrapper")
+    if state["stage_launches"] != 1 or not finite7 or design7 != "cluster":
+        bad.append("admm_stage through its wrapper (its cluster design)")
 
     emit("dense_path", config="headline ADMMConfig (1 stage x 48 "
          "iterations, rho 0.005, tube/half factors 0.125), seed 0, warm "
          "start from vertex values; (a) K=10 kkt_apply='inverse', (b) K=10 "
          "kkt_inverse='cholesky', (c) K=2 default", routes=routes,
          three_stages=multi, admm_stage_wrapper=dict(
-             launches=state["stage_launches"], outputs_finite=finite7),
+             launches=state["stage_launches"], outputs_finite=finite7,
+             design=design7),
          limits=dict(cost_gap_median=ROUTE_COST_MEDIAN,
                      cost_gap_p99=ROUTE_COST_P99,
                      rows_over_p99_limit=int(ROUTE_COST_OUTLIER_SHARE
@@ -2062,14 +2116,18 @@ def second_seed_gap(mtt, batch, ref_cfg, cfg):
 # kernels #3 and #4, each against its plain version by the rules of #1
 # (compare_outputs; #3's cluster design against
 # admm_stage_fused_factored_ew_winv_plain, its stream design against the
-# reference order) and #5 (band_compare), on real factors at K=4 and K=10,
-# #3 also at K=12 (past kernel 1's budget, within its own: a block holds
-# 198,928 B) and K=14 (past its own: the stream design), and #4 on random
-# factors (a real assembly's super-diagonal band is exactly zero).  The
-# negative control of both hands the kernel w with its rows in the wrong
-# order: G^T row p*3 + d then reads w[(d + 1) % 3], what a wrong row
-# interleave would do; #3 has a second, alpha WRONG_ALPHA for the config's
-# 1.6.  The controls must be rejected at the flagship shape and at K=14.
+# reference order) and #5 (band_compare), on real factors at K=4, K=10 and
+# K=12 (#3 there past kernel 1's budget, within its own: a block holds
+# 198,928 B), #3 also at K=14 (past its own: the stream design), and #4 on
+# random factors of K=2's widths and the flagship's (a real assembly's
+# super-diagonal band is exactly zero), #4 in the design band_design names
+# for the factors (the ring at blk 15, held there).  The negative control of
+# both hands the kernel w with its rows in the wrong order: G^T row p*3 + d
+# then reads w[(d + 1) % 3], what a wrong row interleave would do; #3 has a
+# second, alpha WRONG_ALPHA for the config's 1.6, and #4 in the ring the
+# build without the last warp's partial (BAND_SKIP_COMBINE).  The controls
+# must be rejected at the flagship shape, at K=14 and on the random
+# flagship factors.
 # The path is gated as the KKT routes are (ROUTE_*), against the "pallas_db"
 # route on the same inputs (kernels #5 and #1 on the assembled G^T, which the
 # factors expand to), and at the headline's bars.
@@ -2077,17 +2135,25 @@ EW_KERNELS = ("admm_stage_fused_factored_ew", "gram_band_factors_ew")
 # (label, K, batch, the design #3 must take, controls gated, #4 checked too)
 EW_SHAPES = (("K=4", 4, 64, "cluster", False, True),
              ("flagship K=10", 10, 256, "cluster", True, True),
-             ("K=12", 12, 32, "cluster", False, False),
+             ("K=12", 12, 32, "cluster", False, True),
              ("K=14", 14, 32, "stream", True, False))
+# #4 on random factors: (label, nf, m_p, controls gated); K=2's widths (one
+# band block, no ub: the ew route itself refuses K=2) and the flagship's.
+EW_RANDOM_BANDS = (("random e, w, K=2 widths", 5, 384, False),
+                   ("random e, w, flagship shape", 45, 512, True))
 EW_STAGES = 3
 
 
-def ew_inputs(mtt, k, batch, seed, config):
+def ew_inputs(mtt, k, batch, seed, config, route_band=False):
     """Inputs of kernels #3 and #4 from a real assembly on the
     gt_assembly="kernel" route at the config's rho: the factors e, w, the
-    objective band, the stage's LDL^T factors and xq (the band from #4),
-    and x, z, u carried from one plain stage (u halved, as a rebalancing of
-    rho would) for the init_z=False entry."""
+    objective band, the stage's LDL^T factors and xq, and x, z, u carried
+    from one plain stage (u halved, as a rebalancing of rho would) for the
+    init_z=False entry.  The stage's factors come from the PyTorch band of
+    the expanded G^T (``qcqp._kkt_band``), as ``stage_inputs`` and
+    ``route_inputs`` form theirs, so that #3's check does not rest on the
+    rounding of #4, a kernel under test; with ``route_band`` from #4's band,
+    as the route forms them."""
     import dataclasses
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
@@ -2098,12 +2164,18 @@ def ew_inputs(mtt, k, batch, seed, config):
     pre = qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
                     sc.radii, cfg, None, layout,
                     warmstart_positions=sc.values[:, 1:-1, 0, :])
-    kkt = qcqp._kkt_setup(cfg, pre, banded.kkt_tridiag_block(sc.free))
+    blk = banded.kkt_tridiag_block(sc.free)
+    kkt = qcqp._kkt_setup(cfg, pre, blk)
     e, w = kkt.factors
     rho = torch.full((batch, 1, 1), cfg.rho, dtype=torch.float32,
                      device=e.device)
-    sinv, t_st, tt_st, xq = qcqp._stage_factors(
-        kkt.band, rho, cfg.sigma, pre.q_flat, factors=kkt.factors)
+    if route_band:
+        sinv, t_st, tt_st, xq = qcqp._stage_factors(
+            kkt.band, rho, cfg.sigma, pre.q_flat, factors=kkt.factors)
+    else:
+        sinv, t_st, tt_st, xq = qcqp._stage_factors(
+            qcqp._kkt_band(admm_kernel.expand_gt(e, w), pre.p_eq, blk), rho,
+            cfg.sigma, pre.q_flat)
     stage = (rho, sinv, t_st, tt_st, e, w, pre.b_pad.contiguous(),
              qcqp._rb_pad(pre.rb, layout), xq)
     x0 = pre.x_flat0[:, :, None].contiguous()
@@ -2119,7 +2191,8 @@ def ew_inputs(mtt, k, batch, seed, config):
 
 
 def random_ew_band_inputs(batch=256, nf=45, m_p=512, seed=4):
-    """Inputs of kernel #4 of the flagship shape with random factors."""
+    """Inputs of kernel #4 with random factors (by default of the flagship
+    shape)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -2145,8 +2218,10 @@ def ew_stage_design(ak, args, nb_p):
 
 def ew_checks(ak, inp, band=True):
     """The ``check`` entries for kernels #3 (init_z True and False, where
-    ``inp`` has stage inputs) and, with ``band``, #4, each with the controls
-    stated above EW_KERNELS."""
+    ``inp`` has stage inputs) and, with ``band``, #4 (in the design
+    ``band_design`` names for the factors: the ring at blk 15), each with
+    the controls stated above EW_KERNELS and, for #4 in the ring,
+    BAND_SKIP_COMBINE."""
     w_bad = inp["w"][:, [1, 2, 0]].contiguous()
     out = []
     if "stage" in inp:
@@ -2164,18 +2239,23 @@ def ew_checks(ak, inp, band=True):
         return out
     band_args = (inp["e"], inp["w"], inp["pb_d"], inp["pb_u"], inp["rho"])
     band_kw = dict(blk=BAND_BLOCK, sigma=inp["sigma"])
+    _, nf, m_p = inp["e"].shape
+    design = ak.band_design(ak.DIMS * nf, m_p, BAND_BLOCK, "factors").design
+    ring = ((band_args, band_kw, BAND_SKIP_COMBINE),) if design == "ring" \
+        else ()
     out.append(check(EW_KERNELS[1], "", ak.gram_band_factors_ew,
                      ak.gram_band_factors_ew_plain, band_args, band_kw,
-                     "band", ((inp["e"], w_bad) + band_args[2:], band_kw)))
+                     "band", ((inp["e"], w_bad) + band_args[2:], band_kw),
+                     *ring, design=design, want="ring"))
     return out
 
 
 def same_bits_as_gt_kernels(ak, inp):
     """Whether #3 and #4 give the bits of #1 and #5 on the G^T their factors
-    expand to (reported).  Neither does: #3's cluster design sums in
-    another order than kernel 1's, and #4 keeps the window body while #5
-    takes the ring, so the ew route is not bit-identical to "pallas_db" in
-    its band either."""
+    expand to.  #3 does not (reported): its cluster design sums in another
+    order than kernel 1's.  #4 does: it runs #5's ring on slab entries
+    rounded as ``expand_gt`` rounds them, so the ew route's band is the bits
+    of "pallas_db"'s; the caller gates it."""
     import torch
     gt = ak.expand_gt(inp["e"], inp["w"])
     st = inp["stage"]
@@ -2191,6 +2271,51 @@ def same_bits_as_gt_kernels(ak, inp):
             EW_KERNELS[1]: all(torch.equal(a, b) for a, b in zip(ew_b, ref_b))}
 
 
+# Reported beside kernel_check_ew: criterion 2's margin (kernel vs plain
+# float64 over its bar, the largest over the outputs: above 1 the criterion
+# fails) of #3 entered with init_z, on seed 1's stage factors from the
+# PyTorch band (the check's inputs) and from #4's band (the route's), and the
+# margin of the reference order's float32 run on the host judged by the same
+# criterion as if it were the kernel: how far the criterion, whose floor is
+# one float32 run, separates the kernel from float32's own spread.
+EW_CALIBRATION_SHAPES = (("K=12", 12, 32), ("K=14", 14, 32))
+
+
+def criterion_2_margin(res):
+    """The largest over the outputs of compare_outputs' criterion-2 ratio."""
+    return max(res["kernel_vs_plain_f64"][n]
+               / (3.0 * res["plain_vs_plain_f64"][n] + 1e-6 * res["scale"])
+               for n in res["kernel_vs_plain_f64"])
+
+
+def criterion_2_calibration(mtt, ak):
+    """The report stated above EW_CALIBRATION_SHAPES."""
+    out = {}
+    for label, k, batch in EW_CALIBRATION_SHAPES:
+        for source, route_band in (("pytorch band", False),
+                                   ("#4's band", True)):
+            inp = ew_inputs(mtt, k, batch, seed=1, config=bench_config(mtt),
+                            route_band=route_band)
+            args = inp["stage"] + (inp["x0"],)
+            kw = dict(inp["kw"], init_z=True)
+            design, twin = ew_stage_design(ak, args, kw["nb_p"])
+            ours, ref32, plain64, _ = triple(
+                ak.admm_stage_fused_factored_ew,
+                ak.admm_stage_fused_factored_ew_plain, args, kw)
+            plain = ref32 if twin is None else twin(*args, **kw)
+            host = ak.admm_stage_fused_factored_ew_plain(
+                *(a.cpu() for a in args), **kw)
+            host = tuple(h.to(ours[0].device) for h in host)
+            out[f"{label} {source}"] = dict(
+                design=design,
+                kernel_margin=criterion_2_margin(
+                    compare_outputs(ours, plain, plain64, ref32)[0]),
+                host_float32_reference_margin=criterion_2_margin(
+                    compare_outputs(host, plain, plain64, ref32)[0]))
+            del inp, ours, ref32, plain64, plain, host
+    return out
+
+
 def ew_kernel_check(mtt):
     """#3 and #4 against their plain versions in float32 and float64, with
     their controls; whether they give #1's and #5's bits."""
@@ -2203,23 +2328,30 @@ def ew_kernel_check(mtt):
                    gated, cases, bad, want_design=want)
         if band:
             bits[label] = same_bits_as_gt_kernels(admm_kernel, inp)
+            if not bits[label][EW_KERNELS[1]]:
+                bad.append(f"{EW_KERNELS[1]} {label}: not #5's bits on the "
+                           f"expanded G^T")
         del inp
-    inp = random_ew_band_inputs()
-    run_checks("random e, w, flagship shape", inp["e"].shape,
-               ew_checks(admm_kernel, inp), True, cases, bad)
-    del inp
+    for label, nf, m_p, gated in EW_RANDOM_BANDS:
+        inp = random_ew_band_inputs(nf=nf, m_p=m_p)
+        run_checks(label, inp["e"].shape, ew_checks(admm_kernel, inp),
+                   gated, cases, bad)
+        del inp
+    calibration = criterion_2_calibration(mtt, admm_kernel)
     torch.cuda.empty_cache()
     emit("kernel_check_ew", tolerance_is=dict(
         stage="as kernel_check (KERNEL_TOL, both criteria; the cluster "
         "design against admm_stage_fused_factored_ew_winv_plain)",
         band="as kernel_check_routes' band criterion"),
         control=f"w's rows in the order (1, 2, 0); #3 also alpha "
-        f"{WRONG_ALPHA}", controls_gated_at=[r[0] for r in EW_SHAPES
-                                              if r[4]], cases=cases,
+        f"{WRONG_ALPHA}; #4 in the ring also built with {BAND_SKIP_COMBINE}",
+        controls_gated_at=[r[0] for r in EW_SHAPES if r[4]]
+        + [r[0] for r in EW_RANDOM_BANDS if r[3]], cases=cases,
         same_bits_as_gt_kernels_on_the_expanded_gt=bits,
-        same_bits_note="reported, expected False for both: #3's cluster "
-        "design and kernel 1's sum in different orders, and #4 (the window "
-        "body) and #5 (the ring) too")
+        same_bits_note="#3: reported, expected False (its cluster design "
+        "and kernel 1's sum in different orders); #4: gated, True (the same "
+        "ring as #5 on the same slab entries)",
+        criterion_2_calibration=calibration)
     if bad:
         raise RuntimeError(f"kernel_check (ew) failed for {bad}")
 
@@ -2478,13 +2610,17 @@ def ipm_design_of(ipm_kernel, kernel, args, kw):
 # on the headline's stage inputs at the flagship (batch 256) and K=4 (64) in
 # its cluster design and K=12 (32) in its stream design, entered with init_z
 # and again with its own z, u carried in; #7 on route (a)'s stage inputs at
-# the flagship and K=4), one SHA-256 digest of their bytes per kernel and
-# shape.  Their arithmetic is not to change when the stage body they share
-# with #2 and #3 does: with --bits-of-parent (a file holding this phase's
-# line run on another checkout, this script copied there; the phase uses
-# only the public entry points) it fails unless every digest is the same.
+# the three shapes, in the design it takes there, named in its key), one
+# SHA-256 digest of their bytes per kernel and shape.  Their arithmetic is
+# not to change when the stage body they share with #2 and #3 does: with
+# --bits-of-parent (a file holding this phase's line run on another
+# checkout, this script copied there; the phase uses only the public entry
+# points) it fails unless every digest is the same as the parent's, but for
+# those of a kernel this tree redesigned (STAGE_BITS_REPORTED: #7's cluster
+# of four), which are reported beside the parent's.
 STAGE_BITS_SHAPES = (("flagship K=10", 10, 256), ("K=4", 4, 64),
                      ("K=12", 12, 32))
+STAGE_BITS_REPORTED = ("admm_stage ",)
 
 
 def sha256_of(*outputs):
@@ -2499,14 +2635,32 @@ def sha256_of(*outputs):
 
 
 def parent_line(parent_file, phase):
-    """The ``digests`` of ``phase``'s line in ``parent_file``, or None."""
+    """The digests of ``phase``'s line in ``parent_file`` (its ``digests``
+    and any ``ungated_digests`` it printed beside them), or None."""
     if not parent_file:
         return None
     with open(parent_file) as fh:
         for line in fh:
             if line.startswith("{") and f'"{phase}"' in line:
-                return json.loads(line)["digests"]
+                fields = json.loads(line)
+                return {**fields.get("ungated_digests", {}),
+                        **fields["digests"]}
     return None
+
+
+def against_parent(digests, parent, reported, renamed=lambda key: key):
+    """(gated keys whose digest differs from the parent's or that the
+    parent lacks, {reported key: whether it equals the parent's}) for
+    ``digests`` against ``parent`` (``parent_line``): keys starting with a
+    prefix in ``reported`` are only reported, under the parent's key
+    ``renamed(key)``."""
+    differ, report = [], {}
+    for key, digest in digests.items():
+        if key.startswith(reported):
+            report[key] = parent.get(renamed(key)) == digest
+        elif parent.get(key) != digest:
+            differ.append(key)
+    return differ, report
 
 
 def phase_stage_bits(state, mtt, parent_file=None):
@@ -2524,20 +2678,26 @@ def phase_stage_bits(state, mtt, parent_file=None):
         digests[f"admm_stage_fused_factored {label}"] = sha256_of(first,
                                                                   carried)
         del args, first, carried
-        if k != 12:
-            inp = route_inputs(mtt, k, batch, seed=1, config=cfg)
-            out = ak.admm_stage(*inp["stage"], **inp["kw"])
-            torch.cuda.synchronize()
-            digests[f"admm_stage {label}"] = sha256_of(out)
-            del inp, out
+        inp = route_inputs(mtt, k, batch, seed=1, config=cfg)
+        _, nfd, m_p = inp["gt"].shape
+        design = ak.given_design(nfd, m_p, inp["kw"]["nb_p"])
+        out = ak.admm_stage(*inp["stage"], **inp["kw"])
+        torch.cuda.synchronize()
+        digests[f"admm_stage {design} {label}"] = sha256_of(out)
+        del inp, out
         torch.cuda.empty_cache()
-    parent = parent_line(parent_file, "stage_bits")
-    same = None if parent_file is None else parent == digests
+    differ, reported = (None, None) if parent_file is None else \
+        against_parent(digests, parent_line(parent_file, "stage_bits"),
+                       STAGE_BITS_REPORTED,
+                       lambda key: "admm_stage " + key.split(" ", 2)[2])
     emit("stage_bits", digests=digests, parent_file=parent_file,
-         same_bits_as_parent=same)
-    if parent_file and not same:
-        raise RuntimeError(f"stage_bits: kernel 1's / #7's outputs differ "
-                           f"from the parent's ({parent_file}): {parent}")
+         same_bits_as_parent=None if differ is None else not differ,
+         gated_digests_differing=differ, reported_vs_parent=reported,
+         reported_are=f"keys starting with {STAGE_BITS_REPORTED}: a design "
+         "this tree changed; the parent's key has no design")
+    if differ:
+        raise RuntimeError(f"stage_bits: kernel 1's outputs differ from the "
+                           f"parent's ({parent_file}): {differ}")
 
 
 # ipm_bits: #8's and #9's outputs on the calls real polishes make (seed 1,
@@ -2573,20 +2733,24 @@ def phase_ipm_bits(state, mtt, parent_file=None):
                            f"parent's ({parent_file}): {parent}")
 
 
-# band_bits: #4's outputs (the window body, which this slice leaves as it
-# was) on the ew route's inputs (seed 1: the flagship at batch 256 and K=4 at
-# 64) and on random factors of the flagship shape, as one SHA-256 digest per
-# case; with --bits-of-parent (the --out file of this phase run on another
-# checkout, this script copied there; the phase uses only the public entry
-# points) it fails unless every digest is the same.  #5's and #6's digests on
-# the same G^T are reported beside them, ungated.
+# band_bits: #4's, #5's and #6's outputs on the ew route's inputs (seed 1:
+# the flagship at batch 256 and K=4 at 64; #5 and #6 on the G^T they expand
+# to) and on random factors of the flagship shape, as one SHA-256 digest per
+# kernel and case.  It fails unless #4's digest equals #5's in every case
+# (the same ring on the same slab entries), and with --bits-of-parent (the
+# --out file of this phase run on another checkout, this script copied
+# there; the phase uses only the public entry points) unless every digest is
+# the parent's, but for those of a kernel this tree redesigned
+# (BAND_BITS_REPORTED: #4, which moved from the window body to the ring),
+# reported beside the parent's.
 BAND_BITS_SHAPES = (("flagship K=10", 10, 256), ("K=4", 4, 64))
+BAND_BITS_REPORTED = ("gram_band_factors_ew ",)
 
 
 def phase_band_bits(state, mtt, parent_file=None):
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
-    digests, others = {}, {}
+    digests = {}
     cases = [(label, ew_inputs(mtt, k, batch, seed=1,
                                config=bench_config(mtt)))
              for label, k, batch in BAND_BITS_SHAPES]
@@ -2597,21 +2761,29 @@ def phase_band_bits(state, mtt, parent_file=None):
         digests[f"gram_band_factors_ew {label}"] = sha256_of(
             ak.gram_band_factors_ew(inp["e"], inp["w"], *band, **bkw))
         gt = ak.expand_gt(inp["e"], inp["w"])
-        others[f"gram_band_factors {label}"] = sha256_of(
+        digests[f"gram_band_factors {label}"] = sha256_of(
             ak.gram_band_factors(gt, *band, **bkw))
-        others[f"gram_band {label}"] = sha256_of(
+        digests[f"gram_band {label}"] = sha256_of(
             ak.gram_band(gt, blk=BAND_BLOCK))
         torch.cuda.synchronize()
         del gt
     del cases
     torch.cuda.empty_cache()
-    parent = parent_line(parent_file, "band_bits")
-    same = None if parent_file is None else parent == digests
+    not_five = [label for label, _, _ in BAND_BITS_SHAPES
+                + (("random e, w, flagship shape", 0, 0),)
+                if digests[f"gram_band_factors_ew {label}"]
+                != digests[f"gram_band_factors {label}"]]
+    differ, reported = (None, None) if parent_file is None else \
+        against_parent(digests, parent_line(parent_file, "band_bits"),
+                       BAND_BITS_REPORTED)
     emit("band_bits", digests=digests, parent_file=parent_file,
-         same_bits_as_parent=same, ungated_digests=others)
-    if parent_file and not same:
-        raise RuntimeError(f"band_bits: #4's outputs differ from the "
-                           f"parent's ({parent_file}): {parent}")
+         same_bits_as_parent=None if differ is None else not differ,
+         gated_digests_differing=differ, reported_vs_parent=reported,
+         ew_same_bits_as_gram_band_factors=not not_five)
+    if not_five or differ:
+        raise RuntimeError(f"band_bits: #4 not #5's bits in {not_five}, or "
+                           f"digests differing from the parent's "
+                           f"({parent_file}): {differ}")
 
 
 def phase_ipm_kernel_check(state, mtt):
@@ -3764,13 +3936,14 @@ def nbytes(tensors):
 
 def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
              kind, shape_arg, names=None, library=None, note=None,
-             twin=None, design=None, **extra):
+             twin=None, design=None, ranks=2, **extra):
     """A row of the `kernels` line for a kernel of ops.admm_kernel, timed on
     ``args`` and held there to its check (``kind`` "stage": compare_outputs,
     criterion 1 against ``twin`` where the kernel's ``design`` sums in
     another order than the reference ``fn_plain``; "band": band_compare
-    with output ``names``).  A stage kernel in its cluster design may take
-    no device memory beyond its outputs (no m1 scratch)."""
+    with output ``names``).  A stage kernel in its cluster design (of
+    ``ranks`` blocks a scenario) may take no device memory beyond its
+    outputs (no m1 scratch)."""
     import torch
     ms = cuda_ms(lambda: fn(*args, **kw), reps=5)
     plain_ms = cuda_ms(lambda: fn_plain(*args, **kw), reps=2)
@@ -3810,7 +3983,8 @@ def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
     del ours, ref32, plain64
     torch.cuda.empty_cache()
     if design in ("cluster", "stream"):
-        extra.update(design=design, cluster=2 if design == "cluster" else 1)
+        extra.update(design=design,
+                     cluster=ranks if design == "cluster" else 1)
     elif design is not None:
         extra["design"] = design
     return dict(
@@ -3829,12 +4003,11 @@ def admm_row(name, source, line, fn, fn_plain, args, kw, flops, launches,
         bound_bytes_ms=bytes_ms, **extra)
 
 
-def band_row_design(ak, gt, blk):
-    """The `kernels` row fields of a band kernel's design at ``gt``'s
-    shapes: ``band_design``'s, and for the ring its grid and blocks an SM
-    on this card."""
-    bsz, nfd, m_p = gt.shape
-    d = ak.band_design(nfd, m_p, blk)
+def band_row_design(ak, bsz, nfd, m_p, blk, source="stored"):
+    """The `kernels` row fields of a band kernel's design at these shapes
+    (G^T ``source``): ``band_design``'s, and for the ring its grid and
+    blocks an SM on this card."""
+    d = ak.band_design(nfd, m_p, blk, source)
     out = dict(design=d.design, band_design=d._asdict())
     if d.design == "ring":
         out.update(grid=ak.ring_grid(bsz, m_p, d),
@@ -3902,6 +4075,20 @@ def have_recorded(state, need, what):
                        f"by earlier phases: run them in the same call")
 
 
+def given_device_ms(fn, reps=10):
+    """#7's device time a launch by torch.profiler over ``reps`` calls:
+    the kernels' time over the launches the trace holds (a trace of its
+    cluster launches has come back with fewer launches than were made)."""
+    fn()
+    res = device_time_of(lambda: [fn() for _ in range(reps)])
+    if res is None:
+        raise RuntimeError("kernels: torch.profiler shows no device time")
+    return dict(device_ms=res["device_ms"] / res["launches"],
+                device_launches_in_trace=res["launches"],
+                device_ms_is=f"device time a launch by torch.profiler over "
+                f"{reps} calls: kernel time over the launches in the trace")
+
+
 def admm_route_rows(state):
     """Rows of the `kernels` line for kernels #2 (at K=10 on route (a) and
     at K=2), #7, #6 and #5, each timed on a call its path made (recorded by
@@ -3942,12 +4129,22 @@ def admm_route_rows(state):
 
     args, kw = to_device(rec["admm_stage"], dev)
     bsz, nfd, m_p = args[2].shape
+    shapes = (nfd, m_p, 0, 0, kw["nb_p"])
+    design = ak.given_design(nfd, m_p, kw["nb_p"])
+    cluster = design == "cluster"
     rows.append(admm_row(
         "admm_stage", "admm_stage.cu", 663, ak.admm_stage,
         ak.admm_stage_plain, args, kw,
         bsz * kw["n_iters"] * 2 * 2 * nfd * m_p, state["stage_launches"],
         "stage", 2, note="no caller in either package: its public wrapper, "
-        "driven once by dense_path on route (a)'s stage inputs"))
+        "driven once by dense_path on route (a)'s stage inputs",
+        twin=ak.admm_stage_given_plain if cluster else None, design=design,
+        ranks=ak.cluster_ranks("admm_stage"),
+        max_active_clusters=ak.cluster_occupancy(*shapes, "admm_stage")
+        if cluster else None,
+        block_threads=ak.block_threads(*shapes, "admm_stage")
+        if cluster else None,
+        **given_device_ms(lambda: ak.admm_stage(*args, **kw))))
     del args
     torch.cuda.empty_cache()
 
@@ -3960,7 +4157,7 @@ def admm_route_rows(state):
         names=("gd", "gu"), library=band_library(lambda: gt),
         note="band_gram='pallas', once a solve; library call: torch.bmm(gt, "
         "gt.mT) and the band gather; bound: the 2m-1 band blocks only",
-        **band_row_design(ak, gt, kw["blk"])))
+        **band_row_design(ak, *gt.shape, kw["blk"])))
     del args, gt
     args, kw = to_device(rec["gram_band_factors"], dev)
     gt, pb_d, pb_u, rho = args
@@ -3972,7 +4169,8 @@ def admm_route_rows(state):
         names=("db", "ub"), library=band_library(
             lambda: gt, (pb_d, pb_u), rho, kw["sigma"]),
         note="band_gram='pallas_db', once a stage; library call: as "
-        "gram_band's, then the adds", **band_row_design(ak, gt, kw["blk"])))
+        "gram_band's, then the adds", **band_row_design(ak, *gt.shape,
+                                                        kw["blk"])))
     del args, gt, pb_d, pb_u, rho
     torch.cuda.empty_cache()
     return rows
@@ -4017,7 +4215,7 @@ def ew_rows(state):
             lambda: ak.expand_gt(e, w), (pb_d, pb_u), rho, kw["sigma"]),
         note="ew_path, once a stage; library call: e*w expanded, then as "
         "gram_band_factors'; bound: the 17 band blocks and the expansion",
-        design="window"))
+        **band_row_design(ak, bsz, 3 * nf, m_p, kw["blk"], "factors")))
     del args, e, w, pb_d, pb_u, rho
     torch.cuda.empty_cache()
     return rows
@@ -4033,8 +4231,10 @@ def main():
     parser.add_argument("--bits-of-parent", default=None,
                         help="the --out file of the stage_bits, ipm_bits and "
                         "band_bits phases run on the parent's checkout: each "
-                        "then fails unless its kernels' outputs (kernel 1's "
-                        "and #7's; #8's and #9's; #4's) are the same bits")
+                        "then fails unless its kernels' outputs (kernel 1's; "
+                        "#8's and #9's; #5's and #6's) are the same bits, and "
+                        "reports those of the kernels this tree redesigned "
+                        "(#7, #4)")
     opts = parser.parse_args()
     if opts.out:
         global LOG_PATH

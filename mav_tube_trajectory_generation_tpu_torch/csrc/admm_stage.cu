@@ -1,7 +1,8 @@
 // The ADMM stage of the tube-constrained QCQP, per scenario, for Hopper
 // (sm_90a): four entry points over one iteration phase ("stream", one block
-// a scenario), and for three of them a second design ("cluster", two blocks
-// a scenario, below) that each takes wherever a block's share fits.
+// a scenario), and for each a second design ("cluster": two blocks a
+// scenario for three of them, four for the stage entry point, below) that
+// each takes wherever a block's share fits.
 //
 //   admm_stage_fused_factored_launch  replaces the Pallas TPU kernel
 //       _kernel_fused_factored + _stage_core of the JAX package's
@@ -11,8 +12,8 @@
 //       stage with G^T given as its rank-1 row factors (below);
 //   admm_stage_fused_launch           replaces _kernel_fused + _stage_core
 //       (admm_stage_fused): the stage from a dense KKT inverse;
-//   admm_stage_launch                 replaces _kernel (admm_stage); stream
-//       design only.
+//   admm_stage_launch                 replaces _kernel (admm_stage): the
+//       iterations from a given m1; its cluster design is given_stage.
 //
 // The stream design, per scenario (one thread block each; the grid runs
 // over the batch):
@@ -753,13 +754,30 @@ struct Split {
   int hb, j0, fb, f0, nl;
 };
 
-__host__ __device__ inline Split split_of(int rank, int m_p, int nb_p) {
+// The first and the count of n items that rank `rank` of `ranks` holds:
+// n / ranks each, one more for the first n % ranks ranks.
+__host__ __device__ inline int share_start(int rank, int ranks, int n) {
+  const int extra = n % ranks;
+  return rank * (n / ranks) + (rank < extra ? rank : extra);
+}
+
+__host__ __device__ inline int share_count(int rank, int ranks, int n) {
+  return n / ranks + (rank < n % ranks ? 1 : 0);
+}
+
+// Rank `rank`'s share of the lanes in a cluster of `ranks` blocks: its share
+// of the ball indices j of the three ball planes (a ball triple (j, nb_p + j,
+// 2 nb_p + j) stays in one block) and the same share of the final plane.
+// With two ranks, rank 0 takes the first ceil(n / 2) of each, rank 1 the
+// rest.
+__host__ __device__ inline Split split_of(int rank, int m_p, int nb_p,
+                                          int ranks = kCluster) {
   const int nh = m_p - 3 * nb_p;
   Split q;
-  q.hb = rank == 0 ? (nb_p + 1) / 2 : nb_p / 2;
-  q.j0 = rank == 0 ? 0 : (nb_p + 1) / 2;
-  q.fb = rank == 0 ? (nh + 1) / 2 : nh / 2;
-  q.f0 = rank == 0 ? 0 : (nh + 1) / 2;
+  q.hb = share_count(rank, ranks, nb_p);
+  q.j0 = share_start(rank, ranks, nb_p);
+  q.fb = share_count(rank, ranks, nh);
+  q.f0 = share_start(rank, ranks, nh);
   q.nl = 3 * q.hb + q.fb;
   return q;
 }
@@ -777,8 +795,11 @@ __device__ __forceinline__ int lane_of(const Split& q, int l, int nb_p) {
 // and how many rows (of ldl lanes) a block keeps of G^T's source: the
 // factored one forms W^-1 and keeps G^T's nfd stored rows, the fused one is
 // given W^-1 and keeps the same rows, the ew one forms W^-1 and keeps the nf
-// = nfd / 3 rows of e, then the 3 of w.
-enum Entry { kEntryFactored = 0, kEntryFused = 1, kEntryEw = 2 };
+// = nfd / 3 rows of e, then the 3 of w.  The stage entry point (kEntryGiven)
+// has a cluster body of its own, given_stage below: m1 given, no W^-1.
+enum Entry { kEntryFactored = 0, kEntryFused = 1, kEntryEw = 2,
+             kEntryGiven = 3 };
+constexpr int kEntries = 4;
 
 __host__ __device__ inline bool winv_given(int entry) {
   return entry == kEntryFused;
@@ -1690,14 +1711,244 @@ admm_stage_ew_cluster_kernel(StageArgs a) {
                          a.m_p, nf});
 }
 
+
+// ---------------------------------------------------------------------------
+// The cluster design of the stage entry point (admm_stage_launch): m1 is
+// given, so an iteration is x = xq + rho (m1 v), y = G x + b, in the
+// reference's order of operations, and needs no W^-1.  One scenario's m1 and
+// G^T (2 x 270 KB at the flagship) fit on chip only split four ways: one
+// scenario a cluster of kGivenRanks blocks, each keeping, for all
+// iterations, its share of the lanes' columns of both (split_of with
+// kGivenRanks ranks: 128 lanes, 2 x 135 x 132 floats, 152 KB a block at the
+// flagship) beside its lanes' vectors and the nfd-vectors xq and x, each
+// input loaded from device memory once by cp.async.  An iteration:
+//   each block  p_k = m1_k v_k  (its lanes' partial, nfd floats), stored to
+//   every block's shared memory (double-buffered, as the other cluster
+//   design's partials); one cluster barrier; each block forms
+//   g = ((p_0 + p_1) + p_2) + p_3 in rank order, so all hold the same bits,
+//   and x = xq + rho g; y_k = G_k x + b_k; the projection and the z/u/v
+//   updates on its own lanes (cluster_update).
+// prim = max|y - z| is combined over the blocks in rank order; with no
+// iterations the outputs are exactly (xq, z0, z0, u0, inf).  What bounds
+// it: not the bytes (read once) and not the 2 x 2 nfd m_p multiply-adds an
+// iteration, but an iteration's latency (two short products over 128 lanes,
+// the partials' stores to the other blocks and the cluster barrier) with
+// one block an SM, 33 clusters in flight on an H100.
+// -DADMM_STAGE_GIVEN_RANKS=n builds it with clusters of n blocks (2, 4 or
+// 8; stage_profile.py --designs); -DADMM_STAGE_CONTROL_DROP_RANK3 leaves
+// rank 3's partial out of g (a negative control of chip_smoke.py).
+// ---------------------------------------------------------------------------
+
+#ifndef ADMM_STAGE_GIVEN_RANKS
+#define ADMM_STAGE_GIVEN_RANKS 4
+#endif
+constexpr int kGivenRanks = ADMM_STAGE_GIVEN_RANKS;
+static_assert(kGivenRanks == 2 || kGivenRanks == 4 || kGivenRanks == 8,
+              "a portable cluster of 2, 4 or 8 blocks");
+
+// Shared-memory layout of one block of the stage entry point's cluster
+// design, in floats: m1's and G^T's shares (nfd rows of ldl lanes each),
+// the lane vectors, rb of its balls, xq, x, g, the partials (two buffers of
+// one nfd-vector a rank), the block reduction's scratch, prim's exchange.
+struct GLayout {
+  int ldl, ldw, m1s, gts, b, z, zp, u, v, y, rb, xq, x, g, gpart, red, xch;
+  int total;
+};
+
+__host__ __device__ inline GLayout make_given_layout(int nfd, int m_p,
+                                                     int nb_p) {
+  GLayout L;
+  const Split q0 = split_of(0, m_p, nb_p, kGivenRanks);  // the largest share
+  L.ldw = round4(nfd);
+  L.ldl = round4(q0.nl);
+  if ((L.ldl / 4) % 2 == 0) L.ldl += 4;   // as the other cluster design
+  int o = 0;
+  L.m1s = o;   o += nfd * L.ldl;
+  L.gts = o;   o += nfd * L.ldl;
+  L.b = o;     o += L.ldl;
+  L.z = o;     o += L.ldl;
+  L.zp = o;    o += L.ldl;
+  L.u = o;     o += L.ldl;
+  L.v = o;     o += L.ldl;
+  L.y = o;     o += L.ldl;
+  L.rb = o;    o += round4(q0.hb);
+  L.xq = o;    o += L.ldw;
+  L.x = o;     o += L.ldw;
+  L.g = o;     o += L.ldw;
+  L.gpart = o; o += 2 * kGivenRanks * L.ldw;
+  L.red = o;   o += 32;
+  L.xch = o;   o += round4(kGivenRanks);
+  L.total = o;
+  return L;
+}
+
+// dst[r] = sum_c M[r, c] v[c] for r < rows (row_dots_nv with the fewest
+// float4 a thread that cover n4 <= KL * VMAX).
+__device__ __forceinline__ void given_row_dots(const float* M, int ld,
+                                               const float* v, int n4,
+                                               int rows, float* dst) {
+  if (n4 <= KL)
+    row_dots_nv<1>(M, ld, v, n4, rows, dst, nullptr, nullptr, 0.0f);
+  else if (n4 <= 2 * KL)
+    row_dots_nv<2>(M, ld, v, n4, rows, dst, nullptr, nullptr, 0.0f);
+  else
+    row_dots(M, ld, v, n4, rows, dst, nullptr, nullptr, 0.0f);
+}
+
+// The stage of scenario blockIdx.x / kGivenRanks from the caller's m1.
+__device__ __forceinline__ void given_stage(const StageArgs& a) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int R = kGivenRanks;
+  PROF_START;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int s = blockIdx.x / R;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nfd = a.nfd, m_p = a.m_p, nb_p = a.nb_p;
+  const GLayout L = make_given_layout(nfd, m_p, nb_p);
+  const Split q = split_of(rank, m_p, nb_p, R);
+  const int nl = q.nl, ldl = L.ldl, ldw = L.ldw, n4 = (nl + 3) / 4;
+  Vecs S;
+  S.b = smem + L.b;   S.rb = smem + L.rb; S.z = smem + L.z;
+  S.zp = smem + L.zp; S.u = smem + L.u;   S.v = smem + L.v;
+  S.y = smem + L.y;   S.xq = smem + L.xq; S.x = smem + L.x;
+  S.tmp = smem + L.g; S.part = smem + L.gpart; S.red = smem + L.red;
+  float* m1s = smem + L.m1s;
+  float* gts = smem + L.gts;
+  float* xch = smem + L.xch;
+  const size_t so = (size_t)s * m_p;
+
+  // ---- copies: the vectors, then m1's and G^T's shares -----------------------
+  load_async(S.xq, a.xq + (size_t)s * nfd, nfd);
+  load_async(S.rb, a.rb + (size_t)s * nb_p + q.j0, q.hb);
+  for (int l = tid; l < nl; l += nt) {
+    const int lane = lane_of(q, l, nb_p);
+    cp_async4(S.b + l, a.b + so + lane);
+    cp_async4(S.z + l, a.z0 + so + lane);
+    cp_async4(S.u + l, a.u0 + so + lane);
+  }
+  cp_async_commit();
+  load_gt_rows(GtRowsOnChip{a.m1 + (size_t)s * nfd * m_p, m_p}, m1s, q, 0,
+               nfd, nb_p, ldl);
+  load_gt_rows(GtRowsOnChip{a.gt + (size_t)s * nfd * m_p, m_p}, gts, q, 0,
+               nfd, nb_p, ldl);
+  cp_async_commit();
+
+  // ---- zero padding: lanes past nl, rows past nfd ---------------------------
+  const int pad = 4 * n4 - nl;
+  for (int i = tid; i < nfd * pad; i += nt) {
+    const int r = i / pad, c = nl + (i - r * pad);
+    m1s[(size_t)r * ldl + c] = 0.0f;
+    gts[(size_t)r * ldl + c] = 0.0f;
+  }
+  for (int l = nl + tid; l < ldl; l += nt) {
+    S.b[l] = 0.0f; S.z[l] = 0.0f; S.zp[l] = 0.0f; S.u[l] = 0.0f;
+    S.v[l] = 0.0f;
+  }
+  for (int l = tid; l < ldl; l += nt) S.y[l] = 0.0f;
+  for (int r = nfd + tid; r < ldw; r += nt) {
+    S.xq[r] = 0.0f; S.x[r] = 0.0f;
+  }
+  for (int r = tid; r < ldw; r += nt) S.tmp[r] = 0.0f;
+  const float rho = a.rho[s];
+  cp_async_wait<1>();
+  __syncthreads();
+  // x = xq, z_prev = z0, v = z - u - b
+  for (int r = tid; r < nfd; r += nt) S.x[r] = S.xq[r];
+  for (int l = tid; l < nl; l += nt) {
+    S.zp[l] = S.z[l];
+    S.v[l] = S.z[l] - S.u[l] - S.b[l];
+  }
+  cp_async_wait<0>();
+  // Every block has started (the others' shared memory is written next) and
+  // this block's copies are visible to all its threads.
+  cluster.sync();
+  PROF(0);
+
+  // ---- the iterations -------------------------------------------------------
+  // part[(buf * R + k) * ldw + r]: rank k's partial of buffer buf, stored by
+  // its block to every block's shared memory before the barrier.
+  for (int it = 0; it < a.n_iters; ++it) {
+    const int buf = (it & 1) * R * ldw;
+    float* own = S.part + buf + rank * ldw;
+    given_row_dots(m1s, ldl, S.v, n4, nfd, own);
+    __syncthreads();
+    PROF(1);
+    for (int i = tid; i < (R - 1) * nfd; i += nt) {
+      const int j = i / nfd, r = i - j * nfd;
+      const int k = rank + 1 + j < R ? rank + 1 + j : rank + 1 + j - R;
+      cluster.map_shared_rank(S.part, k)[buf + rank * ldw + r] = own[r];
+    }
+    PROF(2);
+    cluster.sync();
+    PROF(3);
+    for (int r = tid; r < nfd; r += nt) {
+      float g = S.part[buf + r];
+#pragma unroll
+      for (int k = 1; k < R; ++k) {
+#ifdef ADMM_STAGE_CONTROL_DROP_RANK3
+        if (k == 3) continue;
+#endif
+        g += S.part[buf + k * ldw + r];
+      }
+      S.x[r] = S.xq[r] + __fmul_rn(rho, g);
+    }
+    __syncthreads();
+    PROF(4);
+    col_dots(gts, ldl, S.x, n4, nfd, S.b, S.y);
+    __syncthreads();
+    PROF(5);
+    cluster_update(a, q, S);
+    __syncthreads();
+    PROF(6);
+  }
+
+  // ---- prim, combined in rank order, and the outputs --------------------------
+  float pmax = 0.0f;
+  for (int l = tid; l < nl; l += nt) pmax = fmaxf(pmax, fabsf(S.y[l] - S.z[l]));
+  pmax = block_max(pmax, S.red);
+  if (tid < R) *cluster.map_shared_rank(xch + rank, tid) = pmax;
+  cluster.sync();
+  if (rank == 0) {
+    if (tid == 0) {
+      float p = xch[0];
+      for (int k = 1; k < R; ++k) p = fmaxf(p, xch[k]);
+      a.prim[s] = a.n_iters > 0 ? p : CUDART_INF_F;
+    }
+    for (int r = tid; r < nfd; r += nt) a.x[(size_t)s * nfd + r] = S.x[r];
+  }
+  for (int l = tid; l < nl; l += nt) {
+    const size_t o = so + lane_of(q, l, nb_p);
+    a.z[o] = S.z[l];
+    a.zp[o] = S.zp[l];
+    a.u[o] = S.u[l];
+  }
+  // No block leaves while another may still address its shared memory.
+  cluster.sync();
+  PROF(7);
+}
+
+__global__ void __launch_bounds__(512, 1)
+admm_stage_given_cluster_kernel(StageArgs a) {
+  given_stage(a);
+}
+
 void (*cluster_kernel_of(int entry))(StageArgs) {
-  return entry == kEntryFused ? admm_stage_fused_cluster_kernel
-         : entry == kEntryEw  ? admm_stage_ew_cluster_kernel
-                              : admm_stage_cluster_kernel;
+  return entry == kEntryFused   ? admm_stage_fused_cluster_kernel
+         : entry == kEntryEw    ? admm_stage_ew_cluster_kernel
+         : entry == kEntryGiven ? admm_stage_given_cluster_kernel
+                                : admm_stage_cluster_kernel;
+}
+
+// Blocks a scenario's cluster takes in entry point `entry`'s design.
+int cluster_size_of(int entry) {
+  return entry == kEntryGiven ? kGivenRanks : kCluster;
 }
 
 size_t cluster_smem_of(int entry, int nfd, int m_p, int m_blk, int bsz,
                        int nb_p) {
+  if (entry == kEntryGiven)
+    return (size_t)make_given_layout(nfd, m_p, nb_p).total * sizeof(float);
   return (size_t)make_cluster_layout(entry, nfd, m_p, m_blk, bsz, nb_p)
              .total *
          sizeof(float);
@@ -1757,7 +2008,7 @@ bool cluster_fits(int entry, int nfd, int m_p, int m_blk, int bsz, int nb_p,
 #endif
   SmemLimits lim;
   if (!smem_limits(&lim)) return false;
-  const int n4 = (split_of(0, m_p, nb_p).nl + 3) / 4;
+  const int n4 = (split_of(0, m_p, nb_p, cluster_size_of(entry)).nl + 3) / 4;
   return cluster_smem_of(entry, nfd, m_p, m_blk, bsz, nb_p) <=
              (size_t)lim.optin &&
          n4 <= KL * VMAX && round4(nfd) / 4 <= KL * VMAX && threads <= 512 &&
@@ -1796,14 +2047,15 @@ int cluster_threads_of(int entry, int nfd, int m_p, int m_blk, int bsz,
 }
 
 cudaLaunchConfig_t cluster_config(int batch, int threads, size_t smem,
-                                  void* stream, cudaLaunchAttribute* attr) {
+                                  void* stream, cudaLaunchAttribute* attr,
+                                  int ranks) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * batch, 1, 1);
+  cfg.gridDim = dim3(ranks * batch, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.x = ranks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1814,7 +2066,7 @@ cudaLaunchConfig_t cluster_config(int batch, int threads, size_t smem,
 // The most dynamic shared memory each entry point's cluster kernel has been
 // allowed on each device, so that a launch sets the attribute only when it
 // needs more.
-std::atomic<int> cluster_smem_allowed[3][kMaxDevices];
+std::atomic<int> cluster_smem_allowed[kEntries][kMaxDevices];
 
 cudaError_t allow_cluster_smem(int entry, size_t smem) {
   int dev = 0;
@@ -1849,7 +2101,7 @@ cudaError_t launch_cluster(int entry, const StageArgs& a, int batch,
       batch,
       cluster_threads_of(entry, a.nfd, a.m_p, a.m_blk, a.bsz, a.nb_p,
                          threads),
-      smem, stream, attr);
+      smem, stream, attr, cluster_size_of(entry));
   e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -1929,9 +2181,20 @@ extern "C" int admm_stage_fused_factored_ew_design(int nfd, int m_p,
              : 0;
 }
 
+extern "C" int admm_stage_given_design(int nfd, int m_p, int nb_p,
+                                       int threads) {
+  return cluster_fits(kEntryGiven, nfd, m_p, 0, 0, nb_p, threads) ? 1 : 0;
+}
+
+// Blocks a scenario's cluster takes in the cluster design of entry point
+// `entry` (0 factored, 1 fused, 2 ew, 3 the stage from a given m1).
+extern "C" int admm_stage_cluster_ranks(int entry) {
+  return cluster_size_of(entry);
+}
+
 // Dynamic shared memory, in bytes, of one block of the cluster design of
-// entry point `entry` (0 factored, 1 fused, 2 ew; m_blk and bsz are read
-// where W^-1 is formed).
+// entry point `entry` (0 factored, 1 fused, 2 ew, 3 the stage from a given
+// m1; m_blk and bsz are read where W^-1 is formed).
 extern "C" int admm_stage_cluster_smem_bytes(int entry, int nfd, int m_p,
                                              int m_blk, int bsz, int nb_p) {
   return (int)cluster_smem_of(entry, nfd, m_p, m_blk, bsz, nb_p);
@@ -1958,7 +2221,7 @@ extern "C" int admm_stage_cluster_occupancy(int entry, int nfd, int m_p,
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
       1, cluster_threads_of(entry, nfd, m_p, m_blk, bsz, nb_p, threads),
-      smem, nullptr, attr);
+      smem, nullptr, attr, cluster_size_of(entry));
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
   return e == cudaSuccess ? n : -(int)e;
@@ -2059,7 +2322,9 @@ extern "C" int admm_stage_fused_launch(
 }
 
 // The iterations from the caller's m1 (B, nfd, m_p): x from xq, z and
-// z_prev from z0, u from u0; outputs x, z, z_prev, u, prim.
+// z_prev from z0, u from u0; outputs x, z, z_prev, u, prim; in the design
+// admm_stage_given_design names (the cluster design of given_stage, or the
+// stream one).
 extern "C" int admm_stage_launch(
     const float* rho, const float* m1, const float* gt, const float* b,
     const float* rb, const float* xq, const float* z0, const float* u0,
@@ -2076,6 +2341,8 @@ extern "C" int admm_stage_launch(
   a.n_iters = n_iters; a.init_z = 0;
   a.groups = row_groups(threads, m_p);
   a.alpha = alpha;
+  if (cluster_fits(kEntryGiven, nfd, m_p, 0, 0, nb_p, threads))
+    return (int)launch_cluster(kEntryGiven, a, batch, threads, stream);
   return (int)launch(admm_stage_iter_kernel, a, batch, threads,
                      smem_of(kGiven, nfd, m_p, 0, 0, nb_p, threads), stream);
 }

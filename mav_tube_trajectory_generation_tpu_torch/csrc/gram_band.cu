@@ -11,7 +11,9 @@
 //       (gram_band_factors_ew): the same KKT band with G^T given as its
 //       rank-1 row factors e (nfd/3, m_p) and w (3, m_p),
 //       gt[p*3 + d, l] = e[p, l] * w[d, l].  A slab entry is that product
-//       rounded once (__fmul_rn).  A 15-row block is 5 free derivatives x 3
+//       rounded once (__fmul_rn), as the reference's expand_gt rounds it, so
+//       the band is the bits of gram_band_factors on the expanded G^T in
+//       the same design.  A 15-row block is 5 free derivatives x 3
 //       dimensions.
 //
 // With A_r = gt[r*blk:(r+1)*blk, :] (blk rows of G^T, m_p lanes):
@@ -20,25 +22,36 @@
 // Only these 2 m_blk - 1 blocks are formed (17 of the 81 at the flagship
 // shape), never the full (nfd, nfd) Gram.
 //
-// What bounds it on an H100: G^T is read once (1.7 GB at batch 6144, nfd
-// 135, m_p 512) and the work is 2 blk^2 m_p multiply-adds a block pair
-// (24 GFLOP in all at that shape, 0.36 ms on the CUDA cores against 0.56 ms
-// for the bytes), so it is bound by bytes.  Two designs, chosen by shape by
-// the caller (ops/admm_kernel.py band_design), both in full float32 on the
-// CUDA cores, sums in a fixed order (no atomics: the same bits every run):
+// What bounds it on an H100.  The work is 2 blk^2 m_p multiply-adds a block
+// pair: 24 GFLOP in all at batch 6144, nfd 135, m_p 512, 0.36 ms on the
+// CUDA cores.  Stored, G^T is read once (1.7 GB, 0.56 ms), so #5 and #6 are
+// bound by bytes; as factors it is a third of that (e and w, 0.6 GB, 0.24
+// ms), so #4 is bound by operations.  Two designs, chosen by shape by the
+// caller (ops/admm_kernel.py band_design), both in full float32 on the CUDA
+// cores, sums in a fixed order (no atomics: the same bits every run):
 //
 // "ring" (gram_band_ring_kernel, blk 15: every assembly of the solver),
-// the design of #5 and #6.  What it does about the four limits of the
+// the design of #4, #5 and #6.  What it does about the four limits of the
 // window body below:
 //   * loads behind the arithmetic: each block keeps a ring of `slots` G^T
-//     slabs (blk rows of m_p lanes) in shared memory, fed by the Tensor
-//     Memory Accelerator: one thread of a producer warp, the block's last,
-//     issues one 1-D bulk copy a row (cp.async.bulk, 2 KB at the flagship)
-//     into a padded row, completing on the slot's mbarrier; no other thread
-//     spends an instruction on a copy (the 15 issues of a slab take ~2.3k
-//     cycles: on a computing warp they would hold it and, at the barriers,
-//     the block).
-//     Step r reads slabs r and r+1 while slab r+slots-1 lands.  A block
+//     slabs (blk rows of m_p lanes) in shared memory, filled by a producer
+//     warp, the block's last, and completing on the slot's mbarrier:
+//     - G^T stored (#5, #6): one thread of it issues one 1-D bulk copy a
+//       row (cp.async.bulk, 2 KB at the flagship) into a padded row of the
+//       slot, the mbarrier counting the bytes; no other thread spends an
+//       instruction on a copy (the 15 issues of a slab take ~2.3k cycles:
+//       on a computing warp they would hold it and, at the barriers, the
+//       block);
+//     - G^T as factors (#4): w's three rows arrive once a scenario, by one
+//       bulk copy, in a buffer of two scenarios; a slab's five rows of e
+//       arrive by five bulk copies into the last five rows of its slot
+//       (10 KB at the flagship), then the producer's 32 threads expand the
+//       slot in place, slab[3p + d][l] = fl(e[p][l] w[d][l]) (each thread
+//       owns its columns, reads a column's five e and three w before it
+//       writes the column's fifteen entries), and each arrives on the
+//       slot's mbarrier.  The expansion, 7,680 multiplies a slab, is some
+//       3 % of a step's multiply-adds and off the computing warps;
+//     Step r reads slabs r and r+1 while slab r+slots-1 is filled.  A block
 //     walks its scenarios (one, or with `per_block` 0 as many as the card
 //     leaves it) as one sequence of slabs, so the next scenario's first
 //     slabs load behind this one's last steps;
@@ -52,24 +65,29 @@
 //     distinct banks or are broadcasts;
 //   * threads: 30 of a computing warp's 32 own tiles (two groups of 15);
 //   * occupancy: at the flagship three slabs and four computing warps'
-//     partials take 100,824 B, two blocks of 160 threads an SM.
+//     partials take 100,824 B (with #4's w buffer 113,120 B), two blocks of
+//     160 threads an SM.
 // Each entry is summed over its group's lanes in lane order, then over the
 // warp's two groups (shuffle), then over the warps in warp order (shared
 // memory), and only then is the KKT band's pb, rho, sigma added as it is
 // stored, coalesced.  gd is exactly symmetric: entries (i, j) and (j, i)
-// take the same products in the same order.
+// take the same products in the same order.  The products and the sums do
+// not depend on where a slab came from, so #4 gives #5's bits on the
+// expanded G^T.
 //
 // "window" (band<G>, gram_band_kernel and gram_band_ew_kernel): the design
-// of #4, and of #5 and #6 at shapes the ring's tiles do not fit (blk other
-// than 15).  One block a scenario; a window of two blk x m_p slabs, slab r+1
-// loaded element by element before step r computes; a thread owns entry
-// (i, j) of both blocks of a step and reduces over the lanes, four
-// interleaved partial sums combined as (p0 + p1) + (p2 + p3).  Every
-// multiply-add reads its operands from shared memory, which bounds it
-// there; nothing of a block's own copy overlaps its arithmetic.
+// of #4, #5 and #6 at shapes the ring's tiles do not fit (blk other than
+// 15).  One block a scenario; a window of two blk x m_p slabs, slab r+1
+// loaded element by element (#4: each entry formed from e and w as it is
+// loaded) before step r computes; a thread owns entry (i, j) of both blocks
+// of a step and reduces over the lanes, four interleaved partial sums
+// combined as (p0 + p1) + (p2 + p3).  Every multiply-add reads its operands
+// from shared memory, which bounds it there; nothing of a block's own copy
+// overlaps its arithmetic.
 //
 // -DGRAM_BAND_PROFILE: thread 0 of block 0 adds the clock64 cycles of each
-// phase of the ring, and its producer the cycles of its copies' issue
+// phase of the ring, and its producer the cycles of its copies' issue and,
+// for #4, of waiting for a slab's e and of expanding it
 // (stage_profile.py --kernel gram_band).
 // -DGRAM_BAND_CONTROL_SKIP_COMBINE: the ring leaves the last warp's partial
 // out of every entry (a negative control of chip_smoke.py).
@@ -222,21 +240,51 @@ __host__ __device__ __forceinline__ int ring_ld(int m_p) {
   return (m_p + 31) / 32 * 32 + 8;
 }
 
-// Shared memory of a ring block: the slabs, the computing warps' partials
-// of gd and gu (every warp but the producer), one mbarrier a slot.
-size_t ring_smem_of(int m_p, int threads, int slots) {
-  return ((size_t)slots * kRingBlk * ring_ld(m_p) +
+// Where the ring's slabs come from: G^T's stored rows (#5, #6) or its row
+// factors (#4).
+constexpr int kStoredSrc = 0, kFactorSrc = 1;
+// Rows of e a slab expands from, and the first row of the slot they land in.
+constexpr int kERows = kRingBlk / kDims;
+constexpr int kERow0 = kRingBlk - kERows;
+
+// Floats of a ring block's w buffer: w's rows for two scenarios (factors).
+__host__ __device__ __forceinline__ int ring_w_floats(int m_p, int src) {
+  return src == kFactorSrc ? 2 * kDims * m_p : 0;
+}
+
+// Shared memory of a ring block: the slabs, for the factors w's buffer, the
+// computing warps' partials of gd and gu (every warp but the producer), one
+// mbarrier a slot and for the factors one for the staged rows.
+size_t ring_smem_of(int m_p, int threads, int slots, int src) {
+  return ((size_t)slots * kRingBlk * ring_ld(m_p) + ring_w_floats(m_p, src) +
           (size_t)(threads / 32 - 1) * 2 * kRingBB) * sizeof(float) +
-         (size_t)slots * sizeof(unsigned long long);
+         (size_t)(slots + (src == kFactorSrc)) * sizeof(unsigned long long);
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
                : "memory");
+}
+
+// One arrival of this thread on bar (release: its earlier writes are seen
+// by whoever waits on the phase).
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses of shared memory
+// before later async-proxy ones (a bulk copy into what it wrote).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
@@ -282,9 +330,11 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
 
 #ifdef GRAM_BAND_PROFILE
 // thread 0's start, slab_wait, products, combine, epilogue; scenarios; its
-// cycles from entry to exit; the producer's cycles issuing copies
+// cycles from entry to exit; the producer's cycles issuing copies and, for
+// the factors, waiting for a slab's e and expanding the slab
 constexpr int kProfPhases = 5;
-__device__ unsigned long long g_band_prof[8];
+constexpr int kProfCounters = 10;
+__device__ unsigned long long g_band_prof[kProfCounters];
 #define BAND_PROF(i)                        \
   do {                                      \
     if (prof) {                             \
@@ -346,28 +396,98 @@ __device__ __forceinline__ float warp_groups_sum(float v, int lane) {
   return s;
 }
 
+// Slab n of a ring block's sequence from G^T's row factors (step r of
+// scenario sc), by the producer warp's 32 threads (lane `lane`): e's kERows
+// rows of the slab (and w's, at a scenario's first slab) land by bulk copy
+// in the slot's last rows (and in `ws`), completing on `staged`; then each
+// thread expands its columns of the slot in place, slab[3p + d][l] =
+// fl(e[p][l] w[d][l]), and arrives on the slot's mbarrier `full` (32
+// arrivals complete it).  With `prof`, lane 0 adds its cycles issuing the
+// copies, waiting for them and expanding to prof[0..2].
+__device__ __forceinline__ void fill_from_factors(
+    const GramArgs& a, float* slot, float* ws, unsigned long long* full,
+    unsigned long long* staged, int sc, int r, int n, int ld, int lane,
+    long long* prof) {
+  long long t0 = prof ? clock64() : 0;
+  auto mark = [&](int i) {
+    if (prof) {
+      const long long t = clock64();
+      prof[i] += t - t0;
+      t0 = t;
+    }
+  };
+  const int m_p = a.m_p, nf = a.nfd / kDims, nq = m_p / 4, ld4 = ld / 4;
+  const unsigned row_bytes = (unsigned)(m_p * sizeof(float));
+  // every thread has passed its wait on the staged rows' last phase
+  __syncwarp();
+  if (lane == 0) {
+    const bool first = r == 0;
+    mbar_expect_tx(staged, kERows * row_bytes +
+                               (first ? kDims * row_bytes : 0u));
+    const float* e_src = a.e + ((size_t)sc * nf + r * kERows) * m_p;
+    for (int p = 0; p < kERows; ++p)
+      bulk_copy(slot + (kERow0 + p) * ld, e_src + (size_t)p * m_p,
+                row_bytes, staged);
+    if (first)
+      bulk_copy(ws, a.w + (size_t)sc * kDims * m_p, kDims * row_bytes,
+                staged);
+  }
+  mark(0);
+  mbar_wait(staged, (unsigned)n & 1u);
+  mark(1);
+  float4* s4 = reinterpret_cast<float4*>(slot);
+  const float4* w4 = reinterpret_cast<const float4*>(ws);
+  for (int q = lane; q < nq; q += 32) {
+    float4 ev[kERows], wv[kDims];
+#pragma unroll
+    for (int p = 0; p < kERows; ++p) ev[p] = s4[(kERow0 + p) * ld4 + q];
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) wv[d] = w4[d * nq + q];
+#pragma unroll
+    for (int p = 0; p < kERows; ++p)
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) {
+        const float4 x = ev[p], y = wv[d];
+        s4[(kDims * p + d) * ld4 + q] =
+            make_float4(__fmul_rn(x.x, y.x), __fmul_rn(x.y, y.y),
+                        __fmul_rn(x.z, y.z), __fmul_rn(x.w, y.w));
+      }
+  }
+  // the slot's next copies write over what this thread wrote
+  fence_proxy_async();
+  mbar_arrive(full);
+  mark(2);
+}
+
 // The band of the scenarios blockIdx.x, blockIdx.x + gridDim.x, ... < batch
-// from the ring of `slots` slabs; tiles of TR x TC entries; the last warp
-// the producer.
-template <int TR, int TC>
+// from the ring of `slots` slabs of G^T's source SRC (kStoredSrc: a.gt;
+// kFactorSrc: a.e and a.w); tiles of TR x TC entries; the last warp the
+// producer.
+template <int TR, int TC, int SRC>
 __global__ void __launch_bounds__(kRingMaxThreads)
     gram_band_ring_kernel(GramArgs a, int slots) {
   constexpr int NCG = kRingBlk / TC, T = (kRingBlk / TR) * NCG, SG = 32 / T;
+  constexpr bool kFactors = SRC == kFactorSrc;
   static_assert(kRingBlk % TR == 0 && kRingBlk % TC == 0 && SG >= 1,
                 "tiles must cover the band block within a warp");
+  static_assert(kRingBlk % kDims == 0, "a slab is whole rows of e");
   extern __shared__ __align__(16) float smem[];
   const int m_p = a.m_p, m_blk = a.nfd / kRingBlk, ld = ring_ld(m_p);
   const int ld4 = ld / 4, nq = m_p / 4, slab = kRingBlk * ld;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = (blockDim.x >> 5) - 1;   // computing warps
-  const bool producer = tid == warps * 32;
-  float* part = smem + (size_t)slots * slab;
+  const bool producer_warp = warp == warps;
+  const bool producer = producer_warp && lane == 0;
+  float* wbuf = smem + (size_t)slots * slab;   // factors: w, two scenarios
+  float* part = wbuf + ring_w_floats(m_p, SRC);
   unsigned long long* full =
       reinterpret_cast<unsigned long long*>(part + warps * 2 * kRingBB);
+  unsigned long long* staged = full + slots;   // factors: e's rows landed
   const bool factors = a.pb_d != nullptr;
   const int nsc = (a.batch - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   const int nslab = nsc * m_blk;
-  const unsigned slab_bytes = (unsigned)(kRingBlk * m_p * sizeof(float));
+  const unsigned row_bytes = (unsigned)(m_p * sizeof(float));
+  const unsigned slab_bytes = kRingBlk * row_bytes;
 
   // this thread's tile and lane group
   const int grp = lane / T, tau = lane - grp * T;
@@ -379,10 +499,17 @@ __global__ void __launch_bounds__(kRingMaxThreads)
   const bool prof = blockIdx.x == 0 && tid == 0;
   long long prof_t = clock64(), prof_acc[kProfPhases] = {}, prof_issue = 0;
   const long long prof_t0 = prof_t;
+  // factors: the producer's issue, staged-row wait and expansion cycles
+  long long prof_fill_acc[3] = {};
+  long long* prof_fill =
+      blockIdx.x == 0 && producer ? prof_fill_acc : nullptr;
+#else
+  long long* prof_fill = nullptr;
 #endif
 
   // Slab n of the block's sequence: step n % m_blk of its (n / m_blk)-th
-  // scenario, into slot n % slots.
+  // scenario, into slot n % slots.  Stored: one thread issues its rows'
+  // copies, the slot's mbarrier counting their bytes.
   auto issue = [&](int n) {
     const int sc = blockIdx.x + (n / m_blk) * gridDim.x, r = n % m_blk;
     const float* src = a.gt + ((size_t)sc * a.nfd + r * kRingBlk) * m_p;
@@ -390,23 +517,38 @@ __global__ void __launch_bounds__(kRingMaxThreads)
     unsigned long long* bar = full + n % slots;
     mbar_expect_tx(bar, slab_bytes);
     for (int i = 0; i < kRingBlk; ++i)
-      bulk_copy(dst + i * ld, src + (size_t)i * m_p, slab_bytes / kRingBlk,
-                bar);
+      bulk_copy(dst + i * ld, src + (size_t)i * m_p, row_bytes, bar);
+  };
+  // Factors: the producer warp fills slab n (fill_from_factors).
+  auto fill = [&](int n) {
+    const int sci = n / m_blk;
+    fill_from_factors(a, smem + (size_t)(n % slots) * slab,
+                      wbuf + (sci & 1) * kDims * m_p, full + n % slots,
+                      staged, blockIdx.x + sci * gridDim.x, n % m_blk, n,
+                      ld, lane, prof_fill);
   };
   if (producer) {
-    for (int k = 0; k < slots; ++k) mbar_init(full + k);
+    for (int k = 0; k < slots; ++k) mbar_init(full + k, kFactors ? 32u : 1u);
+    if (kFactors) mbar_init(staged);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (producer)
-    for (int n = 0; n < slots - 1 && n < nslab; ++n) issue(n);
+  if (kFactors ? producer_warp : producer)
+    for (int n = 0; n < slots - 1 && n < nslab; ++n) {
+      if (kFactors)
+        fill(n);
+      else
+        issue(n);
+    }
   BAND_PROF(0);
 
   for (int n = 0; n < nslab; ++n) {
     const int sc = blockIdx.x + (n / m_blk) * gridDim.x, r = n % m_blk;
     const bool upper = r + 1 < m_blk;
     // the slot of slab n - 1 is free: every thread left step n - 1
-    if (producer && n + slots - 1 < nslab) {
+    if (kFactors) {
+      if (producer_warp && n + slots - 1 < nslab) fill(n + slots - 1);
+    } else if (producer && n + slots - 1 < nslab) {
 #ifdef GRAM_BAND_PROFILE
       const long long t_ = clock64();
       issue(n + slots - 1);
@@ -505,58 +647,67 @@ __global__ void __launch_bounds__(kRingMaxThreads)
     g_band_prof[5] += nsc;
     g_band_prof[6] += clock64() - prof_t0;
   }
-  if (producer && blockIdx.x == 0) g_band_prof[7] += prof_issue;
+  if (producer && blockIdx.x == 0) {
+    g_band_prof[7] += prof_issue + prof_fill_acc[0];
+    g_band_prof[8] += prof_fill_acc[1];
+    g_band_prof[9] += prof_fill_acc[2];
+  }
 #endif
 }
 
-// The tile shapes the ring is built with, by the launcher's `tile` code.
+// The ring kernels by G^T's source and the launcher's `tile` code.
+constexpr int kSources = 2;
 constexpr int kTiles = 2;
-void (*const ring_kernels[kTiles])(GramArgs, int) = {
-    gram_band_ring_kernel<5, 3>, gram_band_ring_kernel<3, 5>};
+void (*const ring_kernels[kSources][kTiles])(GramArgs, int) = {
+    {gram_band_ring_kernel<5, 3, kStoredSrc>,
+     gram_band_ring_kernel<3, 5, kStoredSrc>},
+    {gram_band_ring_kernel<5, 3, kFactorSrc>,
+     gram_band_ring_kernel<3, 5, kFactorSrc>}};
 
 constexpr int kMaxDevices = 64;
 // The dynamic shared memory each ring kernel has been allowed on each
 // device, so that a launch sets the attribute only when it needs more.
-std::atomic<int> ring_smem_allowed[kTiles][kMaxDevices];
+std::atomic<int> ring_smem_allowed[kSources][kTiles][kMaxDevices];
 
-cudaError_t allow_smem(int tile, size_t smem, int* dev_out) {
+cudaError_t allow_smem(int src, int tile, size_t smem, int* dev_out) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   *dev_out = dev;
   const bool cached = dev >= 0 && dev < kMaxDevices;
-  if (cached && ring_smem_allowed[tile][dev].load(
-                    std::memory_order_acquire) >= (int)smem)
+  std::atomic<int>* allowed = ring_smem_allowed[src][tile];
+  if (cached && allowed[dev].load(std::memory_order_acquire) >= (int)smem)
     return cudaSuccess;
-  e = cudaFuncSetAttribute(ring_kernels[tile],
+  e = cudaFuncSetAttribute(ring_kernels[src][tile],
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e == cudaSuccess && cached) {
-    int seen = ring_smem_allowed[tile][dev].load();
+    int seen = allowed[dev].load();
     while (seen < (int)smem &&
-           !ring_smem_allowed[tile][dev].compare_exchange_weak(seen,
-                                                               (int)smem)) {
+           !allowed[dev].compare_exchange_weak(seen, (int)smem)) {
     }
   }
   return e;
 }
 
-bool bad_ring(int m_p, int threads, int slots, int per_block, int tile) {
+bool bad_ring(int m_p, int threads, int slots, int per_block, int tile,
+              int src) {
   return threads < kRingMinThreads || threads > kRingMaxThreads ||
          threads % 32 != 0 || slots < 2 || slots > kRingMaxSlots ||
-         per_block < 0 || tile < 0 || tile >= kTiles ||
-         ring_smem_of(m_p, threads, slots) > (size_t)232448;
+         per_block < 0 || tile < 0 || tile >= kTiles || src < 0 ||
+         src >= kSources ||
+         ring_smem_of(m_p, threads, slots, src) > (size_t)232448;
 }
 
 // Blocks of the ring kernel an SM holds at once on the current device
 // (<= 0: a CUDA error, negated).
-int ring_blocks_per_sm(int m_p, int threads, int slots, int tile) {
-  const size_t smem = ring_smem_of(m_p, threads, slots);
+int ring_blocks_per_sm(int m_p, int threads, int slots, int tile, int src) {
+  const size_t smem = ring_smem_of(m_p, threads, slots, src);
   int dev = 0, n = 0;
-  cudaError_t e = allow_smem(tile, smem, &dev);
+  cudaError_t e = allow_smem(src, tile, smem, &dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, ring_kernels[tile],
-                                                      threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, ring_kernels[src][tile], threads, smem);
   return e == cudaSuccess ? n : -(int)e;
 }
 
@@ -564,9 +715,9 @@ int ring_blocks_per_sm(int m_p, int threads, int slots, int tile) {
 // for each block the card holds at once (each then walks the scenarios
 // gridDim.x apart); <= 0: a CUDA error, negated.
 int ring_grid(int batch, int m_p, int threads, int slots, int per_block,
-              int tile) {
+              int tile, int src) {
   if (per_block > 0) return (batch + per_block - 1) / per_block;
-  const int per_sm = ring_blocks_per_sm(m_p, threads, slots, tile);
+  const int per_sm = ring_blocks_per_sm(m_p, threads, slots, tile, src);
   if (per_sm <= 0) return per_sm == 0 ? -(int)cudaErrorInvalidConfiguration
                                       : per_sm;
   int dev = 0, sms = 0;
@@ -596,46 +747,62 @@ cudaError_t launch_window(void (*kernel)(GramArgs), const GramArgs& a,
   return cudaGetLastError();
 }
 
+// G^T's source of a launch: its row factors where a.e is set.
+int source_of(const GramArgs& a) {
+  return a.e != nullptr ? kFactorSrc : kStoredSrc;
+}
+
 cudaError_t launch(const GramArgs& a, int design, int threads, int slots,
                    int per_block, int tile, void* stream) {
   if (bad_shape(a.batch, a.nfd, a.m_p, a.blk, threads))
     return cudaErrorInvalidValue;
-  if (design == kWindow) return launch_window(gram_band_kernel, a, threads,
-                                              stream);
+  const int src = source_of(a);
+  if (design == kWindow)
+    return launch_window(src == kFactorSrc ? gram_band_ew_kernel
+                                           : gram_band_kernel,
+                         a, threads, stream);
   if (design != kRing || a.blk != kRingBlk ||
-      bad_ring(a.m_p, threads, slots, per_block, tile))
+      bad_ring(a.m_p, threads, slots, per_block, tile, src))
     return cudaErrorInvalidValue;
-  const int grid = ring_grid(a.batch, a.m_p, threads, slots, per_block, tile);
+  const int grid =
+      ring_grid(a.batch, a.m_p, threads, slots, per_block, tile, src);
   if (grid <= 0) return (cudaError_t)(-grid);
-  ring_kernels[tile]<<<grid, threads, ring_smem_of(a.m_p, threads, slots),
-                       (cudaStream_t)stream>>>(a, slots);
+  ring_kernels[src][tile]<<<grid, threads,
+                            ring_smem_of(a.m_p, threads, slots, src),
+                            (cudaStream_t)stream>>>(a, slots);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Dynamic shared memory, in bytes, that one block of `design` (0 window,
-// 1 ring) takes at these shapes (`threads` and `slots` read by the ring).
+// 1 ring) takes at these shapes (`threads`, `slots` and `factors`, G^T
+// given as its row factors, read by the ring).
 extern "C" int gram_band_smem_bytes(int design, int m_p, int blk,
-                                    int threads, int slots) {
-  return (int)(design == kRing ? ring_smem_of(m_p, threads, slots)
-                               : window_smem_of(m_p, blk));
+                                    int threads, int slots, int factors) {
+  return (int)(design == kRing
+                   ? ring_smem_of(m_p, threads, slots,
+                                  factors ? kFactorSrc : kStoredSrc)
+                   : window_smem_of(m_p, blk));
 }
 
 // Blocks of the ring an SM holds at once on the current device, and the
 // blocks a launch of `batch` scenarios takes (<= 0: a CUDA error, negated).
 extern "C" int gram_band_ring_blocks_per_sm(int m_p, int threads, int slots,
-                                            int tile) {
-  if (bad_ring(m_p, threads, slots, 0, tile))
+                                            int tile, int factors) {
+  const int src = factors ? kFactorSrc : kStoredSrc;
+  if (bad_ring(m_p, threads, slots, 0, tile, src))
     return -(int)cudaErrorInvalidValue;
-  return ring_blocks_per_sm(m_p, threads, slots, tile);
+  return ring_blocks_per_sm(m_p, threads, slots, tile, src);
 }
 
 extern "C" int gram_band_ring_grid(int batch, int m_p, int threads,
-                                   int slots, int per_block, int tile) {
-  if (batch < 1 || bad_ring(m_p, threads, slots, per_block, tile))
+                                   int slots, int per_block, int tile,
+                                   int factors) {
+  const int src = factors ? kFactorSrc : kStoredSrc;
+  if (batch < 1 || bad_ring(m_p, threads, slots, per_block, tile, src))
     return -(int)cudaErrorInvalidValue;
-  return ring_grid(batch, m_p, threads, slots, per_block, tile);
+  return ring_grid(batch, m_p, threads, slots, per_block, tile, src);
 }
 
 // gd (B, m_blk, blk, blk), gu (B, m_blk-1, blk, blk) from gt (B, nfd, m_p),
@@ -666,31 +833,32 @@ extern "C" int gram_band_factors_launch(
 }
 
 // The same band with G^T given as its row factors e (B, nfd/3, m_p) and
-// w (B, 3, m_p), in the window design.
+// w (B, 3, m_p), in `design` as gram_band_factors_launch takes it.
 extern "C" int gram_band_factors_ew_launch(
     const float* e, const float* w, const float* pb_d, const float* pb_u,
     const float* rho, float* db, float* ub, int batch, int nfd, int m_p,
-    int blk, float sigma, int threads, void* stream) {
-  if (bad_shape(batch, nfd, m_p, blk, threads) || nfd % kDims != 0)
-    return (int)cudaErrorInvalidValue;
+    int blk, float sigma, int design, int threads, int slots, int per_block,
+    int tile, void* stream) {
+  if (nfd % kDims != 0) return (int)cudaErrorInvalidValue;
   GramArgs a = {};
   a.e = e; a.w = w; a.pb_d = pb_d; a.pb_u = pb_u; a.rho = rho; a.d = db;
   a.u = ub;
   a.batch = batch; a.nfd = nfd; a.m_p = m_p; a.blk = blk; a.sigma = sigma;
-  return (int)launch_window(gram_band_ew_kernel, a, threads, stream);
+  return (int)launch(a, design, threads, slots, per_block, tile, stream);
 }
 
 #ifdef GRAM_BAND_PROFILE
 // The ring's counters of block 0: thread 0's cycles of start, slab_wait,
 // products, combine, epilogue; scenarios; thread 0's cycles from entry to
-// exit; the producer's cycles issuing the copies of its steps.
+// exit; the producer's cycles issuing the copies of its steps, and for the
+// factors waiting for a slab's e and expanding it.
 extern "C" int gram_band_profile_clear() {
-  unsigned long long zero[8] = {};
+  unsigned long long zero[kProfCounters] = {};
   return (int)cudaMemcpyToSymbol(g_band_prof, zero, sizeof(zero));
 }
 
 extern "C" int gram_band_profile_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_band_prof,
-                                   8 * sizeof(unsigned long long));
+                                   kProfCounters * sizeof(unsigned long long));
 }
 #endif

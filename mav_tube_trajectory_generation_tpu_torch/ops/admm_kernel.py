@@ -60,23 +60,33 @@ of inputs, so by each input read once it is bound by float32 arithmetic.
   order in plain PyTorch; ``cluster_smem_bytes`` mirrors a block's shared
   memory.  The library alone chooses the design and the block size, from
   what it reads of the device.
-* Their other shapes, and ``admm_stage``, run one block a scenario
-  ("stream"): G^T and m1 together are 0.54 MB a scenario, more than a
-  block's 227 KB of shared memory, so m1 is written once to a scratch
-  tensor and both are re-read from L2 / device memory in every iteration
-  (about 26 MB a scenario), which bounds them.  The ew entry points read
+* ``admm_stage`` (m1 given) runs, wherever a block's share fits
+  (``given_design``: up to K=12), in a cluster of GIVEN_RANKS = 4 thread
+  blocks a scenario, each keeping its quarter of the lanes' columns of both
+  m1 and G^T (``cluster_lane_split(..., ranks=4)``) for all iterations:
+  x = xq + rho g with g the blocks' partials of m1 v summed in rank order,
+  then y = G x + b on each block's lanes.  ``admm_stage_given_plain`` is that
+  order in plain PyTorch.
+* Their other shapes run one block a scenario ("stream"): G^T and m1
+  together are 0.54 MB a scenario, more than a block's 227 KB of shared
+  memory, so m1 is written once to a scratch tensor (or is the caller's)
+  and both are re-read from L2 / device memory in every iteration (about 26
+  MB a scenario), which bounds them.  The ew entry points read
   each G^T entry there as the rounded float32 product of its two factor
   entries and do the arithmetic of the stream design on it, so they give
   the bits of ``gram_band_factors`` and of the stream design on the
   expanded G^T.
 
-The Gram band reads G^T once, so it is bound by bytes (its source says
-how each design meets that).  ``gram_band`` and ``gram_band_factors`` run
-the "ring" design at the band block of every assembly (blk 15): a ring of
-G^T slabs in shared memory fed by bulk copies, register tiles over a split
-of the lanes; other blocks keep the "window" body, which ``gram_band_
-factors_ew`` runs at every shape.  ``band_design`` names the design and
-launch parameters a shape takes; the launchers take them from it.
+The Gram band reads G^T once, so it is bound by bytes, or from G^T's
+factors by operations (its source says how each design meets that).
+``gram_band``, ``gram_band_factors`` and ``gram_band_factors_ew`` run the
+"ring" design at the band block of every assembly (blk 15): a ring of G^T
+slabs in shared memory fed by bulk copies (for the factors, e's rows of a
+slab, expanded in place as ``expand_gt`` rounds them, so that the ew band
+is ``gram_band_factors``' bits on the expanded G^T), register tiles over a
+split of the lanes; other blocks keep the "window" body.  ``band_design``
+names the design and launch parameters a shape takes; the launchers take
+them from it.
 
 Each wrapper launches its kernel for CUDA tensors and runs its ``_plain``
 version only for CPU tensors; it never falls back from one to the other.
@@ -113,7 +123,11 @@ _designs: Dict[tuple, str] = {}
 # The entry points of the cluster design as csrc/admm_stage.cu numbers them
 # (its Entry).
 CLUSTER_ENTRIES = {"admm_stage_fused_factored": 0, "admm_stage_fused": 1,
-                   "admm_stage_fused_factored_ew": 2}
+                   "admm_stage_fused_factored_ew": 2, "admm_stage": 3}
+# Blocks a scenario's cluster takes: the three stages with W^-1, and the
+# stage from a given m1 (csrc/admm_stage.cu kCluster, kGivenRanks).
+CLUSTER_RANKS = 2
+GIVEN_RANKS = 4
 
 
 class BandDesign(NamedTuple):
@@ -126,6 +140,7 @@ class BandDesign(NamedTuple):
                      # holds at once, each walking the scenarios
     tile: str        # a thread's tile of gd and of gu, rows x columns
     smem_bytes: int  # a block's dynamic shared memory
+    source: str = "stored"  # G^T "stored", or as its row "factors" e, w
 
 
 # The band kernels' designs as csrc/gram_band.cu numbers them, and the
@@ -284,21 +299,29 @@ def admm_stage_fused_factored_winv_plain(
         init_z=init_z)
 
 
-def cluster_lane_split(m_p: int, nb_p: int):
-    """The lanes of each block of the cluster design (``csrc/admm_stage.cu``
-    ``split_of``): [(lanes, balls)] for ranks 0 and 1, ``lanes`` the global
-    lanes in the block's local order [ball-x | ball-y | ball-z | half] and
-    ``balls`` the ball-plane indices j (with their rb[j]) it holds.  Rank 0
-    takes the first ceil(nb_p / 2) of each ball plane and the first half
-    (rounded up) of the final plane, rank 1 the rest, so that a ball triple
-    (j, nb_p + j, 2 nb_p + j) lives in one block."""
+def _share(rank: int, ranks: int, n: int) -> Tuple[int, int]:
+    """(first, count) of the n items rank ``rank`` of ``ranks`` holds: n //
+    ranks each, one more for the first n % ranks ranks."""
+    extra = n % ranks
+    return (rank * (n // ranks) + min(rank, extra),
+            n // ranks + (1 if rank < extra else 0))
+
+
+def cluster_lane_split(m_p: int, nb_p: int, ranks: int = CLUSTER_RANKS):
+    """The lanes of each block of a cluster of ``ranks`` blocks
+    (``csrc/admm_stage.cu`` ``split_of``): [(lanes, balls)] by rank,
+    ``lanes`` the global lanes in the block's local order [ball-x | ball-y |
+    ball-z | half] and ``balls`` the ball-plane indices j (with their rb[j])
+    it holds.  Each rank takes its share of the ball indices of the three
+    ball planes and the same share of the final plane, the first n % ranks
+    ranks one more than the rest, so that a ball triple (j, nb_p + j, 2 nb_p
+    + j) lives in one block; with two ranks rank 0 takes the first
+    ceil(n / 2) of each, rank 1 the rest."""
     nh = m_p - 3 * nb_p
     out = []
-    for rank in (0, 1):
-        hb = (nb_p + 1) // 2 if rank == 0 else nb_p // 2
-        j0 = 0 if rank == 0 else (nb_p + 1) // 2
-        fb = (nh + 1) // 2 if rank == 0 else nh // 2
-        f0 = 0 if rank == 0 else (nh + 1) // 2
+    for rank in range(ranks):
+        j0, hb = _share(rank, ranks, nb_p)
+        f0, fb = _share(rank, ranks, nh)
         lanes = [d * nb_p + j0 + j for d in range(3) for j in range(hb)]
         lanes += [3 * nb_p + f0 + k for k in range(fb)]
         out.append((lanes, range(j0, j0 + hb)))
@@ -398,6 +421,37 @@ def admm_stage_plain(rho: torch.Tensor, m1: torch.Tensor, gt: torch.Tensor,
     return x, z, zp, u, prim
 
 
+def admm_stage_given_plain(rho: torch.Tensor, m1: torch.Tensor,
+                           gt: torch.Tensor, b: torch.Tensor,
+                           rb: torch.Tensor, xq: torch.Tensor,
+                           z0: torch.Tensor, u0: torch.Tensor, *,
+                           n_iters: int, alpha: float, nb_p: int,
+                           n_ball: int = -1, ranks: int = GIVEN_RANKS):
+    """``admm_stage`` in plain PyTorch in the order of its cluster design:
+    each iteration m1 v summed as the blocks' partials over their lanes
+    (``cluster_lane_split(..., ranks)``), added in rank order, then x = xq +
+    rho g.  The same function; any float dtype, any device.  The wrapper's
+    plain version stays the reference order (``admm_stage_plain``); this one
+    is the float32 yardstick of the cluster design's rounding."""
+    if n_ball < 0:
+        n_ball = nb_p
+    idx = [torch.tensor(lanes, dtype=torch.long, device=m1.device)
+           for lanes, _ in cluster_lane_split(m1.shape[2], nb_p, ranks)]
+    parts = [m1[:, :, i] for i in idx]
+
+    def solve(v):
+        g = None
+        for m1_k, i in zip(parts, idx):
+            p = m1_k @ v[:, :, i].transpose(1, 2)
+            g = p if g is None else g + p
+        return g
+    prim = torch.full_like(rho, float("inf"))
+    x, z, zp, u, prim, _ = _iterate_plain(
+        rho, solve, gt, b, rb, xq, xq, z0, z0, u0, prim, None,
+        n_iters=n_iters, alpha=alpha, nb_p=nb_p, n_ball=n_ball)
+    return x, z, zp, u, prim
+
+
 def gram_band_plain(gt: torch.Tensor, *, blk: int, per_block: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``gram_band`` in plain PyTorch (one batched product per block
@@ -457,6 +511,8 @@ def _library(name: str) -> ctypes.CDLL:
         lib.admm_stage_cluster_smem_bytes.argtypes = [i32] * 6
         lib.admm_stage_cluster_occupancy.argtypes = [i32] * 7
         lib.admm_stage_cluster_threads.argtypes = [i32] * 7
+        lib.admm_stage_given_design.argtypes = [i32] * 4
+        lib.admm_stage_cluster_ranks.argtypes = [i32]
         for fn in ("admm_stage_fused_factored_launch",
                    "admm_stage_fused_factored_ew_launch",
                    "admm_stage_fused_launch", "admm_stage_launch",
@@ -466,17 +522,18 @@ def _library(name: str) -> ctypes.CDLL:
                    "admm_stage_fused_factored_ew_design",
                    "admm_stage_cluster_smem_bytes",
                    "admm_stage_cluster_occupancy",
-                   "admm_stage_cluster_threads"):
+                   "admm_stage_cluster_threads", "admm_stage_given_design",
+                   "admm_stage_cluster_ranks"):
             getattr(lib, fn).restype = i32
     else:
         lib.gram_band_launch.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
         lib.gram_band_factors_launch.argtypes = (
             [ptr] * 6 + [i32] * 4 + [f32] + [i32] * 5 + [ptr])
         lib.gram_band_factors_ew_launch.argtypes = (
-            [ptr] * 7 + [i32] * 4 + [f32, i32, ptr])
-        lib.gram_band_smem_bytes.argtypes = [i32] * 5
-        lib.gram_band_ring_blocks_per_sm.argtypes = [i32] * 4
-        lib.gram_band_ring_grid.argtypes = [i32] * 6
+            [ptr] * 7 + [i32] * 4 + [f32] + [i32] * 5 + [ptr])
+        lib.gram_band_smem_bytes.argtypes = [i32] * 6
+        lib.gram_band_ring_blocks_per_sm.argtypes = [i32] * 5
+        lib.gram_band_ring_grid.argtypes = [i32] * 7
         for fn in ("gram_band_launch", "gram_band_factors_launch",
                    "gram_band_factors_ew_launch", "gram_band_smem_bytes",
                    "gram_band_ring_blocks_per_sm", "gram_band_ring_grid"):
@@ -489,17 +546,28 @@ def cluster_smem_bytes(kind: str, nfd: int, m_p: int, m_blk: int, bsz: int,
                        nb_p: int) -> int:
     """Dynamic shared memory of one block of the cluster design of stage
     entry point ``kind`` (a key of ``CLUSTER_ENTRIES``), in bytes: the
-    Python mirror of ``make_cluster_layout`` in ``csrc/admm_stage.cu``
-    (``chip_smoke.py``'s build phase holds the two equal).  W^-1 (nfd rows
-    of round4(nfd)); the rows of G^T's source a block keeps -- nfd stored
-    rows, or for the ew entry point nf = nfd / 3 rows of e and 3 of w -- of
-    ldl lanes, over which the W^-1 sweeps' scratch lies where W^-1 is
-    formed; the block's lane vectors; x, xq, the partials of G^T v."""
-    nl = len(cluster_lane_split(m_p, nb_p)[0][0])
+    Python mirror of ``make_cluster_layout`` and ``make_given_layout`` in
+    ``csrc/admm_stage.cu`` (``chip_smoke.py``'s build phase holds the two
+    equal).  W^-1 (nfd rows of round4(nfd)); the rows of G^T's source a
+    block keeps -- nfd stored rows, or for the ew entry point nf = nfd / 3
+    rows of e and 3 of w -- of ldl lanes, over which the W^-1 sweeps'
+    scratch lies where W^-1 is formed; the block's lane vectors; x, xq, the
+    partials of G^T v.  ``admm_stage`` (m1 given, GIVEN_RANKS blocks): no
+    W^-1; its lanes' share of m1 and of G^T, the lane vectors, xq, x, g, the
+    partials of m1 v, prim's exchange."""
+    given = kind == "admm_stage"
+    split = cluster_lane_split(m_p, nb_p,
+                               GIVEN_RANKS if given else CLUSTER_RANKS)
+    nl = len(split[0][0])
     ldw = round_up(nfd, 4)
     ldl = round_up(nl, 4)
     if (ldl // 4) % 2 == 0:
         ldl += 4
+    if given:
+        floats = (2 * nfd * ldl + 6 * ldl + round_up(len(split[0][1]), 4)
+                  + 3 * ldw + 2 * GIVEN_RANKS * ldw + 32
+                  + round_up(GIVEN_RANKS, 4))
+        return 4 * floats
     rows = (nfd // DIMS + DIMS if kind == "admm_stage_fused_factored_ew"
             else nfd)
     bb = bsz * bsz
@@ -518,13 +586,16 @@ def ring_ld(m_p: int) -> int:
 
 
 def ring_smem_bytes(m_p: int, threads: int = RING_THREADS,
-                    slots: int = RING_SLOTS) -> int:
+                    slots: int = RING_SLOTS, source: str = "stored") -> int:
     """Dynamic shared memory of a ring block: ``slots`` slabs of RING_BLOCK
-    padded rows, each computing warp's partials of gd and gu (every warp but
-    the producer), an mbarrier a slot."""
+    padded rows, for G^T's row factors w's rows of two scenarios, each
+    computing warp's partials of gd and gu (every warp but the producer), an
+    mbarrier a slot and for the factors one for e's staged rows."""
     bb = RING_BLOCK * RING_BLOCK
+    factors = source == "factors"
     return (4 * (slots * RING_BLOCK * ring_ld(m_p)
-                 + (threads // 32 - 1) * 2 * bb) + 8 * slots)
+                 + (2 * DIMS * m_p if factors else 0)
+                 + (threads // 32 - 1) * 2 * bb) + 8 * (slots + factors))
 
 
 def window_smem_bytes(m_p: int, blk: int) -> int:
@@ -539,19 +610,24 @@ def window_design(m_p: int, blk: int) -> BandDesign:
                       window_smem_bytes(m_p, blk))
 
 
-def band_design(nfd: int, m_p: int, blk: int) -> BandDesign:
-    """The design ``gram_band`` and ``gram_band_factors`` launch at these
-    shapes: the ring wherever its tiles cover the band block (blk ==
-    RING_BLOCK) and its shared memory fits a block, else the window body.
-    Pure Python: the launchers take their parameters from it."""
+def band_design(nfd: int, m_p: int, blk: int,
+                source: str = "stored") -> BandDesign:
+    """The design a Gram-band kernel launches at these shapes, G^T
+    ``source`` "stored" (``gram_band``, ``gram_band_factors``) or as its row
+    "factors" (``gram_band_factors_ew``): the ring wherever its tiles cover
+    the band block (blk == RING_BLOCK) and its shared memory fits a block,
+    else the window body.  Pure Python: the launchers take their parameters
+    from it."""
     if nfd % blk:
         raise ValueError(f"gram band: nfd={nfd} is not a multiple of "
                          f"blk={blk}")
-    ring = ring_smem_bytes(m_p)
+    if source not in ("stored", "factors"):
+        raise ValueError(f"gram band: unknown G^T source {source!r}")
+    ring = ring_smem_bytes(m_p, source=source)
     if blk == RING_BLOCK and ring <= MAX_BLOCK_SMEM:
         return BandDesign("ring", RING_THREADS, RING_SLOTS, RING_PER_BLOCK,
-                          RING_TILE, ring)
-    return window_design(m_p, blk)
+                          RING_TILE, ring, source)
+    return window_design(m_p, blk)._replace(source=source)
 
 
 def _band_params(d: BandDesign) -> Tuple[int, int, int, int, int]:
@@ -565,7 +641,8 @@ def ring_blocks_per_sm(m_p: int, d: BandDesign) -> int:
     """Blocks of the ring design ``d`` an SM of the current device holds at
     once; raises on a CUDA error."""
     n = int(_library("gram_band").gram_band_ring_blocks_per_sm(
-        m_p, d.threads, d.slots, RING_TILES[d.tile]))
+        m_p, d.threads, d.slots, RING_TILES[d.tile],
+        int(d.source == "factors")))
     if n <= 0:
         raise RuntimeError(f"gram band ring occupancy failed with CUDA "
                            f"error {-n}")
@@ -576,7 +653,8 @@ def ring_grid(batch: int, m_p: int, d: BandDesign) -> int:
     """Blocks a ring launch of ``batch`` scenarios in design ``d`` takes on
     the current device; raises on a CUDA error."""
     n = int(_library("gram_band").gram_band_ring_grid(
-        batch, m_p, d.threads, d.slots, d.per_block, RING_TILES[d.tile]))
+        batch, m_p, d.threads, d.slots, d.per_block, RING_TILES[d.tile],
+        int(d.source == "factors")))
     if n <= 0:
         raise RuntimeError(f"gram band ring grid failed with CUDA error "
                            f"{-n}")
@@ -588,14 +666,18 @@ def stage_design(kind: str, nfd: int, m_p: int, m_blk: int, bsz: int,
     """The design stage entry point ``kind`` (a key of ``CLUSTER_ENTRIES``)
     launches at these shapes on the current CUDA device, as its launcher
     chooses it: "cluster" (two blocks a scenario, G^T's halves -- or their
-    row factors -- and W^-1 in their shared memory, no m1) wherever a
-    block's share fits, else "stream" (one block a scenario, m1 in a scratch
-    tensor).  A choice by shape between two kernels; builds the library if
-    needed.  ``m_blk`` and ``bsz`` are read where W^-1 is formed."""
+    row factors -- and W^-1 in their shared memory, no m1; for
+    ``admm_stage`` GIVEN_RANKS blocks, each with its share of m1 and G^T)
+    wherever a block's share fits, else "stream" (one block a scenario, m1
+    in a scratch tensor, or the caller's).  A choice by shape between two
+    kernels; builds the library if needed.  ``m_blk`` and ``bsz`` are read
+    where W^-1 is formed."""
     key = (kind, torch.cuda.current_device(), nfd, m_p, m_blk, bsz, nb_p)
     if key not in _designs:
         lib = _library("admm_stage")
-        if kind == "admm_stage_fused":
+        if kind == "admm_stage":
+            fits = lib.admm_stage_given_design(nfd, m_p, nb_p, THREADS)
+        elif kind == "admm_stage_fused":
             fits = lib.admm_stage_fused_design(nfd, m_p, nb_p, THREADS)
         elif kind == "admm_stage_fused_factored_ew":
             fits = lib.admm_stage_fused_factored_ew_design(
@@ -624,6 +706,18 @@ def ew_design(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int) -> str:
     (``stage_design``)."""
     return stage_design("admm_stage_fused_factored_ew", nfd, m_p, m_blk, bsz,
                         nb_p)
+
+
+def given_design(nfd: int, m_p: int, nb_p: int) -> str:
+    """The design ``admm_stage`` launches (``stage_design``)."""
+    return stage_design("admm_stage", nfd, m_p, 0, 0, nb_p)
+
+
+def cluster_ranks(kind: str) -> int:
+    """Blocks a scenario's cluster takes in ``kind``'s cluster design, as
+    the library has them (builds it if needed)."""
+    return int(_library("admm_stage").admm_stage_cluster_ranks(
+        CLUSTER_ENTRIES[kind]))
 
 
 def cluster_occupancy(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
@@ -657,13 +751,13 @@ def smem_bytes(nfd: int, m_p: int, m_blk: int, bsz: int, nb_p: int,
     design, ``design`` "cluster" or "stream" names either, None the one it
     takes there (``stage_design``).  ``m_blk`` and ``bsz`` are read by the
     factored stages only, ``bsz`` (the band block) by the Gram-band
-    kernels, which take ``band_design``'s design (``gram_band_factors_ew``:
-    the window's)."""
+    kernels, which take ``band_design``'s design."""
     if kind.startswith("gram_band"):
-        d = (window_design(m_p, bsz) if kind == "gram_band_factors_ew"
-             else band_design(nfd, m_p, bsz))
+        d = band_design(nfd, m_p, bsz, "factors" if kind.endswith("_ew")
+                        else "stored")
         return int(_library("gram_band").gram_band_smem_bytes(
-            BAND_DESIGNS[d.design], m_p, bsz, d.threads, d.slots))
+            BAND_DESIGNS[d.design], m_p, bsz, d.threads, d.slots,
+            int(d.source == "factors")))
     lib = _library("admm_stage")
     if kind in CLUSTER_ENTRIES:
         design = design or stage_design(kind, nfd, m_p, m_blk, bsz, nb_p)
@@ -981,8 +1075,11 @@ def admm_stage(rho: torch.Tensor, m1: torch.Tensor, gt: torch.Tensor,
     (B, nfd, 1), z, z_prev, u (B, 1, m_p), prim (B, 1, 1)) -- with
     ``n_iters=0`` exactly (xq, z0, z0, u0, inf).
 
-    CUDA tensors (float32, contiguous) go through the kernel; CPU tensors
-    through the plain version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``given_design`` names for these shapes (the cluster design sums m1 v
+    as ``admm_stage_given_plain`` does); CPU tensors through the plain
+    version (the reference order).  Anything the kernel does not take
+    raises.
     """
     if n_ball < 0:
         n_ball = nb_p
@@ -1101,9 +1198,9 @@ def gram_band_factors_ew(e: torch.Tensor, w: torch.Tensor,
     """``gram_band_factors`` with G^T given as its rank-1 row factors e
     (B, nf, m_p) and w (B, 3, m_p) (``expand_gt``).
 
-    CUDA tensors (float32, contiguous) go through the kernel, in the window
-    design at every shape (``window_design``); CPU tensors through the plain
-    version.  Anything the kernel does not take raises.
+    CUDA tensors (float32, contiguous) go through the kernel, in the design
+    ``band_design(..., "factors")`` names for these shapes; CPU tensors
+    through the plain version.  Anything the kernel does not take raises.
     """
     dev = _device_of(e)
     if dev is None:
@@ -1125,7 +1222,8 @@ def gram_band_factors_ew(e: torch.Tensor, w: torch.Tensor,
         err = lib.gram_band_factors_ew_launch(
             e.data_ptr(), w.data_ptr(), pb_d.data_ptr(), pb_u.data_ptr(),
             rho.data_ptr(), db.data_ptr(), ub.data_ptr(), bsz_b, nfd, m_p,
-            blk, float(sigma), WINDOW_THREADS,
+            blk, float(sigma),
+            *_band_params(band_design(nfd, m_p, blk, "factors")),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "gram_band_factors_ew", B=bsz_b, nfd=nfd, m_p=m_p,
               blk=blk)

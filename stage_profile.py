@@ -10,6 +10,9 @@
     python3 stage_profile.py --kernel ipm_solve  # #11, the fused polish
     python3 stage_profile.py --kernel gram_band_factors  # #5, "pallas_db"
     python3 stage_profile.py --kernel gram_band --designs  # #6, "pallas"
+    python3 stage_profile.py --kernel gram_band_factors_ew  # #4, the ew route
+    python3 stage_profile.py --kernel admm_stage_given  # #7, route (a)'s m1
+    python3 stage_profile.py --kernel admm_stage_given --designs
     python3 stage_profile.py --paths --root _parent   # paths, another tree
 
 Builds the kernel's source with its profile macro (the kernel then adds, in
@@ -49,29 +52,43 @@ cycles of one scenario by phase, the kernel's time with the counters in
   with the counters compiled out, the same call timed in the cluster design
   and in the one-block body (``-DIPM_SOLVE_STREAM``, which every shape then
   takes), alternated: cluster, one-block, one-block, cluster.
-* ``gram_band_factors`` (#5) and ``gram_band`` (#6),
-  ``-DGRAM_BAND_PROFILE``: on the call the band route makes at this batch
-  (``band_gram="pallas_db"``: #5 once a stage; ``"pallas"``: #6 once a
-  solve), recorded from one solve on seed 0; the cycles a scenario (the
+* ``gram_band_factors`` (#5), ``gram_band`` (#6) and
+  ``gram_band_factors_ew`` (#4), ``-DGRAM_BAND_PROFILE``: on the call the
+  band route makes at this batch (``band_gram="pallas_db"``: #5 once a
+  stage; ``"pallas"``: #6 once a solve; ``gt_assembly="kernel"``: #4 once
+  a stage), recorded from one solve on seed 0; the cycles a scenario (the
   mean over the scenarios block 0 walks) of thread 0, a computing thread,
-  by phase of the ring: start (the mbarriers and the first copies),
+  by phase of the ring: start (the mbarriers and the first slabs),
   slab_wait (waiting on a slab's mbarrier, with the loads of the KKT
   band's objective part), products, combine (the warps' groups and the
   partials' barrier) and epilogue (the warps' sum, the stores and the
-  barrier), and of its producer issuing the copies; the time with the
-  counters in and out.  With ``--designs`` no
+  barrier), and of its producer issuing the copies and, for #4, waiting
+  for a slab's rows of e and expanding the slab, each apart; the time with
+  the counters in and out.  With ``--designs`` no
   profile: the call timed in the design the launcher takes
   (``band_design``) and in each variant of it (slots, scenarios a block,
   tile shape, threads, and the window body), each one's outputs against
   the launcher's bits, alternated: the list, then the list backwards.
+* ``admm_stage_given`` (#7, ``-DADMM_STAGE_PROFILE``): on route (a)'s
+  stage inputs at this batch (m1 = W^-1 G^T, z0 and u0 from one plain
+  stage, as ``chip_smoke.py`` drives it), rank 0 of scenario 0: loads,
+  then an iteration's mean by phase (m1 v, the pushes of the partial to
+  the other blocks, the cluster barrier, the combine and x, G x, the
+  update), then the finish; the clusters in flight; the time with the
+  counters in and out.  With ``--designs`` no profile: the call timed in
+  the launcher's cluster of four, in clusters of eight
+  (``-DADMM_STAGE_GIVEN_RANKS=8``) and in the stream design
+  (``-DADMM_STAGE_STREAM``), alternated: the list, then backwards, each
+  against its twin's bits run to run.
 * ``--paths`` (no profile, no kernel build of its own): the paths the stage
   and band kernels sit on, through the public entry points of the package found
   under ``--root`` (default: this checkout; an unpacked copy of another
   commit times that commit's package, so that one machine alternates two
   trees process by process): the headline (K=10), the dense route (a)
   (K=10, ``kkt_apply="inverse"``), the dense route (c) (K=2), the band
-  routes "pallas_db" (#5) and "pallas" (#6) at K=10 and the strict
-  router with its defaults, seed 0, each ``--reps`` passes after a warm-up,
+  routes "pallas_db" (#5) and "pallas" (#6) at K=10, the ew route
+  (``gt_assembly="kernel"``: #4 and #3) at K=10 and the strict router with
+  its defaults, seed 0, each ``--reps`` passes after a warm-up,
   by CUDA events and on the host's clock; and the host time of one call of
   each stage wrapper those paths make (kernel 1 on the headline, #2 on
   route (c)), the mean of 20 calls queued with no synchronisation between
@@ -141,8 +158,10 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernel",
                         choices=("admm_stage", "admm_stage_fused",
-                                 "admm_stage_ew", "ipm_pipe", "ipm_solve",
-                                 "gram_band", "gram_band_factors"),
+                                 "admm_stage_ew", "admm_stage_given",
+                                 "ipm_pipe", "ipm_solve", "gram_band",
+                                 "gram_band_factors",
+                                 "gram_band_factors_ew"),
                         default="admm_stage")
     parser.add_argument("--k", type=int, default=10)
     parser.add_argument("--batch", type=int, default=6144)
@@ -171,6 +190,8 @@ def main():
         return solve_profile(opts)
     if opts.kernel.startswith("gram_band"):
         return band_profile(opts)
+    if opts.kernel == "admm_stage_given":
+        return given_profile(opts)
     import chip_smoke
     import mav_tube_trajectory_generation_tpu_torch as mtt
     from mav_tube_trajectory_generation_tpu_torch import _build
@@ -282,6 +303,7 @@ def paths_timing(opts):
         "dense_route_c_k2": batch_solve(2),
         "band_pallas_db_k10": batch_solve(10, band_gram="pallas_db"),
         "band_pallas_k10": batch_solve(10, band_gram="pallas"),
+        "ew_route_k10": batch_solve(10, gt_assembly="kernel"),
         "strict_k10": lambda: mtt.solve_qcqp_strict(
             sc10.free, sc10.d_fixed_free, sc10.times, sc10.waypoints,
             sc10.radii, warmstart_values=sc10.values)}
@@ -398,6 +420,12 @@ BAND_VARIANTS = (("slots_2", dict(slots=2)), ("slots_4", dict(slots=4)),
                  ("threads_288", dict(threads=288)), ("window", None))
 
 
+# The route that runs each band kernel.
+BAND_ROUTES = {"gram_band": dict(band_gram="pallas"),
+               "gram_band_factors": dict(band_gram="pallas_db"),
+               "gram_band_factors_ew": dict(gt_assembly="kernel")}
+
+
 def band_call(opts, name):
     """(args, kwargs) of the call the band route of ``name`` makes at
     --k and --batch (seed 0), recorded from one solve."""
@@ -405,12 +433,11 @@ def band_call(opts, name):
     import chip_smoke
     import mav_tube_trajectory_generation_tpu_torch as mtt
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
-    mode = "pallas_db" if name == "gram_band_factors" else "pallas"
     sc = mtt.make_inputs(opts.k, opts.batch, seed=0)
     calls = []
     with chip_smoke.recorded(admm_kernel, name, calls):
-        chip_smoke.solve(mtt, sc, chip_smoke.route_config(mtt,
-                                                          band_gram=mode))
+        chip_smoke.solve(mtt, sc, chip_smoke.route_config(
+            mtt, **BAND_ROUTES[name]))
     torch.cuda.synchronize()
     args, kw, _ = calls[0]
     del calls
@@ -427,8 +454,12 @@ def band_profile(opts):
 
     name = opts.kernel
     args, kw = band_call(opts, name)
-    bsz, nfd, m_p = args[0].shape
-    launcher = admm_kernel.band_design(nfd, m_p, kw["blk"])
+    if name.endswith("_ew"):
+        bsz, nf, m_p = args[0].shape
+        nfd, source = admm_kernel.DIMS * nf, "factors"
+    else:
+        (bsz, nfd, m_p), source = args[0].shape, "stored"
+    launcher = admm_kernel.band_design(nfd, m_p, kw["blk"], source)
     wrapper = getattr(admm_kernel, name)
     run = lambda: wrapper(*args, **kw)
     shapes = dict(kernel=name, k=opts.k, batch=opts.batch, nfd=nfd, m_p=m_p,
@@ -443,7 +474,7 @@ def band_profile(opts):
     lib = _build.variant("gram_band", ("GRAM_BAND_PROFILE",))
     _build._LIBS["gram_band"] = lib       # the wrapper declares its types
     lib.gram_band_profile_read.argtypes = [ctypes.c_void_p]
-    counts = (ctypes.c_ulonglong * 8)()
+    counts = (ctypes.c_ulonglong * 10)()
     ms = chip_smoke.cuda_ms(run, reps=opts.reps)
     lib.gram_band_profile_clear()
     for _ in range(opts.reps):
@@ -461,6 +492,11 @@ def band_profile(opts):
         cycles_by_phase_are="thread 0 of block 0 (a computing thread)",
         block_cycles_a_scenario=counts[6] / scenarios,
         producer_issue_cycles_a_scenario=counts[7] / scenarios,
+        producer_staged_wait_cycles_a_scenario=counts[8] / scenarios,
+        producer_expand_cycles_a_scenario=counts[9] / scenarios,
+        producer_cycles_are="lane 0 of block 0's producer warp: issuing "
+        "the copies; for #4 also waiting for a slab's rows of e and "
+        "expanding the slab (with its arrival)",
         ms_with_counters=ms, ms_without_counters=ms_plain_build,
         nvidia_smi=smi())))
     return 0
@@ -476,11 +512,12 @@ def band_designs_timing(opts, run, launcher, shapes):
     designs = {"launcher": launcher}
     for label, over in BAND_VARIANTS:
         if over is None:
-            designs[label] = admm_kernel.window_design(m_p, blk)
+            designs[label] = admm_kernel.window_design(m_p, blk)._replace(
+                source=launcher.source)
             continue
         d = launcher._replace(**over)
         designs[label] = d._replace(smem_bytes=admm_kernel.ring_smem_bytes(
-            m_p, d.threads, d.slots))
+            m_p, d.threads, d.slots, d.source))
     chosen = admm_kernel.band_design
 
     def timed(label):
@@ -508,6 +545,110 @@ def band_designs_timing(opts, run, launcher, shapes):
         designs={k: d._asdict() for k, d in designs.items()},
         order="the launcher's, then each variant, then back; CUDA events, "
         "mean of --reps launches each", nvidia_smi=smi())))
+    return 0
+
+
+# #7's marks (csrc/admm_stage.cu given_stage, PROF(i)), and those that run
+# once an iteration.
+GIVEN_PHASES = ("loads", "m1_v", "push", "cluster_barrier", "combine",
+                "g_x", "update", "finish")
+GIVEN_PER_ITERATION = GIVEN_PHASES[1:7]
+# --designs of #7: the launcher's cluster of four, and variants of it.
+GIVEN_VARIANTS = {"ranks_8": ("ADMM_STAGE_GIVEN_RANKS=8",),
+                  "stream": ("ADMM_STAGE_STREAM",)}
+
+
+def given_profile(opts):
+    """#7's phase profile, or with --designs its designs' times (see the
+    top)."""
+    import torch
+    import chip_smoke
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
+
+    inp = chip_smoke.route_inputs(mtt, opts.k, opts.batch, seed=0,
+                                  config=chip_smoke.bench_config(mtt))
+    args, kw = inp["stage"], inp["kw"]
+    del inp
+    nfd, m_p = args[2].shape[1:]
+    shapes = (nfd, m_p, 0, 0, kw["nb_p"])
+    design = admm_kernel.given_design(nfd, m_p, kw["nb_p"])
+    run = lambda: admm_kernel.admm_stage(*args, **kw)
+    head = dict(kernel="admm_stage", k=opts.k, batch=opts.batch, nfd=nfd,
+                m_p=m_p, n_iters=kw["n_iters"], design=design,
+                cluster_ranks=admm_kernel.cluster_ranks("admm_stage"),
+                block_threads=admm_kernel.block_threads(*shapes,
+                                                        "admm_stage"),
+                max_active_clusters=admm_kernel.cluster_occupancy(
+                    *shapes, "admm_stage") if design == "cluster" else None)
+    shipped = _build.load("admm_stage")
+    if opts.designs:
+        _build.prebuild(names=(), variants=[("admm_stage", d) for d in
+                                            GIVEN_VARIANTS.values()])
+        libs = {k: _build.variant("admm_stage", d)
+                for k, d in GIVEN_VARIANTS.items()}
+        libs["launcher"] = shipped
+
+        def timed(name):
+            _build._LIBS["admm_stage"] = libs[name]
+            admm_kernel._designs.clear()
+            try:
+                ms = chip_smoke.cuda_ms(run, reps=opts.reps)
+                out, again = run(), run()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(out, again))
+                clusters = (admm_kernel.cluster_occupancy(*shapes,
+                                                          "admm_stage")
+                            if name != "stream" else None)
+                return ms, same, clusters
+            finally:
+                _build._LIBS["admm_stage"] = shipped
+                admm_kernel._designs.clear()
+
+        order = list(libs)[::-1] + list(libs)
+        ms = {name: [] for name in libs}
+        same, clusters = {}, {}
+        for name in order:
+            t, same[name], clusters[name] = timed(name)
+            ms[name].append(t)
+        print(json.dumps(dict(
+            **head, ms_by_design=ms,
+            mean_ms_by_design={k: statistics.mean(v) for k, v in ms.items()},
+            same_bits_run_to_run=same, max_active_clusters_by_design=clusters,
+            order="launcher (clusters of four), ranks_8, stream, then back; "
+            "CUDA events, mean of --reps launches each", nvidia_smi=smi())))
+        return 0
+    if design != "cluster":
+        print(f"stage_profile: this shape takes the {design} design",
+              file=sys.stderr)
+        return 3
+    ms_plain_build = chip_smoke.cuda_ms(run, reps=opts.reps)
+    lib = _build.variant("admm_stage", ("ADMM_STAGE_PROFILE",))
+    _build._LIBS["admm_stage"] = lib      # the wrapper declares its types
+    admm_kernel._designs.clear()
+    lib.admm_stage_profile_read.argtypes = [ctypes.c_void_p]
+    counts = (ctypes.c_ulonglong * 16)()
+    ms = chip_smoke.cuda_ms(run, reps=opts.reps)
+    lib.admm_stage_profile_clear()
+    for _ in range(opts.reps):
+        run()
+    torch.cuda.synchronize()
+    lib.admm_stage_profile_read(ctypes.addressof(counts))
+    _build._LIBS["admm_stage"] = shipped
+    admm_kernel._designs.clear()
+    cycles = {}
+    for i, name in enumerate(GIVEN_PHASES):
+        c = counts[i] / opts.reps
+        cycles[name] = c / kw["n_iters"] if name in GIVEN_PER_ITERATION else c
+    print(json.dumps(dict(
+        **head, profiled_block="rank 0 of scenario 0",
+        cycles_one_scenario=sum(counts[i] for i in range(len(GIVEN_PHASES)))
+        / opts.reps, cycles_by_phase=cycles,
+        per_iteration_phases=list(GIVEN_PER_ITERATION),
+        cycles_an_iteration=sum(cycles[n] for n in GIVEN_PER_ITERATION),
+        ms_with_counters=ms, ms_without_counters=ms_plain_build,
+        nvidia_smi=smi())))
     return 0
 
 

@@ -22,8 +22,8 @@ Tolerances, and why:
 * on the card, each kernel against its plain version: 2e-4 of scale for the
   stage (rsqrtf is not correctly rounded there; sums run in another order),
   1e-5 for the band, as the other kernels' card tests; against its G^T
-  kernel on the expanded G^T: equal for the band, the stage's 2e-4 for the
-  stage;
+  kernel on the expanded G^T: equal for the band (#4 and #5 run the same
+  ring on the same slabs), the stage's 2e-4 for the stage;
 * #3's cluster design keeps e and w on chip, forms each G^T entry from them
   rounded as ``expand_gt`` rounds it and sums x = xq + rho W^-1 (G^T v):
   ``admm_stage_fused_factored_ew_winv_plain`` is that order in plain
@@ -504,6 +504,42 @@ def test_ew_cluster_layout_on_the_card(k, fits, threads):
 
 
 # ---------------------------------------------------------------------------
+# #4's design: the ring at the solver's band block, fed from e and w.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,smem,per_sm", [
+    (2, 87008, 2), (4, 87008, 2), (10, 113120, 2), (12, 139232, 1)])
+def test_ew_band_design_by_shape(k, smem, per_sm):
+    """#4 takes the ring at every assembly's band block (15 rows: five rows
+    of e, three dimensions), with #5's launch parameters and, beside #5's
+    slabs and partials, w's rows for two scenarios and one more mbarrier
+    (e's staged rows), within the 232,448 B an H100 block may take; two
+    blocks an SM to K=10."""
+    nfd, m_p, m_blk, _ = _layout_args(k)
+    d = tkernel.band_design(nfd, m_p, 15, "factors")
+    stored = tkernel.band_design(nfd, m_p, 15)
+    assert d.design == stored.design == "ring" and d.source == "factors"
+    assert d[:5] == stored[:5]          # threads, slots, per block, tile
+    assert d.smem_bytes == smem == tkernel.ring_smem_bytes(
+        m_p, d.threads, d.slots, "factors")
+    assert d.smem_bytes == stored.smem_bytes + 4 * 2 * 3 * m_p + 8
+    assert d.smem_bytes <= H100_SMEM_OPTIN
+    assert blocks_an_sm(d.smem_bytes) == per_sm
+    assert 15 % tkernel.DIMS == 0 and nfd == 15 * m_blk
+
+
+@pytest.mark.parametrize("blk", [3, 9, 45])
+def test_ew_band_design_window_elsewhere(blk):
+    """Band blocks other than 15 keep the window body for #4, the entries
+    formed from e and w as the slabs load."""
+    d = tkernel.band_design(135, 512, blk, "factors")
+    assert d.design == "window" and d.source == "factors"
+    assert d.smem_bytes == tkernel.window_smem_bytes(512, blk)
+    with pytest.raises(ValueError, match="source"):
+        tkernel.band_design(135, 512, 15, "expanded")
+
+
+# ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version.
 # ---------------------------------------------------------------------------
 
@@ -550,18 +586,21 @@ def test_ew_kernels_on_the_card_match_plain(name, monkeypatch):
     gt_args = args[:i] + (tkernel.expand_gt(args[i], args[i + 1]),) + \
         args[i + 2:]
     # against the kernel of the stored G^T: #3's cluster design forms the
-    # same G^T entries but sums them in other groups than kernel 1's, and
-    # #4 (the window body) in other groups than #5's ring, so each is held
-    # to the bar it is held to against its plain version
+    # same G^T entries but sums them in other groups than kernel 1's, so it
+    # is held to the bar it is held to against its plain version; #4 and #5
+    # run the same design (the ring at blk 15, the window body elsewhere)
+    # on the same slab entries: the same bits
     for a, b in zip(ours, fn_gt(*gt_args, **kw)):
+        if name.startswith("band"):
+            assert torch.equal(a, b)
         b = to_np(b)
         np.testing.assert_allclose(to_np(a), b, rtol=0, atol=rel * _scale(b))
     if name.startswith("band"):
-        # #5 in the window body sums in #4's order: the same bits
-        monkeypatch.setattr(tkernel, "band_design",
-                            lambda nfd, m_p, blk: tkernel.window_design(
-                                m_p, blk))
-        for a, b in zip(ours, fn_gt(*gt_args, **kw)):
+        # the window body too, both kernels in it
+        window = lambda nfd, m_p, blk, source="stored": \
+            tkernel.window_design(m_p, blk)._replace(source=source)
+        monkeypatch.setattr(tkernel, "band_design", window)
+        for a, b in zip(fn(*args, **kw), fn_gt(*gt_args, **kw)):
             assert torch.equal(a, b)
         monkeypatch.undo()
     with pytest.raises(TypeError, match="float32"):
@@ -612,3 +651,38 @@ def test_ew_designs_on_the_card(k):
             *args, **dict(kw, alpha=1.62))
         assert any(np.abs(to_np(a) - r).max() > 2e-4 * sc
                    for a, r, sc in zip(wrong, ref, scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 10, 12])
+def test_ew_band_ring_on_the_card(k):
+    """#4 takes the ring at each assembly's widths on random factors (K=2:
+    one block, no ub), agrees with its plain version at 1e-5 of scale,
+    gives the same bits run to run and exactly #5's bits on the expanded
+    G^T, and with w's rows permuted does not agree.  Needs an NVIDIA card
+    and nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    nfd, m_p, _, _ = _layout_args(k)
+    assert tkernel.band_design(nfd, m_p, 15, "factors").design == "ring"
+    inp = _random_band_inputs(nf=nfd // 3, m_p=m_p, seed=k)
+    args = [tt(inp[n]).cuda() for n in ("e", "w", "pb_d", "pb_u", "rho")]
+    kw = dict(blk=15, sigma=SIGMA)
+    before = tkernel.launches["gram_band_factors_ew"]
+    ours = tkernel.gram_band_factors_ew(*args, **kw)
+    again = tkernel.gram_band_factors_ew(*args, **kw)
+    torch.cuda.synchronize()
+    assert tkernel.launches["gram_band_factors_ew"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(ours, again))
+    gt = tkernel.expand_gt(args[0], args[1])
+    five = tkernel.gram_band_factors(gt, *args[2:], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(ours, five))
+    # K=2 has one band block: ub is empty
+    ref = [to_np(r) for r in tkernel.gram_band_factors_ew_plain(*args, **kw)
+           if r.numel()]
+    for a, r in zip(ours, ref):
+        np.testing.assert_allclose(to_np(a), r, rtol=0, atol=1e-5 * _scale(r))
+    wrong = tkernel.gram_band_factors_ew(
+        args[0], args[1][:, [1, 2, 0]].contiguous(), *args[2:], **kw)
+    assert any(np.abs(to_np(a) - r).max() > 1e-5 * _scale(r)
+               for a, r in zip(wrong, ref))

@@ -33,7 +33,14 @@ Tolerances, and why:
   1e-6 of scale; in float64 to the reference order at 1e-9 of scale (only
   rounding parts the two orders); the solve it gives in place of the stage
   to the JAX solve at the KKT routes' cost-gap limits (median 1e-3, 99th
-  percentile 1e-2 relative).
+  percentile 1e-2 relative);
+* #7's cluster design (four blocks a scenario, each with its quarter of
+  m1's and G^T's lanes) sums m1 v as the blocks' partials over their lanes,
+  added in rank order; ``admm_stage_given_plain`` is that order in plain
+  PyTorch, held as #2's twin is: in float32 against the reference order in
+  float64 no further than thrice the float32 runs of the reference order
+  (the Pallas kernel's and the port's, the larger) plus 1e-6 of scale, in
+  float64 to the reference order at 1e-9 of scale.
 """
 
 import contextlib
@@ -659,6 +666,89 @@ def test_fused_design_by_shape(k, design, threads):
 
 
 # ---------------------------------------------------------------------------
+# (v d) #7's cluster design: m1 v as the partials of four blocks' lanes.
+# ---------------------------------------------------------------------------
+
+def _given_args(inp):
+    m1 = np.asarray(jnp.asarray(inp["winv"]) @ jnp.asarray(inp["gt"]))
+    return (inp["rho"], m1, inp["gt"], inp["b"], inp["rb"], inp["xq"],
+            inp["z1"], inp["u1"])
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_given_order_f32_against_pallas(k):
+    """Per output, no further from the reference order run in float64 than
+    float32 runs of the reference order are (the JAX kernel's and the
+    port's plain version's, the larger) thrice over, plus 1e-6 of the
+    output's scale."""
+    inp = _stage_inputs(k)
+    args, kw = _given_args(inp), _stage_kw(inp)
+    ref = jkernel.admm_stage(*(jnp.asarray(a) for a in args),
+                             interpret=True, **kw)
+    ours = tkernel.admm_stage_given_plain(*(tt(a) for a in args), **kw)
+    ref32 = tkernel.admm_stage_plain(*(tt(a) for a in args), **kw)
+    ref64 = tkernel.admm_stage_plain(*(tt(a, torch.float64) for a in args),
+                                     **kw)
+    assert len(ours) == 5
+    for a, r, p, c, name in zip(ours, ref, ref32, ref64, STAGE_NAMES):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        c = to_np(c)
+        scale = _scale(c)
+        err = np.abs(to_np(a).astype(np.float64) - c).max()
+        floor = max(np.abs(np.asarray(r, np.float64) - c).max(),
+                    np.abs(to_np(p).astype(np.float64) - c).max())
+        assert err <= 3.0 * floor + 1e-6 * scale, (name, err, floor)
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+def test_given_order_f64_matches_reference_order(ranks):
+    inp = _stage_inputs(4)
+    args = [tt(a, torch.float64) for a in _given_args(inp)]
+    kw = _stage_kw(inp)
+    ours = tkernel.admm_stage_given_plain(*args, ranks=ranks, **kw)
+    ref = tkernel.admm_stage_plain(*args, **kw)
+    for a, r, name in zip(ours, ref, STAGE_NAMES):
+        assert a.dtype == torch.float64
+        np.testing.assert_allclose(to_np(a), to_np(r), rtol=0,
+                                   atol=F64_RTOL * _scale(to_np(r)),
+                                   err_msg=name)
+
+
+def test_given_order_with_no_iterations_returns_its_start():
+    inp = _stage_inputs(4)
+    args = _given_args(inp)
+    kw = dict(_stage_kw(inp), n_iters=0)
+    ours = tkernel.admm_stage_given_plain(*(tt(a) for a in args), **kw)
+    want = (inp["xq"], inp["z1"], inp["z1"], inp["u1"],
+            np.full((B, 1, 1), np.inf, np.float32))
+    for a, w in zip(ours, want):
+        np.testing.assert_array_equal(to_np(a), w)
+
+
+@pytest.mark.parametrize("k,fits,threads", [
+    (2, True, 64), (4, True, 64), (10, True, 512), (12, True, 512),
+    (13, False, None), (14, False, None)])
+def test_given_cluster_layout_within_the_h100_budget(k, fits, threads):
+    """A block of #7's cluster design holds its quarter of the lanes'
+    columns of m1 and of G^T, its lane vectors, xq, x, g and the partials of
+    four ranks within the 232,448 B an H100 block may take up to K=12 and
+    not from K=13 (its launcher's choice on the card: ``test_given_designs_
+    on_the_card``); the block size the card takes keeps an SM at 512
+    threads over the blocks its shared memory holds, or is the fewest, 64."""
+    nfd, m_p, m_blk, nb_p = _layout(k)
+    got = tkernel.cluster_smem_bytes("admm_stage", nfd, m_p, m_blk, 15, nb_p)
+    assert (got <= H100_SMEM_OPTIN) == fits
+    split = tkernel.cluster_lane_split(m_p, nb_p, tkernel.GIVEN_RANKS)
+    nl = len(split[0][0])
+    assert got > 4 * 2 * nfd * nl
+    if fits:
+        assert threads * blocks_an_sm(got) <= 512 or threads == 64
+    if k == 10:
+        assert tkernel.GIVEN_RANKS == 4 and nl == 128
+        assert got == 151984
+
+
+# ---------------------------------------------------------------------------
 # (v c) the band kernels' designs: the ring at the solver's band block, the
 # window body elsewhere.
 # ---------------------------------------------------------------------------
@@ -762,7 +852,11 @@ def _card_case(name):
         m1 = inp["winv"] @ inp["gt"]
         args = (inp["rho"], m1, inp["gt"], inp["b"], inp["rb"], inp["xq"],
                 inp["z1"], inp["u1"])
-        return (tkernel.admm_stage, tkernel.admm_stage_plain,
+        # K=4 takes the cluster design: held to the plain version in its
+        # order
+        assert tkernel.given_design(*inp["gt"].shape[1:], kw["nb_p"]) == \
+            "cluster"
+        return (tkernel.admm_stage, tkernel.admm_stage_given_plain,
                 tuple(tt(a).contiguous().to(dev) for a in args), kw, 2e-4)
     init_z = name == "admm_stage_fused"
     names = ("rho", "winv", "gt", "b", "rb", "xq") + (
@@ -847,3 +941,52 @@ def test_fused_designs_on_the_card(k):
         wrong = tkernel.admm_stage_fused(*args, **dict(kw, alpha=1.62))
         assert any(np.abs(to_np(a) - r).max() > 2e-4 * sc
                    for a, r, sc in zip(wrong, ref, scales))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4, 10, 12, 14])
+def test_given_designs_on_the_card(k):
+    """#7 takes the design its shapes name (K=4, K=10 and K=12 a cluster of
+    four blocks, in blocks of 64, 512 and 512 threads; K=14 stream), agrees
+    with the plain version in that design's order at 2e-4 of each output's
+    scale, gives the same bits run to run and exactly its start with no
+    iterations, and with alpha 1.62 for 1.6 does not agree.  Needs an
+    NVIDIA card and nvcc; skipped on hosts without them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no host mode")
+    nfd, m_p, _, nb_p = _layout(k)
+    design = tkernel.given_design(nfd, m_p, nb_p)
+    assert design == ("stream" if k == 14 else "cluster")
+    if design == "cluster":
+        assert tkernel.cluster_ranks("admm_stage") == tkernel.GIVEN_RANKS
+        assert tkernel.block_threads(nfd, m_p, 0, 0, nb_p, "admm_stage") \
+            == {4: 64, 10: 512, 12: 512}[k]
+    # an ADMM stage of the QP min |x|^2 / 2 + q x over random G^T: m1 =
+    # W^-1 G^T, xq = -W^-1 q, W = I + rho G^T G
+    rng = np.random.RandomState(k)
+    rho = 0.5
+    gt = rng.randn(16, nfd, m_p) / np.sqrt(m_p)
+    winv = np.linalg.inv(np.eye(nfd) + rho * gt @ gt.transpose(0, 2, 1))
+    vec = lambda *s: rng.randn(16, *s)
+    args = [np.full((16, 1, 1), rho), winv @ gt, gt, vec(1, m_p),
+            0.5 + np.abs(vec(1, nb_p)), -winv @ vec(nfd, 1), vec(1, m_p),
+            0.1 * vec(1, m_p)]
+    args = [tt(a, torch.float32).contiguous().cuda() for a in args]
+    kw = dict(n_iters=N_ITERS, alpha=ALPHA, nb_p=nb_p, n_ball=nb_p // 2)
+    plain = (tkernel.admm_stage_given_plain if design == "cluster"
+             else tkernel.admm_stage_plain)
+    first = tkernel.admm_stage(*args, **kw)
+    again = tkernel.admm_stage(*args, **kw)
+    start = tkernel.admm_stage(*args, **dict(kw, n_iters=0))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for a, b in zip(start, (args[5], args[6], args[6], args[7])):
+        assert torch.equal(a, b)
+    assert bool(torch.isinf(start[4]).all())
+    ref = [to_np(r) for r in plain(*args, **kw)]
+    scales = [_scale(r) for r in ref]
+    for a, r, sc in zip(first, ref, scales):
+        np.testing.assert_allclose(to_np(a), r, rtol=0, atol=2e-4 * sc)
+    wrong = tkernel.admm_stage(*args, **dict(kw, alpha=1.62))
+    assert any(np.abs(to_np(a) - r).max() > 2e-4 * sc
+               for a, r, sc in zip(wrong, ref, scales))

@@ -403,6 +403,64 @@ def test_cluster_lane_split(k):
     assert final0 + final1 == list(range(3 * nb_p, m_p))
 
 
+def _two_rank_split(m_p, nb_p):
+    """The two-block map of kernel 1's cluster design as it was written for
+    two ranks: rank 0 the first ceil(n / 2) of each ball plane and of the
+    final plane, rank 1 the rest."""
+    nh = m_p - 3 * nb_p
+    out = []
+    for rank in (0, 1):
+        hb = (nb_p + 1) // 2 if rank == 0 else nb_p // 2
+        j0 = 0 if rank == 0 else (nb_p + 1) // 2
+        fb = (nh + 1) // 2 if rank == 0 else nh // 2
+        f0 = 0 if rank == 0 else (nh + 1) // 2
+        lanes = [d * nb_p + j0 + j for d in range(3) for j in range(hb)]
+        lanes += [3 * nb_p + f0 + k for k in range(fb)]
+        out.append((lanes, range(j0, j0 + hb)))
+    return out
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+@pytest.mark.parametrize("k", [2, 4, 10, 12, None],
+                         ids=["K=2", "K=4", "K=10", "K=12", "odd planes"])
+def test_cluster_lane_split_by_ranks(k, ranks):
+    """``cluster_lane_split`` for a cluster of ``ranks`` blocks (#7's takes
+    four): every lane in exactly one rank; each ball triple (j, nb_p + j,
+    2 nb_p + j) in one rank at local lanes (i, hb + i, 2 hb + i); shares
+    that differ by at most one ball and one final-plane lane, the larger
+    first; with two ranks exactly the map kernel 1's, #2's and #3's bits
+    rest on (K=2 has m_p = 3 nb_p = 384: no final plane)."""
+    if k is None:
+        nb_p, m_p = 5, 3 * 5 + 7
+    else:
+        layout = tqcqp._flagship_layout(
+            mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N))
+        nb_p, m_p = layout.nb_p, layout.m_p
+        if k == 2:
+            assert m_p == 3 * nb_p == 384
+    split = tkernel.cluster_lane_split(m_p, nb_p, ranks)
+    assert len(split) == ranks
+    lanes = [l for block, _ in split for l in block]
+    assert sorted(lanes) == list(range(m_p))
+    assert [j for _, balls in split for j in balls] == list(range(nb_p))
+    for block, balls in split:
+        hb = len(balls)
+        for i, j in enumerate(balls):
+            assert [block[i], block[hb + i], block[2 * hb + i]] == [
+                j, nb_p + j, 2 * nb_p + j]
+        assert all(l >= 3 * nb_p for l in block[3 * hb:])
+    counts = [(len(balls), len(block) - 3 * len(balls))
+              for block, balls in split]
+    for c in zip(*counts):
+        assert max(c) - min(c) <= 1 and list(c) == sorted(c, reverse=True)
+    finals = [l for block, balls in split for l in block[3 * len(balls):]]
+    assert finals == list(range(3 * nb_p, m_p))
+    if ranks == 2:
+        assert split == _two_rank_split(m_p, nb_p)
+    assert tkernel.cluster_lane_split(m_p, nb_p) == _two_rank_split(m_p,
+                                                                    nb_p)
+
+
 @pytest.mark.gpu
 def test_cluster_design_on_the_card(stage_inputs):
     """The factored kernel at K=4 takes the cluster design; it agrees with
