@@ -15,8 +15,12 @@ batch, beside the step-by-step polish at the router's row counts; the
 strict verdict router ``solve_qcqp_strict`` with its defaults (float64 last
 tier on) on the same batch and on a tight-corridor batch of 512, where its
 escalation tiers do the work; the other KKT routes of ``solve_qcqp_batch``;
-and the headline with ``gt_assembly="kernel"`` (G^T never formed: the stage
-and band kernels expand it from its rank-1 factors).
+the headline with ``gt_assembly="kernel"`` (G^T never formed: the stage
+and band kernels expand it from its rank-1 factors); and the linear planner
+path, which runs no kernel: ``solve_linear`` and ``solve_linear_banded``
+over the K sweep (2, 10, 50, 100; batch 2048) and the extrema feasibility
+check (``solve_linear`` then ``max_magnitude`` of velocity and acceleration,
+batch 6144), each held to float64 on the card.
 Every phase prints one JSON object on a line of its own;
 a failing phase raises, so the script exits non-zero and prints no final
 line.  There is no CPU mode: without a CUDA device it exits with code 2.
@@ -68,7 +72,8 @@ ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
               "multi_stage", "dense_path", "band_gram", "stage_bits",
               "ipm_bits", "band_bits",
               "ipm_kernel_check", "fused_path", "strict_path",
-              "strict_tight", "ew_path", "kernels")
+              "strict_tight", "ew_path", "linear_sweep", "extrema",
+              "kernels")
 
 # The interior-point kernels against their plain versions, per output, on
 # inputs recorded from real solves.  Every row is compared (one scenario at a
@@ -2509,6 +2514,345 @@ def phase_ew_path(state, mtt):
                            f"{ok3}")
 
 
+# The linear planner path (no kernel of the JAX package runs on it: PyTorch
+# on the card).  bench.py's K sweep, "linear K=2,10,50,100" with the
+# standard mask, batch 2048, seed 1, and its banded solve at K >= 10.
+# float32 on the card is held to float64 of the same function on the card,
+# per row as a share of the row's scale: the banded solve's coefficient
+# error at the median and the worst row at most LINEAR_FACTOR x the dense
+# float32 solve's own + LINEAR_FLOOR; the fixed endpoint derivatives
+# recovered from the coefficients the same way in float32 (monomial
+# coefficients in float32 lose ~4e-3 of scale in that recovery, dense and
+# banded alike) and to LINEAR_F64_TOL in float64; float64 banded against
+# float64 dense to LINEAR_F64_TOL.  Negative control: one interior
+# coupling block zeroed must fail the coefficient gate.
+LINEAR_KS = (2, 10, 50, 100)
+BANDED_KS = (10, 50, 100)
+LINEAR_BATCH = 2048
+LINEAR_FACTOR = 3.0
+LINEAR_FLOOR = 1e-6
+LINEAR_F64_TOL = 1e-8
+
+# bench.py's "solve+extrema feasibility" (BASELINE config 5): K=10, batch
+# 6144, seed 0, standard mask; vmax, amax by max_magnitude(n_grid=64);
+# feasible where vmax <= 7.5 and amax <= 12.5 (2.5x the heuristic's 3, 5).
+# The JAX package's own values, float32 on the host CPU, from bench.py's
+# solve_and_check (jax.jit(jax.vmap(...)) of bench.make_inputs(10, 6144)),
+# run as `JAX_PLATFORMS=cpu python -c` over that function: np.median of
+# vmax and amax, and the feasible count.
+EXTREMA_BATCH = 6144
+EXTREMA_GRID = 64
+V_LIMIT, A_LIMIT = 3.0 * 2.5, 5.0 * 2.5
+JAX_MEDIAN_VMAX = 1.7815536260604858
+JAX_MEDIAN_AMAX = 1.2223074436187744
+JAX_FEASIBLE = 6144
+MEDIAN_RTOL = 1e-3
+FEASIBLE_SLACK = 6
+# (a) the extrema in float32 against the same call in float64 on the same
+# trajectory (the float32 solve's coefficients): relative value error at the
+# p99 row.  The whole call's float32 against float64 (the solve included)
+# is reported: the float32 solve alone moves vmax by ~4e-4 at p99.
+EXTREMA_P99_RTOL = 1e-4
+# (b) no maximum missed: float64 analytic >= float64 sampled (every segment
+# at SAMPLES_A_SEGMENT points) - SAMPLED_RTOL relative, in every row.
+SAMPLES_A_SEGMENT = 2048
+SAMPLED_RTOL = 1e-6
+SAMPLE_ROWS = 256
+
+
+def row_share(a, b):
+    """Per row: ``row_errors(a, b)`` as a share of max |b| of the row."""
+    return row_errors(a, b) / b.double().flatten(1).abs().amax(dim=1)
+
+
+def median_and_worst(e):
+    return dict(median=float(e.median()), worst=float(e.max()),
+                worst_row=int(e.argmax()))
+
+
+def fixed_recovery_error(mtt, std, sol):
+    """The fixed endpoint derivatives read back from the coefficients
+    (float64 arithmetic on the solution's coefficients and times; interior
+    vertices averaged over their two segments) against d_fixed, per row as a
+    share of the row's scale."""
+    from mav_tube_trajectory_generation_tpu_torch.ops import qmatrix
+    d_seg = qmatrix.endpoint_derivatives_from_coefficients(
+        sol.coefficients.double(), sol.times.double())
+    back = mtt.compact_from_segment_derivatives(std, d_seg)[:, :std.n_fixed]
+    return row_share(back, sol.d_fixed.expand_as(back))
+
+
+def linear_gate(e_band, e_dense):
+    """The float32 gate: the banded error at the median and the worst row
+    within LINEAR_FACTOR x the dense solve's + LINEAR_FLOOR."""
+    return (float(e_band.median()) <= LINEAR_FACTOR * float(e_dense.median())
+            + LINEAR_FLOOR
+            and float(e_band.max()) <= LINEAR_FACTOR * float(e_dense.max())
+            + LINEAR_FLOOR)
+
+
+def timed_call(fn, reps=5):
+    """(ms a call by CUDA events after a warm-up, peak device memory of one
+    call above what was allocated before it)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return cuda_ms(fn, reps), peak
+
+
+@contextlib.contextmanager
+def broken_coupling(banded):
+    """Inside, ``solve_linear_banded`` solves with its middle interior
+    coupling block zeroed (the negative control)."""
+    orig = banded.block_tridiag_solve
+
+    def solve(d, u, rhs):
+        u = u.clone()
+        u[..., u.shape[-3] // 2, :, :] = 0
+        return orig(d, u, rhs)
+    banded.block_tridiag_solve = solve
+    try:
+        yield
+    finally:
+        banded.block_tridiag_solve = orig
+
+
+def sweep_row(mtt, banded, k, failures):
+    """One K of the sweep: its JSON row; failed gates appended to
+    ``failures``.  Every tensor it makes is freed when it returns."""
+    import torch
+    sc = mtt.make_inputs(k, LINEAR_BATCH, seed=1)
+    std, df, t = sc.std, sc.d_fixed_std, sc.times
+    df64, t64 = df.double(), t.double()
+    row = dict(k=k, batch=LINEAR_BATCH)
+    ms, peak = timed_call(lambda: mtt.solve_linear(std, df, t))
+    row["dense"] = dict(ms=ms, solves_per_s=LINEAR_BATCH / ms * 1e3,
+                        peak_bytes=peak)
+    d32 = mtt.solve_linear(std, df, t)
+    d64 = mtt.solve_linear(std, df64, t64)
+    e_dense = row_share(d32.coefficients, d64.coefficients)
+    fix_dense = fixed_recovery_error(mtt, std, d32)
+    row["dense"].update(f32_vs_f64=median_and_worst(e_dense),
+                        fixed_recovered_f32=median_and_worst(fix_dense),
+                        profile=device_time_of(
+                            lambda: mtt.solve_linear(std, df, t)))
+    if not bool(torch.isfinite(d32.coefficients).all()) or \
+            d32.coefficients.shape != (LINEAR_BATCH, k, 10, 3):
+        failures.append(f"K={k}: dense output not finite or misshapen")
+    if k not in BANDED_KS:
+        return row
+    ms, peak = timed_call(lambda: mtt.solve_linear_banded(std, df, t))
+    b32 = mtt.solve_linear_banded(std, df, t)
+    b64 = mtt.solve_linear_banded(std, df64, t64)
+    e_band = row_share(b32.coefficients, b64.coefficients)
+    e_64 = row_share(b64.coefficients, d64.coefficients)
+    fix_band = fixed_recovery_error(mtt, std, b32)
+    fix_64 = fixed_recovery_error(mtt, std, b64)
+    with broken_coupling(banded):
+        ctl = mtt.solve_linear_banded(std, df, t)
+    e_ctl = row_share(ctl.coefficients, b64.coefficients)
+    gates = dict(
+        coefficients=linear_gate(e_band, e_dense),
+        fixed_recovered_f32=linear_gate(fix_band, fix_dense),
+        f64_vs_dense=float(e_64.max()) <= LINEAR_F64_TOL,
+        fixed_recovered_f64=float(fix_64.max()) <= LINEAR_F64_TOL)
+    control_rejected = not linear_gate(e_ctl, e_dense)
+    row["banded"] = dict(
+        ms=ms, solves_per_s=LINEAR_BATCH / ms * 1e3, peak_bytes=peak,
+        f32_vs_f64=median_and_worst(e_band),
+        f64_vs_dense_f64=median_and_worst(e_64),
+        fixed_recovered_f32=median_and_worst(fix_band),
+        fixed_recovered_f64=median_and_worst(fix_64),
+        control_f32_vs_f64=median_and_worst(e_ctl),
+        gates=gates, control_rejected=control_rejected,
+        profile=device_time_of(lambda: mtt.solve_linear_banded(std, df, t)))
+    if not all(gates.values()):
+        failures.append(f"K={k} banded gates {gates}")
+    if not control_rejected:
+        failures.append(f"K={k}: the zeroed coupling block passed")
+    return row
+
+
+@contextlib.contextmanager
+def device_as_found():
+    """On the way out, drop the package's cached constants made inside and
+    empty the allocator's cache, so that the phases after find the memory
+    pool as the phases before left it: the `kernels` phase reads a
+    wrapper's scratch from the peak of allocated blocks, and a cached
+    constant left behind (K=100's one-hot map is 2-4 MB) pins a segment
+    whose free remainder a later output may take unsplit, counted whole."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch import _tensors
+    before = set(_tensors._CONST_CACHE)
+    try:
+        yield
+    finally:
+        for key in set(_tensors._CONST_CACHE) - before:
+            del _tensors._CONST_CACHE[key]
+        torch.cuda.empty_cache()
+
+
+def phase_linear_sweep(state, mtt):
+    """bench.py's linear K sweep: ``solve_linear`` at K=2, 10, 50, 100 and
+    ``solve_linear_banded`` at K=10, 50, 100, batch 2048, timed and gated
+    against float64 on the card, with a negative control."""
+    from mav_tube_trajectory_generation_tpu_torch.solver import banded
+    rows, failures = [], []
+    for k in LINEAR_KS:
+        with device_as_found():
+            rows.append(sweep_row(mtt, banded, k, failures))
+    emit("linear_sweep", config="standard mask (interior positions fixed, "
+         "ends at rest), N=10, D=3, seed 1, float32; bench.py:115-129",
+         rows=rows, gate=dict(factor=LINEAR_FACTOR, floor=LINEAR_FLOOR,
+                              f64_tol=LINEAR_F64_TOL),
+         ok=not failures, failures=failures)
+    if failures:
+        raise RuntimeError(f"linear_sweep: {failures}")
+
+
+def segment_samples(times, per_segment):
+    """(B, K * per_segment) global times: each segment's [start, end] at
+    ``per_segment`` evenly spaced points."""
+    import torch
+    start = torch.cumsum(times, dim=-1) - times
+    tau = torch.linspace(0.0, 1.0, per_segment, dtype=times.dtype,
+                         device=times.device)
+    ts = start[..., None] + times[..., None] * tau
+    return ts.flatten(-2)
+
+
+def sampled_max(mtt, traj, derivative, rows=SAMPLE_ROWS):
+    """Per row, the largest ||x^(d)|| over SAMPLES_A_SEGMENT points of every
+    segment (``evaluate_range``), ``rows`` rows at a time."""
+    import torch
+    out = []
+    for i in range(0, traj.times.shape[0], rows):
+        part = mtt.Trajectory(traj.coefficients[i:i + rows],
+                              traj.times[i:i + rows])
+        ts = segment_samples(part.times, SAMPLES_A_SEGMENT)
+        vals = mtt.evaluate_range(part, ts, derivative)
+        out.append(torch.linalg.vector_norm(vals, dim=-1).max(dim=-1).values)
+    return torch.cat(out)
+
+
+def endpoints_only_max(traj, derivative):
+    """The negative control of gate (b): the largest ||x^(d)|| over the
+    segments' endpoints alone, no roots."""
+    from mav_tube_trajectory_generation_tpu_torch.ops import basis
+    import torch
+    ends = torch.stack([torch.zeros_like(traj.times), traj.times], dim=-1)
+    vals = basis.polyval(traj.coefficients.transpose(-1, -2)[..., None, :, :],
+                         ends[..., None], derivative)     # (B, K, 2, D)
+    return torch.linalg.vector_norm(vals, dim=-1).flatten(1).max(dim=1).values
+
+
+def extrema_fields(mtt):
+    """The `extrema` line's fields and whether its checks passed; every
+    tensor it makes is freed when it returns."""
+    import numpy as np
+    import torch
+    sc = mtt.make_inputs(10, EXTREMA_BATCH, seed=0)
+    std, df, t = sc.std, sc.d_fixed_std, sc.times
+    del sc
+
+    def check(df, t):
+        sol = mtt.solve_linear(std, df, t)
+        traj = mtt.Trajectory(sol.coefficients, sol.times)
+        vmax = mtt.max_magnitude(traj, 1, n_grid=EXTREMA_GRID).value
+        amax = mtt.max_magnitude(traj, 2, n_grid=EXTREMA_GRID).value
+        return vmax, amax, (vmax <= V_LIMIT) & (amax <= A_LIMIT)
+
+    ms, peak = timed_call(lambda: check(df, t))
+    sol = mtt.solve_linear(std, df, t)
+    traj = mtt.Trajectory(sol.coefficients, sol.times)
+    ext_ms, ext_peak = timed_call(lambda: (
+        mtt.max_magnitude(traj, 1, n_grid=EXTREMA_GRID),
+        mtt.max_magnitude(traj, 2, n_grid=EXTREMA_GRID)))
+    solve_ms = cuda_ms(lambda: mtt.solve_linear(std, df, t), 5)
+    profile = device_time_of(
+        lambda: mtt.max_magnitude(traj, 1, n_grid=EXTREMA_GRID))
+    vmax, amax, ok = check(df, t)
+    v_np, a_np = vmax.cpu().numpy(), amax.cpu().numpy()
+    med_v, med_a = float(np.median(v_np)), float(np.median(a_np))
+    feasible = int(ok.sum())
+
+    # (a) the extrema in float32 against float64 on the same trajectory;
+    # the whole call against float64 reported beside
+    traj64 = mtt.Trajectory(traj.coefficients.double(), traj.times.double())
+    sol64 = mtt.solve_linear(std, df.double(), t.double())
+    full64 = mtt.Trajectory(sol64.coefficients, sol64.times)
+    gate_a, whole, maxes64 = {}, {}, {}
+    for name, d, ours in (("vmax", 1, vmax), ("amax", 2, amax)):
+        ref = mtt.max_magnitude(traj64, d, n_grid=EXTREMA_GRID).value
+        e = (ours.double() - ref).abs() / ref.abs()
+        gate_a[name] = dict(p99=float(e.quantile(0.99)),
+                            worst=float(e.max()), worst_row=int(e.argmax()))
+        m64 = mtt.max_magnitude(full64, d, n_grid=EXTREMA_GRID).value
+        maxes64[name] = (d, m64)
+        w = (ours.double() - m64).abs() / m64.abs()
+        whole[name] = dict(p99=float(w.quantile(0.99)), worst=float(w.max()))
+    ok_a = all(g["p99"] <= EXTREMA_P99_RTOL for g in gate_a.values())
+
+    # (b) no maximum missed, float64; the endpoints-only control must fail
+    gate_b, control_b = {}, {}
+    for name, (d, m64) in maxes64.items():
+        sampled = sampled_max(mtt, full64, d)
+        short = (sampled - m64) / sampled
+        ctl = (sampled - endpoints_only_max(full64, d)) / sampled
+        gate_b[name] = dict(largest_shortfall=float(short.max()),
+                            row=int(short.argmax()),
+                            rows_short=int((short > SAMPLED_RTOL).sum()))
+        control_b[name] = dict(largest_shortfall=float(ctl.max()),
+                               rows_short=int((ctl > SAMPLED_RTOL).sum()))
+    ok_b = all(g["rows_short"] == 0 for g in gate_b.values())
+    control_rejected = any(c["rows_short"] > 0 for c in control_b.values())
+
+    # (c) the JAX package's values
+    gap_v = abs(med_v - JAX_MEDIAN_VMAX) / JAX_MEDIAN_VMAX
+    gap_a = abs(med_a - JAX_MEDIAN_AMAX) / JAX_MEDIAN_AMAX
+    ok_c = (gap_v <= MEDIAN_RTOL and gap_a <= MEDIAN_RTOL
+            and abs(feasible - JAX_FEASIBLE) <= FEASIBLE_SLACK)
+    shapes_ok = vmax.shape == (EXTREMA_BATCH,) and bool(
+        torch.isfinite(vmax).all() & torch.isfinite(amax).all())
+    checks = dict(outputs=shapes_ok, a=ok_a, b=ok_b, c=ok_c,
+                  control_rejected=control_rejected)
+    return dict(config="K=10 N=10 D=3 standard mask, seed 0, float32; "
+        "max_magnitude(n_grid=64) of velocity and acceleration; feasible "
+        "at vmax <= 7.5 and amax <= 12.5 (bench.py:131-149)",
+        batch=EXTREMA_BATCH, ms_per_batch=ms,
+        scenarios_per_s=EXTREMA_BATCH / ms * 1e3, peak_bytes=peak,
+        solve_ms=solve_ms, extrema_ms=ext_ms, extrema_peak_bytes=ext_peak,
+        median_vmax=med_v, median_amax=med_a, feasible=feasible,
+        jax=dict(median_vmax=JAX_MEDIAN_VMAX, median_amax=JAX_MEDIAN_AMAX,
+                 feasible=JAX_FEASIBLE),
+        gate_a_extrema_f32_vs_f64=gate_a, gate_a_ok=ok_a,
+        whole_call_f32_vs_f64=whole,
+        gate_b_analytic_vs_sampled=gate_b, gate_b_ok=ok_b,
+        samples_a_segment=SAMPLES_A_SEGMENT,
+        control_endpoints_only=control_b, control_rejected=control_rejected,
+        gate_c_median_gap=dict(vmax=gap_v, amax=gap_a), gate_c_ok=ok_c,
+        max_magnitude_profile=profile,
+        profile_is="one max_magnitude(traj, 1, n_grid=64) call by "
+        "torch.profiler: its kernel launches and device time"), checks
+
+
+def phase_extrema(state, mtt):
+    """bench.py's "solve+extrema feasibility" (BASELINE config 5):
+    ``solve_linear`` -> ``Trajectory`` -> ``max_magnitude`` of velocity and
+    acceleration at n_grid 64, timed, with gates (a)-(c) and a negative
+    control."""
+    with device_as_found():
+        fields, checks = extrema_fields(mtt)
+    emit("extrema", **fields, checks=checks)
+    if not all(checks.values()):
+        raise RuntimeError(f"extrema: checks {checks}")
+
+
 @contextlib.contextmanager
 def library_variant(name, defines):
     """While the block runs the wrappers launch the kernels of ``name``'s
@@ -4276,6 +4620,8 @@ def main():
         "strict_path": lambda: phase_strict_path(state, mtt),
         "strict_tight": lambda: phase_strict_tight(state, mtt),
         "ew_path": lambda: phase_ew_path(state, mtt),
+        "linear_sweep": lambda: phase_linear_sweep(state, mtt),
+        "extrema": lambda: phase_extrema(state, mtt),
         "kernels": lambda: phase_kernels(state, mtt),
     }
     for name in ALL_PHASES:

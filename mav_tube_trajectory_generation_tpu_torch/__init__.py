@@ -14,8 +14,14 @@ closed-form linear solve beneath it, the strict verdict router
 ``solve_qcqp_auto``: ADMM plus snap sweeps, the plane-layout interior-point
 polish with its CUDA step kernels or as one whole-polish launch
 (``IPMConfig(fused=True)``), the float32 restart chain, and the float64 last
-tier), and the reference-layout solvers that tier runs (``solve_qcqp``,
-``solve_qcqp_ipm``, ``solve_qcqp_polished``; any float dtype).
+tier), the reference-layout solvers that tier runs (``solve_qcqp``,
+``solve_qcqp_ipm``, ``solve_qcqp_polished``; any float dtype), and the
+linear planner path: the closed-form solve at any K (``solve_linear`` dense,
+``solve_linear_banded`` by block cyclic reduction), ``solve_from_positions``,
+``position_constrained_warmstart``, and the ``Trajectory`` model with its
+analytic extrema (``min_max_magnitude``, ``max_magnitude``: a grid bracket
+and a fixed count of bisections on the magnitude's derivative).  Not yet
+ported: the nonlinear optimizer, the ESDF and the sharded router.
 
 Entry points take ``device=None``, which means the CUDA card and raises when
 there is none; pass ``device="cpu"`` to run on the host, where each kernel's
@@ -53,9 +59,14 @@ from .solver.structure import (ProblemStructure, make_structure,  # noqa: E402
                                standard_mask, free_interior_mask)
 from .solver.linear import (LinearSolution, solve_linear,       # noqa: E402
                             solve_linear_with_free, extract_fixed_values,
-                            assemble_r)
+                            assemble_r, derivative_cost_and_grad,
+                            compact_from_segment_derivatives,
+                            solve_from_positions)
 from .solver.qcqp import (ADMMConfig, QCQPSolution,             # noqa: E402
-                          solve_qcqp, solve_qcqp_batch, build_constraints)
+                          solve_qcqp, solve_qcqp_batch, build_constraints,
+                          position_constrained_warmstart)
+from .solver.banded import (solve_linear_banded,                # noqa: E402
+                            block_tridiag_solve)
 from .solver.ipm import (IPMConfig, solve_qcqp_ipm,             # noqa: E402
                          solve_qcqp_polished)
 from .ops.ipm_kernel import (gt_matvec, ipm_eval_step,          # noqa: E402
@@ -72,17 +83,26 @@ from .solver.auto import (AutoResult, solve_qcqp_auto,          # noqa: E402
 from .models.vertex import (Vertex, vertices_to_arrays,         # noqa: E402
                             structure_from_vertices,
                             create_random_vertices,
+                            create_random_vertices_1d,
+                            create_square_vertices,
                             estimate_segment_times,
                             estimate_segment_times_nfabian,
                             estimate_segment_times_velocity_ramp,
                             segment_times_nfabian,
                             segment_times_velocity_ramp)
+from .models.trajectory import (Trajectory, Extremum,            # noqa: E402
+                                evaluate, evaluate_range, sample_times,
+                                min_max_magnitude, max_magnitude,
+                                append_dimension, get_vertex_at_time,
+                                scale_trajectory_time,
+                                scale_times_to_limits)
 from .scenarios import (ScenarioBatch, make_inputs,             # noqa: E402
                         tight_radii)
 from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
                       solution_to_numpy, solution_from_numpy,
                       ipm_config_from_fields, admm_config_from_fields,
                       lanes_state_from_numpy,
-                      fused_state_from_numpy, auto_result_to_numpy)
+                      fused_state_from_numpy, auto_result_to_numpy,
+                      trajectory_from_numpy, trajectory_to_numpy)
 
 __version__ = "0.6.0"

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ._tensors import DeviceLike, as_tensor, resolve_device
+from .models.trajectory import Trajectory
 from .solver.ipm import IPMConfig
 from .solver.qcqp import ADMMConfig, QCQPSolution, _Pre
 from .solver.structure import ProblemStructure, make_structure
@@ -164,3 +165,20 @@ def solution_to_numpy(sol: Any) -> Dict[str, np.ndarray]:
             value = value.detach().cpu().numpy()
         out[name] = np.asarray(value)
     return out
+
+
+def trajectory_from_numpy(other: Any, device: DeviceLike = None,
+                          dtype: torch.dtype = None) -> Trajectory:
+    """This package's ``Trajectory`` from any object with ``coefficients``
+    (..., K, N, D) and ``times`` (..., K) arrays (e.g. the JAX package's),
+    on ``device`` (None: the CUDA card), in ``dtype`` (None: kept)."""
+    dev = resolve_device(device)
+    return Trajectory(as_tensor(np.asarray(other.coefficients), dtype, dev),
+                      as_tensor(np.asarray(other.times), dtype, dev))
+
+
+def trajectory_to_numpy(traj: Trajectory) -> Tuple[np.ndarray, np.ndarray]:
+    """(coefficients, times) as NumPy arrays: ``Trajectory(*result)`` in
+    either package."""
+    return (traj.coefficients.detach().cpu().numpy(),
+            traj.times.detach().cpu().numpy())

@@ -66,6 +66,17 @@ class Vertex:
         return all(np.all(np.abs(v - other.constraints[k]) <= tol)
                    for k, v in self.constraints.items())
 
+    def get_subdimension(self, subdimensions: Sequence[int],
+                         max_derivative_order: int) -> "Vertex":
+        """Projection onto a subset of spatial dimensions
+        (vertex.cpp:184-207)."""
+        sub = Vertex(len(subdimensions))
+        for d, v in self.constraints.items():
+            if d > max_derivative_order:
+                continue
+            sub.add_constraint(d, v[list(subdimensions)])
+        return sub
+
     def __repr__(self):
         items = ", ".join(
             f"{motion_defines.position_derivative_to_string(k)}={v}"
@@ -144,6 +155,37 @@ def create_random_vertices(maximum_derivative: int, n_segments: int,
         verts.append(vtx)
         last = pos
     verts[-1].make_start_or_end(last, maximum_derivative)
+    return verts
+
+
+def create_random_vertices_1d(maximum_derivative: int, n_segments: int,
+                              pos_min: float, pos_max: float,
+                              seed: int = 0) -> List[Vertex]:
+    """``create_random_vertices`` in one dimension."""
+    return create_random_vertices(maximum_derivative, n_segments,
+                                  np.array([pos_min]), np.array([pos_max]),
+                                  seed)
+
+
+def create_square_vertices(maximum_derivative: int, center,
+                           side_length: float, rounds: int) -> List[Vertex]:
+    """A square loop flown ``rounds`` times, starting and ending at rest at
+    its first corner (vertex.cpp:84-120)."""
+    center = np.asarray(center, dtype=np.float64)
+    s = side_length / 2.0
+    corners = [center + np.array([-s, -s, 0.0]),
+               center + np.array([-s, s, 0.0]),
+               center + np.array([s, s, 0.0]),
+               center + np.array([s, -s, 0.0])]
+    verts = [Vertex(3)]
+    verts[0].make_start_or_end(corners[0], maximum_derivative)
+    for _ in range(rounds):
+        for c in corners[1:] + [corners[0]]:
+            vtx = Vertex(3)
+            vtx.add_constraint(motion_defines.POSITION, c)
+            verts.append(vtx)
+    verts[-1] = Vertex(3)
+    verts[-1].make_start_or_end(corners[0], maximum_derivative)
     return verts
 
 

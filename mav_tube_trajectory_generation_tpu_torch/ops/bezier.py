@@ -80,3 +80,13 @@ def control_points_from_endpoint_derivatives(d_seg: torch.Tensor,
     ipow = times[..., None] ** iord                      # (..., K, N)
     scaled = d_seg * ipow[..., :, None]
     return torch.einsum('ij,...jd->...id', binv, scaled)
+
+
+def bernstein_basis(n_points: int, tau: np.ndarray) -> np.ndarray:
+    """Bernstein basis values (len(tau), n_points) at normalised times tau
+    (NumPy, the host; a test oracle): x(T tau) = sum_j cp_j B_j(tau)."""
+    deg = n_points - 1
+    tau = np.asarray(tau, dtype=np.float64)[:, None]
+    j = np.arange(n_points)[None, :]
+    comb = np.array([math.comb(deg, jj) for jj in range(n_points)])[None, :]
+    return comb * tau ** j * (1.0 - tau) ** (deg - j)

@@ -52,3 +52,14 @@ def spd_inverse(a: torch.Tensor) -> torch.Tensor:
     inv_lu = inv_lu * s[..., :, None] * s[..., None, :]
     inv_lu = 0.5 * (inv_lu + inv_lu.transpose(-1, -2))
     return torch.where((info == 0)[..., None, None], inv, inv_lu)
+
+
+def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve SPD ``a x = b`` for a vector (..., n) or matrix (..., n, R)
+    right-hand side, through ``spd_inverse`` and a product (the JAX
+    package's explicit-inverse solve; its accuracy is that of the inverse
+    times b, ample for the equilibrated systems of the solvers)."""
+    inv = spd_inverse(a)
+    if b.ndim == a.ndim - 1:
+        return (inv @ b[..., None])[..., 0]
+    return inv @ b

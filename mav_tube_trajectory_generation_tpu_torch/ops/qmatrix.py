@@ -86,6 +86,19 @@ def quadratic_cost_unit(n: int, derivative: int) -> np.ndarray:
     return q
 
 
+def quadratic_cost(n: int, derivative: int, t) -> torch.Tensor:
+    """Q(derivative, T) for (batched) segment times ``t``: (..., N, N),
+    ``T^(1-2d) diag(T^j) Qhat_d diag(T^j)``."""
+    t = torch.as_tensor(t)
+    qhat = const(("qhat", n, derivative),
+                 lambda: quadratic_cost_unit(n, derivative), t.dtype,
+                 t.device)
+    jpow = t[..., None] ** _jord(n, t)                    # (..., N)
+    scale = t ** (1 - 2 * derivative)
+    return (scale[..., None, None] * jpow[..., :, None] * jpow[..., None, :]
+            * qhat)
+
+
 @functools.lru_cache(maxsize=None)
 def hessian_unit(n: int, derivative: int) -> np.ndarray:
     """Hhat_d = Ahat^{-T} Qhat_d Ahat^{-1} (constant, float64)."""

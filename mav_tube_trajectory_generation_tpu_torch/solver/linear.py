@@ -15,13 +15,16 @@ precision broke feasibility in the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from .._tensors import const
-from ..ops import qmatrix
-from .structure import ProblemStructure
+from .._tensors import DeviceLike, const, resolve_device
+from ..ops import linalg, qmatrix
+from .structure import ProblemStructure, make_structure, standard_mask
+
+METHODS = ("cholesky", "schur")
 
 
 class LinearSolution(NamedTuple):
@@ -87,9 +90,17 @@ def _common(d_fixed: torch.Tensor, times: torch.Tensor):
 
 def solve_free_derivatives(structure: ProblemStructure,
                            d_fixed: torch.Tensor,
-                           times: torch.Tensor) -> torch.Tensor:
+                           times: torch.Tensor,
+                           method: str = "cholesky") -> torch.Tensor:
     """d_free = -R_pp^{-1} R_pf d_f only: the closed-form solve without
-    coefficient recovery or cost evaluation."""
+    coefficient recovery or cost evaluation.
+
+    ``method``: "cholesky" (a Cholesky solve of the equilibrated R_pp) or
+    "schur" (the JAX package's name for its matmul-only inverse times the
+    right-hand side: here ``ops.linalg.spd_inverse`` and a product).
+    """
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     nf = structure.n_fixed
     d_fixed, times, dtype = _common(d_fixed, times)
     if structure.n_free == 0:
@@ -103,12 +114,16 @@ def solve_free_derivatives(structure: ProblemStructure,
     scale = torch.rsqrt(torch.diagonal(r_pp, dim1=-2, dim2=-1))
     r_pp_eq = r_pp * scale[..., :, None] * scale[..., None, :]
     rhs = -(r_pf @ d_fixed) * scale[..., :, None]
-    sol_eq = torch.cholesky_solve(rhs, torch.linalg.cholesky(r_pp_eq))
+    if method == "schur":
+        sol_eq = linalg.spd_inverse(r_pp_eq) @ rhs
+    else:
+        sol_eq = torch.cholesky_solve(rhs, torch.linalg.cholesky(r_pp_eq))
     return sol_eq * scale[..., :, None]
 
 
 def solve_linear(structure: ProblemStructure, d_fixed: torch.Tensor,
-                 times: torch.Tensor) -> LinearSolution:
+                 times: torch.Tensor, method: str = "cholesky"
+                 ) -> LinearSolution:
     """Closed-form solve: d_p = -R_pp^{-1} R_pf d_f, then coefficient
     recovery.
 
@@ -117,12 +132,13 @@ def solve_linear(structure: ProblemStructure, d_fixed: torch.Tensor,
       d_fixed: (..., n_fixed, D) fixed endpoint-derivative values, ordered as
         ``structure.fixed_cols``.
       times: (..., K) positive segment times.
+      method: "cholesky" or "schur", as in ``solve_free_derivatives``.
 
     Reference: solveLinear (linear_impl.h:337-379), with SparseQR replaced by
     Jacobi-equilibrated Cholesky on the SPD R_pp.
     """
     d_fixed, times, _ = _common(d_fixed, times)
-    d_free = solve_free_derivatives(structure, d_fixed, times)
+    d_free = solve_free_derivatives(structure, d_fixed, times, method)
     return solve_linear_with_free(structure, d_fixed, d_free, times)
 
 
@@ -139,6 +155,81 @@ def solve_linear_with_free(structure: ProblemStructure,
     coeffs = qmatrix.coefficients_from_endpoint_derivatives(d_seg, times)
     cost = cost_from_derivatives(structure, d_seg, times)
     return LinearSolution(coeffs, times, d_fixed, d_free, cost)
+
+
+def derivative_cost_and_grad(structure: ProblemStructure,
+                             d_fixed: torch.Tensor, d_free: torch.Tensor,
+                             times: torch.Tensor):
+    """(J_d, dJ_d/dd_p) from the blocks of R, with
+    J_d = d_f^T R_ff d_f + 2 d_f^T R_fp d_p + d_p^T R_pp d_p summed over the
+    dimensions and grad = 2 R_fp^T d_f + 2 R_pp d_p
+    (getCostAndGradientDerivative, nonlinear_impl.h:1537-1606).  As in the
+    reference, J_d is twice the 0.5 c^T Q c cost of ``LinearSolution``."""
+    nf = structure.n_fixed
+    r = assemble_r(structure, times)
+    r_ff = r[..., :nf, :nf]
+    r_fp = r[..., :nf, nf:]
+    r_pp = r[..., nf:, nf:]
+    jf = torch.einsum('...fd,...fg,...gd->...', d_fixed, r_ff, d_fixed)
+    jc = 2.0 * torch.einsum('...fd,...fp,...pd->...', d_fixed, r_fp, d_free)
+    jp = torch.einsum('...pd,...pq,...qd->...', d_free, r_pp, d_free)
+    grad = (2.0 * torch.einsum('...fp,...fd->...pd', r_fp, d_fixed)
+            + 2.0 * torch.einsum('...pq,...qd->...pd', r_pp, d_free))
+    return jf + jc + jp, grad
+
+
+def compact_from_segment_derivatives(structure: ProblemStructure,
+                                     d_seg: torch.Tensor) -> torch.Tensor:
+    """M^+ d_seg: the compact [d_f; d_p] from per-segment endpoint
+    derivatives (..., K, N, D), duplicated interior entries averaged.
+
+    The reference's row-normalised pseudo-inverse getMpinv
+    (linear_impl.h:547-555); the exact inverse of ``segment_derivatives``
+    for any continuity-consistent d_seg.
+    """
+    k, n = structure.gather_idx.shape
+    counts = const((structure, "gather_counts"), lambda: np.bincount(
+        structure.gather_idx.ravel(), minlength=structure.n_total),
+        d_seg.dtype, d_seg.device)
+    idx = const((structure, "gather_idx"), lambda: structure.gather_idx,
+                torch.long, d_seg.device)
+    batch = d_seg.shape[:-3]
+    summed = torch.zeros(batch + (structure.n_total, d_seg.shape[-1]),
+                         dtype=d_seg.dtype, device=d_seg.device)
+    summed.index_add_(-2, idx.reshape(-1),
+                      d_seg.reshape(batch + (k * n, d_seg.shape[-1])))
+    return summed / counts[:, None]
+
+
+def solve_from_positions(positions, times, n_coefficients: int = 10,
+                         derivative_to_optimize: Optional[int] = None,
+                         device: DeviceLike = None):
+    """One-call solve from a plain list of positions, in float64 (the
+    reference's setupFromPositons, linear.h:79-80): the endpoints at rest up
+    to derivative N/2-1, interior vertices position-only.
+
+    Args:
+      positions: (V, D) waypoint positions (host array).
+      times: (V-1,) segment times (host array).
+      device: where to solve; None means the CUDA card.
+
+    Returns:
+      (ProblemStructure, LinearSolution).
+    """
+    dev = resolve_device(device)
+    positions = np.asarray(positions, dtype=np.float64)
+    if positions.ndim == 1:
+        positions = positions[:, None]
+    v, dim = positions.shape
+    n = n_coefficients
+    structure = make_structure(standard_mask(v, n), dim, n,
+                               derivative_to_optimize)
+    values = np.zeros((v, n // 2, dim))
+    values[:, 0, :] = positions
+    d_fixed = extract_fixed_values(
+        structure, torch.as_tensor(values, device=dev))
+    t = torch.as_tensor(np.asarray(times, dtype=np.float64), device=dev)
+    return structure, solve_linear(structure, d_fixed, t)
 
 
 def extract_fixed_values(structure: ProblemStructure,

@@ -73,7 +73,7 @@ from .._tensors import DeviceLike, as_tensor, const, resolve_device, \
     tensor_dtype
 from ..ops import admm_kernel, bezier, linalg, qmatrix
 from . import banded, linear
-from .structure import ProblemStructure
+from .structure import ProblemStructure, make_structure, standard_mask
 
 # Device-memory bounds of the assembly: free derivatives of G^T formed at a
 # time, and scenarios whose dense Gram the "xla" band forms at a time.
@@ -1216,3 +1216,38 @@ def solve_qcqp(structure: ProblemStructure, d_fixed, times, waypoints, radii,
         structure, _single(d_fixed, dtype, dev), _single(times, dtype, dev),
         _single(waypoints, dtype, dev), _single(radii, dtype, dev), config,
         x0=opt(x0), warmstart_positions=opt(warmstart_positions)))
+
+
+def position_constrained_warmstart(free_structure: ProblemStructure,
+                                   vertex_values: torch.Tensor,
+                                   times: torch.Tensor,
+                                   method: str = "cholesky") -> torch.Tensor:
+    """x0 for the QCQP, (..., n_free, D): the position-constrained linear
+    solve's endpoint derivatives, read out at the free structure's free
+    columns (computeInitialSolutionWithPositionConstraints,
+    nonlinear_impl.h:199-272; the derivatives are read off the compact
+    solution directly, without the pseudo-inverse detour).
+
+    vertex_values (..., V, N/2, D) and times (..., K) are tensors; the work
+    runs on their device.  ``method`` as in ``linear.solve_linear``.
+    """
+    n = free_structure.n_coefficients
+    v = free_structure.n_vertices
+    std = make_structure(standard_mask(v, n), free_structure.dimension, n,
+                         free_structure.derivative_to_optimize)
+    d_fixed_std = linear.extract_fixed_values(std, vertex_values)
+    d_free_std = linear.solve_free_derivatives(std, d_fixed_std, times,
+                                               method=method)
+    d_all_std = torch.cat(
+        [d_fixed_std.to(d_free_std.dtype).expand(
+            d_free_std.shape[:-2] + d_fixed_std.shape[-2:]), d_free_std],
+        dim=-2)
+    # free column (vertex, derivative) of the free structure -> its compact
+    # column in the standard structure
+    std_col = {tuple(c): i for i, c in enumerate(std.fixed_cols)}
+    std_col.update({tuple(c): std.n_fixed + i
+                    for i, c in enumerate(std.free_cols)})
+    idx = const((free_structure, "warmstart_cols"), lambda: np.asarray(
+        [std_col[tuple(c)] for c in free_structure.free_cols]), torch.long,
+        d_all_std.device)
+    return torch.index_select(d_all_std, -2, idx)

@@ -369,7 +369,8 @@ def test_device_none_needs_a_card():
 
 
 def test_port_imports_without_jax():
-    """The port must import (and solve on the host) in a process where
+    """The port must import (and solve on the host: the headline, its
+    routes, the banded linear solve and the extrema) in a process where
     neither jax nor the JAX package can be imported."""
     code = (
         "import sys\n"
@@ -395,6 +396,11 @@ def test_port_imports_without_jax():
         "    s2.waypoints, s2.radii, m.ADMMConfig(n_stages=1, n_iters=5),\n"
         "    warmstart_values=s2.values, device='cpu')\n"
         "assert torch.isfinite(s.cost).all()\n"
+        "s3 = m.make_inputs(5, 2, device='cpu')\n"
+        "b = m.solve_linear_banded(s3.std, s3.d_fixed_std, s3.times)\n"
+        "v = m.max_magnitude(m.Trajectory(b.coefficients, b.times), 1,\n"
+        "    n_grid=64)\n"
+        "assert torch.isfinite(v.value).all() and (v.value > 0).all()\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')]\n"
         "assert bad == ['jax'] and sys.modules['jax'] is None, bad\n"

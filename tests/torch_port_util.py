@@ -1,6 +1,10 @@
 """Shared helpers of the test_torch_*.py files: seeded small problems as
 NumPy arrays, handed to both the JAX package and the PyTorch port."""
 
+import ctypes
+import os
+import subprocess
+
 import numpy as np
 import torch
 
@@ -77,3 +81,59 @@ def jax_pre(k=4, batch=8, seed=0, n_iters=2, **config_kw):
               "d_scale")
     p["d_fixed"] = np.asarray(d_fixed)
     return free, {f: np.asarray(getattr(pre, f)) for f in fields}, p
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORACLE_SRC = os.path.join(_REPO, "mav_tube_trajectory_generation_tpu",
+                          "native", "parity_oracle.cpp")
+# git-ignored; the port's kernels are built beside it on the card
+ORACLE_DIR = os.path.join(_REPO, "mav_tube_trajectory_generation_tpu_torch",
+                          "build")
+ORACLE_LIB = os.path.join(ORACLE_DIR, "libparity_oracle_tests.so")
+_oracle = []
+
+
+def parity_oracle():
+    """The C++ closed-form linear solve (``parity_oracle.cpp`` of the JAX
+    package's ``native/``, read as a source file only), built with g++ into
+    the git-ignored build directory and loaded with its own ctypes
+    signature.  Each process compiles to a name of its own and renames the
+    result into place (atomic), so parallel test workers never load a
+    half-written library.  Returns ``solve(fixed_mask, values, times,
+    derivative, n) -> (K, N, D) coefficients``."""
+    if not _oracle:
+        if (not os.path.exists(ORACLE_LIB) or os.path.getmtime(ORACLE_LIB)
+                < os.path.getmtime(ORACLE_SRC)):
+            os.makedirs(ORACLE_DIR, exist_ok=True)
+            tmp = f"{ORACLE_LIB}.{os.getpid()}.tmp"
+            subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", tmp,
+                            ORACLE_SRC], check=True, capture_output=True,
+                           timeout=120)
+            os.replace(tmp, ORACLE_LIB)
+        lib = ctypes.CDLL(ORACLE_LIB)
+        lib.mtg_solve_linear.restype = ctypes.c_int
+        lib.mtg_solve_linear.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")]
+        _oracle.append(lib)
+    lib = _oracle[0]
+
+    def solve(fixed_mask, values, times, derivative, n):
+        mask = np.ascontiguousarray(fixed_mask, dtype=np.uint8)
+        values = np.ascontiguousarray(values, dtype=np.float64)
+        times = np.ascontiguousarray(times, dtype=np.float64)
+        v = mask.shape[0]
+        dim = values.shape[-1]
+        if mask.shape != (v, n // 2) or values.shape != (v, n // 2, dim) \
+                or times.shape != (v - 1,):
+            raise ValueError("oracle inputs of the wrong shape")
+        out = np.zeros(((v - 1) * n * dim,), dtype=np.float64)
+        status = lib.mtg_solve_linear(n, dim, v, derivative, mask.ravel(),
+                                      values.ravel(), times, out)
+        if status != 0:
+            raise RuntimeError(f"mtg_solve_linear failed: status {status}")
+        return out.reshape(v - 1, n, dim)
+    return solve
