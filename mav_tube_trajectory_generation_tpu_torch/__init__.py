@@ -20,8 +20,14 @@ linear planner path: the closed-form solve at any K (``solve_linear`` dense,
 ``solve_linear_banded`` by block cyclic reduction), ``solve_from_positions``,
 ``position_constrained_warmstart``, and the ``Trajectory`` model with its
 analytic extrema (``min_max_magnitude``, ``max_magnitude``: a grid bracket
-and a fixed count of bisections on the magnitude's derivative).  Not yet
-ported: the nonlinear optimizer, the ESDF and the sharded router.
+and a fixed count of bisections on the magnitude's derivative), and the
+nonlinear optimizer (``optimize`` on all five objectives, with the
+Nelder-Mead simplex and the batched L-BFGS of ``solver.lbfgs``;
+``optimize_time_gradient``) over the signed distance field of
+``models.esdf`` (``esdf_from_occupancy``: the min-plus transform on the
+card or the host C++ one of ``csrc/edt.cpp``), with the timers, export and
+checkpointing of ``utils`` and ``entry()``.  Not yet ported: the sharded
+router.
 
 Entry points take ``device=None``, which means the CUDA card and raises when
 there is none; pass ``device="cpu"`` to run on the host, where each kernel's
@@ -96,6 +102,12 @@ from .models.trajectory import (Trajectory, Extremum,            # noqa: E402
                                 append_dimension, get_vertex_at_time,
                                 scale_trajectory_time,
                                 scale_times_to_limits)
+from .solver.nonlinear import (Objective, CostWeights,          # noqa: E402
+                               MagnitudeConstraint, NonlinearParameters,
+                               NonlinearResult, optimize,
+                               optimize_time_gradient)
+from .models.esdf import (Esdf, esdf_from_occupancy, distance_at,  # noqa: E402
+                          collision_potential, make_obstacle_grid)
 from .scenarios import (ScenarioBatch, make_inputs,             # noqa: E402
                         tight_radii)
 from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
@@ -103,6 +115,10 @@ from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
                       ipm_config_from_fields, admm_config_from_fields,
                       lanes_state_from_numpy,
                       fused_state_from_numpy, auto_result_to_numpy,
-                      trajectory_from_numpy, trajectory_to_numpy)
+                      trajectory_from_numpy, trajectory_to_numpy,
+                      esdf_from_numpy, nonlinear_parameters_from_fields,
+                      magnitude_constraint_from_fields,
+                      nonlinear_result_to_numpy)
+from .entry import entry                                        # noqa: E402
 
 __version__ = "0.6.0"

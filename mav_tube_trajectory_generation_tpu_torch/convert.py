@@ -15,8 +15,12 @@ import numpy as np
 import torch
 
 from ._tensors import DeviceLike, as_tensor, resolve_device
+from .models.esdf import Esdf
 from .models.trajectory import Trajectory
 from .solver.ipm import IPMConfig
+from .solver.nonlinear import (CostWeights, MagnitudeConstraint,
+                               NonlinearParameters, NonlinearResult,
+                               Objective)
 from .solver.qcqp import ADMMConfig, QCQPSolution, _Pre
 from .solver.structure import ProblemStructure, make_structure
 
@@ -182,3 +186,53 @@ def trajectory_to_numpy(traj: Trajectory) -> Tuple[np.ndarray, np.ndarray]:
     either package."""
     return (traj.coefficients.detach().cpu().numpy(),
             traj.times.detach().cpu().numpy())
+
+
+def esdf_from_numpy(other: Any, device: DeviceLike = None,
+                    dtype: torch.dtype = None) -> Esdf:
+    """This package's ``Esdf`` from any object with ``distance``,
+    ``origin`` and ``resolution`` arrays (e.g. the JAX package's), on
+    ``device`` (None: the CUDA card), in ``dtype`` (None: kept)."""
+    dev = resolve_device(device)
+    return Esdf(as_tensor(np.asarray(other.distance), dtype, dev),
+                as_tensor(np.asarray(other.origin), dtype, dev),
+                as_tensor(np.asarray(other.resolution), dtype, dev),
+                getattr(other, "method", None))
+
+
+def nonlinear_parameters_from_fields(other: Any) -> NonlinearParameters:
+    """This package's ``NonlinearParameters`` from any object with its
+    fields (e.g. the JAX package's): the objective by its value, the
+    weights as ``CostWeights``."""
+    kw = {f.name: getattr(other, f.name)
+          for f in dataclasses.fields(NonlinearParameters)}
+    kw["objective"] = Objective(getattr(kw["objective"], "value",
+                                        kw["objective"]))
+    kw["weights"] = CostWeights(**{f.name: getattr(kw["weights"], f.name)
+                                   for f in dataclasses.fields(CostWeights)})
+    return NonlinearParameters(**kw)
+
+
+def magnitude_constraint_from_fields(other: Any) -> MagnitudeConstraint:
+    """This package's ``MagnitudeConstraint`` from any object with
+    ``derivative`` and ``value``."""
+    return MagnitudeConstraint(int(other.derivative), float(other.value))
+
+
+def nonlinear_result_to_numpy(res: NonlinearResult) -> Dict[str, Any]:
+    """A ``NonlinearResult`` as NumPy: its array fields as arrays, ``cost``
+    and ``initial_cost`` as dicts of arrays, ``maxima`` keyed by
+    derivative order; fields that are None are left out."""
+    def np_of(a):
+        return a.detach().cpu().numpy()
+    out: Dict[str, Any] = {}
+    for name, value in res._asdict().items():
+        if value is None:
+            continue
+        if name in ("cost", "initial_cost"):
+            out[name] = {k: np_of(v) for k, v in value._asdict().items()}
+        elif name == "maxima":
+            out[name] = {k: np_of(v) for k, v in value.items()}
+        else:
+            out[name] = np_of(value)
+    return out

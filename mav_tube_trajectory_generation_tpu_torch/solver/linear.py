@@ -75,12 +75,19 @@ def segment_derivatives(structure: ProblemStructure, d_fixed: torch.Tensor,
 
 def cost_from_derivatives(structure: ProblemStructure, d_seg: torch.Tensor,
                           times: torch.Tensor) -> torch.Tensor:
-    """0.5 sum_k sum_dim d_seg^T H_k d_seg  ( == 0.5 c^T Q c)."""
+    """0.5 sum_k sum_dim d_seg^T H_k d_seg  ( == 0.5 c^T Q c).
+
+    Formed and summed in float64, then rounded once to the inputs' dtype:
+    the terms cancel, their magnitudes summing to 6e4-5e6 times the cost
+    at K=10, so a float32 sum is off by up to a few percent."""
     n = structure.n_coefficients
-    h_blocks = qmatrix.hessian_blocks(times, n,
+    wide = torch.promote_types(d_seg.dtype, torch.float64)
+    h_blocks = qmatrix.hessian_blocks(times.to(wide), n,
                                       structure.derivative_to_optimize)
-    return 0.5 * torch.einsum('...krd,...krc,...kcd->...', d_seg, h_blocks,
-                              d_seg)
+    d_wide = d_seg.to(wide)
+    cost = 0.5 * torch.einsum('...krd,...krc,...kcd->...', d_wide, h_blocks,
+                              d_wide)
+    return cost.to(torch.promote_types(d_seg.dtype, times.dtype))
 
 
 def _common(d_fixed: torch.Tensor, times: torch.Tensor):
@@ -117,7 +124,13 @@ def solve_free_derivatives(structure: ProblemStructure,
     if method == "schur":
         sol_eq = linalg.spd_inverse(r_pp_eq) @ rhs
     else:
-        sol_eq = torch.cholesky_solve(rhs, torch.linalg.cholesky(r_pp_eq))
+        # A row whose R_pp will not factor comes back NaN and leaves the
+        # other rows as they are (the JAX package's cho_factor semantics);
+        # the batch neither raises nor waits on the host for the verdict.
+        chol, info = torch.linalg.cholesky_ex(r_pp_eq, check_errors=False)
+        sol_eq = torch.cholesky_solve(rhs, chol)
+        sol_eq = torch.where((info != 0)[..., None, None],
+                             torch.full_like(sol_eq, float("nan")), sol_eq)
     return sol_eq * scale[..., :, None]
 
 

@@ -370,8 +370,9 @@ def test_device_none_needs_a_card():
 
 def test_port_imports_without_jax():
     """The port must import (and solve on the host: the headline, its
-    routes, the banded linear solve and the extrema) in a process where
-    neither jax nor the JAX package can be imported."""
+    routes, the banded linear solve, the extrema, the distance field and
+    the nonlinear optimizer) in a process where neither jax nor the JAX
+    package can be imported."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -401,6 +402,19 @@ def test_port_imports_without_jax():
         "v = m.max_magnitude(m.Trajectory(b.coefficients, b.times), 1,\n"
         "    n_grid=64)\n"
         "assert torch.isfinite(v.value).all() and (v.value > 0).all()\n"
+        "occ = m.make_obstacle_grid((16, 16, 16), (0, 0, 0), 0.4,\n"
+        "    spheres=[((3.0, 3.0, 3.0), 0.6)])\n"
+        "f = m.esdf_from_occupancy(occ, (0, 0, 0), 0.4,\n"
+        "    dtype=torch.float64, device='cpu')\n"
+        "assert f.method == 'xla' and torch.isfinite(f.distance).all()\n"
+        "s4 = m.make_inputs(2, 3, device='cpu')\n"
+        "p = m.NonlinearParameters(\n"
+        "    objective=m.Objective.FREE_CONSTRAINTS_AND_COLLISION,\n"
+        "    max_iterations=3, use_soft_constraints=False)\n"
+        "r = m.optimize(s4.std, s4.d_fixed_std.double(), s4.times.double(),\n"
+        "    p, field=f, device='cpu')\n"
+        "assert torch.isfinite(r.cost.total).all()\n"
+        "assert r.cost_history.shape == (3, 3)\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')]\n"
         "assert bad == ['jax'] and sys.modules['jax'] is None, bad\n"

@@ -41,12 +41,8 @@ H = N // 2
 F64 = dict(rtol=1e-9, atol=1e-12)
 
 # The JAX package's public names that belong to modules not ported yet
-# (the nonlinear optimizer, the ESDF, the sharded router).
-NOT_YET_PORTED = {
-    "Objective", "CostWeights", "MagnitudeConstraint", "NonlinearParameters",
-    "NonlinearResult", "optimize", "optimize_time_gradient",
-    "Esdf", "esdf_from_occupancy", "distance_at", "collision_potential",
-    "make_obstacle_grid", "solve_qcqp_strict_sharded"}
+# (the sharded router).
+NOT_YET_PORTED = {"solve_qcqp_strict_sharded"}
 
 
 def _public(module):
@@ -64,7 +60,9 @@ def test_package_exports_the_jax_names():
                  "solve_from_positions", "position_constrained_warmstart",
                  "derivative_cost_and_grad",
                  "compact_from_segment_derivatives",
-                 "create_random_vertices_1d", "create_square_vertices"):
+                 "create_random_vertices_1d", "create_square_vertices",
+                 "optimize", "optimize_time_gradient", "esdf_from_occupancy",
+                 "distance_at", "collision_potential", "make_obstacle_grid"):
         assert callable(getattr(mtt, name)), name
 
 
