@@ -28,7 +28,11 @@ collision objective (``optimize``, examples/demo_main_torch.py, one scenario
 and 1024 at once, against float64) and the TIME objective's four optimizers
 of benchmarks/nonlinear_bench.py (Nelder-Mead and L-BFGS through the inner
 solve with the zoom, backtracking and hybrid line searches, batch 1024,
-held to the JAX package's medians).
+held to the JAX package's medians); and the scenario-parallel layer over
+torch.distributed, in child processes of this script: the strict router
+sharded over a world of 1 under NCCL against the unsharded router with the
+same schedule, and over a world of 2 under gloo with both ranks on the one
+card (a correctness run, not a scaling measurement).
 Every phase prints one JSON object on a line of its own;
 a failing phase raises, so the script exits non-zero and prints no final
 line.  There is no CPU mode: without a CUDA device it exits with code 2.
@@ -81,7 +85,8 @@ ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
               "ipm_bits", "band_bits",
               "ipm_kernel_check", "fused_path", "strict_path",
               "strict_tight", "ew_path", "linear_sweep", "extrema",
-              "esdf", "nonlinear_collision", "nonlinear_time", "kernels")
+              "esdf", "nonlinear_collision", "nonlinear_time", "sharded",
+              "kernels")
 
 # The interior-point kernels against their plain versions, per output, on
 # inputs recorded from real solves.  Every row is compared (one scenario at a
@@ -3428,6 +3433,306 @@ def phase_nonlinear_time(state, mtt):
         raise RuntimeError(f"nonlinear_time: checks {checks}")
 
 
+# The sharded phase: the port's scenario-parallel layer over torch.distributed
+# at the strict line's full width, in child processes (never a process group
+# in this process).  (a) A world of 1 under NCCL: the sharded router against
+# the unsharded one with the same schedule, row by row, beside
+# solve_qcqp_sharded and solve_linear_sharded.  (b) A world of 2 under gloo
+# with both ranks on the one card (NCCL refuses two ranks on one device),
+# SHARDED_BATCH / 2 rows each of the same batch; (c) the same world on
+# SHARDED_TIGHT_BATCH rows, tight corridors on rank 0's rows only, so that
+# the ranks do unequal work before the one reduction.  A world of 2 on one
+# card is a correctness run: its times are not a scaling measurement.
+SHARDED_BATCH = 6144
+SHARDED_TIGHT_BATCH = 512
+SHARDED_PASSES = 3
+SHARDED_CHILD_TIMEOUT = 240          # seconds, each child (~30 s used)
+SHARDED_KERNELS = ("admm_stage_fused_factored", "ipm_pipe_step",
+                   "ipm_eval_step", "gt_matvec")       # #1, #8, #9, #12
+
+
+def sharded_router_run(mtt, mesh, sc, radii, passes, warm_up=True):
+    """``solve_qcqp_strict_sharded`` on this rank's rows of ``sc``: one
+    measured call (launch counts set to 0 just before and read just after,
+    the peak of allocated memory, the float64 tier's rows and time), then
+    ``passes`` calls timed by CUDA events.  Returns (fields, arrays)."""
+    import numpy as np
+    from mav_tube_trajectory_generation_tpu_torch.parallel import mesh as pm
+    rows = [pm.local_rows(a, mesh) for a in (
+        sc.d_fixed_free, sc.times, sc.waypoints, radii, sc.values)]
+
+    def call():
+        return mtt.solve_qcqp_strict_sharded(
+            sc.free, *rows[:4], mesh=mesh, warmstart_values=rows[4])
+
+    if warm_up:
+        call()
+    tier2 = []
+    t0 = time.perf_counter()
+    with tier2_observed(tier2):
+        (res, n_strict), _, launches, peak = timed_passes(call, 1)
+    seconds = time.perf_counter() - t0
+    pass_ms = timed_passes(call, passes)[1] if passes else []
+    viol = res.solution.max_violation.cpu().numpy()
+    return dict(
+        rows=int(viol.size), n_strict=float(n_strict),
+        host_n_strict=int((viol < STRICT_GATE).sum()),
+        n_escalated=int(res.n_escalated),
+        rows_by_last_tier=np.bincount(res.tier, minlength=5).tolist(),
+        pass_ms=pass_ms, measured_call_seconds=seconds, launches=launches,
+        peak_device_memory_bytes=peak, tier2=tier2,
+        summary=strict_summary(mtt, res, int(viol.size))), dict(
+        verdict=res.verdict, max_violation=viol)
+
+
+def sharded_linear(mtt, mesh, sc):
+    """``solve_linear_sharded`` on this rank's rows: the reduced metrics and
+    this rank's costs."""
+    from mav_tube_trajectory_generation_tpu_torch.parallel import mesh as pm
+    sol, m = pm.solve_linear_sharded(sc.std, mesh,
+                                     pm.local_rows(sc.d_fixed_std, mesh),
+                                     pm.local_rows(sc.times, mesh))
+    return [float(v) for v in m], sol.cost.cpu().numpy()
+
+
+def sharded_world1(mtt, mesh):
+    import numpy as np
+    from mav_tube_trajectory_generation_tpu_torch.parallel import mesh as pm
+    sc = mtt.make_inputs(10, SHARDED_BATCH, seed=0)
+    fields, arrays = sharded_router_run(mtt, mesh, sc, sc.radii,
+                                        SHARDED_PASSES)
+    single, single_ms, _, _ = timed_passes(lambda: mtt.solve_qcqp_auto(
+        sc.free, sc.d_fixed_free, sc.times, sc.waypoints, sc.radii,
+        warmstart_values=sc.values, gate=1e-4, strict_gate=1e-4,
+        tier0_snap=2, tier1_spec=0,
+        ipm_config=mtt.IPMConfig(n_iters=10, sigma_min=0.3, corrector=False),
+        tier2_f64=True, device=mesh.device), SHARDED_PASSES)
+    arrays.update(single_verdict=single.verdict)
+    fields.update(unsharded_pass_ms=single_ms)
+    x0 = mtt.position_constrained_warmstart(sc.free, sc.values, sc.times)
+    sol, n_ok = pm.solve_qcqp_sharded(sc.free, mesh, sc.d_fixed_free,
+                                      sc.times, sc.waypoints, sc.radii,
+                                      config=bench_config(mtt), x0=x0)
+    viol = sol.max_violation.cpu().numpy()
+    metrics, costs = sharded_linear(mtt, mesh, sc)
+    arrays.update(linear_cost=costs)
+    fields.update(qcqp=dict(n_ok=float(n_ok), host_n_ok=int(
+        (viol < 1e-2).sum()), median_violation=float(np.median(viol))),
+        linear_metrics=metrics)
+    return fields, arrays
+
+
+def sharded_world2(mtt, mesh):
+    sc = mtt.make_inputs(10, SHARDED_BATCH, seed=0)
+    fields, arrays = sharded_router_run(mtt, mesh, sc, sc.radii,
+                                        SHARDED_PASSES)
+    metrics, costs = sharded_linear(mtt, mesh, sc)
+    arrays.update(linear_cost=costs)
+    fields.update(linear_metrics=metrics)
+    # (c): tight corridors in rank 0's rows only
+    n = SHARDED_TIGHT_BATCH
+    tight = mtt.make_inputs(10, n, seed=0)
+    radii = tight.radii.clone()
+    radii[:n // 2] = mtt.tight_radii(10, n)[:n // 2]
+    c_fields, c_arrays = sharded_router_run(mtt, mesh, tight, radii, 0,
+                                            warm_up=False)
+    fields["tight_on_rank_0"] = c_fields
+    arrays.update({f"tight_{k}": v for k, v in c_arrays.items()})
+    return fields, arrays
+
+
+def sharded_child(rank, world, store, out):
+    """One rank of the sharded phase (started by ``phase_sharded``): joins
+    the group (NCCL for a world of 1, gloo for more), runs its world's body
+    on the card and writes ``out``.json and ``out``.npz."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    from mav_tube_trajectory_generation_tpu_torch.parallel import mesh as pm
+    torch.cuda.set_device(0)
+    backend = "nccl" if world == 1 else "gloo"
+    pm.initialize_distributed(backend=backend, init_method=f"file://{store}",
+                              rank=rank, world_size=world)
+    try:
+        mesh = pm.make_mesh()
+        body = sharded_world1 if world == 1 else sharded_world2
+        fields, arrays = body(mtt, mesh)
+        fields.update(rank=rank, world=world,
+                      backend=dist.get_backend(mesh.group),
+                      device=str(mesh.device))
+        with open(out + ".json", "w") as fh:
+            json.dump(fields, fh)
+        np.savez(out + ".npz", **arrays)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_world(tmp, world):
+    """Starts the ranks of one world as child processes and waits for them,
+    each with its own timeout; a rank that fails or times out fails the
+    phase (every child is killed first)."""
+    import os
+    import numpy as np
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo",
+               NCCL_DEBUG="WARN")
+    store = os.path.join(tmp, f"store{world}")
+    outs = [os.path.join(tmp, f"world{world}_rank{r}") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-child",
+         str(r), str(world), store, outs[r]], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env) for r in range(world)]
+    t0 = time.perf_counter()
+    failed = []
+    try:
+        for r, p in enumerate(procs):
+            left = SHARDED_CHILD_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                log, _ = p.communicate(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                failed.append(f"rank {r} of {world}: no end within "
+                              f"{SHARDED_CHILD_TIMEOUT} s")
+                break
+            if p.returncode != 0:
+                failed.append(f"rank {r} of {world} exited "
+                              f"{p.returncode}:\n{log[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    if failed:
+        raise RuntimeError("sharded: " + "\n".join(failed))
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for o in outs:
+        with open(o + ".json") as fh:
+            fields = json.load(fh)
+        with np.load(o + ".npz") as f:
+            ranks.append((fields, dict(f)))
+    return ranks, seconds
+
+
+def linear_metrics_gate(metrics, costs):
+    """The reduced linear metrics against the host's reductions of the
+    concatenated costs (float32 costs; the sum within 1e-6 relative, the
+    order of sums differs)."""
+    import numpy as np
+    finite = np.isfinite(costs)
+    n, n_finite, total, top = metrics
+    host_total = float(costs[finite].astype(np.float64).sum())
+    return dict(
+        n_scenarios=n == costs.size, n_finite=n_finite == finite.sum(),
+        total_cost=abs(total - host_total) <= 1e-6 * abs(host_total),
+        max_cost=top == float(costs[finite].max()))
+
+
+def phase_sharded(state, mtt):
+    import tempfile
+    import numpy as np
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch import _build
+    _build.prebuild()                   # the children load these libraries
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        w1, w1_seconds = run_world(tmp, 1)
+        w2, w2_seconds = run_world(tmp, 2)
+    gates = {}
+
+    # (a) a world of 1 under NCCL
+    f1, a1 = w1[0]
+    v1, viol1 = a1["verdict"], a1["max_violation"]
+    gates["a_backend_nccl"] = f1["backend"] == "nccl"
+    gates["a_verdicts_equal_unsharded"] = bool(
+        (v1 == a1["single_verdict"]).all())
+    gates["a_all_determinate"] = bool((v1 != 0).all()) and v1.size == \
+        SHARDED_BATCH
+    gates["a_no_false_feasible"] = f1["summary"]["false_feasible"] == 0
+    gates["a_n_strict_is_host_count"] = f1["n_strict"] == f1["host_n_strict"]
+    gates["a_n_ok_is_host_count"] = (f1["qcqp"]["n_ok"]
+                                     == f1["qcqp"]["host_n_ok"])
+    gates["a_linear_metrics"] = all(linear_metrics_gate(
+        f1["linear_metrics"], a1["linear_cost"]).values())
+    gates["a_kernels_launched"] = all(
+        f1["launches"].get(n, 0) > 0 for n in SHARDED_KERNELS)
+
+    # (b) a world of 2 under gloo, both ranks on the card
+    (f20, a20), (f21, a21) = w2
+    v2 = np.concatenate([a20["verdict"], a21["verdict"]])
+    viol2 = np.concatenate([a20["max_violation"], a21["max_violation"]])
+    costs2 = np.concatenate([a20["linear_cost"], a21["linear_cost"]])
+    gates["b_backend_gloo"] = f20["backend"] == f21["backend"] == "gloo"
+    gates["b_n_strict_same_and_host"] = (
+        f20["n_strict"] == f21["n_strict"]
+        == float((viol2 < STRICT_GATE).sum()))
+    gates["b_linear_metrics_same_and_host"] = (
+        f20["linear_metrics"] == f21["linear_metrics"]
+        and all(linear_metrics_gate(f20["linear_metrics"], costs2).values()))
+    gates["b_all_determinate"] = bool((v2 != 0).all()) and v2.size == \
+        SHARDED_BATCH
+    gates["b_no_false_feasible"] = not (
+        (v2 == mtt.FEASIBLE) & ~(viol2 < STRICT_GATE)).any()
+    clear = ~(((viol1 > STRICT_GATE / 2) & (viol1 < STRICT_GATE * 2))
+              | ((viol2 > STRICT_GATE / 2) & (viol2 < STRICT_GATE * 2)))
+    differ = v1 != v2
+    gates["b_verdicts_equal_world1_where_clear"] = not (differ & clear).any()
+
+    # (c) tight corridors on rank 0 only
+    c0, c1 = f20["tight_on_rank_0"], f21["tight_on_rank_0"]
+    vc = np.concatenate([a20["tight_verdict"], a21["tight_verdict"]])
+    violc = np.concatenate([a20["tight_max_violation"],
+                            a21["tight_max_violation"]])
+    gates["c_all_determinate"] = bool((vc != 0).all()) and vc.size == \
+        SHARDED_TIGHT_BATCH
+    gates["c_no_false_feasible"] = not (
+        (vc == mtt.FEASIBLE) & ~(violc < STRICT_GATE)).any()
+    gates["c_n_strict_same_and_host"] = (
+        c0["n_strict"] == c1["n_strict"]
+        == float((violc < STRICT_GATE).sum()))
+
+    def per_rank(fields):
+        return dict({k: fields[k] for k in (
+            "rank", "backend", "device", "rows", "n_escalated",
+            "rows_by_last_tier", "pass_ms", "measured_call_seconds",
+            "tier2", "launches", "peak_device_memory_bytes", "n_strict")
+            if k in fields},
+            ms_per_batch=(statistics.mean(fields["pass_ms"])
+                          if fields["pass_ms"] else None))
+
+    emit("sharded", config="K=10 N=10 D=3, make_inputs(10, 6144, seed=0), "
+         "radii 0.8: solve_qcqp_strict_sharded with its defaults (the JAX "
+         "mesh router's: tier 1 it10, no speculative restart, 2 snap "
+         "sweeps, tier 2 float64 on the card), routed per rank",
+         note="world 2 runs both ranks on the one card under gloo: a "
+         "correctness run; its times are per rank on a shared card and are "
+         "not a scaling measurement (one card cannot measure scaling)",
+         world1=dict(per_rank(f1), unsharded_router_same_schedule=dict(
+             verdicts_equal=int((v1 == a1["single_verdict"]).sum()),
+             pass_ms=f1["unsharded_pass_ms"],
+             ms_per_batch=statistics.mean(f1["unsharded_pass_ms"])),
+             qcqp_sharded=f1["qcqp"], linear_metrics=f1["linear_metrics"],
+             summary=f1["summary"], child_seconds=w1_seconds),
+         world2=dict(ranks=[per_rank(f20), per_rank(f21)],
+                     linear_metrics=[f20["linear_metrics"],
+                                     f21["linear_metrics"]],
+                     verdicts_differing_from_world1=int(differ.sum()),
+                     verdicts_differing_where_clear=int((differ & clear).sum()),
+                     rows_clear_of_gate=int(clear.sum()),
+                     child_seconds=w2_seconds),
+         tight_on_rank_0=dict(
+             batch=SHARDED_TIGHT_BATCH,
+             ranks=[per_rank(c0), per_rank(c1)],
+             undetermined=int((vc == 0).sum()),
+             infeasible=int((vc == mtt.INFEASIBLE).sum())),
+         gates=gates, seconds=time.perf_counter() - t0,
+         nvidia_smi=state.get("nvidia_smi"))
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise RuntimeError(f"sharded: gates failed: {failed}")
+
+
 @contextlib.contextmanager
 def library_variant(name, defines):
     """While the block runs the wrappers launch the kernels of ``name``'s
@@ -5159,6 +5464,10 @@ def main():
                         "#8's and #9's; #5's and #6's) are the same bits, and "
                         "reports those of the kernels this tree redesigned "
                         "(#7, #4)")
+    parser.add_argument("--sharded-child", nargs=4, default=None,
+                        metavar=("RANK", "WORLD", "STORE", "OUT"),
+                        help="run one rank of the sharded phase (the phase "
+                        "starts its ranks itself)")
     opts = parser.parse_args()
     if opts.out:
         global LOG_PATH
@@ -5180,6 +5489,10 @@ def main():
         print("chip_smoke: no CUDA device; this script has no CPU mode",
               file=sys.stderr)
         return 2
+
+    if opts.sharded_child:
+        rank, world, store, out = opts.sharded_child
+        return sharded_child(int(rank), int(world), store, out)
 
     t_start = time.perf_counter()
     state = {"launches": 0, "partial": set(phases) != set(ALL_PHASES)}
@@ -5205,6 +5518,7 @@ def main():
         "esdf": lambda: phase_esdf(state, mtt),
         "nonlinear_collision": lambda: phase_nonlinear_collision(state, mtt),
         "nonlinear_time": lambda: phase_nonlinear_time(state, mtt),
+        "sharded": lambda: phase_sharded(state, mtt),
         "kernels": lambda: phase_kernels(state, mtt),
     }
     for name in ALL_PHASES:

@@ -26,8 +26,11 @@ Nelder-Mead simplex and the batched L-BFGS of ``solver.lbfgs``;
 ``optimize_time_gradient``) over the signed distance field of
 ``models.esdf`` (``esdf_from_occupancy``: the min-plus transform on the
 card or the host C++ one of ``csrc/edt.cpp``), with the timers, export and
-checkpointing of ``utils`` and ``entry()``.  Not yet ported: the sharded
-router.
+checkpointing of ``utils`` and ``entry()``, and scenario-parallel
+execution over ``torch.distributed`` (``parallel.mesh``: one process per
+card, each rank solving its own rows; ``solve_qcqp_strict_sharded``, the
+strict router over such a mesh; ``entry.dryrun_multichip``).  It exports
+every public name of the JAX package.
 
 Entry points take ``device=None``, which means the CUDA card and raises when
 there is none; pass ``device="cpu"`` to run on the host, where each kernel's
@@ -84,8 +87,8 @@ from .ops.admm_kernel import (admm_stage_fused_factored,        # noqa: E402
 from .solver.ipm_lanes import (solve_qcqp_ipm_lanes,            # noqa: E402
                                solve_qcqp_polished_batch)
 from .solver.auto import (AutoResult, solve_qcqp_auto,          # noqa: E402
-                          solve_qcqp_strict, FEASIBLE, INFEASIBLE,
-                          UNDETERMINED)
+                          solve_qcqp_strict, solve_qcqp_strict_sharded,
+                          FEASIBLE, INFEASIBLE, UNDETERMINED)
 from .models.vertex import (Vertex, vertices_to_arrays,         # noqa: E402
                             structure_from_vertices,
                             create_random_vertices,
@@ -119,6 +122,6 @@ from .convert import (structure_from_fields, pre_from_numpy,    # noqa: E402
                       esdf_from_numpy, nonlinear_parameters_from_fields,
                       magnitude_constraint_from_fields,
                       nonlinear_result_to_numpy)
-from .entry import entry                                        # noqa: E402
+from .entry import entry, dryrun_multichip                      # noqa: E402
 
 __version__ = "0.6.0"

@@ -26,7 +26,7 @@ from mav_tube_trajectory_generation_tpu_torch.solver import auto as tauto
 from mav_tube_trajectory_generation_tpu_torch.solver import ipm as tipm
 from mav_tube_trajectory_generation_tpu_torch.solver import ipm_lanes as tlanes
 
-from torch_port_util import N, to_np, tt
+from torch_port_util import N, router_batch, to_np, tt
 
 K = 4
 ADMM_KW = dict(rho=0.005, n_stages=1, n_iters=24, rho_tube_factor=0.125,
@@ -39,20 +39,7 @@ ESCALATED = [2, 3, 7]
 def small_batch():
     """8 scenarios: generous corridors (gate pass), tight ones (escalate),
     one structurally infeasible (escalate + certificate)."""
-    rng = np.random.RandomState(11)
-    b = 8
-    waypoints = np.cumsum(rng.uniform(0.5, 2.0, size=(b, K + 1, 3)),
-                          axis=1).astype(np.float32)
-    ts = mtt.make_structure(mtt.free_interior_mask(K + 1, N), 3, N)
-    values = np.zeros((b, K + 1, 5, 3), dtype=np.float32)
-    values[:, :, 0, :] = waypoints
-    times = to_np(mtt.segment_times_nfabian(tt(waypoints), 3.0, 5.0))
-    radii = np.full((b, K, 2), 0.8, dtype=np.float32)
-    radii[2:4] = 0.1                       # tight: the 24-iter gate misses
-    df = to_np(mtt.extract_fixed_values(ts, tt(values))).copy()
-    df[7, 0, :] += 5.0                     # start 5 units off the corridor
-    radii[7] = 0.05
-    return ts, df, times, waypoints, radii, values
+    return router_batch()
 
 
 def _port_auto(batch, **kw):

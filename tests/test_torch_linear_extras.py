@@ -40,9 +40,9 @@ from torch_port_util import N, problem, to_np, tt
 H = N // 2
 F64 = dict(rtol=1e-9, atol=1e-12)
 
-# The JAX package's public names that belong to modules not ported yet
-# (the sharded router).
-NOT_YET_PORTED = {"solve_qcqp_strict_sharded"}
+# The JAX package's public names that belong to modules not ported yet:
+# none since the sharded router.
+NOT_YET_PORTED = set()
 
 
 def _public(module):
@@ -62,7 +62,8 @@ def test_package_exports_the_jax_names():
                  "compact_from_segment_derivatives",
                  "create_random_vertices_1d", "create_square_vertices",
                  "optimize", "optimize_time_gradient", "esdf_from_occupancy",
-                 "distance_at", "collision_potential", "make_obstacle_grid"):
+                 "distance_at", "collision_potential", "make_obstacle_grid",
+                 "solve_qcqp_strict_sharded"):
         assert callable(getattr(mtt, name)), name
 
 

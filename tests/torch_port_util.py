@@ -57,6 +57,30 @@ def problem(k=4, batch=8, seed=0, dtype=np.float32, radius=0.8):
         waypoints=waypoints, values=values, times=times, radii=radii).items()}
 
 
+def router_batch():
+    """The verdict router's fixture (K=4, batch 8, float32 NumPy arrays and
+    the port's free structure): generous corridors (rows 0, 1, 4-6 pass the
+    gate), tight ones (rows 2, 3 escalate), and row 7, whose start lies 5
+    units off its corridor (escalates and is certified infeasible).
+    Returns (structure, d_fixed, times, waypoints, radii, values)."""
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    k = 4
+    rng = np.random.RandomState(11)
+    b = 8
+    waypoints = np.cumsum(rng.uniform(0.5, 2.0, size=(b, k + 1, 3)),
+                          axis=1).astype(np.float32)
+    ts = mtt.make_structure(mtt.free_interior_mask(k + 1, N), 3, N)
+    values = np.zeros((b, k + 1, 5, 3), dtype=np.float32)
+    values[:, :, 0, :] = waypoints
+    times = to_np(mtt.segment_times_nfabian(tt(waypoints), 3.0, 5.0))
+    radii = np.full((b, k, 2), 0.8, dtype=np.float32)
+    radii[2:4] = 0.1                       # tight: the 24-iter gate misses
+    df = to_np(mtt.extract_fixed_values(ts, tt(values))).copy()
+    df[7, 0, :] += 5.0                     # start 5 units off the corridor
+    radii[7] = 0.05
+    return ts, df, times, waypoints, radii, values
+
+
 def jax_pre(k=4, batch=8, seed=0, n_iters=2, **config_kw):
     """(jax free structure, JAX-assembled pre-stage bundle as a dict of NumPy
     arrays with a flat batch axis, the problem dict) for float32 scenarios,
