@@ -178,7 +178,9 @@ FUSED_SEEDS = (0, 1)
 # percentile, reported only: there the class is within float32's noise (the
 # plain version's two orders of sums part by ~2x at that tail, and a median
 # of one float32 step of c, 6.1e-5, meets a bar of 5e-5), which the report
-# shows beside it (plain_cluster_order_tail).
+# shows beside it (plain_cluster_order_tail).  On the snap-only polish at
+# that batch the factor-alone check is gated: no row may lose the step that
+# the float64 solve of the kernel's own band finds (rows_lost_by_factor).
 FUSED_WIDE_ROWS = 512
 IPM_SOURCES = ("gt_matvec", "ipm_eval", "ipm_pipe", "ipm_solve")
 PKG = "mav_tube_trajectory_generation_tpu_torch"
@@ -524,6 +526,12 @@ def phase_build(state):
     for src, names in IPM_ENTRIES.items():
         entries.update(entry_report(_build.build_log(src), names))
     state["ipm_designs"] = designs
+    # #11's pivot floor as built, beside the plain version's (the wrapper
+    # refuses to launch when they differ)
+    floor = dict(library=ipm_kernel._library("ipm_solve")
+                 .ipm_solve_pivot_floor(), plain=ipm_kernel.PIVOT_FLOOR)
+    if floor["library"] != ctypes.c_float(floor["plain"]).value:
+        bad.append(f"ipm_solve pivot floor {floor}")
     emit("build_ipm", parallel_wall_seconds=round(wall, 3),
          libraries=[build_report(_build, n) for n in IPM_SOURCES],
          control_builds=[dict(source=n, defines=list(d),
@@ -534,7 +542,7 @@ def phase_build(state):
              for n in ("ipm_eval", "ipm_pipe", "ipm_solve")},
          entry_functions=entries, designs=designs,
          max_dynamic_smem_bytes=MAX_DYNAMIC_SMEM,
-         threads_per_block=ipm_kernel.THREADS)
+         threads_per_block=ipm_kernel.THREADS, ipm_solve_pivot_floor=floor)
     if bad or len(entries) != sum(map(len, IPM_ENTRIES.values())):
         raise RuntimeError(f"build: #8-#11 do not take the expected design "
                            f"{IPM_DESIGNS} with the layout Python computes, "
@@ -1493,37 +1501,47 @@ def fused_class(ipm_kernel, args, kw, ours):
 
 
 @contextlib.contextmanager
-def counting_floors(ipm_kernel, sink):
-    """While the block runs, each call of the plain band factor's
-    elimination (``ipm_kernel._floored_elimination``) ORs into
-    ``sink[dtype]`` the (B,) mask of the scenarios in which one of its
-    pivots falls under PIVOT_FLOOR (or below zero): the rows where the
-    port's factor departs from the JAX kernel's Gauss-Jordan inverses.  The
-    pivots are read from the same elimination unfloored, which reaches the
-    same first such pivot."""
+def counting_floors(ipm_kernel, sink, kw):
+    """While the block runs, each call of the plain band factor
+    (``ipm_kernel._band_factor_solve``) ORs into ``sink[(dtype, step)]`` the
+    (B,) mask of the scenarios in which the floor lifts one of its pivots
+    (the shift E it reports is positive, or a pivot of a finite band is
+    NaN): the rows where the port's factor solves H + E, not H as the JAX
+    kernel's does.  ``step`` is "newton" or "snap": every polish run in the
+    block has ``kw``'s schedule, whose first n_iters factors of a dtype are
+    its Newton steps and the next snap_iters its snap sweeps."""
     import torch
-    keep = ipm_kernel._floored_elimination
+    keep = ipm_kernel._band_factor_solve
+    steps, calls = kw["n_iters"] + kw["snap_iters"], {}
 
-    def spy(a, r, floor=ipm_kernel.PIVOT_FLOOR):
-        eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
-        linv = keep(a, eye.expand_as(a).clone(), -float("inf"))
-        piv = torch.diagonal(linv, dim1=-2, dim2=-1) ** -2
-        hit = ((piv < floor) | (torch.isnan(piv) & torch.isfinite(
-            a).all(-1).all(-1)[:, None])).any(-1)
-        key = str(a.dtype).replace("torch.", "")
+    def spy(gd, gu, pe_d, pe_u, reg, rhs, blk):
+        dx, shift = keep(gd, gu, pe_d, pe_u, reg, rhs, blk,
+                         return_shift=True)
+        dt = str(gd.dtype).replace("torch.", "")
+        i = calls.get(dt, 0)
+        calls[dt] = i + 1
+        step = "newton" if i % steps < kw["n_iters"] else "snap"
+        finite = torch.stack([torch.isfinite(t).flatten(1).all(1)
+                              for t in (gd, gu, pe_d, pe_u)]).all(0)
+        hit = ((shift > 0) | (torch.isnan(shift) & finite[:, None, None])
+               ).flatten(1).any(1)
+        key = (dt, step)
         sink[key] = sink[key] | hit if key in sink else hit
-        return keep(a, r, floor)
+        return dx
 
-    ipm_kernel._floored_elimination = spy
+    ipm_kernel._band_factor_solve = spy
     try:
         yield
     finally:
-        ipm_kernel._floored_elimination = keep
+        ipm_kernel._band_factor_solve = keep
 
 
 def floored_counts(sink):
-    """{dtype: rows} of a counting_floors sink."""
-    return {k: int(v.sum()) for k, v in sorted(sink.items())}
+    """{dtype: {step: rows}} of a counting_floors sink."""
+    out = {}
+    for (dt, step), v in sorted(sink.items()):
+        out.setdefault(dt, {})[step] = int(v.sum())
+    return out
 
 
 # A kernel that is wrong by a little must fail the row criteria.  The
@@ -1558,7 +1576,7 @@ def fused_controls_rejected(ipm_kernel, args, kw, summary):
     return out, ok
 
 
-def factor_alone(ipm_kernel, args, kw, ours):
+def factor_alone(ipm_kernel, args, kw, ours, defines=()):
     """Which part of the whole polish loses the snap direction, on one
     snap-only call (n_iters 0): the kernel built with IPM_SOLVE_DUMP writes,
     for every scenario, the band its first sweep factors, the right-hand
@@ -1577,7 +1595,11 @@ def factor_alone(ipm_kernel, args, kw, ours):
     direction gives one that the kernel's band solved in float64 does not,
     else neither.  ``ours``: the call's outputs in the design the shape
     takes, which the dump build must repeat bit for bit.  The plain factor
-    is the port's (the floored block Cholesky) in both precisions."""
+    is the port's (the floored block Cholesky) in both precisions.  Over
+    all rows besides: those where the kernel's own band solved in float64
+    gives a step and the kernel's direction does not
+    (``rows_lost_by_factor``).  ``defines``: more macros of the build (the
+    library the wrappers hold must have been built with them too)."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch import _build
     gt, b, rb, pe_d, pe_u = args[:5]
@@ -1587,7 +1609,7 @@ def factor_alone(ipm_kernel, args, kw, ours):
     bsz, nfd, _ = gt.shape
     m_blk = nfd // blk
     nhd, nband = nfd * blk, (2 * m_blk - 1) * blk * blk
-    defines = IPM_SOLVE_DUMP
+    defines = IPM_SOLVE_DUMP + tuple(defines)
     lib = _build.variant("ipm_solve", defines)
     lib.ipm_solve_dump_set.argtypes = [ctypes.c_void_p]
     lib.ipm_solve_dump_set.restype = ctypes.c_int
@@ -1684,24 +1706,29 @@ def factor_alone(ipm_kernel, args, kw, ours):
     at_fault = ("factor" if factor and factor >= band else
                 "band" if band else "neither")
     del dump, e9, e64, band9, band64, d64, d64_k, d32_k
+    lost = int((steps["f64_of_kernel_band"] & ~steps["kernel"]).sum())
     return dict(residual_class=cls, kernel_run_bit_identical_with_dump=same,
                 stalled_rows=on(stalled), all_rows=on(torch.ones_like(
                     stalled)), stalled_rows_lost_by_factor=factor,
-                stalled_rows_lost_by_band=band, part_at_fault=at_fault)
+                stalled_rows_lost_by_band=band, part_at_fault=at_fault,
+                rows_lost_by_factor=lost)
 
 
 def wide_fused_report(mtt, label, k):
     """The six whole polishes of ``record_lanes`` at FUSED_WIDE_ROWS rows of
     seed 1, each held to the residual class (its 99th percentile at this
     batch) and the row criteria, reported; on the snap-only polish, the
-    factor-alone check."""
+    factor-alone check, gated: no row where the kernel's own band solved in
+    float64 gives a step and the kernel's direction does not (what the
+    pivot floor is for; ``ops.ipm_kernel.PIVOT_FLOOR``).  Returns (cases,
+    failures)."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     fused_calls = record_lanes(mtt, k, FUSED_WIDE_ROWS, seed=1)[3]
-    out = []
+    out, bad = [], []
     for args, kw, ours in fused_calls:
         floors = {}
-        with counting_floors(ipm_kernel, floors):
+        with counting_floors(ipm_kernel, floors, kw):
             res, ok, summary = check_call(
                 ipm_kernel.ipm_solve_fused, ipm_kernel.ipm_solve_fused_plain,
                 FUSED_OUT, args, kw, ours=ours, uncapped=fused_uncapped(kw))
@@ -1722,12 +1749,16 @@ def wide_fused_report(mtt, label, k):
                 n for n, v in summary.items() if not v["ok"]],
             residual_class_holds=cls_ok, residual_class=cls))
         if (kw["n_iters"], kw["snap_iters"]) == (0, 2):
+            alone = factor_alone(ipm_kernel, args, kw, ours)
             out.append(dict(kernel="ipm_solve_fused factor alone",
                             shapes=label, gt_shape=list(args[0].shape),
-                            **factor_alone(ipm_kernel, args, kw, ours)))
+                            gated=True, **alone))
+            if alone["rows_lost_by_factor"]:
+                bad.append(f"factor alone {label}: the kernel's direction "
+                           f"loses {alone['rows_lost_by_factor']} rows")
     del fused_calls
     torch.cuda.empty_cache()
-    return out
+    return out, bad
 
 
 def record_lanes(mtt, k, batch, seed, fused=True):
@@ -4010,6 +4041,61 @@ def phase_band_bits(state, mtt, parent_file=None):
                            f"({parent_file}): {differ}")
 
 
+def fused_call_checks(ipm_kernel, label, fused_calls, full, want,
+                      rerun=False):
+    """``ipm_kernel_check``'s cases of #11 on one shape's recorded
+    whole-polish calls (``record_lanes``): each held to the row criteria and
+    the residual class in the design ``want``, with the rows in which the
+    plain version floors a pivot; with ``full`` the one-step controls and
+    the one-sweep control (gated at the flagship).  ``rerun``: the kernel is
+    run again on each call (the library in use may differ from the one the
+    calls were recorded with).  Returns (cases, failures)."""
+    cases, bad = [], []
+    for args, kw, out in fused_calls:
+        if rerun:
+            out = ipm_kernel.ipm_solve_fused(*args, **kw)
+        floors = {}
+        with counting_floors(ipm_kernel, floors, kw):
+            res, ok, summary = check_call(
+                ipm_kernel.ipm_solve_fused,
+                ipm_kernel.ipm_solve_fused_plain, FUSED_OUT, args, kw,
+                ours=out, uncapped=fused_uncapped(kw))
+            cls, cls_ok = fused_class(ipm_kernel, args, kw, out)
+        design = ipm_design_of(ipm_kernel, "ipm_solve_fused", args, kw)
+        cases.append(dict(kernel="ipm_solve_fused", shapes=label,
+                          gt_shape=list(args[0].shape),
+                          n_iters=kw["n_iters"],
+                          snap_iters=kw["snap_iters"], design=design,
+                          plain_rows_flooring_a_pivot=floored_counts(
+                              floors),
+                          **res, residual_class=cls))
+        if not (ok and cls_ok) or design != want:
+            bad.append(f"fused {label} n_iters={kw['n_iters']} "
+                       f"({design})")
+        if full and (kw["n_iters"], kw["snap_iters"]) == (1, 0):
+            rejected, rej_ok = fused_controls_rejected(
+                ipm_kernel, args, kw, summary)
+            cases.append(dict(
+                kernel="ipm_solve_fused", shapes=label, n_iters=1,
+                snap_iters=0, kernel_with_one_scalar_off_rejected=rejected))
+            if not rej_ok:
+                bad.append(f"fused {label}: a wrong kernel passes")
+        if full and (kw["n_iters"], kw["snap_iters"]) == (0, 2):
+            wrong = ipm_kernel.ipm_solve_fused(*args,
+                                               **dict(kw, snap_iters=1))
+            w_cls, w_ok = fused_class(ipm_kernel, args, kw, wrong)
+            cases.append(dict(
+                kernel="ipm_solve_fused", shapes=label, n_iters=0,
+                snap_iters=2, kernel_with_one_sweep_rejected=not w_ok,
+                control_gated=label.startswith("flagship"),
+                residual_class=w_cls))
+            if w_ok and label.startswith("flagship"):
+                bad.append(f"fused {label}: a kernel with one snap "
+                           f"sweep passes the residual class")
+            del wrong
+    return cases, bad
+
+
 def phase_ipm_kernel_check(state, mtt):
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
@@ -4069,46 +4155,10 @@ def phase_ipm_kernel_check(state, mtt):
             if not ok or not band_err <= IPM_ROW_TOL or design != want:
                 bad.append(f"eval gram {label} phr={kw['phr']} ({design})")
             del gout
-        for args, kw, out in fused_calls:
-            floors = {}
-            with counting_floors(ipm_kernel, floors):
-                res, ok, summary = check_call(
-                    ipm_kernel.ipm_solve_fused,
-                    ipm_kernel.ipm_solve_fused_plain, FUSED_OUT, args, kw,
-                    ours=out, uncapped=fused_uncapped(kw))
-                cls, cls_ok = fused_class(ipm_kernel, args, kw, out)
-            design = ipm_design_of(ipm_kernel, "ipm_solve_fused", args, kw)
-            cases.append(dict(kernel="ipm_solve_fused", shapes=label,
-                              gt_shape=list(args[0].shape),
-                              n_iters=kw["n_iters"],
-                              snap_iters=kw["snap_iters"], design=design,
-                              plain_rows_flooring_a_pivot=floored_counts(
-                                  floors),
-                              **res, residual_class=cls))
-            if not (ok and cls_ok) or design != want:
-                bad.append(f"fused {label} n_iters={kw['n_iters']} "
-                           f"({design})")
-            if full and (kw["n_iters"], kw["snap_iters"]) == (1, 0):
-                rejected, rej_ok = fused_controls_rejected(
-                    ipm_kernel, args, kw, summary)
-                cases.append(dict(
-                    kernel="ipm_solve_fused", shapes=label, n_iters=1,
-                    snap_iters=0, kernel_with_one_scalar_off_rejected=rejected))
-                if not rej_ok:
-                    bad.append(f"fused {label}: a wrong kernel passes")
-            if full and (kw["n_iters"], kw["snap_iters"]) == (0, 2):
-                wrong = ipm_kernel.ipm_solve_fused(*args,
-                                                   **dict(kw, snap_iters=1))
-                w_cls, w_ok = fused_class(ipm_kernel, args, kw, wrong)
-                cases.append(dict(
-                    kernel="ipm_solve_fused", shapes=label, n_iters=0,
-                    snap_iters=2, kernel_with_one_sweep_rejected=not w_ok,
-                    control_gated=label.startswith("flagship"),
-                    residual_class=w_cls))
-                if w_ok and label.startswith("flagship"):
-                    bad.append(f"fused {label}: a kernel with one snap "
-                               f"sweep passes the residual class")
-                del wrong
+        more, more_bad = fused_call_checks(ipm_kernel, label, fused_calls,
+                                           full, want)
+        cases += more
+        bad += more_bad
         if not full:               # the kept one-block bodies
             del pairs, eval_calls, mv_calls, fused_calls
             torch.cuda.empty_cache()
@@ -4196,7 +4246,9 @@ def phase_ipm_kernel_check(state, mtt):
             bad.append(f"fused nan row {label}")
         del pairs, eval_calls, mv_calls, fused_calls
         torch.cuda.empty_cache()
-        cases.extend(wide_fused_report(mtt, label, k))
+        more, more_bad = wide_fused_report(mtt, label, k)
+        cases += more
+        bad += more_bad
     emit("ipm_kernel_check", tolerance_is="per output, errors per scenario "
          "as a share of max|plain f64 output|, e_k = kernel vs plain f64, "
          "e_p = plain f32 vs plain f64: (1) at each listed quantile over the "
@@ -4216,7 +4268,9 @@ def phase_ipm_kernel_check(state, mtt):
          f"0's band partial: each must be rejected at the flagship and at "
          f"K=4; K=12 runs #8-#11 in their one-block bodies, without "
          f"controls",
-         cases=cases)
+         factor_alone_gate="on the snap-only polish of FUSED_WIDE_ROWS rows "
+         "at the flagship and K=4: rows_lost_by_factor must be 0",
+         pivot_floor=ipm_kernel.PIVOT_FLOOR, cases=cases)
     if bad:
         raise RuntimeError(f"ipm_kernel_check failed for {bad}")
 
@@ -4262,6 +4316,69 @@ def device_time_of(fn):
                 most_launched=named(sorted(rows, key=lambda r: -r[2])[:8]))
 
 
+def under_gate(sol):
+    """Rows of a solution under the strict gate."""
+    return int((sol.max_violation < STRICT_GATE).sum())
+
+
+def p99_violation(sol):
+    import torch
+    return float(torch.quantile(sol.max_violation.double(), 0.99))
+
+
+def fused_cost_gap(a, b):
+    """The relative cost gap of two solutions of one batch, row by row."""
+    import torch
+    g = ((a.cost - b.cost).abs() / b.cost.abs()).double()
+    return dict(median=float(g.median()),
+                p99=float(torch.quantile(g, 0.99)), worst=float(g.max()),
+                rows_over_1e_2=int((g > FUSED_COST_P99).sum()),
+                converged=[int(a.converged.sum()), int(b.converged.sum())])
+
+
+def fused_gate(kern, plain, seed):
+    """The fused path's gate on one seed (the bars above FUSED_COST_MEDIAN):
+    the polish with #11 (``kern``) against the same polish with #11's plain
+    version in its place, each bar read as a margin, the reading over its
+    limit (at most 1 passes)."""
+    batch = kern.cost.shape[0]
+    slack = max(2, int(IPM_GROSS_SLACK * batch))
+    gap = fused_cost_gap(kern, plain)
+    entry = dict(seed=seed, cost_gap=gap,
+                 under_gate=[under_gate(kern), under_gate(plain)],
+                 infeasible=[int(kern.infeasible.sum()),
+                             int(plain.infeasible.sum())],
+                 p99_violation=[p99_violation(kern), p99_violation(plain)],
+                 order="[kernel, plain]")
+    entry["margins"] = dict(
+        cost_gap_median=gap["median"] / FUSED_COST_MEDIAN,
+        cost_gap_p99=gap["p99"] / FUSED_COST_P99,
+        rows_over_1e_2=gap["rows_over_1e_2"]
+        / (FUSED_COST_OUTLIER_SHARE * batch),
+        under_gate_below_plain=(entry["under_gate"][1]
+                                - entry["under_gate"][0])
+        / (FUSED_UNDER_GATE_SHARE * batch),
+        p99_violation=entry["p99_violation"][0]
+        / (3.0 * entry["p99_violation"][1] + 1e-6),
+        infeasible=entry["infeasible"][0]
+        / (2 * entry["infeasible"][1] + slack))
+    entry["ok"] = all(v <= 1.0 for v in entry["margins"].values())
+    return entry
+
+
+def margins_vs_scan(sol, scan):
+    """The fused polish's ends against the scan polish's, as margins (at
+    most 1 passes): the cost gap's median and 99th percentile, rows under
+    the strict gate at least 0.98 of the scan's, the 99th-percentile
+    violation at most 3x the scan's + 1e-6."""
+    gap = fused_cost_gap(sol, scan)
+    return dict(cost_gap_median=gap["median"] / FUSED_COST_MEDIAN,
+                cost_gap_p99=gap["p99"] / FUSED_COST_P99,
+                under_gate=0.98 * under_gate(scan) / max(under_gate(sol), 1),
+                p99_violation=p99_violation(sol)
+                / (3.0 * p99_violation(scan) + 1e-6))
+
+
 def phase_fused_path(state, mtt):
     """The polish with the whole interior-point method in one launch, at
     full width, and the fused polish beside the step-by-step one at the row
@@ -4284,9 +4401,19 @@ def phase_fused_path(state, mtt):
     with recorded(ipm_kernel, "ipm_solve_fused", calls):
         polished(fused_cfg)                               # warm-up
     torch.cuda.synchronize()
+    fused_args, fused_kw = calls[0][:2]
     state.setdefault("recorded", {})["ipm_solve_fused"] = to_device(
         calls[0][:2], "cpu")
     del calls
+    # The rows in which the plain factor floors a pivot, Newton steps and
+    # snap sweeps apart: in float32 on each seed's plain polish below, in
+    # float64 on this call.
+    floors = {seed: {} for seed in FUSED_SEEDS}
+    with counting_floors(ipm_kernel, floors[0], fused_kw):
+        ipm_kernel.ipm_solve_fused_plain(*(to64(a) for a in fused_args),
+                                         **fused_kw)
+    del fused_args
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_pass + 1)]
@@ -4307,58 +4434,28 @@ def phase_fused_path(state, mtt):
     finite = bool(torch.isfinite(sol.cost).all()
                   and torch.isfinite(viol).all())
 
-    def under(r):
-        return int((r.max_violation < STRICT_GATE).sum())
-
-    def p99_violation(r):
-        return float(torch.quantile(r.max_violation.double(), 0.99))
-
-    def cost_gap(a, b):
-        g = ((a.cost - b.cost).abs() / b.cost.abs()).double()
-        return dict(median=float(g.median()),
-                    p99=float(torch.quantile(g, 0.99)), worst=float(g.max()),
-                    rows_over_1e_2=int((g > FUSED_COST_P99).sum()),
-                    converged=[int(a.converged.sum()),
-                               int(b.converged.sum())])
-
     # The gate: the kernel against its own plain version, nothing else
     # changed, on two seeds.
-    against_plain, plain_ok = [], True
-    slack = max(2, int(IPM_GROSS_SLACK * batch))
+    against_plain = []
     for seed in FUSED_SEEDS:
         inputs = sc if seed == 0 else mtt.make_inputs(k, batch, seed=seed)
         kern = sol if seed == 0 else polished(fused_cfg, inputs)
-        with plain_kernels(only=("ipm_solve_fused",)):
+        with plain_kernels(only=("ipm_solve_fused",)), \
+                counting_floors(ipm_kernel, floors[seed], fused_kw):
             plain = polished(fused_cfg, inputs)
-        gap = cost_gap(kern, plain)
-        entry = dict(seed=seed, cost_gap=gap,
-                     under_gate=[under(kern), under(plain)],
-                     infeasible=[int(kern.infeasible.sum()),
-                                 int(plain.infeasible.sum())],
-                     p99_violation=[p99_violation(kern),
-                                    p99_violation(plain)],
-                     order="[kernel, plain]")
-        entry["ok"] = bool(
-            gap["median"] <= FUSED_COST_MEDIAN
-            and gap["p99"] <= FUSED_COST_P99
-            and gap["rows_over_1e_2"] <= FUSED_COST_OUTLIER_SHARE * batch
-            and entry["under_gate"][0] >= entry["under_gate"][1]
-            - FUSED_UNDER_GATE_SHARE * batch
-            and entry["p99_violation"][0] <= 3.0 * entry["p99_violation"][1]
-            + 1e-6
-            and entry["infeasible"][0] <= 2 * entry["infeasible"][1] + slack)
-        plain_ok = plain_ok and entry["ok"]
-        against_plain.append(entry)
+        against_plain.append(fused_gate(kern, plain, seed))
         del kern, plain, inputs
+    plain_ok = all(e["ok"] for e in against_plain)
 
     # Reported only: the scan polish's worst rows, beside how far two other
     # float32 schedules of the same polish (pipelined against scan) part.
     pipelined = polished(mtt.IPMConfig(pipelined=True, **cfg))
-    vs_scan = cost_gap(sol, scan)
-    spread = cost_gap(pipelined, scan)
+    vs_scan = fused_cost_gap(sol, scan)
+    spread = fused_cost_gap(pipelined, scan)
     del pipelined
+    scan_margins = margins_vs_scan(sol, scan)
     quality = dict(
-        under_gate=under(sol), scan_under_gate=under(scan),
+        under_gate=under_gate(sol), scan_under_gate=under_gate(scan),
         median_violation=float(viol.median()),
         p99_violation=p99_violation(sol),
         scan_median_violation=float(scan.max_violation.median()),
@@ -4368,7 +4465,8 @@ def phase_fused_path(state, mtt):
         infeasible=int(sol.infeasible.sum()),
         scan_infeasible=int(scan.infeasible.sum()),
         kernel_vs_own_plain=against_plain,
-        cost_gap_vs_scan=vs_scan, cost_gap_pipelined_vs_scan=spread)
+        cost_gap_vs_scan=vs_scan, margins_vs_scan=scan_margins,
+        cost_gap_pipelined_vs_scan=spread)
     shapes_ok = (sol.coefficients.shape == (batch, k, 10, 3)
                  and sol.infeasible.shape == (batch,))
 
@@ -4417,8 +4515,17 @@ def phase_fused_path(state, mtt):
                          FUSED_COST_OUTLIER_SHARE * batch),
                      under_gate_below_plain=int(
                          FUSED_UNDER_GATE_SHARE * batch),
-                     infeasible="2x plain + %d" % slack),
-         polish_alone_by_rows=by_rows, nvidia_smi=state.get("nvidia_smi"))
+                     infeasible="2x plain + %d" % max(
+                         2, int(IPM_GROSS_SLACK * batch))),
+         polish_alone_by_rows=by_rows,
+         pivot_floor=ipm_kernel.PIVOT_FLOOR,
+         plain_rows_flooring_a_pivot={
+             f"seed {seed}": floored_counts(f) for seed, f in floors.items()},
+         plain_rows_flooring_a_pivot_are="rows of the batch in which the "
+         "plain factor lifts a pivot to the floor in some Newton step or in "
+         "some snap sweep: float32 in each seed's plain polish, float64 in "
+         "the plain polish of seed 0's call run in float64",
+         nvidia_smi=state.get("nvidia_smi"))
     if not shapes_ok or not finite:
         raise RuntimeError("fused_path: bad shapes or non-finite outputs")
     if launches["ipm_solve_fused"] != n_pass:
@@ -4427,14 +4534,9 @@ def phase_fused_path(state, mtt):
     if not plain_ok:
         raise RuntimeError(f"fused_path: the kernel's polish is off its "
                            f"plain version's: {against_plain}")
-    if not (vs_scan["median"] <= FUSED_COST_MEDIAN
-            and vs_scan["p99"] <= FUSED_COST_P99):
-        raise RuntimeError(f"fused_path: cost off the scan path's: {vs_scan}")
-    if quality["under_gate"] < 0.98 * quality["scan_under_gate"] or \
-            quality["p99_violation"] > 3.0 * quality["scan_p99_violation"] \
-            + 1e-6:
-        raise RuntimeError(f"fused_path: violations off the scan path's "
-                           f"class: {quality}")
+    if not all(v <= 1.0 for v in scan_margins.values()):
+        raise RuntimeError(f"fused_path: cost or violations off the scan "
+                           f"path's class: {quality}")
 
 
 def strict_call(mtt, sc, radii=None, n=None, **kw):
@@ -4945,7 +5047,7 @@ def ipm_kernel_rows(state, mtt):
         the plain version floors a pivot of its band factor, in float32
         and in float64."""
         floors = {}
-        with counting_floors(ipm_kernel, floors):
+        with counting_floors(ipm_kernel, floors, kw):
             cls, cls_ok = fused_class(ipm_kernel, args, kw, outs)
             ipm_kernel.ipm_solve_fused_plain(*(to64(a) for a in args), **kw)
         short = []

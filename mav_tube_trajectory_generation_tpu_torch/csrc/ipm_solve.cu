@@ -133,8 +133,13 @@ __host__ __device__ inline bool factors_fit(int nfd, int blk) {
 }
 
 // The floor under the band factor's pivots (ops/ipm_kernel.py,
-// PIVOT_FLOOR): the equilibrated diagonal is 1.
-constexpr float kPivotFloor = 1e-4f;
+// PIVOT_FLOOR, and why): the equilibrated diagonal is 1.  A build may set
+// another (-DIPM_PIVOT_FLOOR=1e-6f: pivot_floor_sweep.py's candidates);
+// ipm_solve_pivot_floor says which one a library holds.
+#ifndef IPM_PIVOT_FLOOR
+#define IPM_PIVOT_FLOOR 1e-4f
+#endif
+constexpr float kPivotFloor = IPM_PIVOT_FLOOR;
 
 // Jacobi equilibration of the band in place: dsc = rsqrt(max(diag, 1e-30)),
 // hd and hu scaled to D H D.  Must be reached by every thread.
@@ -824,6 +829,9 @@ extern "C" int ipm_solve_fused_launch(
   ipm_solve_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+// The floor under the band factor's pivots this library was built with.
+extern "C" float ipm_solve_pivot_floor() { return kPivotFloor; }
 
 // The design the polish takes at these shapes on the current device: 1 the
 // cluster design, 0 the one-block body ("stream").

@@ -595,30 +595,45 @@ def _pipe_step_plain(gt, b, rb, pe_d, pe_u, q, x, s, lam, y, bx, by, bm,
 # The floor under the pivots of the whole polish's band factor, on the
 # Jacobi-equilibrated band (unit diagonal).  In float32 a Gauss-Jordan
 # inverse of each pivot block (the JAX kernel's scheme), or a Cholesky
-# without a floor, loses the snap direction where the snap Hessian's
-# condition nears 1e12: the float64 solve of the same float32 band lowers
-# phi in most rows whose sweeps stall, the float32 Gauss-Jordan factor in
-# none (chip_smoke.py, factor_alone).  With the floor the factor is that of
-# an SPD matrix H + E (E diagonal, E >= 0, nonzero only where a pivot falls
-# under the floor), so the direction descends on its model.  Where no pivot
-# falls under it the factor solves H itself, as the JAX kernel's does;
-# chip_smoke.py reports, for each whole-polish call it checks, the rows in
-# which the plain version floors a pivot in float32 and in float64.
+# without a floor, loses the snap direction: the float64 solve of the same
+# float32 band lowers phi in rows whose float32 direction does not
+# (chip_smoke.py, factor_alone).  With the floor the factor is that of an
+# SPD matrix H + E (E diagonal, E >= 0, nonzero only where a pivot falls
+# under the floor; ``_band_factor_solve`` returns it with
+# ``return_shift``), so the direction descends on its model.  Where no pivot
+# falls under the floor the factor solves H itself, as the JAX kernel's
+# does (tests/test_torch_ipm_factor.py holds the two in float64).
+#
+# Why 1e-4 and not less (pivot_floor_sweep.py: 1e-5, 1e-6, 1e-7 and only a
+# pivot that is not positive, kernel and plain version together): the snap
+# sweeps' equilibrated pivots lie under 1e-5 in nearly every row in float64
+# too, so every floor float32 can resolve binds there.  At 1e-5 the
+# factor-alone check loses rows that the float64 solve of the kernel's own
+# band keeps; from 1e-6 down the fused polish also leaves rows above the
+# strict gate that the same polish with the plain version, and the scan
+# polish, clear.  chip_smoke.py reports, for each whole-polish call it
+# checks, the rows in which the plain version floors a pivot, Newton steps
+# and snap sweeps apart, in float32 and in float64.
 PIVOT_FLOOR = 1e-4
 
 
-def _floored_elimination(a, r, floor: float = PIVOT_FLOOR):
+def _floored_elimination(a, r, floor=None, raw=None):
     """L^-1 r for the lower L with L L^T = a + E, E >= 0 diagonal: Gaussian
     elimination without row swaps on [a | r] ((B, b, b), (B, b, q)), each
-    pivot max(pivot, floor) (NaN stays NaN; the pivots of the Cholesky of a
-    + E), the eliminated rows of r over the square roots of their pivots:
-    the kernel's order (csrc/ipm_solve.cu, band_factor_solve)."""
+    pivot max(pivot, floor) (``floor`` None: ``PIVOT_FLOOR``; NaN stays NaN;
+    the pivots of the Cholesky of a + E, E's diagonal the floored pivots
+    less the raw ones), the eliminated rows of r over the square roots of
+    their pivots: the kernel's order (csrc/ipm_solve.cu,
+    band_factor_solve).  ``raw``: a list that gets the (B, b) pivots as
+    they were before the floor."""
+    floor = PIVOT_FLOOR if floor is None else floor
     n = a.shape[-1]
     rows = torch.arange(n, device=a.device)[:, None]
     w = torch.cat([a, r], dim=2)
-    pivots = []
+    unfloored, pivots = [], []
     for k in range(n):
         pivot = w[:, k, k]
+        unfloored.append(pivot)
         pivot = torch.where(pivot < floor, torch.full_like(pivot, floor),
                             pivot)
         pivots.append(pivot)
@@ -626,14 +641,18 @@ def _floored_elimination(a, r, floor: float = PIVOT_FLOOR):
                                                                    None],
                         torch.zeros_like(w[:, :, k:k + 1]))
         w = w - m * w[:, k:k + 1, :]
+    if raw is not None:
+        raw.append(torch.stack(unfloored, dim=1))
     rd = 1.0 / torch.sqrt(torch.stack(pivots, dim=1))
     return w[:, :, n:] * rd[:, :, None]
 
 
-def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
+def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int,
+                       return_shift: bool = False):
     """Equilibrated twisted block-Cholesky factor and single-column solve of
     H = blocktridiag(pe_d + gd + reg I, pe_u + gu), all blocks stacked
-    (B, m, blk, blk) / (B, m-1, blk, blk); rhs (B, nfd, 1).  Returns dx.
+    (B, m, blk, blk) / (B, m-1, blk, blk); rhs (B, nfd, 1).  Returns dx
+    (B, nfd, 1).
 
     H is Jacobi-equilibrated (D H D, D = rsqrt(max(diag H, 1e-30))) and
     factored from both ends towards the middle block c = (m - 1) // 2: the
@@ -647,7 +666,13 @@ def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
     with p the block nearer the middle: the order of the whole-polish
     kernel, whose cluster runs the two sweeps on its two blocks.  The JAX
     kernel factors top-down with Gauss-Jordan inverses of the pivot blocks
-    instead; see ``PIVOT_FLOOR`` for why the port does not.
+    instead; see ``PIVOT_FLOOR`` for why the port does not, and why its
+    floor is 1e-4.
+
+    The factor is that of H + E: E diagonal, E >= 0, its entries the floor
+    less the pivot (over D^2) where a pivot falls under ``PIVOT_FLOOR``,
+    NaN where a pivot is NaN, else 0.  With ``return_shift`` the call
+    returns (dx, E's diagonal (B, nfd, 1)), dx = (H + E)^-1 rhs.
     """
     m_blk = gd.shape[1]
     eye_b = torch.eye(blk, dtype=gd.dtype, device=gd.device)
@@ -657,7 +682,7 @@ def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
     hd = h_d * dsc[:, :, :, None] * dsc[:, :, None, :]
     hu = (gu + pe_u) * dsc[:, :-1, :, None] * dsc[:, 1:, None, :]
     mid = (m_blk - 1) // 2
-    linv, cpl, z = {}, {}, {}
+    linv, cpl, z, raw = {}, {}, {}, {}
 
     def block(b, prevs, coupling):
         s_b = hd[:, b]
@@ -667,8 +692,10 @@ def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
             v_b = v_b - cpl[p].transpose(1, 2) @ z[p]
         parts = [eye_b.expand_as(s_b)] + ([coupling] if coupling is not None
                                           else [])
-        out = _floored_elimination(s_b, torch.cat(parts + [v_b], dim=2))
-        linv[b], z[b] = out[:, :, :blk], out[:, :, -1:]
+        got = []
+        out = _floored_elimination(s_b, torch.cat(parts + [v_b], dim=2),
+                                   raw=got)
+        linv[b], z[b], raw[b] = out[:, :, :blk], out[:, :, -1:], got[0]
         if coupling is not None:
             cpl[b] = out[:, :, blk:2 * blk]
 
@@ -682,8 +709,14 @@ def _band_factor_solve(gd, gu, pe_d, pe_u, reg: float, rhs, blk: int):
     for b in list(range(mid - 1, -1, -1)) + list(range(mid + 1, m_blk)):
         p = b + 1 if b < mid else b - 1
         x_p[b] = linv[b].transpose(1, 2) @ (z[b] - cpl[b] @ x_p[p])
-    return torch.cat([x_p[i] * dsc[:, i, :, None] for i in range(m_blk)],
-                     dim=1)
+    dx = torch.cat([x_p[i] * dsc[:, i, :, None] for i in range(m_blk)],
+                   dim=1)
+    if not return_shift:
+        return dx
+    shift = torch.clamp(PIVOT_FLOOR - torch.cat([raw[i] for i in
+                                                 range(m_blk)], dim=1),
+                        min=0.0)                     # NaN stays NaN
+    return dx, (shift / dsc.reshape(shift.shape) ** 2)[:, :, None]
 
 
 def ipm_solve_fused_plain(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw,
@@ -850,6 +883,8 @@ def _library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = i32
             lib.ipm_solve_cluster_smem_bytes.argtypes = [i32] * 4
             lib.ipm_solve_cluster_smem_bytes.restype = i32
+            lib.ipm_solve_pivot_floor.argtypes = []
+            lib.ipm_solve_pivot_floor.restype = f32
         _configured[id(lib)] = True
     return lib
 
@@ -1177,6 +1212,10 @@ def ipm_solve_fused(gt, b, rb, pe_d, pe_u, q, x0, s0, lam0, y0, act, cw, *,
     _check("cw", cw, (1, 1, m_p), dev)
 
     lib = _library("ipm_solve")
+    if lib.ipm_solve_pivot_floor() != ctypes.c_float(PIVOT_FLOOR).value:
+        raise ValueError(f"the ipm_solve library floors its pivots at "
+                         f"{lib.ipm_solve_pivot_floor()}, the plain version "
+                         f"at PIVOT_FLOOR = {PIVOT_FLOOR}")
     f32 = torch.float32
     row = lambda: torch.empty((bsz, 1, m_p), dtype=f32, device=dev)
     one = lambda: torch.empty((bsz, 1, 1), dtype=f32, device=dev)

@@ -142,21 +142,19 @@ def _rows_flooring_in_float64(args, kw):
     factor, and the port's floored Cholesky deliberately gives another
     direction than the JAX kernel's Gauss-Jordan inverses."""
     seen = []
-    keep = tk._floored_elimination
+    keep = tk._band_factor_solve
 
-    def spy(a, r, floor=tk.PIVOT_FLOOR):
-        # the unfloored pivots are the squared diagonal of L: 1 / L^-1's
-        low_inv = keep(a, torch.eye(a.shape[-1], dtype=a.dtype).expand_as(
-            a).clone(), -float("inf"))
-        pivots = torch.diagonal(low_inv, dim1=-2, dim2=-1) ** -2
-        seen.append(((pivots < floor) | torch.isnan(pivots)).any(-1))
-        return keep(a, r, floor)
+    def spy(*a):
+        # the shift E the floor adds to H: positive where it lifts a pivot
+        dx, shift = keep(*a, return_shift=True)
+        seen.append(((shift > 0) | torch.isnan(shift)).flatten(1).any(1))
+        return dx
 
-    tk._floored_elimination = spy
+    tk._band_factor_solve = spy
     try:
         tk.ipm_solve_fused_plain(*(a.double() for a in args), **kw)
     finally:
-        tk._floored_elimination = keep
+        tk._band_factor_solve = keep
     if not seen:
         return []
     return torch.stack(seen).any(0).nonzero().flatten().tolist()
