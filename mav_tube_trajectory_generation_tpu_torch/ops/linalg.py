@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
+
 
 def spd_inverse(a: torch.Tensor) -> torch.Tensor:
     """Inverse of a (batched) small SPD matrix ``a`` (..., n, n).
@@ -38,20 +40,27 @@ def spd_inverse(a: torch.Tensor) -> torch.Tensor:
     precision) gets its inverse by pivoted LU instead; a matrix with
     non-finite entries gets a non-finite inverse; every other matrix of the
     batch is untouched either way.
+
+    While spans are on (``utils.timing``) it is the span ``spd_inverse``,
+    and the counter ``spd_inverse.lu_blocks`` adds the matrices the
+    Cholesky factor refused.
     """
-    n = a.shape[-1]
-    s = torch.rsqrt(torch.diagonal(a, dim1=-2, dim2=-1))          # (..., n)
-    a_eq = a * s[..., :, None] * s[..., None, :]
-    chol, info = torch.linalg.cholesky_ex(a_eq, check_errors=False)
-    eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
-    inv_eq = torch.cholesky_solve(eye, chol)
-    inv = inv_eq * s[..., :, None] * s[..., None, :]
-    inv = 0.5 * (inv + inv.transpose(-1, -2))
-    # fallback for blocks the Cholesky factor refused: LU with pivoting
-    inv_lu, _ = torch.linalg.inv_ex(a_eq, check_errors=False)
-    inv_lu = inv_lu * s[..., :, None] * s[..., None, :]
-    inv_lu = 0.5 * (inv_lu + inv_lu.transpose(-1, -2))
-    return torch.where((info == 0)[..., None, None], inv, inv_lu)
+    with timing.span("spd_inverse", a.device):
+        n = a.shape[-1]
+        s = torch.rsqrt(torch.diagonal(a, dim1=-2, dim2=-1))      # (..., n)
+        a_eq = a * s[..., :, None] * s[..., None, :]
+        chol, info = torch.linalg.cholesky_ex(a_eq, check_errors=False)
+        eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
+        inv_eq = torch.cholesky_solve(eye, chol)
+        inv = inv_eq * s[..., :, None] * s[..., None, :]
+        inv = 0.5 * (inv + inv.transpose(-1, -2))
+        # fallback for blocks the Cholesky factor refused: LU with pivoting
+        inv_lu, _ = torch.linalg.inv_ex(a_eq, check_errors=False)
+        inv_lu = inv_lu * s[..., :, None] * s[..., None, :]
+        inv_lu = 0.5 * (inv_lu + inv_lu.transpose(-1, -2))
+        refused = info != 0
+        timing.count("spd_inverse.lu_blocks", refused)
+        return torch.where(refused[..., None, None], inv_lu, inv)
 
 
 def spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ import torch
 from .._tensors import DeviceLike, as_tensor, resolve_device
 from ..parallel.mesh import Mesh, _all_reduce
 from . import ipm, ipm_lanes
+from ..utils import timing
 from .ipm import IPMConfig
 from .qcqp import ADMMConfig, QCQPSolution, solve_qcqp_batch
 from .structure import ProblemStructure
@@ -314,117 +315,130 @@ def solve_qcqp_auto(structure: ProblemStructure, d_fixed, times, waypoints,
     ``device``: ``None`` means the CUDA card (RuntimeError without one);
     ``"cpu"`` runs the kernels' plain versions on the host.
 
+    While a profiler session is active the call is the span ``strict``
+    (``utils.timing``), with ``tier0`` (its host read included),
+    ``tier1``, ``tier1_restart``, ``tier15`` and ``tier2`` inside.
+
     Returns an AutoResult; ``solution`` rows of escalated scenarios are the
     IPM's, everything else tier 0's.
     """
     dev = resolve_device(device)
-    if admm_config is None:
-        admm_config = ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
-                                 rho_tube_factor=0.125,
-                                 rho_half_factor=0.125)
-    if ipm_config is None:
-        ipm_config = IPMConfig(n_iters=10, sigma_min=0.3, corrector=False)
+    with timing.span("strict", dev):
+        if admm_config is None:
+            admm_config = ADMMConfig(rho=0.005, n_stages=1, n_iters=48,
+                                     rho_tube_factor=0.125,
+                                     rho_half_factor=0.125)
+        if ipm_config is None:
+            ipm_config = IPMConfig(n_iters=10, sigma_min=0.3, corrector=False)
 
-    # Tiers 0 to 1.5 run in float32 regardless of the caller's precision;
-    # tier 2 solves the caller's original data in float64, so a float64
-    # caller gets everything-in-doubles semantics on the rows that need it
-    # and a float32 caller sees the same problem in every tier.
-    f32 = torch.float32
-    d32, t32, w32, r32 = (as_tensor(a, f32, dev)
-                          for a in (d_fixed, times, waypoints, radii))
-    ws32 = (None if warmstart_values is None
-            else as_tensor(warmstart_values, f32, dev))
+        # Tiers 0 to 1.5 run in float32 regardless of the caller's
+        # precision; tier 2 solves the caller's original data in float64, so
+        # a float64 caller gets everything-in-doubles semantics on the rows
+        # that need it and a float32 caller sees the same problem in every
+        # tier.
+        f32 = torch.float32
+        d32, t32, w32, r32 = (as_tensor(a, f32, dev)
+                              for a in (d_fixed, times, waypoints, radii))
+        ws32 = (None if warmstart_values is None
+                else as_tensor(warmstart_values, f32, dev))
 
-    if tier0_snap:
-        # Strict tier 0: ADMM + snap-only Gauss-Newton sweeps (pipelined,
-        # one band factor per sweep) -- pulls the ADMM's 1e-4-class
-        # violations under the strict gate for the bulk of the batch at a
-        # fraction of the full polish's cost.
-        ipm0 = tier0_config if tier0_config is not None else IPMConfig(
-            n_iters=0, snap_iters=tier0_snap, sigma_min=0.3,
-            corrector=False, pipelined=True)
-        a = ipm_lanes.solve_qcqp_polished_batch(
-            structure, d32, t32, w32, r32, admm_config=admm_config,
-            ipm_config=ipm0, warmstart_values=ws32, device=dev)
-    else:
-        a = solve_qcqp_batch(structure, d32, t32, w32, r32,
-                             config=admm_config, warmstart_values=ws32,
-                             device=dev)
-    bsz = int(a.cost.shape[0])
-    a_viol = a.max_violation.cpu().numpy()                 # tier 0's one read
-    gate_ok = a_viol < gate
-
-    verdict = np.where(gate_ok, FEASIBLE, UNDETERMINED).astype(np.int8)
-    escalated = ~gate_ok
-    idx = np.nonzero(escalated)[0]
-    n_esc = int(idx.size)
-    if n_esc == 0:
-        return AutoResult(solution=a, verdict=verdict, escalated=escalated,
-                          n_escalated=0, tier=np.zeros(bsz, np.int8))
-
-    a_mask = tuple(af is not None for af in a)
-    a_fields = [af for m, af in zip(a_mask, a) if m]
-    ip = torch.as_tensor(idx, dtype=torch.long, device=dev)
-
-    # Tier 1 on exactly the failing rows, warm-started from tier 0.
-    pol = ipm_lanes.solve_qcqp_ipm_lanes(
-        structure, d32[ip], t32[ip], w32[ip], r32[ip], config=ipm_config,
-        x0=a.d_free[ip], lam0_ball=a.dual_ball[ip],
-        lam0_half=a.dual_half[ip], device=dev)
-    spec_rows = min(int(tier1_spec), n_esc)
-    if spec_rows:
-        # Speculative first restart on the worst slice: best-by-violation
-        # iterate merge, the restart's certificate replaces the row's (chain
-        # semantics).  topk indices are unique, so the scatters cannot
-        # collide.
-        viol1 = pol.max_violation
-        wi = torch.topk(viol1, spec_rows).indices
-        ip_w = ip[wi]
-        rs = ipm_lanes.solve_qcqp_ipm_lanes(
-            structure, d32[ip_w], t32[ip_w], w32[ip_w], r32[ip_w],
-            config=RESTART_CONFIGS[0], x0=pol.d_free[wi],
-            lam0_ball=pol.dual_ball[wi], lam0_half=pol.dual_half[wi],
-            device=dev)
-        keep = rs.max_violation < viol1[wi]
-        fields = []
-        for name, pf, nf in zip(QCQPSolution._fields, pol, rs):
-            if pf is None:
-                fields.append(None)
-            elif name == "infeasible":
-                fields.append(pf.index_copy(0, wi, nf))
+        with timing.span("tier0"):
+            if tier0_snap:
+                # Strict tier 0: ADMM + snap-only Gauss-Newton sweeps
+                # (pipelined, one band factor per sweep) -- pulls the ADMM's
+                # 1e-4-class violations under the strict gate for the bulk of
+                # the batch at a fraction of the full polish's cost.
+                ipm0 = tier0_config if tier0_config is not None else \
+                    IPMConfig(n_iters=0, snap_iters=tier0_snap, sigma_min=0.3,
+                              corrector=False, pipelined=True)
+                a = ipm_lanes.solve_qcqp_polished_batch(
+                    structure, d32, t32, w32, r32, admm_config=admm_config,
+                    ipm_config=ipm0, warmstart_values=ws32, device=dev)
             else:
-                fields.append(pf.index_copy(0, wi, _take(keep, nf, pf[wi])))
-        pol = QCQPSolution(*fields)
-    pol_sel = [pf for m, pf in zip(a_mask, pol) if m]
-    merged_fields = [af.index_copy(0, ip, pf.to(af.dtype))
-                     for af, pf in zip(a_fields, pol_sel)]
+                a = solve_qcqp_batch(structure, d32, t32, w32, r32,
+                                     config=admm_config,
+                                     warmstart_values=ws32, device=dev)
+            a_viol = a.max_violation.cpu().numpy()         # tier 0's one read
+        bsz = int(a.cost.shape[0])
+        gate_ok = a_viol < gate
 
-    # Tier 1's one read.  The restart chain takes the rows still at or above
-    # the strict gate that carry no certificate.
-    t1_viol = pol.max_violation.cpu().numpy().copy()
-    t1_inf = pol.infeasible.cpu().numpy().copy()
-    tier_esc = np.ones(n_esc, np.int8)
-    merged_fields = _run_tier15_chain(
-        structure, d32, t32, w32, r32, idx, t1_viol, t1_inf, merged_fields,
-        a_mask, strict_gate, tier_mark=tier_esc)
-    if tier2_f64:
-        merged_fields, _ = _run_tier2_f64(
-            structure, d_fixed, times, waypoints, radii, idx, t1_viol, t1_inf,
-            merged_fields, a_mask, strict_gate, tier_mark=tier_esc,
-            device=dev)
+        verdict = np.where(gate_ok, FEASIBLE, UNDETERMINED).astype(np.int8)
+        escalated = ~gate_ok
+        idx = np.nonzero(escalated)[0]
+        n_esc = int(idx.size)
+        if n_esc == 0:
+            return AutoResult(solution=a, verdict=verdict,
+                              escalated=escalated, n_escalated=0,
+                              tier=np.zeros(bsz, np.int8))
 
-    it = iter(merged_fields)
-    merged = QCQPSolution(*(next(it) if m else af
-                            for m, af in zip(a_mask, a)))
+        a_mask = tuple(af is not None for af in a)
+        a_fields = [af for m, af in zip(a_mask, a) if m]
+        ip = torch.as_tensor(idx, dtype=torch.long, device=dev)
 
-    v_esc = np.where(t1_viol < strict_gate, FEASIBLE,
-                     np.where(t1_inf, INFEASIBLE, UNDETERMINED)).astype(
-        np.int8)
-    verdict[idx] = v_esc
-    tier = np.zeros(bsz, np.int8)
-    tier[idx] = tier_esc
-    return AutoResult(solution=merged, verdict=verdict, escalated=escalated,
-                      n_escalated=n_esc, tier=tier)
+        # Tier 1 on exactly the failing rows, warm-started from tier 0.
+        with timing.span("tier1"):
+            pol = ipm_lanes.solve_qcqp_ipm_lanes(
+                structure, d32[ip], t32[ip], w32[ip], r32[ip],
+                config=ipm_config, x0=a.d_free[ip], lam0_ball=a.dual_ball[ip],
+                lam0_half=a.dual_half[ip], device=dev)
+        spec_rows = min(int(tier1_spec), n_esc)
+        if spec_rows:
+            # Speculative first restart on the worst slice: best-by-violation
+            # iterate merge, the restart's certificate replaces the row's
+            # (chain semantics).  topk indices are unique, so the scatters
+            # cannot collide.
+            with timing.span("tier1_restart"):
+                viol1 = pol.max_violation
+                wi = torch.topk(viol1, spec_rows).indices
+                ip_w = ip[wi]
+                rs = ipm_lanes.solve_qcqp_ipm_lanes(
+                    structure, d32[ip_w], t32[ip_w], w32[ip_w], r32[ip_w],
+                    config=RESTART_CONFIGS[0], x0=pol.d_free[wi],
+                    lam0_ball=pol.dual_ball[wi], lam0_half=pol.dual_half[wi],
+                    device=dev)
+                keep = rs.max_violation < viol1[wi]
+                fields = []
+                for name, pf, nf in zip(QCQPSolution._fields, pol, rs):
+                    if pf is None:
+                        fields.append(None)
+                    elif name == "infeasible":
+                        fields.append(pf.index_copy(0, wi, nf))
+                    else:
+                        fields.append(pf.index_copy(
+                            0, wi, _take(keep, nf, pf[wi])))
+                pol = QCQPSolution(*fields)
+        pol_sel = [pf for m, pf in zip(a_mask, pol) if m]
+        merged_fields = [af.index_copy(0, ip, pf.to(af.dtype))
+                         for af, pf in zip(a_fields, pol_sel)]
+
+        # Tier 1's one read.  The restart chain takes the rows still at or
+        # above the strict gate that carry no certificate.
+        t1_viol = pol.max_violation.cpu().numpy().copy()
+        t1_inf = pol.infeasible.cpu().numpy().copy()
+        tier_esc = np.ones(n_esc, np.int8)
+        with timing.span("tier15"):
+            merged_fields = _run_tier15_chain(
+                structure, d32, t32, w32, r32, idx, t1_viol, t1_inf,
+                merged_fields, a_mask, strict_gate, tier_mark=tier_esc)
+        if tier2_f64:
+            with timing.span("tier2"):
+                merged_fields, _ = _run_tier2_f64(
+                    structure, d_fixed, times, waypoints, radii, idx, t1_viol,
+                    t1_inf, merged_fields, a_mask, strict_gate,
+                    tier_mark=tier_esc, device=dev)
+
+        it = iter(merged_fields)
+        merged = QCQPSolution(*(next(it) if m else af
+                                for m, af in zip(a_mask, a)))
+
+        v_esc = np.where(t1_viol < strict_gate, FEASIBLE,
+                         np.where(t1_inf, INFEASIBLE, UNDETERMINED)).astype(
+            np.int8)
+        verdict[idx] = v_esc
+        tier = np.zeros(bsz, np.int8)
+        tier[idx] = tier_esc
+        return AutoResult(solution=merged, verdict=verdict,
+                          escalated=escalated, n_escalated=n_esc, tier=tier)
 
 
 def solve_qcqp_strict(structure: ProblemStructure, d_fixed, times, waypoints,

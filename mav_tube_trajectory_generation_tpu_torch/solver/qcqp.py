@@ -72,6 +72,7 @@ import torch
 from .._tensors import DeviceLike, as_tensor, const, resolve_device, \
     tensor_dtype
 from ..ops import admm_kernel, bezier, linalg, qmatrix
+from ..utils import timing
 from . import banded, linear
 from .structure import ProblemStructure, make_structure, standard_mask
 
@@ -855,7 +856,8 @@ def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
     bsz = b_pad.shape[0]
     nb_p, n_ball = layout.nb_p, layout.n_ball
     rb_pad = _rb_pad(pre.rb, layout)
-    kkt = _kkt_setup(config, pre._replace(gt=gt), kkt_block)
+    with timing.span("band"):
+        kkt = _kkt_setup(config, pre._replace(gt=gt), kkt_block)
     q_col = pre.q_flat[:, :, None]
 
     x = pre.x_flat0[:, :, None].contiguous()               # (B, nfd, 1)
@@ -866,23 +868,26 @@ def _run_stages(config: ADMMConfig, pre: _Pre, layout: _PadLayout,
         kw = dict(n_iters=config.n_iters, alpha=config.alpha, nb_p=nb_p,
                   n_ball=n_ball, init_z=(stage == 0))
         if kkt.factored:
-            sinv, t_st, tt_st, xq = _stage_factors(kkt.band, rho,
-                                                   config.sigma, pre.q_flat,
-                                                   gt, kkt.factors)
+            with timing.span("factor"):
+                sinv, t_st, tt_st, xq = _stage_factors(
+                    kkt.band, rho, config.sigma, pre.q_flat, gt, kkt.factors)
             if kkt.factors is not None:
                 stage_fn, g_src = (admm_kernel.admm_stage_fused_factored_ew,
                                    kkt.factors)
             else:
                 stage_fn, g_src = admm_kernel.admm_stage_fused_factored, (gt,)
-            x, z, _, u, prim, dualm, y = stage_fn(
-                rho, sinv, t_st, tt_st, *g_src, b_pad, rb_pad, xq, x, z, u,
-                **kw)
+            with timing.span("stage"):
+                x, z, _, u, prim, dualm, y = stage_fn(
+                    rho, sinv, t_st, tt_st, *g_src, b_pad, rb_pad, xq, x, z,
+                    u, **kw)
         else:
-            w_inv = _kkt_inverse(kkt, rho, config.sigma, gt)
-            xq = -(w_inv @ q_col)                          # (B, nfd, 1)
-            x, z, _, u, prim, dualm, y = admm_kernel.admm_stage_fused(
-                rho, w_inv.contiguous(), gt, b_pad, rb_pad, xq.contiguous(),
-                x, z, u, **kw)
+            with timing.span("factor"):
+                w_inv = _kkt_inverse(kkt, rho, config.sigma, gt)
+                xq = -(w_inv @ q_col)                      # (B, nfd, 1)
+            with timing.span("stage"):
+                x, z, _, u, prim, dualm, y = admm_kernel.admm_stage_fused(
+                    rho, w_inv.contiguous(), gt, b_pad, rb_pad,
+                    xq.contiguous(), x, z, u, **kw)
         prim_res = prim[:, 0, 0]
         # Padded entries of z are fixed points of the iteration (y=0, b=0),
         # so dz is zero there and the padded matvec is exact.
@@ -984,6 +989,10 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
     The working dtype is the promotion of ``d_fixed`` and ``times``; on a
     CUDA device it must be float32 (the stage kernel's type).
 
+    While a profiler session is active the call is the span ``qcqp``
+    (``utils.timing``), tiled by ``pre``, ``band``, ``factor`` and ``stage``
+    (once a stage each) and ``post``.
+
     Returns QCQPSolution with per-scenario convergence status; with
     ``_return_pre`` the pair (solution, ``_Pre`` bundle), so that
     ``ipm_lanes.solve_qcqp_ipm_lanes(pre=...)`` can polish from the system
@@ -1004,23 +1013,28 @@ def solve_qcqp_batch(structure: ProblemStructure, d_fixed, times, waypoints,
             "(block-tridiagonal KKT + LDL^T factors); this structure has no "
             "block band (e.g. K = 2): use gt_assembly='xla'")
     dev = resolve_device(device)
-    dtype = torch.promote_types(tensor_dtype(d_fixed), tensor_dtype(times))
-    d_fixed, times, waypoints, radii = (
-        as_tensor(a, dtype, dev) for a in (d_fixed, times, waypoints, radii))
-    layout = _flagship_layout(structure)
-    wp = None
-    if warmstart_values is not None:
-        # Interior positions come from the vertex values; start/goal
-        # derivatives from d_fixed (callers pass consistent values).
-        wp = as_tensor(warmstart_values, dtype, dev)[:, 1:-1, 0, :]
-    if x0 is not None:
-        x0 = as_tensor(x0, dtype, dev)
-    pre = _pre(structure, d_fixed, times, waypoints, radii, config, x0,
-               layout, warmstart_positions=wp)
-    x_fin, _, u_fin, y_fin, rho, prim_res, dual_res = _run_stages(
-        config, pre, layout, kkt_block)
-    sol = _post(structure, config, d_fixed, times, pre, x_fin, u_fin, y_fin,
-                rho, prim_res, dual_res)
+    with timing.span("qcqp", dev):
+        dtype = torch.promote_types(tensor_dtype(d_fixed),
+                                    tensor_dtype(times))
+        d_fixed, times, waypoints, radii = (
+            as_tensor(a, dtype, dev)
+            for a in (d_fixed, times, waypoints, radii))
+        layout = _flagship_layout(structure)
+        wp = None
+        if warmstart_values is not None:
+            # Interior positions come from the vertex values; start/goal
+            # derivatives from d_fixed (callers pass consistent values).
+            wp = as_tensor(warmstart_values, dtype, dev)[:, 1:-1, 0, :]
+        if x0 is not None:
+            x0 = as_tensor(x0, dtype, dev)
+        with timing.span("pre"):
+            pre = _pre(structure, d_fixed, times, waypoints, radii, config,
+                       x0, layout, warmstart_positions=wp)
+        x_fin, _, u_fin, y_fin, rho, prim_res, dual_res = _run_stages(
+            config, pre, layout, kkt_block)
+        with timing.span("post"):
+            sol = _post(structure, config, d_fixed, times, pre, x_fin, u_fin,
+                        y_fin, rho, prim_res, dual_res)
     return (sol, pre) if _return_pre else sol
 
 

@@ -1,12 +1,31 @@
-"""Named-timer registry and profiler hooks (reference C12 equivalent).
+"""Named-timer registry and the program's spans (reference C12 equivalent).
 
 Counterpart of the JAX package's ``utils/timing.py``: the reference
 ``timing::`` registry (timing.h:36-214, src/timing.cpp) -- named timers
 accumulating into one global registry with a rolling window (sum, mean,
 min, max, stddev), a printable report, and a compile-out dummy -- plus
-``trace``, which marks a block on the ``torch.profiler`` timeline as well,
-and ``time_torch``, which waits for the card so that asynchronous launches
-do not fake a time.
+``time_torch``, which waits for the card so that asynchronous launches do
+not fake a time, and the program's spans and counters.
+
+Spans (``span``) and counters (``count``) are on only while a
+``torch.profiler`` session is active (``torch.autograd.profiler``'s
+``_is_profiler_enabled`` flag); otherwise a span costs one read of that flag,
+records nothing and creates no CUDA event.  An operator who profiles gets
+the program's phases; nobody else pays for them.  When on, a span records
+
+  * its nested path, ``outer/inner`` (``qcqp/factor/spd_inverse``);
+  * host enter and exit stamps from ``time.time_ns()``, the clock of the
+    profiler's own ``start_ns()``, so that spans and device activity can be
+    laid on one time line;
+  * on a CUDA device, a pair of timing events recorded on the current
+    stream, with no synchronisation, taken from a pool; they are turned into
+    milliseconds only when the log is read (after the caller's own
+    synchronisation);
+  * its host seconds, into ``Timing`` under its path.
+
+The outermost span opens a call record; ``count`` adds to the open call's
+counters.  Closed calls go into a log of the last ``LOG_CALLS``, which
+``span_log()`` reads.  Spans assume one host thread.
 """
 
 from __future__ import annotations
@@ -14,10 +33,10 @@ from __future__ import annotations
 import collections
 import math
 import time
-from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
 
 WINDOW = 50  # rolling-window length, matching Accumulator<.,.,50>
 
@@ -155,13 +174,158 @@ class DummyTimer:
     def __exit__(self, *exc): return False
 
 
-@contextmanager
-def trace(tag: str):
-    """Named section on both the host registry and the ``torch.profiler``
-    timeline."""
-    with torch.profiler.record_function(tag):
-        with Timer(tag):
-            yield
+#: Closed calls the span log keeps; older ones are dropped.
+LOG_CALLS = 256
+
+
+class _Off:
+    """The span of a run with no profiler session: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Call:
+    """One call's spans and counters, as recorded, until the log reads it."""
+
+    __slots__ = ("root", "intervals", "counters", "entry")
+
+    def __init__(self, root: str):
+        self.root = root
+        # (path, t0_ns, t1_ns, start event, end event); no events on the host
+        self.intervals: list = []
+        self.counters: Dict[str, list] = {}
+        self.entry: Optional[Dict] = None      # span_log's record, once read
+
+
+_stack: List["_Span"] = []
+_call: Optional[_Call] = None
+_log: collections.deque = collections.deque(maxlen=LOG_CALLS)
+_events: list = []        # timing events of calls already read, for reuse
+
+
+def _event():
+    return _events.pop() if _events else torch.cuda.Event(enable_timing=True)
+
+
+class _Span:
+    __slots__ = ("name", "device", "path", "cuda", "t0", "ev0")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.device = device
+
+    def __enter__(self):
+        global _call
+        if _stack:
+            parent = _stack[-1]
+            self.path = parent.path + "/" + self.name
+            if self.device is None:
+                self.device = parent.device
+        else:
+            self.path = self.name
+            _call = _Call(self.name)
+        self.cuda = (self.device is not None
+                     and torch.device(self.device).type == "cuda")
+        _stack.append(self)
+        self.ev0 = None
+        self.t0 = time.time_ns()
+        if self.cuda:
+            self.ev0 = _event()
+            self.ev0.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        global _call
+        ev1 = None
+        if self.cuda:
+            ev1 = _event()
+            ev1.record(torch.cuda.current_stream(self.device))
+        t1 = time.time_ns()
+        _stack.pop()
+        _call.intervals.append((self.path, self.t0, t1, self.ev0, ev1))
+        Timing.add(self.path, (t1 - self.t0) / 1e9)
+        if not _stack:
+            _log.append(_call)
+            _call = None
+        return False
+
+
+def span(name: str, device=None):
+    """A span of the program (module docstring): a context manager.
+
+    ``device``: where the span's work runs; a CUDA device gets the span
+    timed on the device as well.  None takes the enclosing span's device (a
+    span with no enclosing span and no device is timed on the host only).
+    """
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, device)
+
+
+#: The former name of ``span``.
+trace = span
+
+
+def count(name: str, value) -> None:
+    """Adds ``value`` to the open call's counter ``name`` while spans are on
+    (nothing outside a span).  A tensor is kept as it is, and its sum is
+    read when the log is read: the caller must not write to it after."""
+    if _profiler._is_profiler_enabled and _call is not None:
+        _call.counters.setdefault(name, []).append(value)
+
+
+def _entry(call: _Call) -> Dict:
+    spans: Dict[str, Dict] = {}
+    for path, t0, t1, ev0, ev1 in call.intervals:
+        s = spans.setdefault(path, {"host_ms": 0.0, "device_ms": None,
+                                    "n": 0})
+        s["host_ms"] += (t1 - t0) / 1e6
+        s["n"] += 1
+        if ev0 is not None:
+            ev1.synchronize()
+            s["device_ms"] = (s["device_ms"] or 0.0) + ev0.elapsed_time(ev1)
+            _events.extend((ev0, ev1))
+    counters = {name: float(sum(v.sum().item() if isinstance(v, torch.Tensor)
+                                else v for v in values))
+                for name, values in call.counters.items()}
+    _, t0, t1, _, _ = call.intervals[-1]        # the root closes last
+    return {"root": call.root, "t0_ns": t0, "t1_ns": t1, "spans": spans,
+            "counters": counters,
+            "intervals": [iv[:3] for iv in call.intervals]}
+
+
+def span_log() -> List[Dict]:
+    """The closed calls of the log, oldest first.  A call reads
+
+        {"root": the outermost span's name, "t0_ns", "t1_ns": its stamps,
+         "spans": {path: {"host_ms", "device_ms", "n"}},
+         "counters": {name: total},
+         "intervals": [(path, t0_ns, t1_ns), ...] in the order they closed}
+
+    with each path's milliseconds summed over its ``n`` spans in the call;
+    ``device_ms`` is None for a span off the card.  Reading waits for the
+    device to reach each call's last event."""
+    out = []
+    for call in _log:
+        if call.entry is None:
+            call.entry = _entry(call)
+            call.intervals, call.counters = [], {}
+        out.append(call.entry)
+    return out
+
+
+def clear_span_log() -> None:
+    """Forgets every closed call."""
+    _log.clear()
 
 
 def time_torch(tag: str, fn, *args, **kwargs):
