@@ -79,6 +79,18 @@ KERNEL_TOL = 2e-5
 MAIN_BATCH = 6144
 MIN_FEASIBLE = 6080
 MAX_MEDIAN_VIOLATION = 3e-4
+# Launches of the small SPD inverse (csrc/spd_inverse.cu) in one call of the
+# main path: the warm start's 36 x 36 block, and the K - 1 = 9 pivot blocks
+# of the band's block-LDL^T sweep (15 x 15).
+SPD_INVERSE_LAUNCHES = 10
+# The kernel against the library chain on the same blocks, in the
+# equilibrated frame (|inverse| times d_i d_j, d = diag(a)^1/2): the largest
+# gap of a block over its largest entry, the tolerances of
+# tests/test_torch_spd_inverse.py.
+SPD_INVERSE_RTOL = {"float32": 2e-4, "float64": 1e-10}
+# float64 outside the tensor cores (NVIDIA's H100 SXM data sheet): the small
+# SPD inverse computes in float64 for either type.
+PEAK_F64_FLOPS = 34e12
 OUT_NAMES = ("x", "z", "z_prev", "u", "prim", "dual", "y")
 ALL_PHASES = ("toolchain", "build", "kernel_check", "main_path",
               "multi_stage", "dense_path", "band_gram", "stage_bits",
@@ -492,7 +504,8 @@ def phase_build(state):
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
                                                               ipm_kernel)
     t0 = time.perf_counter()
-    if set(_build.SOURCES) != {"admm_stage", "gram_band", *IPM_SOURCES}:
+    if set(_build.SOURCES) != {"admm_stage", "gram_band", "spd_inverse",
+                               *IPM_SOURCES}:
         raise RuntimeError(f"unexpected kernel sources: {_build.SOURCES}")
     wall = _build.prebuild(variants=IPM_CONTROL_BUILDS
                            + BAND_CONTROL_BUILDS + STAGE_CONTROL_BUILDS)
@@ -1135,6 +1148,7 @@ def phase_main_path(state, mtt):
     others = {n: v for n, v in admm_kernel.launches.items()
               if v and n != "admm_stage_fused_factored"}
     state["launches"] = after - before
+    state["spd_launches"] = spd_launches = linalg.launches
     peak = torch.cuda.max_memory_allocated()
     state["headline_peak"] = peak
 
@@ -1200,6 +1214,7 @@ def phase_main_path(state, mtt):
          admm_stage_fused_factored_design=admm_kernel.factored_design(
              135, 512, 9, 15, 128), launches_before=before,
          launches_after=after, launches_per_pass=(after - before) / n_pass,
+         spd_inverse_launches_per_pass=spd_launches / n_pass,
          plain_prefix=prefix,
          phase_ms=parts, nvidia_smi=state.get("nvidia_smi"))
     if not shapes_ok:
@@ -1208,6 +1223,10 @@ def phase_main_path(state, mtt):
         raise RuntimeError(f"main_path: {after - before} kernel launches in "
                            f"{n_pass} passes, expected {cfg.n_stages} each; "
                            f"other stage kernels launched: {others}")
+    if spd_launches != SPD_INVERSE_LAUNCHES * n_pass:
+        raise RuntimeError(f"main_path: {spd_launches} launches of the small "
+                           f"SPD inverse in {n_pass} passes, expected "
+                           f"{SPD_INVERSE_LAUNCHES} each")
     if feasible < MIN_FEASIBLE or not median_viol <= MAX_MEDIAN_VIOLATION:
         raise RuntimeError(f"main_path quality: {feasible}/{batch} feasible, "
                            f"median violation {median_viol:.3e}")
@@ -4577,11 +4596,13 @@ def ipm_launches():
 
 def reset_launches():
     from mav_tube_trajectory_generation_tpu_torch.ops import (admm_kernel,
-                                                              ipm_kernel)
+                                                              ipm_kernel,
+                                                              linalg)
     for name in admm_kernel.launches:
         admm_kernel.launches[name] = 0
     for name in ipm_kernel.launches:
         ipm_kernel.launches[name] = 0
+    linalg.launches = 0
 
 
 def tier2_state_copy(args, kwargs):
@@ -5244,14 +5265,129 @@ def phase_kernels(state, mtt):
                                      n_iters=kw["n_iters"]),
         flops=flops, bytes=in_bytes + out_bytes,
         bound_flops_ms=flops_ms, bound_bytes_ms=bytes_ms)
+    del args, kw, ours
+    torch.cuda.empty_cache()
     rows = ([row] + ew_rows(state) + admm_route_rows(state)
-            + ipm_kernel_rows(state, mtt))
+            + ipm_kernel_rows(state, mtt) + spd_inverse_rows(state, mtt))
     for r in rows:
         r.setdefault("bound_share", r["bound_ms"] / r["ms"])
-    # twelve kernels; #2 has a row at K=10 and one at K=2
-    if not state.get("partial") and len(rows) != 13:
-        raise RuntimeError(f"kernels: {len(rows)} rows, expected 13")
+    # thirteen kernels; #2 has a row at K=10 and one at K=2
+    if not state.get("partial") and len(rows) != 14:
+        raise RuntimeError(f"kernels: {len(rows)} rows, expected 14")
     say(json.dumps({"kernels": rows}))
+
+
+def spd_inverse_flops(n):
+    """Operations of one n x n inverse in the kernel's order, 2 flops a
+    multiply-add: the Cholesky factor n^3 / 3, the forward solves against
+    the identity's columns n^3 / 3, the backward solves n^3."""
+    return 5 * n ** 3 / 3
+
+
+def spd_inverse_rows(state, mtt):
+    """The row of the `kernels` line for the small SPD inverse (#13,
+    csrc/spd_inverse.cu), on the blocks one main-path call at batch 6144
+    inverts, recorded from that call: the warm start's 36 x 36 block and the
+    nine 15 x 15 pivot blocks.  On the same card tensors, in float32 as the
+    call has them and in float64, the kernel (``spd_inverse_cuda``) is held
+    to the library chain (``_spd_inverse_library``, the plain version, run
+    on the card): the same refusal flags, an exactly symmetric result,
+    finite where the chain's is, and the gap of SPD_INVERSE_RTOL.  The
+    row's ms, bound_ms and library_ms are a call's ten launches in float32;
+    ``shapes`` holds each shape's launch in both types."""
+    import torch
+    from mav_tube_trajectory_generation_tpu_torch.ops import linalg
+    sc = mtt.make_inputs(10, MAIN_BATCH, seed=0)
+    seen = []
+    inverse = linalg.spd_inverse
+
+    def record(a):
+        seen.append(a.contiguous().clone())
+        return inverse(a)
+
+    linalg.spd_inverse = record
+    try:
+        solve(mtt, sc, bench_config(mtt))
+    finally:
+        linalg.spd_inverse = inverse
+    del sc
+    if len(seen) != SPD_INVERSE_LAUNCHES:
+        raise RuntimeError(f"kernels: the main path inverted {len(seen)} "
+                           f"batches of blocks, expected "
+                           f"{SPD_INVERSE_LAUNCHES}")
+    groups = {}
+    for a in seen:
+        groups.setdefault(a.shape[-1], []).append(a)
+    shapes, bad = [], []
+    call = dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
+    bound_by = set()
+    for n, blocks in sorted(groups.items()):
+        for dtype in (torch.float32, torch.float64):
+            blk = [b.to(dtype) for b in blocks]
+            kind = str(dtype).replace("torch.", "")
+            ms = cuda_ms(lambda: [linalg.spd_inverse_cuda(b) for b in blk],
+                         reps=10) / len(blk)
+            lib_ms = cuda_ms(lambda: [linalg._spd_inverse_library(b)
+                                      for b in blk], reps=5) / len(blk)
+            dev_ms = device_ms_each(lambda: linalg.spd_inverse_cuda(blk[0]),
+                                    10)
+            gap, refused, refused_lib, flags_same, symmetric, finite = (
+                0.0, 0, 0, True, True, True)
+            for a in blk:
+                x, r = linalg.spd_inverse_cuda(a)
+                y, r_lib = linalg._spd_inverse_library(a)
+                flags_same &= torch.equal(r != 0, r_lib)
+                symmetric &= torch.equal(x, x.transpose(-1, -2))
+                keep = torch.isfinite(y).flatten(1).all(1)
+                finite &= bool(torch.isfinite(x[keep]).all())
+                d = torch.sqrt(torch.diagonal(a, dim1=-2, dim2=-1))
+                dd = d[..., :, None] * d[..., None, :]
+                g = (((x - y) * dd).abs().amax(dim=(-2, -1))
+                     / (y * dd).abs().amax(dim=(-2, -1)))[keep]
+                gap = max(gap, float(g.max()) if g.numel() else 0.0)
+                refused += int(r.sum())
+                refused_lib += int(r_lib.sum())
+            batch = blk[0].numel() // (n * n)
+            total = batch * (2 * n * n * blk[0].element_size() + 4)
+            bytes_ms = total / PEAK_BYTES_PER_S * 1e3
+            flops = batch * spd_inverse_flops(n)
+            flops_ms = flops / PEAK_F64_FLOPS * 1e3
+            ok = (flags_same and symmetric and finite
+                  and gap < SPD_INVERSE_RTOL[kind])
+            shapes.append(dict(
+                n=n, dtype=kind, batch=batch, launches_a_call=len(blk),
+                ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+                bound_ms=max(bytes_ms, flops_ms),
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+                flops=flops, bytes=total, max_gap_to_library=gap,
+                tolerance=SPD_INVERSE_RTOL[kind], refused=refused,
+                refused_by_library=refused_lib, flags_same=flags_same,
+                exactly_symmetric=symmetric, finite=finite, ok=ok))
+            if not ok:
+                bad.append(shapes[-1])
+            if dtype == torch.float32:
+                call["ms"] += ms * len(blk)
+                call["library_ms"] += lib_ms * len(blk)
+                call["bound_ms"] += max(bytes_ms, flops_ms) * len(blk)
+                bound_by.add(shapes[-1]["bound_by"])
+            del blk
+    if bad:
+        raise RuntimeError(f"kernels: spd_inverse disagrees with the library "
+                           f"chain on the main path's blocks: {bad}")
+    return [dict(
+        name="spd_inverse", route="cuda", source=f"{PKG}/csrc/spd_inverse.cu",
+        replaces=None, replaces_is="no Pallas kernel: the JAX package's "
+        "ops/linalg.py spd_inverse_schur is matmuls outside any kernel",
+        launches=state.get("spd_launches"),
+        max_abs_err=max(s["max_gap_to_library"] for s in shapes),
+        max_abs_err_is="largest gap to the library chain in the "
+        "equilibrated frame, over the block's largest entry",
+        tolerance=SPD_INVERSE_RTOL, **call,
+        ms_is="a main-path call's ten launches in float32 (CUDA events: "
+        "each shape's mean launch times its launches a call)",
+        plain_ms=call["library_ms"], plain_ms_is="the plain version is the "
+        "library chain (cholesky_ex, cholesky_solve, inv_ex, where) on the "
+        "card", bound_by="/".join(sorted(bound_by)), shapes=shapes)]
 
 
 def nbytes(tensors):

@@ -34,7 +34,17 @@ BUILD_DIR = os.path.join(_HERE, "build")
 #: Every kernel source of the package (``csrc/<name>.cu``); ``prebuild()``
 #: builds them all.
 SOURCES = ("admm_stage", "gram_band", "gt_matvec", "ipm_eval", "ipm_pipe",
-           "ipm_solve")
+           "ipm_solve", "spd_inverse")
+
+#: Libraries ``prebuild`` builds and loads together with another one (not
+#: ``load``, which builds what it is asked for).  Every solve that runs the
+#: ADMM stage kernels assembles their factors with ``spd_inverse`` first, so
+#: a caller that prebuilds ``admm_stage`` before a timed stretch has what the
+#: whole call needs.  This knowledge of the solver's calls belongs to whoever
+#: prebuilds: the benchmark's configurations list only ``admm_stage`` in
+#: their ``sources``, which so under-report what the headline builds; once
+#: they list ``spd_inverse`` too, this entry goes.
+COMPANIONS = {"admm_stage": ("spd_inverse",)}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -152,11 +162,12 @@ def variant(name: str, defines) -> ctypes.CDLL:
 
 def prebuild(names=SOURCES, variants=()) -> float:
     """Builds and loads several libraries (by default every one of
-    ``SOURCES``), and the variants ``variants`` ([(name, defines)]), one
-    nvcc each, all started together.  Returns the wall-clock seconds it
-    took.  Raises RuntimeError with the compiler's output if any build fails
-    (after all have ended)."""
+    ``SOURCES``) with their ``COMPANIONS``, and the variants ``variants``
+    ([(name, defines)]), one nvcc each, all started together.  Returns the
+    wall-clock seconds it took.  Raises RuntimeError with the compiler's
+    output if any build fails (after all have ended)."""
     t0 = time.perf_counter()
+    names = [m for n in names for m in (n,) + COMPANIONS.get(n, ())]
     jobs = [_Job(n) for n in dict.fromkeys(names) if n not in _LIBS]
     wanted = {_key(n, d): (n, tuple(d)) for n, d in variants}
     jobs += [_Job(n, d) for k, (n, d) in wanted.items() if k not in _VARIANTS]

@@ -241,6 +241,13 @@ def spd_block_tridiag_factor(dblk: Blocks, ublk: Blocks
     (..., b, b) or stacked (..., m, b, b) tensors.  Each Schur complement is
     symmetrized before it is inverted: the reference found that load-bearing
     in float32 (asymmetry drift amplifies through the sweep).
+
+    Each pivot block S_i is inverted by ``ops.linalg.spd_inverse``, in
+    sequence (S_i needs S_{i-1}^{-1}).  On the card a block of b <= 64 is
+    one launch of its kernel with no host sync; a pivot block that is not
+    positive definite (frequent in the interior-point Hessians) gets the
+    pivoted inverse in that same launch, and on the host, or for b > 64,
+    the library route does the same.
     """
     dblk = _unstack(dblk)
     ublk = _unstack(ublk)

@@ -608,6 +608,11 @@ def _objective_blocks(structure: ProblemStructure, d_fixed: torch.Tensor,
     computeInitialSolutionWithPositionConstraints obtains via a separate
     standard-structure solve (nonlinear_impl.h:199-272).  With neither, the
     start is the unconstrained minimum P x = -q.
+
+    The warm start's remaining block (36 x 36 at K=10) is inverted by
+    ``ops.linalg.spd_inverse``: on the card one kernel launch with no host
+    sync, its pivoted fallback in the same launch for a scenario whose block
+    the Cholesky factor refuses; on the host the library route.
     """
     nf = structure.n_fixed
     n_free = structure.n_free

@@ -14,6 +14,7 @@
     python3 stage_profile.py --kernel admm_stage_given  # #7, route (a)'s m1
     python3 stage_profile.py --kernel admm_stage_given --designs
     python3 stage_profile.py --paths --root _parent   # paths, another tree
+    python3 stage_profile.py --kernel spd_inverse   # the small SPD inverse
 
 Builds the kernel's source with its profile macro (the kernel then adds, in
 thread 0 of its first block, the clock64 cycles of each phase to a device
@@ -93,6 +94,19 @@ cycles of one scenario by phase, the kernel's time with the counters in
   each stage wrapper those paths make (kernel 1 on the headline, #2 on
   route (c)), the mean of 20 calls queued with no synchronisation between
   them, so that the card's time is not in it.
+* ``spd_inverse`` (``csrc/spd_inverse.cu``, no profile macro): on the
+  blocks one headline call (``--k``, ``--batch``, seed 0) inverts, recorded
+  from the call: its warm start's block and its pivot blocks, grouped by n,
+  in float32 as the call has them and in float64.  Each group timed, by CUDA
+  events over ``--reps`` passes after a warm-up, through the kernel
+  (``ops.linalg.spd_inverse_cuda``), the library chain of the plain route
+  (``ops.linalg._spd_inverse_library``, on the card) and
+  ``torch.linalg.inv_ex`` alone; the kernel's device time a launch by
+  torch.profiler; its bound (each input byte read once, the output and the
+  flags written once, against ``chip_smoke.spd_inverse_flops`` in float64,
+  the arithmetic it does for either type); its refused blocks
+  beside the chain's, and the largest gap between the two in the
+  equilibrated frame.
 
 Exits 2 without a CUDA device.
 """
@@ -161,7 +175,7 @@ def main():
                                  "admm_stage_ew", "admm_stage_given",
                                  "ipm_pipe", "ipm_solve", "gram_band",
                                  "gram_band_factors",
-                                 "gram_band_factors_ew"),
+                                 "gram_band_factors_ew", "spd_inverse"),
                         default="admm_stage")
     parser.add_argument("--k", type=int, default=10)
     parser.add_argument("--batch", type=int, default=6144)
@@ -184,6 +198,8 @@ def main():
         return 2
     if opts.paths:
         return paths_timing(opts)
+    if opts.kernel == "spd_inverse":
+        return spd_inverse_timing(opts)
     if opts.kernel == "ipm_pipe":
         return pipe_profile(opts)
     if opts.kernel == "ipm_solve":
@@ -267,6 +283,97 @@ def main():
         ms_with_counters_by_n_iters=ms, nvidia_smi=smi())))
     return 0
 
+
+def spd_inverse_timing(opts):
+    """The ``spd_inverse`` report (see the top)."""
+    import torch
+    import chip_smoke
+    import mav_tube_trajectory_generation_tpu_torch as mtt
+    from mav_tube_trajectory_generation_tpu_torch.ops import linalg
+
+    sc = mtt.make_inputs(opts.k, opts.batch, seed=0)
+    cfg = chip_smoke.bench_config(mtt)
+    seen = []
+    inverse = linalg.spd_inverse
+
+    def record(a):
+        seen.append(a.contiguous().clone())
+        return inverse(a)
+
+    linalg.spd_inverse = record
+    try:
+        mtt.solve_qcqp_batch(sc.free, sc.d_fixed_free, sc.times,
+                             sc.waypoints, sc.radii, config=cfg,
+                             warmstart_values=sc.values)
+    finally:
+        linalg.spd_inverse = inverse
+    torch.cuda.synchronize()
+    del sc
+    groups = {}
+    for a in seen:
+        groups.setdefault(a.shape[-1], []).append(a)
+    rows = []
+    for n, blocks in sorted(groups.items()):
+        for dtype in (torch.float32, torch.float64):
+            bl = [b.to(dtype) for b in blocks]
+            batch = bl[0].numel() // (n * n)
+
+            def kernel():
+                return [linalg.spd_inverse_cuda(b) for b in bl]
+
+            def chain():
+                return [linalg._spd_inverse_library(b) for b in bl]
+
+            def inv_ex():
+                return [torch.linalg.inv_ex(b) for b in bl]
+
+            ms = {}
+            for name, fn in (("kernel", kernel), ("chain", chain),
+                             ("inv_ex", inv_ex), ("kernel", kernel)):
+                ms.setdefault(name, []).append(
+                    chip_smoke.cuda_ms(fn, reps=opts.reps) / len(bl))
+            dev_ms = chip_smoke.device_ms_each(kernel, 10) / len(bl)
+            ours, plain = kernel(), chain()
+            gap, refused, refused_chain = 0.0, 0, 0
+            for b, (x, r), (y, rc) in zip(bl, ours, plain):
+                d = torch.sqrt(torch.diagonal(b, dim1=-2, dim2=-1))
+                dd = d[..., :, None] * d[..., None, :]
+                keep = torch.isfinite(y).all(dim=-1).all(dim=-1)
+                g = (((x - y) * dd).abs().amax(dim=(-2, -1))
+                     / (y * dd).abs().amax(dim=(-2, -1)))[keep]
+                gap = max(gap, float(g.max()) if g.numel() else 0.0)
+                refused += int(r.sum())
+                refused_chain += int(rc.sum())
+            elt = bl[0].element_size()
+            byts = batch * (2 * n * n * elt + 4)
+            flops = batch * chip_smoke.spd_inverse_flops(n)
+            bytes_ms = byts / chip_smoke.PEAK_BYTES_PER_S * 1e3
+            flops_ms = flops / chip_smoke.PEAK_F64_FLOPS * 1e3
+            rows.append(dict(
+                n=n, dtype=str(dtype).replace("torch.", ""), batch=batch,
+                blocks_a_call=len(bl), kernel_ms=ms["kernel"],
+                kernel_device_ms=dev_ms, chain_ms=ms["chain"][0],
+                inv_ex_ms=ms["inv_ex"][0], bound_ms=max(bytes_ms, flops_ms),
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+                bound_share_device=max(bytes_ms, flops_ms) / dev_ms,
+                warps_a_block=spd_warps_a_block(n),
+                refused=refused, refused_by_chain=refused_chain,
+                max_gap_to_chain=gap))
+            del bl, ours, plain
+    print(json.dumps(dict(
+        kernel="spd_inverse", k=opts.k, batch=opts.batch, reps=opts.reps,
+        ms_are="a block, the mean over each group's blocks: CUDA events "
+        "over --reps passes, kernel timed first and last", rows=rows,
+        nvidia_smi=smi())))
+    return 0
+
+
+def spd_warps_a_block(n):
+    """Matrices (warps) a block of csrc/spd_inverse.cu takes at n: as many
+    as 48 KiB of shared memory holds, 1 to 8, a matrix taking its two
+    n x (n | 1) buffers and 2 n doubles, and n ints, rounded up to 16 B."""
+    smem = ((2 * n * (n | 1) + 2 * n) * 8 + 4 * n + 15) // 16 * 16
+    return min(max(48 * 1024 // smem, 1), 8)
 
 BLOCK_THREADS = (512, 256, 128, 64)
 # The host-time measure of --paths: calls queued without synchronising.
