@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import basis, roots
+from ..utils import timing
 
 
 class Trajectory(NamedTuple):
@@ -135,31 +136,44 @@ def min_max_magnitude(traj: Trajectory, derivative: int,
     trajectory.cpp:184-220; Segment::computeMinMaxMagnitudeCandidates,
     segment.cpp:135-158), for all segments and batch rows at once.  Ties
     (adjacent segments share an endpoint) go to the first candidate.
+
+    While spans are on (``utils.timing``) the call is the span ``extrema``,
+    on the coefficients' device, with ``extrema/candidates`` (the candidate
+    polynomial and the grid bracket) and ``extrema/select`` (evaluation,
+    magnitudes, arg-min and arg-max) inside; the counter ``extrema.roots``
+    adds the valid interior candidates (read from the device with the log).
     """
     coeffs = traj.coefficients                             # (..., K, N, D)
     times = traj.times
-    cand_t, valid = roots.magnitude_minmax_candidates(
-        coeffs, derivative, torch.zeros_like(times), times,
-        n_grid=n_grid)                                     # (..., K, C)
-    vals = basis.polyval(coeffs.transpose(-1, -2)[..., None, :, :],
-                         cand_t[..., None], derivative)    # (..., K, C, D)
-    mag = torch.sqrt((vals * vals).sum(dim=-1))            # (..., K, C)
+    with timing.span("extrema", coeffs.device):
+        with timing.span("candidates"):
+            cand_t, valid = roots.magnitude_minmax_candidates(
+                coeffs, derivative, torch.zeros_like(times), times,
+                n_grid=n_grid)                             # (..., K, C)
+        # the first two candidates of a segment are its endpoints
+        timing.count("extrema.roots", valid[..., 2:])
+        with timing.span("select"):
+            vals = basis.polyval(coeffs.transpose(-1, -2)[..., None, :, :],
+                                 cand_t[..., None], derivative)  # (..., K, C, D)
+            mag = torch.sqrt((vals * vals).sum(dim=-1))    # (..., K, C)
 
-    big = torch.finfo(mag.dtype).max
-    k, c = mag.shape[-2], mag.shape[-1]
-    flat = mag.shape[:-2] + (k * c,)
-    flat_min = torch.where(valid, mag, big).reshape(flat)
-    flat_max = torch.where(valid, mag, -big).reshape(flat)
-    flat_t = cand_t.reshape(flat)
-    imin = torch.argmin(flat_min, dim=-1, keepdim=True)
-    imax = torch.argmax(flat_max, dim=-1, keepdim=True)
+            big = torch.finfo(mag.dtype).max
+            k, c = mag.shape[-2], mag.shape[-1]
+            flat = mag.shape[:-2] + (k * c,)
+            flat_min = torch.where(valid, mag, big).reshape(flat)
+            flat_max = torch.where(valid, mag, -big).reshape(flat)
+            flat_t = cand_t.reshape(flat)
+            imin = torch.argmin(flat_min, dim=-1, keepdim=True)
+            imax = torch.argmax(flat_max, dim=-1, keepdim=True)
 
-    def take(a, i):
-        return torch.gather(a, -1, i)[..., 0]
-    mins = Extremum(time=take(flat_t, imin), value=take(flat_min, imin),
-                    segment_index=imin[..., 0] // c)
-    maxs = Extremum(time=take(flat_t, imax), value=take(flat_max, imax),
-                    segment_index=imax[..., 0] // c)
+            def take(a, i):
+                return torch.gather(a, -1, i)[..., 0]
+            mins = Extremum(time=take(flat_t, imin),
+                            value=take(flat_min, imin),
+                            segment_index=imin[..., 0] // c)
+            maxs = Extremum(time=take(flat_t, imax),
+                            value=take(flat_max, imax),
+                            segment_index=imax[..., 0] // c)
     return mins, maxs
 
 

@@ -22,6 +22,7 @@ import torch
 
 from .._tensors import DeviceLike, const, resolve_device
 from ..ops import linalg, qmatrix
+from ..utils import timing
 from .structure import ProblemStructure, make_structure, standard_mask
 
 METHODS = ("cholesky", "schur")
@@ -106,13 +107,21 @@ def solve_free_derivatives(structure: ProblemStructure,
     "schur" (the JAX package's name for its matmul-only inverse times the
     right-hand side: here ``ops.linalg.spd_inverse`` and a product).
     """
+    return _free_derivatives(structure, d_fixed, times, method)[0]
+
+
+def _free_derivatives(structure: ProblemStructure, d_fixed: torch.Tensor,
+                      times: torch.Tensor, method: str):
+    """(d_free, refused): ``solve_free_derivatives``'s answer, and the rows
+    (...,) whose R_pp the Cholesky factor refused, as a bool tensor on the
+    device (None where no factor ran: "schur", or no free derivative)."""
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     nf = structure.n_fixed
     d_fixed, times, dtype = _common(d_fixed, times)
     if structure.n_free == 0:
         return torch.zeros(d_fixed.shape[:-2] + (0, structure.dimension),
-                           dtype=dtype, device=d_fixed.device)
+                           dtype=dtype, device=d_fixed.device), None
     r = assemble_r(structure, times)
     r_pf = r[..., nf:, :nf]
     r_pp = r[..., nf:, nf:]
@@ -121,6 +130,7 @@ def solve_free_derivatives(structure: ProblemStructure,
     scale = torch.rsqrt(torch.diagonal(r_pp, dim1=-2, dim2=-1))
     r_pp_eq = r_pp * scale[..., :, None] * scale[..., None, :]
     rhs = -(r_pf @ d_fixed) * scale[..., :, None]
+    refused = None
     if method == "schur":
         sol_eq = linalg.spd_inverse(r_pp_eq) @ rhs
     else:
@@ -128,10 +138,25 @@ def solve_free_derivatives(structure: ProblemStructure,
         # other rows as they are (the JAX package's cho_factor semantics);
         # the batch neither raises nor waits on the host for the verdict.
         chol, info = torch.linalg.cholesky_ex(r_pp_eq, check_errors=False)
-        sol_eq = torch.cholesky_solve(rhs, chol)
-        sol_eq = torch.where((info != 0)[..., None, None],
+        if dtype == torch.float64:
+            # float64 keeps cholesky_solve's rounding on the card: the
+            # nonlinear optimizer starts from this solve, and which rows of
+            # its collision box case clear turns on the last bits of the
+            # start (chip_smoke.py's nonlinear_collision).
+            sol_eq = torch.cholesky_solve(rhs, chol)
+        else:
+            # Two triangular solves, which is what cholesky_solve computes
+            # (bit for bit on the host): on the card a batched
+            # cholesky_solve is MAGMA's, whose launching thread stalls for
+            # tens to hundreds of ms in some calls.
+            sol_eq = torch.linalg.solve_triangular(
+                chol.mT, torch.linalg.solve_triangular(chol, rhs,
+                                                       upper=False),
+                upper=True)
+        refused = info != 0
+        sol_eq = torch.where(refused[..., None, None],
                              torch.full_like(sol_eq, float("nan")), sol_eq)
-    return sol_eq * scale[..., :, None]
+    return sol_eq * scale[..., :, None], refused
 
 
 def solve_linear(structure: ProblemStructure, d_fixed: torch.Tensor,
@@ -149,10 +174,19 @@ def solve_linear(structure: ProblemStructure, d_fixed: torch.Tensor,
 
     Reference: solveLinear (linear_impl.h:337-379), with SparseQR replaced by
     Jacobi-equilibrated Cholesky on the SPD R_pp.
+
+    While spans are on (``utils.timing``) the call is the span ``linear``,
+    on the inputs' device; the counter ``linear.refused_rows`` adds the rows
+    whose R_pp the Cholesky factor refused (read from the device with the
+    log).  The helpers it calls, which the QCQP solvers call directly, open
+    no span of their own.
     """
     d_fixed, times, _ = _common(d_fixed, times)
-    d_free = solve_free_derivatives(structure, d_fixed, times, method)
-    return solve_linear_with_free(structure, d_fixed, d_free, times)
+    with timing.span("linear", d_fixed.device):
+        d_free, refused = _free_derivatives(structure, d_fixed, times, method)
+        if refused is not None:
+            timing.count("linear.refused_rows", refused)
+        return solve_linear_with_free(structure, d_fixed, d_free, times)
 
 
 def solve_linear_with_free(structure: ProblemStructure,
