@@ -83,6 +83,10 @@ MAX_MEDIAN_VIOLATION = 3e-4
 # main path: the warm start's 36 x 36 block, and the K - 1 = 9 pivot blocks
 # of the band's block-LDL^T sweep (15 x 15).
 SPD_INVERSE_LAUNCHES = 10
+# Launches of the Gram band kernel #6 (csrc/gram_band.cu, ``gram_band``) in
+# one call of the main path: the default band_gram, "auto", takes the band
+# from it once a solve wherever G^T is float32 on the card.
+GRAM_BAND_LAUNCHES = 1
 # The kernel against the library chain on the same blocks, in the
 # equilibrated frame (|inverse| times d_i d_j, d = diag(a)^1/2): the largest
 # gap of a block over its largest entry, the tolerances of
@@ -242,8 +246,9 @@ def bench_config(mtt, n_stages=1, n_iters=48):
                           rho_tube_factor=0.125, rho_half_factor=0.125)
 
 
-def stage_inputs(mtt, k, batch, seed, config):
-    """Stage-kernel inputs exactly as the main path builds them."""
+def stage_inputs(mtt, k, batch, seed, config, band_gram=None):
+    """Stage-kernel inputs exactly as the main path builds them, the Gram
+    band on ``band_gram`` (the config's route where None)."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
     sc = mtt.make_inputs(k, batch, seed=seed)
@@ -252,7 +257,8 @@ def stage_inputs(mtt, k, batch, seed, config):
                     sc.radii, config, None, layout,
                     warmstart_positions=sc.values[:, 1:-1, 0, :])
     blk = banded.kkt_tridiag_block(sc.free)
-    band = qcqp._kkt_band(pre.gt, pre.p_eq, blk)
+    band = qcqp._kkt_band(pre.gt, pre.p_eq, blk,
+                          band_gram or config.band_gram)
     rho = torch.full((batch, 1, 1), config.rho, dtype=torch.float32,
                      device=pre.gt.device)
     sinv, t_st, tt_st, xq = qcqp._stage_factors(band, rho, config.sigma,
@@ -788,7 +794,7 @@ def route_inputs(mtt, k, batch, seed, config):
         pb_u = torch.zeros((bsz, 0, nfd, nfd), dtype=gt.dtype,
                            device=gt.device)
     else:
-        band = qcqp._kkt_band(gt, pre.p_eq, blk)
+        band = qcqp._kkt_band(gt, pre.p_eq, blk, "xla")   # as stage_bits
         winv = banded.spd_block_tridiag_inverse_blocks(
             *qcqp._kkt_band_at(band, rho, config.sigma))
         pb_d, pb_u = band[0], band[1]
@@ -1128,8 +1134,15 @@ def phase_main_path(state, mtt):
     k, batch, n_pass = 10, MAIN_BATCH, 5
     cfg = bench_config(mtt)
     sc = mtt.make_inputs(k, batch, seed=0)
-    solve(mtt, sc, cfg)                                   # warm-up
+    band_calls = []
+    with recorded(admm_kernel, "gram_band", band_calls):
+        solve(mtt, sc, cfg)                               # warm-up
     torch.cuda.synchronize()
+    # #6's inputs as the default route gives them, for its kernels row
+    if band_calls:
+        state.setdefault("recorded", {})["gram_band"] = to_device(
+            band_calls[0][:2], "cpu")
+    del band_calls
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
@@ -1145,10 +1158,13 @@ def phase_main_path(state, mtt):
     pass_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(n_pass)]
     ms = sum(pass_ms) / n_pass
     after = admm_kernel.launches["admm_stage_fused_factored"]
+    band_launches = admm_kernel.launches["gram_band"]
     others = {n: v for n, v in admm_kernel.launches.items()
-              if v and n != "admm_stage_fused_factored"}
+              if v and n not in ("admm_stage_fused_factored", "gram_band")}
     state["launches"] = after - before
     state["spd_launches"] = spd_launches = linalg.launches
+    state["main_band_launches"] = band_launches
+    state["main_passes"] = n_pass
     peak = torch.cuda.max_memory_allocated()
     state["headline_peak"] = peak
 
@@ -1181,9 +1197,11 @@ def phase_main_path(state, mtt):
         lambda: qcqp._pre(sc.free, sc.d_fixed_free, sc.times, sc.waypoints,
                           sc.radii, cfg, None, layout,
                           warmstart_positions=wp), 3)
+    # the band on the route the config takes here, named beside it
+    band_route = qcqp._band_route(pre.gt, cfg.band_gram)
     parts["gram_and_band_ms"] = cuda_ms(
-        lambda: qcqp._kkt_band(pre.gt, pre.p_eq, blk), 3)
-    band = qcqp._kkt_band(pre.gt, pre.p_eq, blk)
+        lambda: qcqp._kkt_band(pre.gt, pre.p_eq, blk, cfg.band_gram), 3)
+    band = qcqp._kkt_band(pre.gt, pre.p_eq, blk, cfg.band_gram)
     rho = torch.full((batch, 1, 1), cfg.rho, dtype=torch.float32,
                      device=pre.gt.device)
     parts["band_factor_and_xq_ms"] = cuda_ms(
@@ -1215,8 +1233,10 @@ def phase_main_path(state, mtt):
              135, 512, 9, 15, 128), launches_before=before,
          launches_after=after, launches_per_pass=(after - before) / n_pass,
          spd_inverse_launches_per_pass=spd_launches / n_pass,
+         gram_band_launches_per_pass=band_launches / n_pass,
          plain_prefix=prefix,
-         phase_ms=parts, nvidia_smi=state.get("nvidia_smi"))
+         phase_ms=parts, gram_and_band_route=band_route,
+         nvidia_smi=state.get("nvidia_smi"))
     if not shapes_ok:
         raise RuntimeError("main_path: unexpected output shapes")
     if after - before != cfg.n_stages * n_pass or others:
@@ -1227,6 +1247,10 @@ def phase_main_path(state, mtt):
         raise RuntimeError(f"main_path: {spd_launches} launches of the small "
                            f"SPD inverse in {n_pass} passes, expected "
                            f"{SPD_INVERSE_LAUNCHES} each")
+    if band_launches != GRAM_BAND_LAUNCHES * n_pass:
+        raise RuntimeError(f"main_path: {band_launches} launches of the Gram "
+                           f"band kernel in {n_pass} passes, expected "
+                           f"{GRAM_BAND_LAUNCHES} each")
     if feasible < MIN_FEASIBLE or not median_viol <= MAX_MEDIAN_VIOLATION:
         raise RuntimeError(f"main_path quality: {feasible}/{batch} feasible, "
                            f"median violation {median_viol:.3e}")
@@ -1784,7 +1808,11 @@ def record_lanes(mtt, k, batch, seed, fused=True):
     """Calls of the interior-point kernels recorded from real solves: an
     ADMM tier-0 solve, then pipelined polishes that reach all seven mode
     pairs, a scan polish (eval with phr off and on, matvec) and (``fused``)
-    six fused polishes (the default schedule, snap-only, and short ones)."""
+    six fused polishes (the default schedule, snap-only, and short ones).
+    The ADMM start takes the dense Gram's band ("xla"), named: ``ipm_bits``
+    holds the kernels' digests on these calls to the parent tree's, and
+    the row checks' bars were set on them; the band kernel #6, the
+    default's on the card, moves every start by float32 rounding."""
     from mav_tube_trajectory_generation_tpu_torch.ops import ipm_kernel
     sc = mtt.make_inputs(k, batch, seed=seed)
     pipe_calls, eval_calls, mv_calls, fused_calls = [], [], [], []
@@ -1792,7 +1820,7 @@ def record_lanes(mtt, k, batch, seed, fused=True):
     def polish(**cfg):
         return mtt.solve_qcqp_polished_batch(
             sc.free, sc.d_fixed_free, sc.times, sc.waypoints, sc.radii,
-            admm_config=bench_config(mtt),
+            admm_config=route_config(mtt, band_gram="xla"),
             ipm_config=mtt.IPMConfig(sigma_min=0.3, corrector=False, **cfg),
             warmstart_values=sc.values)
 
@@ -1837,7 +1865,8 @@ ROUTE_VIOLATION_FACTOR = 1.5
 DENSE_ROUTES = (("a", 10, dict(kkt_apply="inverse")),
                 ("b", 10, dict(kkt_inverse="cholesky")),
                 ("c", 2, {}))
-BAND_MODES = ("xla", "pallas", "pallas_block", "pallas_db")
+# "auto", the default, is "pallas" on the card (float32 G^T).
+BAND_MODES = ("xla", "pallas", "pallas_block", "pallas_db", "auto")
 ROUTE_PASSES = 3
 
 
@@ -2076,10 +2105,11 @@ def phase_dense_path(state, mtt):
 
 
 def phase_band_gram(state, mtt):
-    """The headline through the band kernels: band_gram "pallas" and
-    "pallas_block" (kernel #6 once a solve) and "pallas_db" (kernel #5 once
-    a stage), each with kernel 1, against the "xla" run on the same
-    inputs; "pallas_db" against "xla" again on the scenarios of seed 1."""
+    """The headline through the band kernels: band_gram "pallas",
+    "pallas_block" and the default "auto" (kernel #6 once a solve) and
+    "pallas_db" (kernel #5 once a stage), each with kernel 1, against the
+    "xla" run on the same inputs; "pallas_db" against "xla" again on the
+    scenarios of seed 1."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel
     from mav_tube_trajectory_generation_tpu_torch.solver import banded, qcqp
@@ -2091,10 +2121,9 @@ def phase_band_gram(state, mtt):
     blk = banded.kkt_tridiag_block(sc.free)
     for mode in BAND_MODES:
         cfg = route_config(mtt, band_gram=mode)
-        calls = {"gram_band": [], "gram_band_factors": []}
-        with recorded(admm_kernel, "gram_band", calls["gram_band"]), \
-                recorded(admm_kernel, "gram_band_factors",
-                         calls["gram_band_factors"]):
+        calls = {"gram_band_factors": []}
+        with recorded(admm_kernel, "gram_band_factors",
+                      calls["gram_band_factors"]):
             solve(mtt, sc, cfg)                           # warm-up
         torch.cuda.synchronize()
         # (a comprehension: a loop variable would keep the last call's
@@ -2106,7 +2135,7 @@ def phase_band_gram(state, mtt):
             lambda: solve(mtt, sc, cfg), ROUTE_PASSES)
         ms = sum(pass_ms) / ROUTE_PASSES
         want = {"admm_stage_fused_factored": cfg.n_stages * ROUTE_PASSES}
-        if mode in ("pallas", "pallas_block"):
+        if mode in ("pallas", "pallas_block", "auto"):
             want["gram_band"] = ROUTE_PASSES
         elif mode == "pallas_db":
             want["gram_band_factors"] = cfg.n_stages * ROUTE_PASSES
@@ -2242,8 +2271,8 @@ def ew_inputs(mtt, k, batch, seed, config, route_band=False):
             kkt.band, rho, cfg.sigma, pre.q_flat, factors=kkt.factors)
     else:
         sinv, t_st, tt_st, xq = qcqp._stage_factors(
-            qcqp._kkt_band(admm_kernel.expand_gt(e, w), pre.p_eq, blk), rho,
-            cfg.sigma, pre.q_flat)
+            qcqp._kkt_band(admm_kernel.expand_gt(e, w), pre.p_eq, blk,
+                           "xla"), rho, cfg.sigma, pre.q_flat)
     stage = (rho, sinv, t_st, tt_st, e, w, pre.b_pad.contiguous(),
              qcqp._rb_pad(pre.rb, layout), xq)
     x0 = pre.x_flat0[:, :, None].contiguous()
@@ -3943,7 +3972,10 @@ def phase_stage_bits(state, mtt, parent_file=None):
     digests = {}
     for label, k, batch in STAGE_BITS_SHAPES:
         cfg = bench_config(mtt)
-        args, kw = stage_inputs(mtt, k, batch, seed=1, config=cfg)
+        # the dense Gram's band ("xla"), named: the digests are held to
+        # the parent's on the same inputs, which #6's band would move
+        args, kw = stage_inputs(mtt, k, batch, seed=1, config=cfg,
+                                band_gram="xla")
         first = ak.admm_stage_fused_factored(*args, init_z=True, **kw)
         carried = ak.admm_stage_fused_factored(
             *args[:8], first[0].contiguous(), first[1].contiguous(),
@@ -5559,13 +5591,14 @@ def given_device_ms(fn, reps=10):
 def admm_route_rows(state):
     """Rows of the `kernels` line for kernels #2 (at K=10 on route (a) and
     at K=2), #7, #6 and #5, each timed on a call its path made (recorded by
-    dense_path and band_gram), and held to its check at those shapes."""
+    dense_path, main_path and band_gram), and held to its check at those
+    shapes."""
     import torch
     from mav_tube_trajectory_generation_tpu_torch.ops import admm_kernel as ak
     need = {"admm_stage_fused a", "admm_stage_fused c", "admm_stage",
             "gram_band", "gram_band_factors"}
-    if not have_recorded(state, need, "kernels #2, #5, #6 and #7 (dense_path "
-                         "and band_gram)"):
+    if not have_recorded(state, need, "kernels #2, #5, #6 and #7 (dense_path, "
+                         "main_path and band_gram)"):
         return []
     rec = state["recorded"]
     dev = torch.device("cuda")
@@ -5620,10 +5653,13 @@ def admm_route_rows(state):
     rows.append(admm_row(
         "gram_band", "gram_band.cu", 512, ak.gram_band, ak.gram_band_plain,
         args, kw, band_flops(*gt.shape, kw["blk"]),
-        state["band_launches"]["pallas"]["gram_band"], "band", 0,
+        state["main_band_launches"], "band", 0,
         names=("gd", "gu"), library=band_library(lambda: gt),
-        note="band_gram='pallas', once a solve; library call: torch.bmm(gt, "
-        "gt.mT) and the band gather; bound: the 2m-1 band blocks only",
+        note="the main path's default band_gram 'auto', once a solve, on "
+        "the call its warm-up made; library call: torch.bmm(gt, gt.mT) and "
+        "the band gather; bound: the 2m-1 band blocks only",
+        launches_per_pass=state["main_band_launches"] / state["main_passes"],
+        pallas_route_launches=state["band_launches"]["pallas"]["gram_band"],
         **band_row_design(ak, *gt.shape, kw["blk"])))
     del args, gt
     args, kw = to_device(rec["gram_band_factors"], dev)

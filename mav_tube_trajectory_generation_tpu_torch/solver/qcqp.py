@@ -35,10 +35,11 @@ as in the JAX package):
 
   * banded + factored (the default where ``banded.kkt_tridiag_block``
     holds): the block-tridiagonal KKT band, its block-LDL^T factors and
-    ``admm_stage_fused_factored``; the Gram band from the dense Gram
-    (``band_gram="xla"``), from ``gram_band`` ("pallas", "pallas_block"),
-    or the whole KKT band from ``gram_band_factors`` each stage
-    ("pallas_db");
+    ``admm_stage_fused_factored``; the Gram band from ``gram_band``
+    for float32 G^T on the card and from the dense Gram elsewhere (the
+    default, ``band_gram="auto"``), from the dense Gram (``"xla"``), from
+    ``gram_band`` ("pallas", "pallas_block"), or the whole KKT band from
+    ``gram_band_factors`` each stage ("pallas_db");
   * banded + factored with ``gt_assembly="kernel"``: G^T is never formed;
     the assembly stops at its rank-1 row factors e (B, n_free, m_p) and w
     (B, 3, m_p), and each stage runs ``gram_band_factors_ew`` (the whole
@@ -118,11 +119,14 @@ class ADMMConfig:
     # from the band and runs the dense-inverse stage kernel.
     kkt_apply: str = "factored"
     # Where the Gram band comes from (read only where there is a band):
-    # "xla" the dense Gram G^T G, one batched product, and its band;
+    # "auto" (this package's default) the band kernel ``gram_band`` for
+    # float32 G^T on a CUDA device, else the "xla" route, bit for bit (the
+    # host, float64); "xla" (the JAX package's default) the dense Gram
+    # G^T G, one batched product, and its band;
     # "pallas" / "pallas_block" the band kernel ``gram_band`` (the two were
     # code-generation variants of the TPU kernel and are one kernel here);
     # "pallas_db" the whole KKT band from ``gram_band_factors`` each stage.
-    band_gram: str = "xla"
+    band_gram: str = "auto"
     # Where G^T comes from on the banded factored route: "xla" assembles the
     # (B, nfd, m_p) tensor; "kernel" stops at its rank-1 row factors, and
     # the stage and band kernels expand it as they read it (the Gram band
@@ -136,11 +140,11 @@ class ADMMConfig:
             raise ValueError(
                 f"gt_assembly must be 'xla' or 'kernel', got "
                 f"{self.gt_assembly!r}")
-        if self.band_gram not in ("xla", "pallas", "pallas_block",
+        if self.band_gram not in ("auto", "xla", "pallas", "pallas_block",
                                   "pallas_db"):
             raise ValueError(
-                f"band_gram must be 'xla', 'pallas', 'pallas_block' or "
-                f"'pallas_db', got {self.band_gram!r}")
+                f"band_gram must be 'auto', 'xla', 'pallas', 'pallas_block' "
+                f"or 'pallas_db', got {self.band_gram!r}")
         if self.kkt_apply not in ("factored", "inverse"):
             raise ValueError(
                 f"kkt_apply must be 'factored' or 'inverse', got "
@@ -694,8 +698,19 @@ def _objective_band(p_eq: torch.Tensor, blk: int, dim: int):
     return kron(pe_d), kron(pe_u)
 
 
+def _band_route(gt: torch.Tensor, band_gram: str) -> str:
+    """The route ``band_gram`` names for this G^T: "auto" is "pallas" (the
+    kernel ``gram_band``) for float32 G^T on a CUDA device, else "xla";
+    every other value is its own route.  A G^T the kernel does not take at
+    these shapes raises there, as on "pallas"."""
+    if band_gram != "auto":
+        return band_gram
+    return ("pallas" if gt.is_cuda and gt.dtype == torch.float32
+            else "xla")
+
+
 def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
-              band_gram: str = "xla"):
+              band_gram: str = "auto"):
     """Band of the stage KKT kron(p_eq, I_D) + rho G^T G + sigma I, which is
     exactly block-tridiagonal in vertex blocks (banded.kkt_tridiag_block).
 
@@ -706,16 +721,23 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
     configuration, and only its band is read; "pallas" / "pallas_block"
     take the band from the kernel ``gram_band``; "pallas_db" leaves gd and
     gu None: ``_kkt_band_at`` then forms each stage's whole band in
-    ``gram_band_factors``.
+    ``gram_band_factors``; "auto" is one of the first two (``_band_route``).
+
+    While spans are on (``utils.timing``) the counter ``qcqp.band_kernel``
+    adds the scenarios whose band came from the kernel (0 on the host, where
+    ``gram_band`` runs its plain version, and on the other routes).
     """
     bsz, nfd, _ = gt.shape
     m_blk = nfd // blk
     pb_d, pb_u = _objective_band(p_eq, blk, nfd // p_eq.shape[-1])
-    if band_gram == "pallas_db":
+    route = _band_route(gt, band_gram)
+    kernel_rows = 0
+    if route == "pallas_db":
         gd = gu = None
-    elif band_gram in ("pallas", "pallas_block"):
+    elif route in ("pallas", "pallas_block"):
         gd, gu = admm_kernel.gram_band(
-            gt, blk=blk, per_block=(band_gram == "pallas_block"))
+            gt, blk=blk, per_block=(route == "pallas_block"))
+        kernel_rows = bsz if gt.device.type == "cuda" else 0
     else:
         # The dense Gram of _GRAM_SCENARIOS scenarios at a time: only its
         # band is kept (the whole is 0.45 GB at the flagship batch).
@@ -732,6 +754,7 @@ def _kkt_band(gt: torch.Tensor, p_eq: torch.Tensor, blk: int,
             torch.stack([g5[:, i, :, i + 1, :] for i in range(m_blk - 1)],
                         dim=1, out=gu[b0:b0 + _GRAM_SCENARIOS])
             del g5
+    timing.count("qcqp.band_kernel", kernel_rows)
     return pb_d, pb_u, gd, gu
 
 

@@ -504,8 +504,11 @@ def test_return_pre_on_the_dense_routes():
 
 def test_admm_config_route_fields():
     ours, ref = mtt.ADMMConfig(), jqcqp.ADMMConfig()
-    for name in ("kkt_inverse", "kkt_apply", "band_gram", "gt_assembly"):
+    for name in ("kkt_inverse", "kkt_apply", "gt_assembly"):
         assert getattr(ours, name) == getattr(ref, name)
+    # the Gram band's default is the port's own: "auto", which is the JAX
+    # default's "xla" off the card (test_default_band_route_off_the_card)
+    assert (ours.band_gram, ref.band_gram) == ("auto", "xla")
     for name, bad in (("kkt_apply", "fctored"), ("kkt_inverse", "cholsky"),
                       ("band_gram", "pallas_dbb"), ("gt_assembly", "kernl")):
         with pytest.raises(ValueError, match=name):
@@ -528,6 +531,85 @@ def test_admm_config_from_fields():
             assert getattr(ours, f.name) == getattr(src, f.name), f.name
         assert not hasattr(ours, "use_pallas")
     assert ours.gt_assembly == "kernel" and ours.band_gram == "pallas"
+
+
+# ---------------------------------------------------------------------------
+# (v a) the Gram band's default route, band_gram="auto": the kernel
+# ``gram_band`` for float32 G^T on the card, the dense product elsewhere.  Its card side is tests/test_torch_band_route.py.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_default_band_route_off_the_card(dtype):
+    """On the host, in either type, the default config's solve and band
+    are the "xla" route's bit for bit."""
+    p = problem(k=4, batch=B, seed=3, dtype=dtype)
+    auto = _solve_port(p, 4, {}, 2, 5)
+    xla = _solve_port(p, 4, dict(band_gram="xla"), 2, 5)
+    assert mtt.ADMMConfig().band_gram == "auto"
+    for name in auto._fields:
+        a, b = getattr(auto, name), getattr(xla, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    torch_dtype = torch.float32 if dtype == np.float32 else torch.float64
+    rng = np.random.RandomState(4)
+    gt = torch.tensor(rng.randn(B, 45, 384), dtype=torch_dtype)
+    p_eq = torch.tensor(rng.randn(B, 15, 15), dtype=torch_dtype)
+    assert tqcqp._band_route(gt, "auto") == "xla"
+    for a, b in zip(tqcqp._kkt_band(gt, p_eq, 15),
+                    tqcqp._kkt_band(gt, p_eq, 15, "xla")):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode,route", [
+    ("auto", "xla"), ("xla", "xla"), ("pallas", "pallas"),
+    ("pallas_block", "pallas_block"), ("pallas_db", "pallas_db")])
+def test_band_route_by_value(monkeypatch, mode, route):
+    """Every value of ``band_gram`` selects its route in a solve: the
+    explicit ones force theirs, "auto" on the host is "xla"."""
+    calls = {"gram_band": 0, "gram_band_factors": 0}
+    for name in calls:
+        fn = getattr(tkernel, name)
+
+        def counted(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        monkeypatch.setattr(tkernel, name, counted)
+    p = problem(k=4, batch=4, seed=1)
+    _solve_port(p, 4, dict(band_gram=mode), 2, 3)
+    assert calls == {"gram_band": int(route in ("pallas", "pallas_block")),
+                     "gram_band_factors": 2 * int(route == "pallas_db")}
+    gt = torch.zeros((4, 45, 384))
+    assert tqcqp._band_route(gt, mode) == route
+
+
+@pytest.mark.parametrize("value,ok", [
+    ("auto", True), ("Auto", False), ("dense", False), ("", False)])
+def test_band_gram_values(value, ok):
+    """"auto" beside the JAX package's values (held in
+    ``test_admm_config_route_fields``); anything else is still refused."""
+    if ok:
+        assert mtt.ADMMConfig(band_gram=value).band_gram == value
+    else:
+        with pytest.raises(ValueError, match="band_gram"):
+            mtt.ADMMConfig(band_gram=value)
+
+
+@pytest.mark.parametrize("mode,dtype", [
+    ("auto", np.float32), ("auto", np.float64), ("pallas", np.float32)],
+    ids=["auto-f32", "auto-f64", "pallas-f32"])
+def test_band_kernel_counter_on_the_host(mode, dtype):
+    """``qcqp.band_kernel`` counts the scenarios whose band came from the
+    kernel: none on the host, where even "pallas" runs the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    from mav_tube_trajectory_generation_tpu_torch.utils import timing
+    p = problem(k=4, batch=4, seed=2, dtype=dtype)
+    timing.clear_span_log()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _solve_port(p, 4, dict(band_gram=mode), 1, 3)
+    (call,) = timing.span_log()
+    timing.clear_span_log()
+    assert call["counters"]["qcqp.band_kernel"] == 0.0
 
 
 def test_wrappers_take_cpu_and_cuda_tensors_only():

@@ -234,14 +234,17 @@ def test_config_and_argument_errors():
         mtt.solve_qcqp_batch(*args, x0=np.zeros((2, 15, 3), np.float32),
                              warmstart_values=p["values"], device="cpu")
     # The KKT route selectors and the G^T assembly are carried over with the
-    # JAX defaults; the Pallas switch is not.
+    # JAX defaults, but for the Gram band's: "auto", which is the JAX
+    # default's "xla" off the card; the Pallas switch is not.
     assert not hasattr(mtt.ADMMConfig(), "use_pallas")
     for kept in ("rho", "sigma", "alpha", "n_iters", "n_stages", "rho_min",
                  "rho_max", "eps_primal", "eps_dual", "rho_sphere_factor",
                  "rho_tube_factor", "rho_half_factor", "kkt_inverse",
-                 "kkt_apply", "band_gram", "gt_assembly"):
+                 "kkt_apply", "gt_assembly"):
         assert getattr(mtt.ADMMConfig(), kept) == \
             getattr(jqcqp.ADMMConfig(), kept)
+    assert mtt.ADMMConfig().band_gram == "auto"
+    assert jqcqp.ADMMConfig().band_gram == "xla"
     # structures outside the free-interior family are refused up front, not
     # mis-solved
     std = mtt.make_structure(mtt.standard_mask(3, N), 3, N)

@@ -378,7 +378,8 @@ def test_qcqp_span_paths_unchanged():
         "qcqp", "qcqp/pre", "qcqp/pre/spd_inverse", "qcqp/band",
         "qcqp/factor", "qcqp/factor/spd_inverse", "qcqp/stage", "qcqp/post"}
     assert set(call["counters"]) == {"spd_inverse.lu_blocks",
-                                     "spd_inverse.kernel_blocks"}
+                                     "spd_inverse.kernel_blocks",
+                                     "qcqp.band_kernel"}
 
 
 # ---- the readers of the cell's per-layer metrics ---------------------------

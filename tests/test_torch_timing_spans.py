@@ -81,7 +81,8 @@ def test_profiled_call_records_its_phases(n_stages):
     assert spans["qcqp/pre/spd_inverse"]["n"] == 1
     assert spans["qcqp/factor/spd_inverse"]["n"] == 3 * n_stages
     assert call["counters"] == {"spd_inverse.lu_blocks": 0.0,
-                                "spd_inverse.kernel_blocks": 0.0}
+                                "spd_inverse.kernel_blocks": 0.0,
+                                "qcqp.band_kernel": 0.0}
     # the phases tile the call and nest inside it, one after another
     _, t0, t1 = call["intervals"][-1]
     assert (t0, t1) == (call["t0_ns"], call["t1_ns"])
